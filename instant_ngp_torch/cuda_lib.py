@@ -1,0 +1,142 @@
+"""Build, load and launch the package's CUDA kernels.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
+a plain C interface, which is loaded with ``ctypes``. Each launcher takes
+raw pointers, sizes and a ``cudaStream_t`` and returns
+``cudaGetLastError()``. The library goes into ``build/instant_ngp_torch/``
+at the repository root, is built at first use and is keyed by a hash of
+the sources and flags, so an edited kernel rebuilds.
+
+There is no fast math: kernels A and C make discrete decisions from
+``floorf``, ``frexpf``, ``logf`` and ``expf``. ``-fmad=false`` keeps
+``a*b+c`` as two roundings, as PyTorch's elementwise ops compute it; the
+kernels write ``fmaf`` only where the plain versions call ``common.fma``.
+So a kernel and its plain version agree to the bit wherever their
+operation order agrees.
+
+``LAUNCHES`` counts the launches of each kernel. A wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "instant_ngp_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# argtypes of every launcher; the last argument is always the stream
+SIGNATURES = {
+    # x, table, level scale/res/size/offset/hashed (host arrays), n_levels,
+    # n_features, interpolation, n, out
+    "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    # x (bf16, padded), w (bf16, transposed, padded), dims (host
+    # int[n_layers+1]), n_layers, out_real, act, out_act, n, out
+    "fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    # o, d, t0, skipmip, aabb (host float[6]), stepping (host float[11]), R,
+    # K, n_iters, min_mip, max_mip, dt_scale, ts, dts, t_exit, n_valid
+    "march_rays": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    # out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost, R, K,
+    # eps_t, rgb_act, density_act, T_new, rgb_new, depth_new, alive_new,
+    # cost_new
+    "composite_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _F, _I, _I, _P, _P, _P, _P, _P, _P],
+}
+
+LAUNCHES = {name: 0 for name in SIGNATURES}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libngp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels if the library for these sources is missing.
+    Returns (path, seconds spent compiling; 0 when it was already built)."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, f"ngp_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream, count it, and raise if
+    the launch was refused."""
+    fn = getattr(load(), f"ngp_{name}")
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(*tensors: torch.Tensor, dtype=None) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor (of dtype)."""
+    for t in tensors:
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"kernel input must be a contiguous CUDA tensor, got "
+                             f"{t.device} contiguous={t.is_contiguous()}")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"kernel input must be {dtype}, got {t.dtype}")

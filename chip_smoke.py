@@ -4,18 +4,31 @@
 
 Builds the port's CUDA kernels from ``instant_ngp_torch/csrc/``, checks each
 kernel against its plain PyTorch version on the card at the shapes of the
-fox snapshot, then renders ``data/fox_1536.ingp`` at 256x256 through
-``Testbed.load_snapshot`` and ``render`` and checks that the render went
-through all four kernels and agrees with the same render through the plain
-versions; the tiny test fixture gets the same kernel-vs-plain render check
-at 64x64. Prints a JSON line of per-kernel results, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``. Any
-failed check raises, so the script exits non-zero without that line. There
-is no CPU path: without CUDA it fails at once.
+fox snapshot, then drives the port's two paths:
+
+- render: ``data/fox_1536.ingp`` at 256x256 through ``Testbed.load_snapshot``
+  and ``render``, checked to go through kernels A-D and to agree with the
+  same render through the plain versions (the tiny test fixture gets the
+  same check at 64x64);
+- train: the snapshot's 50 views, rendered at a quarter of the dataset
+  resolution without its crop box, become an in-memory ``NerfDataset``
+  (fox's own photographs are not in the repository); a fresh model of
+  ``bench.py::bench_fox``'s configuration trains on them for 300 steps
+  through ``Testbed.frame()``, checked to go through kernels A-C and E-H,
+  to lower its loss and to raise its PSNR on views 0/24/49; one step through
+  the kernels is held against the same step through the plain versions,
+  and kernels G and H against theirs on that step's own inputs.
+
+Prints a JSON line of per-kernel results, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero without that line. There is no CPU
+path: without CUDA it fails at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -44,6 +57,32 @@ TOL_MARCH_T = 1e-5  # relative, on rays whose sample count agrees
 MIN_MARCH_AGREE = 0.999  # share of rays whose n_valid agrees
 TOL_COMPOSITE = 1e-5  # same formulas in the same order; exp/sum order differences only
 MIN_PSNR_DB = 40.0
+
+# the training phase: bench.py::bench_fox's task on the snapshot's rendered views
+TRAIN_DOWNSCALE = 4  # views at a quarter of the dataset resolution
+TRAIN_RAYS, TRAIN_K, TRAIN_ITERS = 4096, 32, 192
+TARGET_BATCH = 1 << 18  # NerfTask's default: a 2^17-sample network capacity
+TRAIN_STEPS = 300  # crosses the full grid updates, the CDF rebuild at 128, exact corners at 256
+PROFILED_STEPS = 3  # the last steps, traced by torch.profiler
+LOSS_WINDOW = 20
+EVAL_VIEWS = (0, 24, 49)
+N_TRAIN_ROWS = 1 << 17  # the sample capacity: rows of the E and F checks
+N_SCATTER, SCATTER_SIZE = 1 << 20, 1 << 19  # scripts/bench_pallas_scatter*.py's shapes
+MAX_LOSS_RATIO = 0.5  # mean loss of the last LOSS_WINDOW steps over the first's
+MIN_PSNR_GAIN_DB = 6.0
+# kernel vs plain tolerances of the new kernels, relative to max |ref|, and why
+TOL_ENCODE_BWD = 1e-5  # same corners, weights and draws; f32 atomics sum in another order
+TOL_MLP_BWD = 1e-2  # f32 sums in another order, then rounded to bf16 (1 ulp = 2^-8)
+# same formulas, but d/d sigma holds rgb minus a running sum of K samples, a
+# cancellation that lifts the f32 rounding of the sums (cumsum in another
+# order on the card) by up to K * 2^-24 of rgb
+TOL_COMPOSITE_TRAIN = 1e-4
+TOL_SCATTER = 1e-5  # f32 atomics sum in another order
+# one step, kernels vs plain, per parameter leaf: ||k - p|| / ||p||. Kernel B's
+# outputs differ from the plain product in the last f32 bits, which can move
+# a bf16 rounding of a hidden unit or a gradient (1 ulp = 2^-8) downstream
+TOL_STEP_GRAD = 1e-2
+TOL_STEP_LOSS = 1e-3  # relative, mean per-ray loss
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -96,8 +135,23 @@ def phase_build() -> None:
     print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}")
 
 
+def record_kernel(results: list, name: str, source: str, replaces: str, err: float, ms: float,
+                  plain_ms: float, extra: str = "", **fields) -> None:
+    print(f"kernel {name}: max_abs_err {err:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
+          f"{extra}")
+    results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **fields})
+
+
+def max_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |out - ref|, max |ref|)."""
+    return float((out - ref).abs().max()), float(ref.abs().max())
+
+
+@torch.no_grad()
 def kernel_checks(tb, device) -> list[dict]:
-    """Each kernel against its plain version on the card, at fox shapes."""
+    """Each kernel of the render path against its plain version on the card,
+    at fox shapes."""
     from instant_ngp_torch.common import warp_direction
     from instant_ngp_torch.nerf.sampler import MarchConfig, march_rays, march_rays_plain
     from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
@@ -108,12 +162,7 @@ def kernel_checks(tb, device) -> list[dict]:
     enc = model.pos_encoding
     gen = torch.Generator(device=device).manual_seed(SEED)
     results = []
-
-    def record(name, source, replaces, err, ms, plain_ms, extra=""):
-        print(f"kernel {name}: max_abs_err {err:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-              f"{extra}")
-        results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    record = functools.partial(record_kernel, results)
 
     # A: hash-grid encode of N positions with the fox tables
     x = torch.rand((N_ROWS, 3), generator=gen, device=device)
@@ -158,8 +207,7 @@ def kernel_checks(tb, device) -> list[dict]:
     cfg = MarchConfig(n_march_iters=task.render_march_iters,
                       max_samples_per_ray=task.render_samples_per_window,
                       cone_angle=task.cone_angle, max_mip=task.max_cascade)
-    margs = (o, d, task.skipmip, task.aabb_min, task.aabb_max,
-             torch.full_like(tmin, 0.5), cfg)
+    margs = (o, d, task.skipmip, *task._aabb_t, torch.full_like(tmin, 0.5), cfg)
     ts, dts, valid, t_exit, n_valid = march_rays(*margs, t_init=tmin)
     ts_p, dts_p, _, t_exit_p, n_valid_p = march_rays_plain(*margs, t_init=tmin)
     same = n_valid == n_valid_p
@@ -212,6 +260,374 @@ def psnr_vs_plain(tb, frame: torch.Tensor, res: int, xf, kw) -> float:
     return psnr(frame, frame_plain)
 
 
+RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "composite_window")
+TRAIN_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "hashgrid_encode_bwd",
+                 "fused_mlp_bwd", "composite_train", "scatter_add_rows")
+
+
+def fox_train_config() -> dict:
+    """bench.py::bench_fox's configuration: base.json with simplex
+    interpolation and the learning-rate decay sized to its run."""
+    cfg = json.loads((ROOT / "configs" / "nerf" / "base.json").read_text())
+    cfg["encoding"]["interpolation"] = "Simplex"
+    cfg["optimizer"]["nested"]["decay_start"] = 768
+    cfg["optimizer"]["nested"]["decay_interval"] = 512
+    return cfg
+
+
+def render_training_set(tb):
+    """The snapshot's views rendered at 1/TRAIN_DOWNSCALE of the dataset
+    resolution (focal lengths scaled to match) as a uint8 sRGB
+    straight-alpha NerfDataset. The snapshot is an LDR model, trained in
+    sRGB, so a render's rgb is premultiplied sRGB. Fox's photographs show
+    the whole room, so the views are rendered without the snapshot's crop
+    box, through the scene's whole aabb, and the dataset has no crop."""
+    ds, task = tb.nerf_dataset, tb.task
+    w, h = ds.resolution
+    w_t, h_t = w // TRAIN_DOWNSCALE, h // TRAIN_DOWNSCALE
+    focals = (ds.focal_lengths * np.array([w_t / w, h_t / h])).astype(np.float32)
+    images = np.empty((ds.n_images, h_t, w_t, 4), np.uint8)
+    crop = task.render_aabb_min, task.render_aabb_max
+    task.render_aabb_min, task.render_aabb_max = task.aabb_min, task.aabb_max
+    for i in range(ds.n_images):
+        frame = tb.render(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
+                          principal_point=tuple(ds.principal_points[i]), background=(0, 0, 0, 0))
+        alpha = frame[..., 3:4].clamp(0.0, 1.0)
+        straight = torch.where(alpha > 0, frame[..., :3] / alpha.clamp(min=1e-6), 0.0)
+        rgba = torch.cat([straight.clamp(0.0, 1.0), alpha], dim=-1)
+        images[i] = (rgba * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+    task.render_aabb_min, task.render_aabb_max = crop
+    return dataclasses.replace(ds, images=images, focal_lengths=focals, resolution=(w_t, h_t),
+                               render_aabb=None)
+
+
+@torch.no_grad()
+def eval_views(task, ds) -> tuple[list[tuple[float, float]], float]:
+    """bench.py::bench_fox's evaluation: the task renders each EVAL_VIEWS
+    view against its training image, both premultiplied sRGB on black.
+    Returns ((Huber loss, PSNR dB) per view, the PSNR of their mean MSE)."""
+    from instant_ngp_torch.ops.losses import huber
+
+    w, h = ds.resolution
+    per_view, mses = [], []
+    for i in EVAL_VIEWS:
+        frame = task.render(w, h, ds.xforms_start[i], focal_length=tuple(ds.focal_lengths[i]),
+                            principal_point=tuple(ds.principal_points[i]), background=(0, 0, 0, 0))
+        gt = torch.as_tensor(ds.images[i], device=frame.device).float() / 255.0
+        gt_rgb = gt[..., :3] * gt[..., 3:4]
+        loss = float(torch.mean(huber(gt_rgb, frame[..., :3]) / 5.0))
+        mses.append(float(torch.mean((frame[..., :3].clamp(0, 1) - gt_rgb) ** 2)))
+        per_view.append((loss, psnr(frame, gt_rgb)))
+    return per_view, -10.0 * float(np.log10(np.mean(mses)))
+
+
+@torch.no_grad()
+def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
+    """Kernels E-H against their plain versions on the card at the training
+    path's shapes, and kernel C again at the training march (against the
+    snapshot's occupancy grid). Returns the records and the march's."""
+    from instant_ngp_torch.common import warp_direction
+    from instant_ngp_torch.nerf import train as nerf_train
+    from instant_ngp_torch.nerf.sampler import march_rays, march_rays_plain
+    from instant_ngp_torch.ops.hashgrid import (hashgrid_encode, hashgrid_encode_bwd,
+                                                hashgrid_encode_bwd_plain)
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    results = []
+    record = functools.partial(record_kernel, results)
+    n = N_TRAIN_ROWS
+
+    # E: table gradients of n positions with the fox tables, both
+    # interpolations, stochastic (1 corner, the first 256 steps) and exact
+    enc = task.model.pos_encoding
+    x = torch.rand((n, 3), generator=gen, device=device)
+    g = torch.randn((n, enc.n_output_dims), generator=gen, device=device)
+    errs, variants = [], {}
+    for interp in ("linear", "simplex"):
+        for corners in (1, 8):
+            args = (enc.levels, interp, x, g, enc.n_entries, corners)
+            err, scale = max_err(hashgrid_encode_bwd(*args), hashgrid_encode_bwd_plain(*args))
+            check(err <= TOL_ENCODE_BWD * max(1.0, scale),
+                  f"E {interp} corners {corners}: err {err} at max |ref| {scale}")
+            errs.append(err)
+            variants[f"{interp}_corners{corners}"] = {
+                "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
+                "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args), reps=10)}
+    path_variant = variants["simplex_corners1"]
+    record("hashgrid_encode_bwd", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
+           "instant_ngp_tpu/ops/hashgrid.py:244", max(errs), path_variant["ms"],
+           path_variant["plain_ms"],
+           f" ({n} positions, simplex 1 corner; all: {variants})", variants=variants)
+
+    # F: both MLPs of the snapshot's model on encodings of those positions
+    model = tb.task.model
+    penc = model.pos_encoding
+    feats = hashgrid_encode(penc.levels, penc.interpolation, penc.table.detach(), x)
+    density_ws = [w.detach() for w in model.density_network.weights]
+    rgb_ws = [w.detach() for w in model.rgb_network.weights]
+    dirs = warp_direction(torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=gen, device=device), dim=-1))
+    rgb_in = torch.cat([fused_mlp(density_ws, feats), model.dir_encoding(dirs)], dim=-1)
+    errs, ms, plain_ms = [], 0.0, 0.0
+    for ws, inp in ((density_ws, feats), (rgb_ws, rgb_in)):
+        g = torch.randn((n, ws[-1].shape[1]), generator=gen, device=device)
+        (dx, dws), (dx_p, dws_p) = fused_mlp_bwd(ws, inp, g), fused_mlp_bwd_plain(ws, inp, g)
+        for out, ref in zip([dx, *dws], [dx_p, *dws_p]):
+            err, scale = max_err(out, ref)
+            check(err <= TOL_MLP_BWD * max(1.0, scale), f"F err {err} at max |ref| {scale}")
+            errs.append(err)
+        ms += time_ms(lambda: fused_mlp_bwd(ws, inp, g))
+        plain_ms += time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g))
+    record("fused_mlp_bwd", "instant_ngp_torch/csrc/mlp_bwd.cu",
+           "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106", max(errs), ms, plain_ms,
+           f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW)")
+
+    # C at the training march: rays of random pixels of the training views
+    R = TRAIN_RAYS
+    img = torch.randint(0, task.dataset.n_images, (R,), generator=gen, device=device)
+    o, d = nerf_train.generate_rays(task, img, torch.rand((R, 2), generator=gen, device=device))
+    jitter = torch.rand((R,), generator=gen, device=device)
+    margs = (o, d, tb.task.skipmip, *task._aabb_t, jitter, task.march_cfg)
+    ts, dts, valid, t_exit, n_valid = march_rays(*margs)
+    ts_p, dts_p, _, t_exit_p, n_valid_p = march_rays_plain(*margs)
+    same = n_valid == n_valid_p
+    agree = float(same.float().mean())
+    check(agree >= MIN_MARCH_AGREE, f"training march n_valid agreement {agree}")
+    err = max(float((a[same] - b[same]).abs().max()) for a, b in
+              ((ts, ts_p), (dts, dts_p), (t_exit, t_exit_p)))
+    rel = max(float(((a[same] - b[same]).abs() / b[same].abs().clamp(min=1.0)).max())
+              for a, b in ((ts, ts_p), (t_exit, t_exit_p)))
+    check(rel <= TOL_MARCH_T, f"training march relative err {rel}")
+    march = {"train_max_abs_err": err, "train_n_valid_agree": agree,
+             "train_ms": time_ms(lambda: march_rays(*margs)),
+             "train_plain_ms": time_ms(lambda: march_rays_plain(*margs), reps=5)}
+    print(f"kernel march_rays at the training march ({R} rays, K {TRAIN_K}, {TRAIN_ITERS} iters, "
+          f"random jitter): {march}, {float(n_valid.float().mean()):.2f} samples per ray")
+
+    # G: the snapshot model's outputs on those samples against random pixels
+    out = tb.task._eval_window(o, d, ts, valid)
+    target = torch.rand((R, 3), generator=gen, device=device)
+    bg = torch.rand((R, 3), generator=gen, device=device)
+    pixel_ok = torch.rand((R,), generator=gen, device=device) > 0.05
+    gargs = (out, ts, dts, valid.contiguous(), target, bg, pixel_ok,
+             tb.task.state.grid.mean_density, task.training_near_distance,
+             task.density_reg_scale * nerf_train.INV_LOSS_SCALE, 1.0 / R, task.loss_type,
+             task.rgb_activation, task.density_activation)
+    g = check_composite_train(gargs)
+    record("composite_train", "instant_ngp_torch/csrc/composite_train.cu",
+           "instant_ngp_tpu/nerf/task.py:743", g["max_abs_err"], g["ms"], g["plain_ms"],
+           f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out)",
+           variants={f"snapshot_R{R}": g})
+
+    # H: the Pallas probes' shapes, (2^20, 2) rows into 2^19, and flat
+    idx = torch.randint(0, SCATTER_SIZE, (N_SCATTER,), generator=gen, device=device)
+    vals = torch.randn((N_SCATTER, 2), generator=gen, device=device)
+    flat_idx = (idx[:, None] * 2 + torch.arange(2, device=device)).reshape(-1)
+    variants = {layout: check_scatter(*args, layout) for layout, args in (
+        ("probe_rows", (idx, vals, SCATTER_SIZE)),
+        ("probe_flat", (flat_idx, vals.reshape(-1, 1), 2 * SCATTER_SIZE)))}
+    rows = variants["probe_rows"]
+    record("scatter_add_rows", "instant_ngp_torch/csrc/scatter.cu",
+           "scripts/bench_pallas_scatter.py:25",
+           max(v["max_abs_err"] for v in variants.values()), rows["ms"], rows["plain_ms"],
+           f" (2^20 rows of 2 into 2^19; all: {variants})", variants=variants)
+    return results, march
+
+
+def check_composite_train(gargs) -> dict:
+    """Kernel G against its plain version on gargs: error and times."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    errs = []
+    for k_out, p_out in zip(nerf_train.composite_train(*gargs),
+                            nerf_train.composite_train_plain(*gargs)):
+        err, scale = max_err(k_out, p_out)
+        check(err <= TOL_COMPOSITE_TRAIN * scale, f"G err {err} at max |ref| {scale}")
+        errs.append(err)
+    return {"max_abs_err": max(errs), "ms": time_ms(lambda: nerf_train.composite_train(*gargs)),
+            "plain_ms": time_ms(lambda: nerf_train.composite_train_plain(*gargs))}
+
+
+def check_scatter(idx, vals, size: int, what: str) -> dict:
+    """Kernel H against its plain version: error and times."""
+    from instant_ngp_torch.ops.scatter import scatter_add_rows, scatter_add_rows_plain
+
+    err, scale = max_err(scatter_add_rows(idx, vals, size), scatter_add_rows_plain(idx, vals, size))
+    check(err <= TOL_SCATTER * max(1.0, scale), f"H {what} err {err} at max |ref| {scale}")
+    return {"max_abs_err": err, "ms": time_ms(lambda: scatter_add_rows(idx, vals, size)),
+            "plain_ms": time_ms(lambda: scatter_add_rows_plain(idx, vals, size))}
+
+
+def step_check(task, device) -> dict:
+    """One training step's gradients through the kernels against the same
+    step through the plain versions, at the main path's ray count and at
+    the adaptive ceiling, where the step packs its valid samples into the
+    capacity. Then kernels G and H against their plain versions on the main
+    path's step's own inputs: its window's composite and its error-map
+    deposit. Returns those two checks by kernel name."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ceiling = 1 << task.max_ray_bucket_log2
+    check(ceiling * TRAIN_K > task.compact_samples, "the ceiling's step does not pack its samples")
+    for n_rays in dict.fromkeys((ceiling, task.n_rays_current)):
+        draws = nerf_train.draw_step(task, gen, n_rays, task.cdf_valid)
+        batch = nerf_train.march_batch(task, draws)
+        step_gradients_check(task, draws, batch)
+    return main_path_checks(task, draws, batch)
+
+
+def step_gradients_check(task, draws, batch) -> None:
+    """The step's gradients and loss, kernels against plain versions, from
+    the same state, draws and march, with stochastic (1 corner) and exact
+    table gradients."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    R, K = batch.ts.shape
+    packed = (f", {int(batch.n_valid.sum())} valid samples packed into {task.compact_samples} rows"
+              if R * K > task.compact_samples else "")
+    enc = task.model.pos_encoding
+    corners_before = enc.hashed_grad_corners
+    for corners in (1, 8):
+        enc.hashed_grad_corners = corners
+        runs = {}
+        for use_kernels in (True, False):
+            task.set_use_kernels(use_kernels)
+            runs[use_kernels] = nerf_train.step_gradients(task, draws, batch)[:2]
+        task.set_use_kernels(True)
+        (grads, per_ray), (grads_p, per_ray_p) = runs[True], runs[False]
+        errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                for a, b in zip(grads, grads_p)]
+        loss, loss_p = float(per_ray.mean()), float(per_ray_p.mean())
+        loss_err = abs(loss - loss_p) / abs(loss_p)
+        print(f"train step kernels vs plain, {corners} corner(s), {R} rays{packed}: "
+              f"grad ||k - p|| / ||p|| per leaf {[f'{e:.2e}' for e in errs]}, "
+              f"loss {loss:.6f} vs {loss_p:.6f}")
+        check(all(e <= TOL_STEP_GRAD for e in errs), f"step gradients differ: {errs}")
+        check(loss_err <= TOL_STEP_LOSS, f"step loss differs: {loss} vs {loss_p}")
+    enc.hashed_grad_corners = corners_before
+
+
+def main_path_checks(task, draws, batch) -> dict:
+    """Kernels G and H against their plain versions on a step's own inputs."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    R, K = batch.ts.shape
+    with torch.no_grad():
+        out, valid = nerf_train.eval_samples(task, batch)
+    target, bg, pixel_ok = nerf_train.targets(task, draws, batch.uv)
+    gargs = (out.contiguous(), batch.ts, batch.dts, valid.contiguous(), target.contiguous(),
+             bg.contiguous(), pixel_ok.contiguous(), task.state.grid.mean_density,
+             task.training_near_distance, task.density_reg_scale * nerf_train.INV_LOSS_SCALE,
+             float(np.float32(1.0) / np.float32(R)), task.loss_type, task.rgb_activation,
+             task.density_activation)
+    main = {"composite_train": {"shape": f"R {R}, K {K}", **check_composite_train(gargs)}}
+    per_ray = nerf_train.composite_train(*gargs)[0]
+    corners, vals = nerf_train.error_deposit(task, draws.img_idx, batch.uv, per_ray, draws.pdf)
+    size = task.state.error_map.numel()
+    main["scatter_add_rows"] = {"shape": f"{corners.shape[0]} rows of 1 into {size}",
+                                **check_scatter(corners, vals, size, "error-map deposit")}
+    for name, v in main.items():
+        print(f"kernel {name} on the main path's step ({v['shape']}): max_abs_err "
+              f"{v['max_abs_err']:.3e} kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms")
+    return main
+
+
+def profile_frames(trainer) -> tuple[float, float, list]:
+    """(wall ms, device busy ms, top device items (name, ms)) of
+    PROFILED_STEPS training frames under torch.profiler; busy is the
+    union of the device events' intervals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            trainer.frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return wall_ms, busy_us / 1e3, [(name[:80], ms) for name, ms in top]
+
+
+def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
+    """The training path. Returns (the E-H records, the training march's
+    record, the launches of the training run)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.nerf.task import NerfTask
+    from instant_ngp_torch.testbed import Testbed
+
+    t0 = time.perf_counter()
+    ds = render_training_set(tb)
+    print(f"training set: {ds.n_images} views at {ds.resolution[0]}x{ds.resolution[1]}, "
+          f"rendered in {time.perf_counter() - t0:.2f} s")
+    trainer = Testbed("nerf", device=device)
+    trainer.nerf_dataset, trainer.network_config = ds, fox_train_config()
+    trainer.task = NerfTask(ds, trainer.network_config, device, seed=SEED,
+                            target_batch_size=TARGET_BATCH, n_rays_per_batch=TRAIN_RAYS,
+                            max_samples_per_ray=TRAIN_K, n_march_iters=TRAIN_ITERS)
+    task = trainer.task
+    results, march = train_kernel_checks(tb, task, device)
+    before = eval_views(task, ds)
+
+    # the main path: TRAIN_STEPS frames, the last PROFILED_STEPS traced
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    step_ms, n_rays, fills = [], [], []
+    for _ in range(TRAIN_STEPS - PROFILED_STEPS):
+        t0 = time.perf_counter()
+        trainer.frame()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n_rays.append(task.n_rays_current)  # the count this step marched
+        if task.training_step % task.grid_update_interval == 0:  # what sizes the next count
+            fills.append(int(task.last_stats["measured_samples"]) / (n_rays[-1] * TRAIN_K))
+    wall_ms, busy_ms, top = profile_frames(trainer)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"train launches: {launches}")
+    losses = trainer.loss_graph
+    first, last = np.mean(losses[:LOSS_WINDOW]), np.mean(losses[-LOSS_WINDOW:])
+    print(f"train {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step "
+          f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) on {card}; loss first "
+          f"{LOSS_WINDOW} {first:.6f}, last {LOSS_WINDOW} {last:.6f}")
+    compacted = sum(r * TRAIN_K > task.compact_samples for r in n_rays)
+    print(f"rays per batch at steps 0, 16, 32, ...: {n_rays[::task.grid_update_interval]}; "
+          f"valid samples per ray slot at steps 15, 31, ...: {[round(f, 4) for f in fills]}; "
+          f"{compacted} of {len(n_rays)} steps packed their samples into "
+          f"{task.compact_samples} rows")
+    print(f"profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1.0 - busy_ms / wall_ms:.3f}; top device items (ms): {top}")
+    check(not task.training_aborted and len(losses) == TRAIN_STEPS, "training stopped early")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(last <= MAX_LOSS_RATIO * first, f"loss fell from {first} to {last} only")
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {launches}")
+
+    main = step_check(task, device)
+    for r in results:
+        if r["name"] in main:
+            v = main[r["name"]]
+            r["variants"]["main_path"] = v
+            r["ms"], r["plain_ms"] = v["ms"], v["plain_ms"]
+            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    after = eval_views(task, ds)
+    for i, (lb, pb), (la, pa) in zip(EVAL_VIEWS, before[0], after[0]):
+        print(f"view {i}: loss {lb:.6f} -> {la:.6f}, PSNR {pb:.2f} -> {pa:.2f} dB")
+    print(f"views {EVAL_VIEWS}: PSNR of the mean MSE {before[1]:.2f} -> {after[1]:.2f} dB")
+    check(after[1] - before[1] >= MIN_PSNR_GAIN_DB,
+          f"PSNR rose from {before[1]:.2f} to {after[1]:.2f} dB only")
+    return results, march, launches
+
+
 def main() -> None:
     name, card = phase_device()
     phase_build()
@@ -232,15 +648,16 @@ def main() -> None:
     print(f"tiny fixture {TINY_RES}x{TINY_RES} kernel vs plain: PSNR {db:.2f} dB")
     check(db >= MIN_PSNR_DB, f"tiny fixture kernel vs plain PSNR {db}")
 
-    # the main path: a 256x256 frame of view 0 with bench.py's arguments
+    # the render path: a 256x256 frame of view 0 with bench.py's arguments
     xf, kw = view0(tb, RES)
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
     frame = tb.render(RES, RES, xf, **kw)
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.LAUNCHES)
-    print(f"render launches: {launches}")
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    render_launches = dict(cuda_lib.LAUNCHES)
+    print(f"render launches: {render_launches}")
+    check(all(render_launches[k] > 0 for k in RENDER_KERNELS),
+          f"a kernel was not launched: {render_launches}")
     check(tuple(frame.shape) == (RES, RES, 4), f"frame shape {tuple(frame.shape)}")
     check(bool(torch.isfinite(frame).all()), "frame has non-finite values")
     alpha_mean = float(frame[..., 3].mean())
@@ -257,8 +674,16 @@ def main() -> None:
     print(f"render {RES}x{RES}: {frame_s * 1e3:.2f} ms, {RES * RES / frame_s / 1e6:.3f} Mrays/s "
           f"on {card}")
 
+    # the training path
+    train_results, march, train_launches = train_phase(tb, device, card)
+    results += train_results
     for r in results:
-        r["launches"] = launches[r["name"]]
+        if r["name"] == "march_rays":
+            r.update(march)
+        # launches: the training run's for the kernels it runs, else the render's
+        r["launches"] = train_launches[r["name"]] or render_launches[r["name"]]
+        r["render_launches"] = render_launches[r["name"]]
+        r["train_launches"] = train_launches[r["name"]]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
 """Constants, activations and small math helpers of the NeRF path.
 
-Port of ``instant_ngp_tpu/common.py`` (the parts the snapshot renderer
-reads). The marching constants follow the reference's nerf_device.cuh.
+Port of ``instant_ngp_tpu/common.py`` (the parts the renderer and the
+NeRF training step read). The marching constants follow the reference's
+nerf_device.cuh.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ MIN_CONE_STEPSIZE = STEPSIZE
 MAX_CONE_STEPSIZE = STEPSIZE * (1 << (NERF_CASCADES - 1)) * NERF_STEPS / NERF_GRIDSIZE
 NERF_MIN_OPTICAL_THICKNESS = 0.01
 MAX_DEPTH = 16384.0
+EPS_T = 1e-4  # transmittance early-stop (reference EPSILON, testbed_nerf.cu:919)
 
 # Scene scale applied when importing standard nerf-convention datasets.
 NERF_SCALE = 0.33
@@ -34,6 +36,21 @@ class NerfActivation(enum.Enum):
     RELU = "relu"
     LOGISTIC = "logistic"
     EXPONENTIAL = "exponential"
+
+
+# activation codes the composite kernels (D, G) take
+ACTIVATION_CODES = {NerfActivation.NONE: 0, NerfActivation.RELU: 1,
+                    NerfActivation.LOGISTIC: 2, NerfActivation.EXPONENTIAL: 3}
+
+
+class LossType(enum.Enum):
+    L2 = "l2"
+    L1 = "l1"
+    MAPE = "mape"
+    SMAPE = "smape"
+    HUBER = "huber"
+    LOGL1 = "logl1"
+    RELATIVE_L2 = "relativel2"
 
 
 class LensMode(enum.Enum):
@@ -85,6 +102,36 @@ def network_to_density(val: torch.Tensor, activation: NerfActivation) -> torch.T
     if activation == NerfActivation.EXPONENTIAL:
         return torch.exp(torch.clamp(val, -15.0, 15.0))
     raise ValueError(activation)
+
+
+def clip_grad(val: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """d clip(val, lo, hi) / d val as JAX differentiates ``jnp.clip``
+    (max then min): 1 inside, 0.5 on either bound, 0 outside."""
+    inside = torch.where((val > lo) & (val < hi), 1.0, 0.0)
+    return torch.where((val == lo) | (val == hi), 0.5, inside)
+
+
+def network_to_rgb_grad(val: torch.Tensor, activation: NerfActivation) -> torch.Tensor:
+    """d network_to_rgb / d val, with the clamp's gradient as ``clip_grad``
+    and the logistic's as JAX's autodiff of 1 / (1 + e^-x) computes it."""
+    if activation == NerfActivation.NONE:
+        return torch.ones_like(val)
+    if activation == NerfActivation.RELU:
+        return torch.where(val > 0.0, 1.0, torch.where(val == 0.0, 0.5, 0.0))
+    if activation == NerfActivation.LOGISTIC:
+        e = torch.exp(-val)
+        u = 1.0 + e
+        return e / (u * u)
+    if activation == NerfActivation.EXPONENTIAL:
+        return torch.exp(torch.clamp(val, -10.0, 10.0)) * clip_grad(val, -10.0, 10.0)
+    raise ValueError(activation)
+
+
+def network_to_density_grad(val: torch.Tensor, activation: NerfActivation) -> torch.Tensor:
+    """d network_to_density / d val (zero outside the ±15 clamp, 0.5 on it)."""
+    if activation == NerfActivation.EXPONENTIAL:
+        return torch.exp(torch.clamp(val, -15.0, 15.0)) * clip_grad(val, -15.0, 15.0)
+    return network_to_rgb_grad(val, activation)
 
 
 def warp_direction(d: torch.Tensor) -> torch.Tensor:

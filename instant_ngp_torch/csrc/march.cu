@@ -118,21 +118,20 @@ __device__ __forceinline__ float skip_at(const float* __restrict__ skipmip, cons
     return inb ? v : 1.0f;
 }
 
-struct Aabb {
-    float lo[3], hi[3];
-};
-
 __global__ void march_rays_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                   const float* __restrict__ t0, const float* __restrict__ skipmip,
-                                  Aabb box, Stepping s, int R, int K, int n_iters,
-                                  int min_mip, int max_mip, float dt_scale,
+                                  const float* __restrict__ aabb_min,
+                                  const float* __restrict__ aabb_max, Stepping s, int R, int K,
+                                  int n_iters, int min_mip, int max_mip, float dt_scale,
                                   float* __restrict__ ts, float* __restrict__ dts,
                                   float* __restrict__ t_exit, int* __restrict__ n_valid) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    float org[3], dir[3], idir[3];
+    float org[3], dir[3], idir[3], lo[3], hi[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
+        lo[k] = __ldg(aabb_min + k);
+        hi[k] = __ldg(aabb_max + k);
         org[k] = o[r * 3 + k];
         dir[k] = d[r * 3 + k];
         const float dk = fabsf(dir[k]) < 1e-12f ? (dir[k] >= 0.0f ? 1e-12f : -1e-12f) : dir[k];
@@ -148,7 +147,7 @@ __global__ void march_rays_kernel(const float* __restrict__ o, const float* __re
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
             pos[k] = fmaf(t, dir[k], org[k]);
-            inside = inside && pos[k] >= box.lo[k] && pos[k] <= box.hi[k];
+            inside = inside && pos[k] >= lo[k] && pos[k] <= hi[k];
         }
         if (!(inside && t < kMaxDepth && n < K)) break;
         const float dt = calc_dt(t, s) * dt_scale;
@@ -178,14 +177,9 @@ __global__ void march_rays_kernel(const float* __restrict__ o, const float* __re
 }  // namespace
 
 extern "C" int ngp_march_rays(const void* o, const void* d, const void* t0, const void* skipmip,
-                              const void* aabb, const void* stepping, int R, int K, int n_iters,
-                              int min_mip, int max_mip, float dt_scale, void* ts, void* dts,
-                              void* t_exit, void* n_valid, void* stream) {
-    Aabb box;
-    for (int k = 0; k < 3; ++k) {
-        box.lo[k] = static_cast<const float*>(aabb)[k];
-        box.hi[k] = static_cast<const float*>(aabb)[3 + k];
-    }
+                              const void* aabb_min, const void* aabb_max, const void* stepping,
+                              int R, int K, int n_iters, int min_mip, int max_mip, float dt_scale,
+                              void* ts, void* dts, void* t_exit, void* n_valid, void* stream) {
     const float* sp = static_cast<const float*>(stepping);
     const Stepping s = {sp[0] != 0.0f, sp[1], sp[2], sp[3], sp[4], sp[5], sp[6], sp[7], sp[8],
                         sp[9], sp[10]};
@@ -193,7 +187,8 @@ extern "C" int ngp_march_rays(const void* o, const void* d, const void* t0, cons
     const int blocks = (R + threads - 1) / threads;
     march_rays_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(o), static_cast<const float*>(d), static_cast<const float*>(t0),
-        static_cast<const float*>(skipmip), box, s, R, K, n_iters, min_mip, max_mip,
+        static_cast<const float*>(skipmip), static_cast<const float*>(aabb_min),
+        static_cast<const float*>(aabb_max), s, R, K, n_iters, min_mip, max_mip,
         dt_scale, static_cast<float*>(ts), static_cast<float*>(dts), static_cast<float*>(t_exit),
         static_cast<int*>(n_valid));
     return (int)cudaGetLastError();

@@ -1,11 +1,12 @@
 """Build, load and launch the package's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
-a plain C interface, which is loaded with ``ctypes``. Each launcher takes
-raw pointers, sizes and a ``cudaStream_t`` and returns
-``cudaGetLastError()``. The library goes into ``build/instant_ngp_torch/``
-at the repository root, is built at first use and is keyed by a hash of
-the sources and flags, so an edited kernel rebuilds.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, which is loaded with ``ctypes``. Each launcher takes raw
+pointers, sizes and a ``cudaStream_t`` and returns ``cudaGetLastError()``.
+The library goes into ``build/instant_ngp_torch/`` at the repository root,
+is built at first use and is keyed by a hash of the sources and flags, so
+an edited kernel rebuilds.
 
 There is no fast math: kernels A and C make discrete decisions from
 ``floorf``, ``frexpf``, ``logf`` and ``expf``. ``-fmad=false`` keeps
@@ -34,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "instant_ngp_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,14 +49,28 @@ SIGNATURES = {
     # x (bf16, padded), w (bf16, transposed, padded), dims (host
     # int[n_layers+1]), n_layers, out_real, act, out_act, n, out
     "fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
-    # o, d, t0, skipmip, aabb (host float[6]), stepping (host float[11]), R,
-    # K, n_iters, min_mip, max_mip, dt_scale, ts, dts, t_exit, n_valid
-    "march_rays": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    # o, d, t0, skipmip, aabb_min, aabb_max, stepping (host float[11]), R, K,
+    # n_iters, min_mip, max_mip, dt_scale, ts, dts, t_exit, n_valid
+    "march_rays": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     # out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost, R, K,
     # eps_t, rgb_act, density_act, T_new, rgb_new, depth_new, alive_new,
     # cost_new
     "composite_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _I, _I, _P, _P, _P, _P, _P, _P],
+    # x, g, level scale/res/size/offset/hashed (host arrays), n_levels,
+    # n_features, interpolation, n_draws, draw offsets (host float[L*8]),
+    # g_scale, n, dtable
+    "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _L, _P, _P],
+    # x (bf16), w (bf16, layers (in, out) concatenated), g (f32), dims (host
+    # int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed)
+    "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P],
+    # out, ts, dts, valid, target, bg, pixel_ok, mean_density, R, K,
+    # near_distance, reg_scale, inv_n_rays, eps_t, loss, rgb_act,
+    # density_act, per_ray, dout
+    "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
+                        _P, _P, _P],
+    # idx (int64), vals, m, F, size, out (zeroed)
+    "scatter_add_rows": [_P, _P, _L, _I, _L, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -91,20 +106,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libngp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd[-3:])} failed ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def build() -> tuple[Path, float]:
-    """Compile the kernels if the library for these sources is missing.
-    Returns (path, seconds spent compiling; 0 when it was already built)."""
+    """Compile the kernels if the library for these sources is missing:
+    one nvcc per source, all at once, then one link. Returns (path,
+    seconds spent compiling; 0 when it was already built)."""
     path = library_path()
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, path)
+    for obj in objs:
+        obj.unlink()
     return path, time.perf_counter() - t0
 
 

@@ -1,6 +1,7 @@
 """NeRF dataset record (port of the ``NerfDataset`` fields of
 ``instant_ngp_tpu/io/nerf_loader.py`` that a snapshot's dataset block
-fills). Reading scenes from disk comes with the training slice."""
+fills and the training step reads). Reading scenes from disk is not
+ported yet: a training set is built in memory."""
 
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from ..common import NERF_SCALE
 
 @dataclasses.dataclass
 class NerfDataset:
-    # images: (N, H, W, 4) uint8 (sRGB, straight alpha); all zero when the
-    # dataset comes from a snapshot (cameras only)
+    # images: (N, H, W, 4) uint8 (sRGB, straight alpha; float16 linear
+    # when is_hdr); all zero when the dataset comes from a snapshot
+    # (cameras only)
     images: np.ndarray
     is_hdr: bool
     # camera-to-world transforms in NGP coords, (N, 3, 4)
@@ -31,6 +33,8 @@ class NerfDataset:
     lens_params: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(4))  # k1,k2,p1,p2
     lens_mode: str = "perspective"
     n_extra_learnable_dims: int = 0
+    depths: Optional[np.ndarray] = None  # (N, H, W) depth supervision: not ported
+    rays: Optional[np.ndarray] = None  # (N, H, W, 6) supplied rays: not ported
     from_mitsuba: bool = False
     up: np.ndarray = dataclasses.field(default_factory=lambda: np.array([0.0, 0.0, 1.0]))
     render_aabb: Optional[np.ndarray] = None  # (2, 3) min/max in NGP space

@@ -8,7 +8,13 @@
 
 Parameters move between the packages as numpy trees in the JAX layout:
 ``{"density_net": [W (in, out), …], "rgb_net": [...], "pos_enc": (table_l
-(size_l, F), …)}`` (``params_from_jax`` / ``params_to_numpy``).
+(size_l, F), …)}`` (``params_from_jax`` / ``params_to_numpy``); the whole
+training state, with the optimizer moments, the parameter EMA, the
+occupancy grid and the error map, by ``train_state_from_jax`` /
+``train_state_to_numpy``. In the port the parameters are one list,
+``param_list()``, in the packing order [density_net, rgb_net, pos_enc]
+(the direction encoding has none), and the per-level tables are one flat
+table.
 """
 
 from __future__ import annotations
@@ -44,6 +50,23 @@ class NerfNetwork(nn.Module):
         rgb_in = torch.cat([d_out, self.dir_encoding(dir_warped)], dim=-1)
         rgb = self.rgb_network(rgb_in)
         return torch.cat([rgb[:, :3], d_out[:, :1]], dim=-1)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Fresh weights in place: He-uniform MLPs, tables in ±1e-4."""
+        self.density_network.init(generator)
+        self.rgb_network.init(generator)
+        self.pos_encoding.init(generator)
+
+    def param_list(self) -> list[nn.Parameter]:
+        """The trainable parameters in packing order [density_net, rgb_net,
+        pos_enc]."""
+        return [*self.density_network.weights, *self.rgb_network.weights,
+                self.pos_encoding.table]
+
+    def matrix_mask(self) -> list[bool]:
+        """True for the MLP matrices (l2_reg applies), False for tables."""
+        n_matrices = len(self.density_network.weights) + len(self.rgb_network.weights)
+        return [True] * n_matrices + [False]
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route the encoding and both MLPs through their CUDA kernels
@@ -96,7 +119,7 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
         if len(ws) != len(mlp.weights):
             raise ValueError(f"{key}: {len(ws)} matrices for {len(mlp.weights)} layers")
         for dst, src in zip(mlp.weights, ws):
-            src = np.asarray(src, np.float32)
+            src = np.array(src, np.float32)  # a writable copy: JAX arrays are read-only
             if src.shape != tuple(dst.shape):
                 raise ValueError(f"{key}: matrix {src.shape} for layer {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(src))
@@ -105,7 +128,7 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
     if len(tables) != len(levels):
         raise ValueError(f"pos_enc: {len(tables)} tables for {len(levels)} levels")
     for dst, src in zip(model.pos_encoding.unpack_params(), tables):
-        src = np.asarray(src, np.float32)
+        src = np.array(src, np.float32)  # a writable copy: JAX arrays are read-only
         if src.shape != tuple(dst.shape):
             raise ValueError(f"pos_enc: table {src.shape} for level {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(src))
@@ -113,3 +136,63 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
     if dir_leaves is not None and any(leaf is not None for leaf in dir_leaves):
         raise NotImplementedError("parametric direction encodings are not ported yet")
     return model
+
+
+def _flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
+    """A JAX parameter-shaped tree (params, or an optimizer moment) as
+    numpy arrays in ``param_list`` order."""
+    flat = [np.asarray(w, np.float32) for w in tree["density_net"]]
+    flat += [np.asarray(w, np.float32) for w in tree["rgb_net"]]
+    flat.append(np.concatenate([np.asarray(t, np.float32) for t in tree["pos_enc"]], axis=0))
+    shapes = [tuple(p.shape) for p in model.param_list()]
+    if [a.shape for a in flat] != shapes:
+        raise ValueError(f"tree shapes {[a.shape for a in flat]} do not match the model {shapes}")
+    return flat
+
+
+def _tree_from_flat(model: NerfNetwork, flat) -> dict:
+    n_d = len(model.density_network.weights)
+    n_r = len(model.rgb_network.weights)
+    arrs = [t.detach().cpu().numpy() for t in flat]
+    return {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r],
+            "pos_enc": model.pos_encoding.unpack_params(arrs[n_d + n_r])}
+
+
+@torch.no_grad()
+def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
+    """Copy a JAX ``NerfTrainState`` (or a tree of the same fields with
+    numpy leaves) into the port's model and training ``state``: params in
+    place; Adam m/v/step and the parameter EMA as a new optimizer state;
+    the occupancy grid's density, mean and update count, and the error map.
+    The bitfield and skip chain are derived again from the density."""
+    get = (lambda o, k: o[k]) if isinstance(jax_state, dict) else getattr
+    params_from_jax(model, get(jax_state, "params"))
+    opt = get(jax_state, "opt_state")
+    device = model.pos_encoding.table.device
+    state.opt_state = {"step": int(np.asarray(opt["step"]))}
+    for key in ("m", "v", "ema"):
+        if key in opt:
+            state.opt_state[key] = [torch.tensor(src, device=device)
+                                    for src in _flat_from_tree(model, opt[key])]
+    grid = get(jax_state, "grid")
+    state.grid.set_density(torch.from_numpy(np.array(get(grid, "density"), np.float32)),
+                           float(np.asarray(get(grid, "mean_density"))),
+                           int(np.asarray(get(grid, "ema_step"))))
+    state.error_map.copy_(torch.from_numpy(np.asarray(get(jax_state, "error_map"), np.float32)))
+
+
+def train_state_to_numpy(model: NerfNetwork, state) -> dict:
+    """The port's training state as numpy trees in the JAX layout (the
+    inverse of ``train_state_from_jax``, for the tests)."""
+    opt = {"step": np.int32(state.opt_state["step"])}
+    for key in ("m", "v", "ema"):
+        if key in state.opt_state:
+            opt[key] = _tree_from_flat(model, state.opt_state[key])
+    return {
+        "params": params_to_numpy(model),
+        "opt_state": opt,
+        "grid": {"density": state.grid.density.cpu().numpy(),
+                 "mean_density": np.float32(state.grid.mean_density.cpu()),
+                 "ema_step": np.int32(state.grid.ema_step)},
+        "error_map": state.error_map.cpu().numpy(),
+    }

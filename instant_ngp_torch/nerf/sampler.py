@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from .. import cuda_lib
@@ -44,15 +43,11 @@ class MarchConfig:
     dt_scale: float = 1.0
 
 
-def _box(b, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(b, np.float32), device=device)
-
-
 def _start(o, d, aabb_min, aabb_max, t_start_jitter, cfg, t_init):
     """t_init, else the aabb entry advanced by the jitter in stepping space."""
     if t_init is not None:
         return t_init
-    tmin, _ = ray_intersect_aabb(o, d, _box(aabb_min, o.device), _box(aabb_max, o.device))
+    tmin, _ = ray_intersect_aabb(o, d, aabb_min, aabb_max)
     return advance_n_steps(tmin, cfg.cone_angle, t_start_jitter)
 
 
@@ -64,7 +59,6 @@ def march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
     K = cfg.max_samples_per_ray
     ca = cfg.cone_angle
     t = _start(o, d, aabb_min, aabb_max, t_start_jitter, cfg, t_init)
-    aabb_min, aabb_max = _box(aabb_min, o.device), _box(aabb_max, o.device)
     idir = 1.0 / torch.where(torch.abs(d) < 1e-12,
                              torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype), d)
     slot_iota = torch.arange(K, device=o.device)[None, :]
@@ -98,18 +92,16 @@ def march_rays(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
                cfg: MarchConfig, t_init=None):
     """March rays through the occupancy grid (see ``march_rays_plain``).
     o, d: (R, 3) origins and normalized directions; skipfield:
-    (NERF_CASCADES, G, G, G) f32 skip chain; aabb_min/max: (3,) host floats
-    (numpy), so that launching the kernel needs no device read;
-    t_start_jitter: (R,) in [0, 1) stepping-space start offset, unless
-    t_init (R,) gives the start distances. CPU tensors run the plain
-    version; CUDA tensors launch kernel C."""
+    (NERF_CASCADES, G, G, G) f32 skip chain; aabb_min/max: (3,) f32 tensors
+    on the rays' device; t_start_jitter: (R,) in [0, 1) stepping-space
+    start offset, unless t_init (R,) gives the start distances. CPU tensors
+    run the plain version; CUDA tensors launch kernel C."""
     if o.device.type == "cpu":
         return march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter, cfg, t_init)
     t0 = _start(o, d, aabb_min, aabb_max, t_start_jitter, cfg, t_init).to(torch.float32).contiguous()
     o, d = o.contiguous(), d.contiguous()
-    cuda_lib.check_cuda(o, d, t0, skipfield, dtype=torch.float32)
+    cuda_lib.check_cuda(o, d, t0, skipfield, aabb_min, aabb_max, dtype=torch.float32)
     R, K = o.shape[0], cfg.max_samples_per_ray
-    aabb = (ctypes.c_float * 6)(*np.asarray(aabb_min, np.float32), *np.asarray(aabb_max, np.float32))
     step = stepping(cfg.cone_angle).as_array()
     step_c = (ctypes.c_float * len(step))(*step)
     ts = torch.empty((R, K), dtype=torch.float32, device=o.device)
@@ -118,7 +110,8 @@ def march_rays(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
     n_valid = torch.empty((R,), dtype=torch.int32, device=o.device)
     if R > 0:
         cuda_lib.launch("march_rays", o.data_ptr(), d.data_ptr(), t0.data_ptr(),
-                        skipfield.data_ptr(), ctypes.addressof(aabb), ctypes.addressof(step_c), R, K,
+                        skipfield.data_ptr(), aabb_min.data_ptr(), aabb_max.data_ptr(),
+                        ctypes.addressof(step_c), R, K,
                         cfg.n_march_iters, cfg.min_mip, cfg.max_mip, cfg.dt_scale,
                         ts.data_ptr(), dts.data_ptr(), t_exit.data_ptr(), n_valid.data_ptr())
     valid = torch.arange(K, device=o.device)[None, :] < n_valid[:, None]

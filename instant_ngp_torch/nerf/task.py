@@ -1,12 +1,16 @@
-"""NeRF rendering from a snapshot (port of the render side of
-``instant_ngp_tpu/nerf/task.py``; reference testbed_nerf.cu:1894-2150).
+"""The NeRF task (port of ``instant_ngp_tpu/nerf/task.py``): the scene's
+model, occupancy grid and training state, the render loop here, and the
+training step in ``nerf/train.py`` (reference testbed_nerf.cu:1894-2150,
+2704-3382).
 
 A frame renders in windows: march a K = 8 sample window for the alive
 rays (kernel C), evaluate the model on the valid samples (kernels A and
 B), composite the window (kernel D), and repeat while any ray is alive.
 Alive rays and valid samples are compacted with plain index ops between
 the steps. A ray stays alive while it is transparent enough, has scene
-left and made marching progress in its last window.
+left and made marching progress in its last window. Rendering and grid
+updates read the inference parameters: the optimizer's parameter EMA once
+training has made one, as the JAX package does (task.py:2169).
 
 ``composite_window`` launches kernel D (``csrc/composite.cu``) on CUDA
 tensors and runs ``composite_window_plain`` on CPU tensors.
@@ -18,12 +22,14 @@ import math
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from .. import cuda_lib
 from ..common import (
+    ACTIVATION_CODES,
+    EPS_T,
     MAX_DEPTH,
     NERF_CASCADES,
-    NERF_GRIDSIZE,
     LensMode,
     NerfActivation,
     fma,
@@ -35,16 +41,16 @@ from ..common import (
 from ..io.nerf_loader import NerfDataset
 from ..models.factory import autoconfig_grid_encoding
 from ..models.nerf_network import NerfNetwork
+from ..ops.losses import loss_type_from_string
+from ..ops.optimizers import Optimizer, OptimizerSpec
 from ..ops.raymarch import ray_intersect_aabb
 from ..render.camera import uv_to_ray_cam
-from .occupancy import _bitfield_from_density, _skip_chain
+from . import train as nerf_train
+from .occupancy import OccupancyGrid, mark_untrained_cells
 from .sampler import MarchConfig, march_rays, march_rays_plain
 
-EPS_T = 1e-4  # transmittance early-stop (reference EPSILON, testbed_nerf.cu:919)
 # rays per render pass: bounds the (rays, K) window buffers of a large frame
 RENDER_CHUNK = 1 << 18
-ACTIVATION_CODES = {NerfActivation.NONE: 0, NerfActivation.RELU: 1,
-                    NerfActivation.LOGISTIC: 2, NerfActivation.EXPONENTIAL: 3}
 
 
 def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost,
@@ -103,11 +109,19 @@ def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
 
 
 class NerfTask:
-    """The render-side state of a NeRF scene: model, occupancy skip chain,
-    aabb and crop box, and the render loop. Built from a snapshot's
-    dataset block by ``Testbed.load_snapshot``."""
+    """A NeRF scene: model, optimizer, occupancy grid, error map, aabb and
+    crop box, the render loop and ``train``. Built from an in-memory
+    dataset, or from a snapshot's dataset block by
+    ``Testbed.load_snapshot``. The constructor follows the JAX package's
+    (task.py:91-461) for the options this slice ports."""
 
-    def __init__(self, dataset: NerfDataset, config: dict, device):
+    def __init__(self, dataset: NerfDataset, config: dict, device, seed: int = 1337,
+                 target_batch_size: int = 1 << 18, n_rays_per_batch: int = 1 << 13,
+                 max_samples_per_ray: int = 48, n_march_iters: int = 256,
+                 use_error_map: bool = True):
+        if dataset.n_extra_learnable_dims or dataset.depths is not None or dataset.rays is not None:
+            raise NotImplementedError("latent dims, depth supervision and supplied rays "
+                                      "are not ported yet")
         self.dataset = dataset
         self.config = dict(config)
         self.device = torch.device(device)
@@ -148,10 +162,80 @@ class NerfTask:
                 dataset.render_aabb_to_local, np.eye(3)):
             raise NotImplementedError("rotated render crop boxes are not ported yet")
         self._aabb_t = (self._t(self.aabb_min), self._t(self.aabb_max))
-        self.training_step = 0
         self.use_kernels = True
-        g = NERF_GRIDSIZE
-        self.set_density_grid(torch.zeros((self.max_cascade + 1, g, g, g), dtype=torch.float32))
+
+        # --- training (task.py:172-461) ---
+        self.loss_type = loss_type_from_string(self.config.get("loss", {}).get("otype", "Huber"))
+        self.march_cfg = MarchConfig(n_march_iters=n_march_iters,
+                                     max_samples_per_ray=max_samples_per_ray,
+                                     cone_angle=self.cone_angle, max_mip=self.max_cascade)
+        self.n_rays_per_batch = n_rays_per_batch
+        self.n_rays_current = n_rays_per_batch
+        self.target_batch_size = target_batch_size
+        self.max_ray_bucket_log2 = 13  # adaptive rays per batch: at most 2^13
+        self.compact_samples = target_batch_size // 2  # network sample capacity
+        self.random_bg_color = True
+        self.snap_to_pixel_centers = True
+        self.training_near_distance = 0.1  # near-camera density penalty distance
+        self.density_reg_scale = 1.0
+        self.density_grid_decay = 0.95
+        self.grid_update_interval = 16
+        self.exact_corners_after: int | None = 256  # stochastic table gradients before
+        self.training_aborted = False
+        self.training_step = 0
+        # the last step's device stats, kept across train() calls: they size
+        # the next grid update's ray count (see nerf/train.train)
+        self.last_stats: dict | None = None
+        init_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed ^ 0xBEEF)
+        self.model.init(init_gen)
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        self._param_names = [names[id(p)] for p in self.model.param_list()]
+        self.opt = Optimizer(OptimizerSpec.from_config(self.config.get("optimizer", {})),
+                             self.model.matrix_mask())
+        self.use_error_map = use_error_map
+        self.error_map_res = nerf_train.error_map_res(n_rays_per_batch, dataset.n_images,
+                                                      dataset.resolution)
+        # the optimizer state is made at the first training step
+        # (optimizer_state): a task that only renders holds none
+        self.state = nerf_train.NerfTrainState(
+            opt_state=None,
+            grid=OccupancyGrid(self.max_cascade + 1, self.device),
+            error_map=torch.zeros((dataset.n_images, *self.error_map_res), dtype=torch.float32,
+                                  device=self.device))
+        # error-map importance sampling: CDFs rebuilt on a growing interval
+        eh, ew = self.error_map_res
+        n_img = dataset.n_images
+        self.cdf_x = torch.zeros((n_img, eh, ew), device=self.device)
+        self.cdf_y = torch.zeros((n_img, eh), device=self.device)
+        self.cdf_img = torch.zeros((n_img,), device=self.device)
+        self.pmf_img = torch.full((n_img,), 1.0 / n_img, device=self.device)
+        self.cdf_valid = False
+        self.err_interval = 128  # reference n_steps_between_error_map_updates
+        self.err_steps_since = 0
+        # the dataset on the device (the images at their first training read),
+        # with the constants a training step reads, so that a step makes no
+        # host-to-device copy (each would wait for the card)
+        self._images = None
+        self.xforms = self._t(dataset.xforms_start)
+        self.focals = self._t(dataset.focal_lengths)
+        self.principals = self._t(dataset.principal_points)
+        self.lens_params = self._t(dataset.lens_params)
+        self.resolution_t = self._t(dataset.resolution)
+        self.error_map_wh = self._t([ew, eh])
+        if not np.allclose(dataset.xforms_start, dataset.xforms_end) or np.any(
+                np.asarray(dataset.rolling_shutter) != 0):
+            raise NotImplementedError("motion blur and rolling shutter are not ported yet")
+
+    @property
+    def images(self) -> torch.Tensor:
+        if self._images is None:
+            self._images = torch.as_tensor(self.dataset.images, device=self.device)
+        return self._images
+
+    @property
+    def skipmip(self) -> torch.Tensor:
+        return self.state.grid.skipmip
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -159,16 +243,54 @@ class NerfTask:
     def set_density_grid(self, density: torch.Tensor) -> None:
         """Take a (n_cascades, G, G, G) float density grid: derive the
         bitfield and the skip chain the marcher reads."""
-        density = density.to(self.device, torch.float32)
-        mean = torch.mean(torch.clamp(density[0], min=0.0))
-        self.skipmip = _skip_chain(_bitfield_from_density(density, mean)).contiguous()
+        self.state.grid.set_density(density)
+
+    def optimizer_state(self) -> dict:
+        """The optimizer state, made from the current parameters at its
+        first use (zero moments, step 0, the EMA equal to the parameters),
+        as the JAX package initializes it for a new or loaded model."""
+        if self.state.opt_state is None:
+            self.state.opt_state = self.opt.init(self.model.param_list())
+        return self.state.opt_state
+
+    def inference_params(self) -> dict:
+        """The parameters rendering and grid updates read, by name: the
+        optimizer's parameter EMA once training has made one, else the
+        model's own."""
+        params = self.model.param_list()
+        if self.state.opt_state is not None:
+            params = self.opt.inference_params(self.state.opt_state, params)
+        return dict(zip(self._param_names, params))
+
+    def inference_density(self, pos: torch.Tensor) -> torch.Tensor:
+        """``model.density`` on the inference parameters: pos (N, 3) in the
+        unit cube → (N, 16)."""
+        params = self.inference_params()
+
+        def sub(prefix):
+            return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+        feats = functional_call(self.model.pos_encoding, sub("pos_encoding."), (pos,))
+        return functional_call(self.model.density_network, sub("density_network."), (feats,))
 
     def set_use_kernels(self, flag: bool) -> None:
-        """True (default): the render path runs the four CUDA kernels on
-        CUDA tensors. False: it runs their plain versions, which is the
-        reference a kernel render is checked against on the card."""
+        """True (default): rendering and training run the CUDA kernels on
+        CUDA tensors. False: they run the kernels' plain versions, which are
+        the reference a kernel run is checked against on the card."""
         self.use_kernels = flag
         self.model.set_use_kernels(flag)
+
+    def train(self, n_steps: int = 1) -> float:
+        """n training steps (``nerf/train.py``); returns the last loss. A
+        fresh grid is first culled to the cells the training cameras see
+        (task.py:228-259)."""
+        if self.state.grid.fresh:
+            ds = self.dataset
+            self.state.grid.set_density(
+                mark_untrained_cells(self.max_cascade + 1, ds.resolution, ds.focal_lengths,
+                                     ds.xforms_start, ds.principal_points, self.device), 0.0)
+        self.optimizer_state()
+        return nerf_train.train(self, n_steps)
 
     def _prep_rays(self, uv, wh, fl, pp, xform):
         """Ray generation through the dataset lens, clipped to the render
@@ -177,7 +299,7 @@ class NerfTask:
         dir_cam, o_off = uv_to_ray_cam(
             uv, (wh[0], wh[1]), fl[None, :].expand(R, 2), pp[None, :].expand(R, 2),
             lens_mode=LensMode(self.dataset.lens_mode),
-            lens_params=self._t(self.dataset.lens_params))
+            lens_params=self.lens_params)
         d = dir_cam @ xform[:, :3].T
         o = xform[:, 3].expand(d.shape) + o_off @ xform[:, :3].T
         d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
@@ -202,24 +324,30 @@ class NerfTask:
         t_in = torch.where(alive, t, MAX_DEPTH)
         march = march_rays if self.use_kernels else march_rays_plain
         ts, dts, valid, t_exit, n_valid = march(
-            o, d, self.skipmip, self.aabb_min, self.aabb_max, jitter, cfg,
-            t_init=t_in)
+            o, d, self.skipmip, *self._aabb_t, jitter, cfg, t_init=t_in)
         valid = valid & alive[:, None]
         n_valid = torch.where(alive, n_valid, 0)
         return ts, dts, valid, t_exit, n_valid
+
+    def _window_inputs(self, o, d, ts):
+        """The network inputs of an (R, K) window's samples: positions in
+        the unit cube (R·K, 3) and warped directions (R·K, 3)."""
+        R, K = ts.shape
+        aabb_min, aabb_max = self._aabb_t
+        pos = fma(ts[..., None], d[:, None, :], o[:, None, :])
+        pos_w = ((pos - aabb_min) / (aabb_max - aabb_min)).reshape(R * K, 3)
+        return pos_w, warp_direction(d)[:, None, :].expand(R, K, 3).reshape(R * K, 3)
 
     def _eval_window(self, o, d, ts, valid):
         """Network outputs (R, K, 4) on the valid samples of a window,
         zero elsewhere. Only the valid samples are evaluated."""
         R, K = ts.shape
-        aabb_min, aabb_max = self._aabb_t
-        pos = fma(ts[..., None], d[:, None, :], o[:, None, :])
-        pos_w = ((pos - aabb_min) / (aabb_max - aabb_min)).reshape(R * K, 3)
-        dirs = warp_direction(d)[:, None, :].expand(R, K, 3).reshape(R * K, 3)
+        pos_w, dirs = self._window_inputs(o, d, ts)
         sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
         out = torch.zeros((R * K, 4), dtype=torch.float32, device=o.device)
         if sel.numel() > 0:
-            out[sel] = self.model(pos_w[sel], dirs[sel])
+            out[sel] = functional_call(self.model, self.inference_params(),
+                                       (pos_w[sel], dirs[sel]))
         return out.reshape(R, K, 4)
 
     def _composite_window(self, out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,

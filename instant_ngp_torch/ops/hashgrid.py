@@ -1,5 +1,5 @@
-"""Multiresolution (hash-)grid encoding, forward (port of
-``instant_ngp_tpu/ops/hashgrid.py``).
+"""Multiresolution (hash-)grid encoding, forward and table gradients
+(port of ``instant_ngp_tpu/ops/hashgrid.py``).
 
   * level scale:      s_l = 2^(l·log2(b)) · N_base − 1
   * level resolution: R_l = ceil(s_l) + 1
@@ -12,9 +12,19 @@
 
 The per-level tables live in one flat (n_entries, F) f32 parameter, level
 l at rows [offset_l, offset_l + size_l), the tcnn layout. On CUDA tensors
-``hashgrid_encode`` launches kernel A (``csrc/hashgrid.cu``); on CPU
-tensors it runs ``hashgrid_encode_plain``. The backward comes with the
-training slice.
+``hashgrid_encode`` launches kernel A (``csrc/hashgrid.cu``) and
+``hashgrid_encode_bwd`` kernel E (``csrc/hashgrid_bwd.cu``); on CPU
+tensors they run ``hashgrid_encode_plain`` and
+``hashgrid_encode_bwd_plain``.
+
+Table gradients: every corner gets w_c·g (exact), or, on hashed levels
+with 1 ≤ ``hashed_grad_corners`` = k < C corners, each of k draws gives
+g/k to the corner picked by ``cumsum(w) < u·cdf[-1]``, where u is a hash
+of the position bits plus a per-(level, draw) offset, so the draw is the
+JAX package's draw bit for bit on the same x. Dense levels always take
+every corner, in f32 (the JAX package sums them in a bf16 matmul splat).
+The position gradient is not ported yet: positions take no gradient
+without camera optimization.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from ..common import fma
 # that dense and hashed indices coincide along x).
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
 _MASK32 = 0xFFFFFFFF
+MAX_DRAWS = 8  # stochastic draws are fewer than the 8 corners of a cell
 INTERPOLATIONS = {"linear": 0, "nearest": 1, "simplex": 2}
 
 
@@ -147,9 +158,77 @@ def hashgrid_encode_plain(levels, interpolation: str, table: torch.Tensor,
     return torch.cat(outs, dim=-1)
 
 
+def _position_uniform(x: torch.Tensor) -> torch.Tensor:
+    """(N,) uniform in [0, 1) from the bits of x (N, D) f32: XOR of the
+    bits times the next prime, times 0x9E3779B1, top 24 bits."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    h = torch.zeros_like(bits[:, 0])
+    for d in range(x.shape[1]):
+        h = h ^ ((bits[:, d] * _PRIMES[(d + 1) % len(_PRIMES)]) & _MASK32)
+    h = (h * 0x9E3779B1) & _MASK32
+    return (h >> 8).to(torch.float32) * float(2.0**-24)
+
+
+def draw_offset(level: int, draw: int) -> float:
+    """The per-(level, draw) offset of the stochastic corner uniform, in
+    f64 on the host then rounded to f32, as the JAX package forms it."""
+    return float(np.float32(((level * 7 + draw) * 0.6180339887) % 1.0))
+
+
+def _stochastic(level: GridLevelSpec, n_corners: int, hashed_grad_corners: int) -> bool:
+    return level.hashed and 1 <= hashed_grad_corners < n_corners
+
+
+def hashgrid_encode_bwd_plain(levels, interpolation: str, x: torch.Tensor, g: torch.Tensor,
+                              n_entries: int, hashed_grad_corners: int) -> torch.Tensor:
+    """Table gradient (n_entries, F) f32 of the encoding of x (N, D) for
+    the output cotangent g (N, L·F)."""
+    n_features = g.shape[1] // len(levels)
+    dtable = torch.zeros((n_entries, n_features), dtype=torch.float32, device=x.device)
+    u_rand = None
+    for l, level in enumerate(levels):
+        idx, w = _level_corners(level, interpolation, x)
+        g_l = g[:, l * n_features:(l + 1) * n_features].to(torch.float32)
+        n_corners = idx.shape[0]
+        if _stochastic(level, n_corners, hashed_grad_corners):
+            if u_rand is None:
+                u_rand = _position_uniform(x)
+            k = hashed_grad_corners
+            g_k = g_l * float(np.float32(1.0 / k))
+            cdf = torch.cumsum(w, dim=0)
+            for draw in range(k):
+                u_l = torch.remainder(u_rand + draw_offset(l, draw), 1.0)
+                c_sel = torch.clamp(torch.sum(cdf < (u_l * cdf[-1])[None, :], dim=0), 0,
+                                    n_corners - 1)
+                idx_sel = torch.gather(idx, 0, c_sel[None, :])[0]
+                dtable.index_add_(0, level.offset + idx_sel, g_k)
+        else:
+            vals = w[:, :, None] * g_l[None, :, :]
+            dtable.index_add_(0, (level.offset + idx).reshape(-1),
+                              vals.reshape(-1, n_features))
+    return dtable
+
+
 # ---------------------------------------------------------------------------
-# wrapper: kernel A on CUDA tensors
+# wrappers: kernel A and kernel E on CUDA tensors
 # ---------------------------------------------------------------------------
+
+
+def _level_arrays(levels):
+    L = len(levels)
+    return ((ctypes.c_float * L)(*[np.float32(lv.scale) for lv in levels]),
+            (ctypes.c_int * L)(*[lv.resolution for lv in levels]),
+            (ctypes.c_int * L)(*[lv.size for lv in levels]),
+            (ctypes.c_int * L)(*[lv.offset for lv in levels]),
+            (ctypes.c_int * L)(*[int(lv.hashed) for lv in levels]))
+
+
+def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: int, name: str):
+    if n_dims != 3 or n_features not in (1, 2, 4, 8) or len(levels) > 32:
+        raise ValueError(f"kernel {name} takes D=3, F in (1,2,4,8), ≤32 levels; got "
+                         f"D={n_dims}, F={n_features}, L={len(levels)}")
+    if interpolation not in INTERPOLATIONS:
+        raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
 
 
 def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
@@ -161,31 +240,71 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     cuda_lib.check_cuda(x, table, dtype=torch.float32)
     n, n_dims = x.shape
     n_features = table.shape[1]
-    if n_dims != 3 or n_features not in (1, 2, 4, 8) or len(levels) > 32:
-        raise ValueError(f"kernel A takes D=3, F in (1,2,4,8), ≤32 levels; got "
-                         f"D={n_dims}, F={n_features}, L={len(levels)}")
-    if interpolation not in INTERPOLATIONS:
-        raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
+    _check_kernel_shapes(levels, interpolation, n_dims, n_features, "A")
     L = len(levels)
-    scale = (ctypes.c_float * L)(*[np.float32(lv.scale) for lv in levels])
-    res = (ctypes.c_int * L)(*[lv.resolution for lv in levels])
-    size = (ctypes.c_int * L)(*[lv.size for lv in levels])
-    offset = (ctypes.c_int * L)(*[lv.offset for lv in levels])
-    hashed = (ctypes.c_int * L)(*[int(lv.hashed) for lv in levels])
+    arrays = _level_arrays(levels)
     out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
     if n > 0:
         cuda_lib.launch("hashgrid_encode_fwd", x.data_ptr(), table.data_ptr(),
-                        ctypes.addressof(scale), ctypes.addressof(res), ctypes.addressof(size),
-                        ctypes.addressof(offset), ctypes.addressof(hashed), L, n_features,
+                        *map(ctypes.addressof, arrays), L, n_features,
                         INTERPOLATIONS[interpolation], n, out.data_ptr())
     return out
+
+
+def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Tensor,
+                        n_entries: int, hashed_grad_corners: int) -> torch.Tensor:
+    """See ``hashgrid_encode_bwd_plain``. CPU tensors run the plain
+    version; CUDA tensors launch kernel E (one thread per (sample,
+    level), f32 atomics into the table gradient)."""
+    if x.device.type == "cpu":
+        return hashgrid_encode_bwd_plain(levels, interpolation, x, g, n_entries,
+                                         hashed_grad_corners)
+    cuda_lib.check_cuda(x, g, dtype=torch.float32)
+    n, n_dims = x.shape
+    L = len(levels)
+    n_features = g.shape[1] // L
+    _check_kernel_shapes(levels, interpolation, n_dims, n_features, "E")
+    if g.shape != (n, L * n_features):
+        raise ValueError(f"cotangent {tuple(g.shape)} for {n} samples and {L} levels")
+    k = hashed_grad_corners
+    arrays = _level_arrays(levels)
+    offsets = (ctypes.c_float * (L * MAX_DRAWS))(
+        *[draw_offset(l, d) if d < k else 0.0 for l in range(L) for d in range(MAX_DRAWS)])
+    g_scale = float(np.float32(1.0 / k)) if k >= 1 else 1.0
+    dtable = torch.zeros((n_entries, n_features), dtype=torch.float32, device=x.device)
+    if n > 0:
+        cuda_lib.launch("hashgrid_encode_bwd", x.data_ptr(), g.data_ptr(),
+                        *map(ctypes.addressof, arrays), L, n_features,
+                        INTERPOLATIONS[interpolation], k, ctypes.addressof(offsets), g_scale, n,
+                        dtable.data_ptr())
+    return dtable
+
+
+class _GridEncodeFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, enc: "GridEncoding", table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        ctx.enc = enc
+        ctx.save_for_backward(x)
+        encode = hashgrid_encode if enc.use_kernel else hashgrid_encode_plain
+        return encode(enc.levels, enc.interpolation, table, x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        enc = ctx.enc
+        backward = hashgrid_encode_bwd if enc.use_kernel else hashgrid_encode_bwd_plain
+        dtable = backward(enc.levels, enc.interpolation, x, g.contiguous(), enc.n_entries,
+                          enc.hashed_grad_corners)
+        return None, dtable, None
 
 
 class GridEncoding(nn.Module):
     """Multiresolution grid encoding of positions in [0, 1]^D.
 
     ``table`` is the flat (n_entries, F) f32 parameter; ``unpack_params``
-    gives the per-level views the JAX package keeps as separate leaves."""
+    gives the per-level views the JAX package keeps as separate leaves.
+    ``hashed_grad_corners`` is the number of stochastic corner draws of
+    the table gradient on hashed levels; C or more (8) means exact."""
 
     def __init__(self, n_dims: int = 3, n_levels: int = 16, n_features_per_level: int = 2,
                  log2_hashmap_size: int = 19, base_resolution: int = 16,
@@ -203,9 +322,9 @@ class GridEncoding(nn.Module):
         self.levels = grid_levels(n_dims, n_levels, log2_hashmap_size, base_resolution,
                                   per_level_scale, grid_type)
         self.use_kernel = True
+        self.hashed_grad_corners = 1
         self.table = nn.Parameter(torch.zeros((self.n_entries, n_features_per_level),
-                                              dtype=torch.float32, device=device),
-                                  requires_grad=False)
+                                              dtype=torch.float32, device=device))
 
     @property
     def n_dims_to_encode(self) -> int:
@@ -219,6 +338,14 @@ class GridEncoding(nn.Module):
     def n_output_dims(self) -> int:
         return self.n_levels * self.n_features_per_level
 
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """Table entries uniform in [-1e-4, 1e-4] in place (tcnn convention,
+        as the JAX package's ``GridEncoding.init``; different random bits)."""
+        u = torch.rand(self.table.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+        self.table.copy_(u * 2e-4 - 1e-4)
+
     def unpack_params(self, flat=None) -> tuple:
         """Per-level (size_l, F) views of the flat table."""
         flat = self.table if flat is None else flat
@@ -227,8 +354,7 @@ class GridEncoding(nn.Module):
     def forward(self, x: torch.Tensor, max_level: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, D) in [0, 1] → (N, L·F) f32. max_level: optional scalar or
         (N,) in [0, 1]; levels l ≥ max_level·L contribute zero."""
-        encode = hashgrid_encode if self.use_kernel else hashgrid_encode_plain
-        out = encode(self.levels, self.interpolation, self.table, x.contiguous())
+        out = _GridEncodeFunction.apply(self, self.table, x.contiguous())
         if max_level is not None:
             L, F = self.n_levels, self.n_features_per_level
             max_level = torch.as_tensor(max_level, dtype=torch.float32, device=out.device)

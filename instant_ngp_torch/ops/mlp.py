@@ -3,15 +3,36 @@
 tcnn MLPs have no biases. Compute follows the JAX package: bf16 inputs
 and weights, f32 accumulation, hidden activations rounded to bf16, an f32
 output. Weights are stored (fan_in, fan_out), forward is x @ W_0 @ … @
-W_last, and it runs through ``fused_mlp`` (kernel B on CUDA tensors).
+W_last. The forward runs through ``fused_mlp`` (kernel B on CUDA tensors)
+and the backward through ``fused_mlp_bwd`` (kernel F on CUDA tensors),
+joined by a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from .mlp_kernel import fused_mlp, fused_mlp_plain
+from .mlp_kernel import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_plain
+
+
+class _FusedMLPFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mlp: "MLP", x: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
+        ctx.mlp = mlp
+        ctx.save_for_backward(x, *ws)
+        forward = fused_mlp if mlp.use_kernel else fused_mlp_plain
+        return forward(list(ws), x, mlp.activation, mlp.output_activation)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, *ws = ctx.saved_tensors
+        mlp = ctx.mlp
+        backward = fused_mlp_bwd if mlp.use_kernel else fused_mlp_bwd_plain
+        dx, dws = backward(ws, x, g, mlp.activation, mlp.output_activation)
+        return (None, dx.to(x.dtype), *dws)
 
 
 class MLP(nn.Module):
@@ -27,7 +48,7 @@ class MLP(nn.Module):
         self.output_activation = output_activation
         self.use_kernel = True
         self.weights = nn.ParameterList([
-            nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device), requires_grad=False)
+            nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
             for shape in self.layer_sizes
         ])
 
@@ -41,9 +62,18 @@ class MLP(nn.Module):
         sizes.append((self.n_neurons, self.n_output_dims))
         return tuple(sizes)
 
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """He-uniform weights in place, U(±sqrt(6 / fan_in)), as the JAX
+        package's ``MLP.init`` (different random bits)."""
+        for w, (fan_in, _) in zip(self.weights, self.layer_sizes):
+            limit = math.sqrt(6.0 / fan_in)
+            u = torch.rand(w.shape, generator=generator, dtype=torch.float32,
+                           device=generator.device)
+            w.copy_(u * (2.0 * limit) - limit)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mlp = fused_mlp if self.use_kernel else fused_mlp_plain
-        return mlp(list(self.weights), x, self.activation, self.output_activation)
+        return _FusedMLPFunction.apply(self, x, *self.weights)
 
 
 def mlp_from_config(cfg: dict, n_input_dims: int, n_output_dims: int, device=None) -> MLP:

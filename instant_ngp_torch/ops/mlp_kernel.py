@@ -1,13 +1,21 @@
-"""Fused bias-free MLP forward (port of the Pallas kernel
-``instant_ngp_tpu/ops/pallas/mlp_kernel.py::fused_mlp``).
+"""Fused bias-free MLP, forward and backward (port of the Pallas kernel
+``instant_ngp_tpu/ops/pallas/mlp_kernel.py::fused_mlp`` and of the
+autodiff backward it gets from ``_reference_forward``).
 
-Contract, as ``MLP.__call__`` in the JAX package: a bf16 input and bf16
-weights, f32 accumulation, each hidden activation rounded back to bf16, an
-f32 output. On CUDA tensors ``fused_mlp`` launches kernel B
+Forward contract, as ``MLP.__call__`` in the JAX package: a bf16 input and
+bf16 weights, f32 accumulation, each hidden activation rounded back to
+bf16, an f32 output. On CUDA tensors ``fused_mlp`` launches kernel B
 (``csrc/mlp.cu``), which keeps all weights in shared memory, runs the
 products on tensor cores and takes any row count; on CPU tensors it runs
-``fused_mlp_plain``. Forward only: the backward comes with the training
-slice.
+``fused_mlp_plain``.
+
+Backward contract, as JAX's vjp of ``MLP.__call__``: every product takes
+the f32 cotangent against a bf16 operand with f32 accumulation, and each
+result (dh per layer, every dW, dX) is rounded to bf16; the ReLU mask
+comes from the f32 pre-activation and is 0.5 where it is exactly 0 (the
+derivative of ``jnp.maximum`` at a tie). ``fused_mlp_bwd`` launches
+kernel F (``csrc/mlp_bwd.cu``) on CUDA tensors and runs
+``fused_mlp_bwd_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -50,6 +58,81 @@ def fused_mlp_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, activation: str
         if i < len(ws) - 1:
             h = _act(activation, h).to(torch.bfloat16).float()
     return _act(output_activation, h)
+
+
+def _act_grad(name: str, z: torch.Tensor) -> torch.Tensor:
+    """d act / d z at the f32 pre-activation z, as JAX differentiates it."""
+    name = name.lower()
+    if name == "relu":
+        return torch.where(z > 0.0, 1.0, torch.where(z == 0.0, 0.5, 0.0))
+    if name == "none":
+        return torch.ones_like(z)
+    raise NotImplementedError(name)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
+                        activation: str = "relu", output_activation: str = "none"):
+    """Backward of ``fused_mlp_plain``: x (N, in), g (N, out) f32 cotangent
+    → (dx (N, in) f32, [dW (in, out) f32 per layer]), each value
+    bf16-representable. The hidden activations are recomputed."""
+    wb = [_bf16(w) for w in ws]
+    hs = [_bf16(x)]
+    zs = []
+    for i, w in enumerate(wb):
+        z = hs[-1] @ w
+        zs.append(z)
+        if i < len(wb) - 1:
+            hs.append(_bf16(_act(activation, z)))
+    dz = g.float() * _act_grad(output_activation, zs[-1])
+    dws = [None] * len(wb)
+    dx = None
+    for i in reversed(range(len(wb))):
+        dws[i] = _bf16(hs[i].T @ dz)
+        dh = _bf16(dz @ wb[i].T)
+        if i > 0:
+            dz = dh * _act_grad(activation, zs[i - 1])
+        else:
+            dx = dh
+    return dx, dws
+
+
+def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
+                  activation: str = "relu", output_activation: str = "none"):
+    """See ``fused_mlp_bwd_plain``. CPU tensors run the plain version; CUDA
+    tensors launch kernel F (hidden activations relu/none, output none,
+    widths ≤ 64), whose f32 dW sums are rounded to bf16 here."""
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(ws, x, g, activation, output_activation)
+    act, out_act = activation.lower(), output_activation.lower()
+    if act not in ACTIVATIONS or out_act != "none":
+        raise NotImplementedError(f"kernel F takes relu/none hidden and none output, got "
+                                  f"{activation}/{output_activation}")
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    n = x.shape[0]
+    if x.ndim != 2 or x.shape[1] != dims[0] or tuple(g.shape) != (n, dims[-1]):
+        raise ValueError(f"x {tuple(x.shape)}, g {tuple(g.shape)} do not match layers {dims}")
+    if max(dims) > MAX_WIDTH or len(ws) > MAX_LAYERS:
+        raise ValueError(f"kernel F takes widths ≤ {MAX_WIDTH} and ≤ {MAX_LAYERS} layers, "
+                         f"got {dims}")
+    xb = x.to(torch.bfloat16).contiguous()
+    w_flat = torch.cat([w.to(torch.bfloat16).reshape(-1) for w in ws]).contiguous()
+    gf = g.to(torch.float32).contiguous()
+    cuda_lib.check_cuda(xb, w_flat, dtype=torch.bfloat16)
+    cuda_lib.check_cuda(gf, dtype=torch.float32)
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
+    dw_flat = torch.zeros((w_flat.numel(),), dtype=torch.float32, device=x.device)
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    if n > 0:
+        cuda_lib.launch("fused_mlp_bwd", xb.data_ptr(), w_flat.data_ptr(), gf.data_ptr(),
+                        ctypes.addressof(dims_c), len(ws), ACTIVATIONS[act], n,
+                        dx.data_ptr(), dw_flat.data_ptr())
+    dws = [_bf16(d).reshape(w.shape)
+           for d, w in zip(torch.split(dw_flat, [w.numel() for w in ws]), ws)]
+    return dx, dws
 
 
 def _pad16(v: int) -> int:

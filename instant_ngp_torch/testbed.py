@@ -1,10 +1,17 @@
-"""A minimal NeRF ``Testbed`` (port of the scene-free snapshot branch of
-``instant_ngp_tpu/testbed.py``): load a ``.ingp`` snapshot and render
-frames from it.
+"""A minimal NeRF ``Testbed`` (port of the scene-free snapshot branch and
+the training tick of ``instant_ngp_tpu/testbed.py``): load a ``.ingp``
+snapshot and render frames from it, or train a task set from an in-memory
+dataset.
 
     tb = Testbed("nerf", device="cuda")
     tb.load_snapshot("data/fox_1536.ingp")
     frame = tb.render(256, 256, camera_matrix, focal_length=..., ...)
+
+    tb = Testbed("nerf", device="cuda")
+    tb.nerf_dataset, tb.network_config = ds, cfg
+    tb.task = NerfTask(ds, cfg, "cuda", n_rays_per_batch=4096, ...)
+    for _ in range(n):
+        tb.frame()  # one training step; tb.loss is its EMA
 """
 
 from __future__ import annotations
@@ -48,6 +55,19 @@ def _empty_nerf_dataset_from_snapshot(snap: dict) -> NerfDataset:
     )
 
 
+class LossEma:
+    """EMA meter of the training loss (reference common_host.h:83-129)."""
+
+    def __init__(self, half_life: float = 10.0):
+        self.alpha = 0.5 ** (1.0 / half_life)
+        self.value = 0.0
+        self.n = 0
+
+    def update(self, v: float) -> None:
+        self.value = self.alpha * self.value + (1 - self.alpha) * v if self.n else v
+        self.n += 1
+
+
 class Testbed:
     def __init__(self, mode: str = "nerf", device="cpu"):
         if str(mode).lower() != "nerf":
@@ -58,6 +78,9 @@ class Testbed:
         self.nerf_dataset: NerfDataset | None = None
         self.network_config: dict = {}
         self.training_step = 0
+        self.shall_train = True
+        self.loss_graph: list[float] = []
+        self._loss_ema = LossEma()
 
     def load_snapshot(self, path) -> None:
         doc = snapshot_io.load_snapshot_file(path)
@@ -87,3 +110,23 @@ class Testbed:
         if self.task is None:
             raise RuntimeError("load a snapshot before rendering")
         return self.task.render(*args, **kwargs)
+
+    def frame(self) -> bool:
+        """One tick: a training step while ``shall_train`` (reference
+        frame → train_and_render, testbed.cu:3908-4034). A step that
+        marched no sample stops training."""
+        if self.shall_train and self.task is not None:
+            loss = self.task.train(1)
+            self.training_step = self.task.training_step
+            self._loss_ema.update(loss)
+            self.loss_graph.append(loss)
+            if self.task.training_aborted:
+                self.shall_train = False
+        return True
+
+    def train(self, batch_size=None) -> None:
+        self.frame()
+
+    @property
+    def loss(self) -> float:
+        return self._loss_ema.value

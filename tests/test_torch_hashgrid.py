@@ -81,7 +81,7 @@ def test_encode_equals_jax(name, interpolation):
     x = _positions(rng, ours)
     # the render path compiles the encoding, so compare with the jitted form
     ref = np.asarray(jax.jit(lambda t, p: theirs(t, p))(tables, x))
-    out = ours(torch.from_numpy(x)).numpy()
+    out = ours(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
     # corner indices match exactly
@@ -99,7 +99,7 @@ def test_encode_equals_jax(name, interpolation):
     # max_level masking, scalar and per-sample
     for max_level in (np.float32(0.5), rng.random(x.shape[0], dtype=np.float32)):
         ref = np.asarray(jax.jit(lambda t, p, m: theirs(t, p, max_level=m))(tables, x, max_level))
-        out = ours(torch.from_numpy(x), max_level=torch.from_numpy(np.asarray(max_level))).numpy()
+        out = ours(torch.from_numpy(x), max_level=torch.from_numpy(np.asarray(max_level))).detach().numpy()
         np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 

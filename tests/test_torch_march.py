@@ -148,8 +148,7 @@ def test_march_rays_equals_jax(name, start):
     ref = jax.jit(lambda o_, d_, s_, j_, t_: jax_sampler.march_rays(
         o_, d_, s_, jnp.asarray(task.aabb_min), jnp.asarray(task.aabb_max), j_,
         jax_sampler.MarchConfig(**kw), t_init=t_))(o.numpy(), d.numpy(), skip, jitter, t_init)
-    ours = port_sampler.march_rays(o, d, task.skipmip, task.aabb_min,
-                                   task.aabb_max, torch.from_numpy(jitter),
+    ours = port_sampler.march_rays(o, d, task.skipmip, *task._aabb_t, torch.from_numpy(jitter),
                                    port_sampler.MarchConfig(**kw),
                                    t_init=None if t_init is None else torch.from_numpy(t_init))
     ts, dts, valid, t_exit, n_valid = (np.asarray(a) for a in ref)

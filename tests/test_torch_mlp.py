@@ -67,9 +67,9 @@ def test_mlp_module_equals_jax_mlp_call_at_ragged_n(shape):
     with torch.no_grad():
         for dst, w in zip(ours.weights, ws):
             dst.copy_(torch.from_numpy(w))
-    out = ours(torch.from_numpy(x)).numpy()
+    out = ours(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
-    np.testing.assert_array_equal(out, fused_mlp_plain(list(ours.weights), torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(out, fused_mlp_plain(list(ours.weights), torch.from_numpy(x)).detach().numpy())
 
 
 def test_hidden_activations_round_to_bf16():

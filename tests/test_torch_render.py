@@ -47,7 +47,7 @@ def test_nerf_network_equals_jax(name):
     pos = rng.random((2048, 3), dtype=np.float32)
     dirs = rng.random((2048, 3), dtype=np.float32)
     ref = np.asarray(jax.jit(lambda p, x, d: theirs(p, x, d))(tree, pos, dirs), np.float32)
-    out = ours(torch.from_numpy(pos), torch.from_numpy(dirs)).numpy()
+    out = ours(torch.from_numpy(pos), torch.from_numpy(dirs)).detach().numpy()
     assert out.shape == (2048, 4)
     # bf16 compute on both sides; only f32 summation order differs
     np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-3)

@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``instant_ngp_torch/csrc/``, checks each
 kernel against its plain PyTorch version on the card at the shapes of the
-fox snapshot, then drives the port's two paths:
+fox snapshot, then drives the port's three paths and its gather
+microbenchmarks:
 
 - render: ``data/fox_1536.ingp`` at 256x256 through ``Testbed.load_snapshot``
   and ``render``, checked to go through kernels A-D and to agree with the
@@ -17,7 +18,26 @@ fox snapshot, then drives the port's two paths:
   through ``Testbed.frame()``, checked to go through kernels A-C and E-H,
   to lower its loss and to raise its PSNR on views 0/24/49; one step through
   the kernels is held against the same step through the plain versions,
-  and kernels G and H against theirs on that step's own inputs.
+  and kernels G and H against theirs on that step's own inputs;
+- image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
+  kernel I at every shape of ``scripts/bench_gather_tpu.py`` and kernel J at
+  every shape of ``scripts/bench_dyngather.py`` against their plain versions;
+  then an 8192^2 RGBA image made from SEED, written as a ``.bin`` file, is
+  fitted with ``configs/image/base.json`` for 300 steps of 2^18 samples
+  through ``Testbed("image")`` and ``frame()``, checked to go through kernels
+  A, B, E, F and I, to lower its loss and to raise its PSNR; one step through
+  the kernels is held against the same step through the plain versions, and
+  a 1920x1080 render against the plain render;
+- gather microbenchmarks: ``instant_ngp_torch.bench.gather`` at its case
+  lists with few repetitions, through kernels I and J.
+
+Every kernel's entry in the JSON line has its error against its plain
+version, its time and the plain version's, its launches on its path, and
+its bound: the larger of the bytes it must move (each input read once,
+each output written once; a gather counts the distinct rows it reads) over
+3.35 TB/s and its operations over the H100's peak for their type (989
+TFLOP/s bf16 on tensor cores, 67 TFLOP/s f32), and, where one PyTorch call
+computes the same function, that call's time.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -33,6 +53,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -83,6 +104,29 @@ TOL_SCATTER = 1e-5  # f32 atomics sum in another order
 # a bf16 rounding of a hidden unit or a gradient (1 ulp = 2^-8) downstream
 TOL_STEP_GRAD = 1e-2
 TOL_STEP_LOSS = 1e-3  # relative, mean per-ray loss
+
+# the image phase: configs/image/base.json on an image made from SEED
+IMAGE_CONFIG = ROOT / "configs" / "image" / "base.json"
+IMAGE_RES = 8192  # an 8192^2 RGBA image: every level of the grid is dense
+CHECK_IMAGE_RES = 16384  # level specs of the D = 2 kernel checks: the top two levels hashed
+N_IMAGE_ROWS = 1 << 18  # positions of the D = 2 checks: one step's batch
+IMAGE_STEPS = 300
+RENDER_WH = (1920, 1080)
+# kernel I at every (log2 T, F, dtype) of scripts/bench_gather_tpu.py:64-66 and
+# :102-112, N = 2^20 rows; the image step's own shape is checked on its texture
+TAKE_CASES = ((19, 4, torch.float32), (19, 4, torch.bfloat16), (19, 16, torch.bfloat16),
+              (15, 4, torch.float32), (19, 32, torch.bfloat16))
+N_TAKE = 1 << 20
+# kernel J at every case of scripts/bench_dyngather.py:68-70
+COL_CASES = ((8, torch.float32), (64, torch.float32), (512, torch.float32),
+             (4096, torch.float32), (32768, torch.float32), (4096, torch.bfloat16))
+COLS, COL_REPS = 128, 8
+TOL_GATHER_COLS_F32 = 1e-6  # relative; the same adds in the same order
+BENCH_ITERS, BENCH_WARMUP = 10, 2  # the gather microbenchmark phase, reduced
+
+# the least time of a kernel: H100 SXM data sheet rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -135,12 +179,41 @@ def phase_build() -> None:
     print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}")
 
 
+def bound(n_bytes: float, n_ops: float = 0.0, op_type: str = "float32") -> dict:
+    """The least time of a kernel: its bytes over the memory rate or its
+    operations over the peak rate of their type, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def grid_work(levels, interpolation: str, x: torch.Tensor) -> tuple[int, int]:
+    """(distinct table rows a grid encode of x reads, Σ over levels of its
+    corners per position)."""
+    from instant_ngp_torch.ops.hashgrid import _level_corners
+
+    rows, corners = 0, 0
+    for lv in levels:
+        idx, _ = _level_corners(lv, interpolation, x)
+        rows += int(torch.unique(idx).numel())
+        corners += idx.shape[0]
+    return rows, corners
+
+
 def record_kernel(results: list, name: str, source: str, replaces: str, err: float, ms: float,
-                  plain_ms: float, extra: str = "", **fields) -> None:
+                  plain_ms: float, bound_: dict, library_ms=None, extra: str = "",
+                  **fields) -> None:
+    lib = f" library {library_ms:.3f} ms" if library_ms is not None else ""
     print(f"kernel {name}: max_abs_err {err:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-          f"{extra}")
+          f"{lib} bound {bound_['bound_ms']:.4f} ms ({bound_['bound_by']}){extra}")
     results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **fields})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_,
+                    "library_ms": library_ms, **fields})
 
 
 def max_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -155,7 +228,7 @@ def kernel_checks(tb, device) -> list[dict]:
     from instant_ngp_torch.common import warp_direction
     from instant_ngp_torch.nerf.sampler import MarchConfig, march_rays, march_rays_plain
     from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
-    from instant_ngp_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_plain
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_plain
 
     task, model = tb.task, tb.task.model
@@ -166,13 +239,10 @@ def kernel_checks(tb, device) -> list[dict]:
 
     # A: hash-grid encode of N positions with the fox tables
     x = torch.rand((N_ROWS, 3), generator=gen, device=device)
-    args = (enc.levels, enc.interpolation, enc.table, x)
-    feats, ref = hashgrid_encode(*args), hashgrid_encode_plain(*args)
-    err = float((feats - ref).abs().max())
-    check(err <= TOL_ENCODE * max(1.0, float(ref.abs().max())), f"encode err {err}")
+    v = check_encode(enc.levels, enc.interpolation, enc.table, x, "fox")
     record("hashgrid_encode_fwd", "instant_ngp_torch/csrc/hashgrid.cu",
-           "instant_ngp_tpu/ops/hashgrid.py:213", err,
-           time_ms(lambda: hashgrid_encode(*args)), time_ms(lambda: hashgrid_encode_plain(*args)))
+           "instant_ngp_tpu/ops/hashgrid.py:213", v["max_abs_err"], **headline(v))
+    feats = hashgrid_encode(enc.levels, enc.interpolation, enc.table, x)
 
     # B: both MLPs of the model on N rows (encodings of A; SH of random dirs)
     dirs = warp_direction(torch.nn.functional.normalize(
@@ -181,9 +251,11 @@ def kernel_checks(tb, device) -> list[dict]:
     d_out = fused_mlp(density_ws, feats, "relu", "none")
     rgb_in = torch.cat([d_out, model.dir_encoding(dirs)], dim=-1)
     rgb_ws = list(model.rgb_network.weights)
-    errs, scales, ms, plain_ms = [], [], 0.0, 0.0
+    errs, scales, ms, plain_ms, n_bytes, n_ops = [], [], 0.0, 0.0, 0, 0
     for ws, inp in ((density_ws, feats), (rgb_ws, rgb_in)):
         out, ref = fused_mlp(ws, inp, "relu", "none"), fused_mlp_plain(ws, inp, "relu", "none")
+        n_bytes += nbytes(inp, out, *ws)
+        n_ops += 2 * inp.shape[0] * sum(w.numel() for w in ws)
         err, scale = float((out - ref).abs().max()), float(ref.abs().max())
         check(err <= TOL_MLP * max(1.0, scale), f"mlp err {err} at max |ref| {scale}")
         errs.append(err)
@@ -192,7 +264,8 @@ def kernel_checks(tb, device) -> list[dict]:
         plain_ms += time_ms(lambda: fused_mlp_plain(ws, inp, "relu", "none"))
     record("fused_mlp", "instant_ngp_torch/csrc/mlp.cu",
            "instant_ngp_tpu/ops/pallas/mlp_kernel.py:53", max(errs), ms, plain_ms,
-           f" (32->64->16 plus 32->64->64->3; max |ref| {scales[0]:.3f}, {scales[1]:.3f})")
+           bound(n_bytes, n_ops, "bfloat16"),
+           extra=f" (32->64->16 plus 32->64->64->3; max |ref| {scales[0]:.3f}, {scales[1]:.3f})")
 
     # C: march the rays of view 0 at RES^2, K = 8, 64 iterations, fox grid
     ds = tb.nerf_dataset
@@ -221,7 +294,8 @@ def kernel_checks(tb, device) -> list[dict]:
     record("march_rays", "instant_ngp_torch/csrc/march.cu", "instant_ngp_tpu/nerf/sampler.py:49",
            err, time_ms(lambda: march_rays(*margs, t_init=tmin)),
            time_ms(lambda: march_rays_plain(*margs, t_init=tmin), reps=10),
-           f" (n_valid agrees on {agree:.6f} of {o.shape[0]} rays)")
+           bound(nbytes(o, d, tmin, ts, dts, valid, t_exit, n_valid)),
+           extra=f" (n_valid agrees on {agree:.6f} of {o.shape[0]} rays)")
 
     # D: composite that window with the model's outputs on its samples
     R = o.shape[0]
@@ -238,7 +312,8 @@ def kernel_checks(tb, device) -> list[dict]:
     check(err <= TOL_COMPOSITE, f"composite err {err}")
     record("composite_window", "instant_ngp_torch/csrc/composite.cu",
            "instant_ngp_tpu/nerf/task.py:1853", err, time_ms(lambda: composite_window(*cargs)),
-           time_ms(lambda: composite_window_plain(*cargs)))
+           time_ms(lambda: composite_window_plain(*cargs)),
+           bound(nbytes(*[a for a in cargs if torch.is_tensor(a)], *k_res[1:])))
     return results
 
 
@@ -329,8 +404,7 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     from instant_ngp_torch.common import warp_direction
     from instant_ngp_torch.nerf import train as nerf_train
     from instant_ngp_torch.nerf.sampler import march_rays, march_rays_plain
-    from instant_ngp_torch.ops.hashgrid import (hashgrid_encode, hashgrid_encode_bwd,
-                                                hashgrid_encode_bwd_plain)
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -343,22 +417,13 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     enc = task.model.pos_encoding
     x = torch.rand((n, 3), generator=gen, device=device)
     g = torch.randn((n, enc.n_output_dims), generator=gen, device=device)
-    errs, variants = [], {}
-    for interp in ("linear", "simplex"):
-        for corners in (1, 8):
-            args = (enc.levels, interp, x, g, enc.n_entries, corners)
-            err, scale = max_err(hashgrid_encode_bwd(*args), hashgrid_encode_bwd_plain(*args))
-            check(err <= TOL_ENCODE_BWD * max(1.0, scale),
-                  f"E {interp} corners {corners}: err {err} at max |ref| {scale}")
-            errs.append(err)
-            variants[f"{interp}_corners{corners}"] = {
-                "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
-                "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args), reps=10)}
-    path_variant = variants["simplex_corners1"]
+    variants = {f"{interp}_corners{k}": check_encode_bwd(enc.levels, interp, x, g, enc.n_entries,
+                                                          k, f"fox {interp}, {k} corner(s)")
+                for interp in ("linear", "simplex") for k in (1, 8)}
     record("hashgrid_encode_bwd", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
-           "instant_ngp_tpu/ops/hashgrid.py:244", max(errs), path_variant["ms"],
-           path_variant["plain_ms"],
-           f" ({n} positions, simplex 1 corner; all: {variants})", variants=variants)
+           "instant_ngp_tpu/ops/hashgrid.py:244",
+           max(v["max_abs_err"] for v in variants.values()), **headline(variants["simplex_corners1"]),
+           extra=f" ({n} positions, simplex 1 corner; all: {variants})", variants=variants)
 
     # F: both MLPs of the snapshot's model on encodings of those positions
     model = tb.task.model
@@ -369,10 +434,12 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     dirs = warp_direction(torch.nn.functional.normalize(
         torch.randn((n, 3), generator=gen, device=device), dim=-1))
     rgb_in = torch.cat([fused_mlp(density_ws, feats), model.dir_encoding(dirs)], dim=-1)
-    errs, ms, plain_ms = [], 0.0, 0.0
+    errs, ms, plain_ms, n_bytes, n_ops = [], 0.0, 0.0, 0, 0
     for ws, inp in ((density_ws, feats), (rgb_ws, rgb_in)):
         g = torch.randn((n, ws[-1].shape[1]), generator=gen, device=device)
         (dx, dws), (dx_p, dws_p) = fused_mlp_bwd(ws, inp, g), fused_mlp_bwd_plain(ws, inp, g)
+        n_bytes += nbytes(inp, g, *ws, dx, *dws)
+        n_ops += mlp_bwd_ops(ws, n)
         for out, ref in zip([dx, *dws], [dx_p, *dws_p]):
             err, scale = max_err(out, ref)
             check(err <= TOL_MLP_BWD * max(1.0, scale), f"F err {err} at max |ref| {scale}")
@@ -381,7 +448,8 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
         plain_ms += time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g))
     record("fused_mlp_bwd", "instant_ngp_torch/csrc/mlp_bwd.cu",
            "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106", max(errs), ms, plain_ms,
-           f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW)")
+           bound(n_bytes, n_ops, "bfloat16"),
+           extra=f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW)")
 
     # C at the training march: rays of random pixels of the training views
     R = TRAIN_RAYS
@@ -417,7 +485,8 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     g = check_composite_train(gargs)
     record("composite_train", "instant_ngp_torch/csrc/composite_train.cu",
            "instant_ngp_tpu/nerf/task.py:743", g["max_abs_err"], g["ms"], g["plain_ms"],
-           f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out)",
+           {k: g[k] for k in ("bound_ms", "bound_by")},
+           extra=f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out)",
            variants={f"snapshot_R{R}": g})
 
     # H: the Pallas probes' shapes, (2^20, 2) rows into 2^19, and flat
@@ -431,8 +500,30 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     record("scatter_add_rows", "instant_ngp_torch/csrc/scatter.cu",
            "scripts/bench_pallas_scatter.py:25",
            max(v["max_abs_err"] for v in variants.values()), rows["ms"], rows["plain_ms"],
-           f" (2^20 rows of 2 into 2^19; all: {variants})", variants=variants)
+           {k: rows[k] for k in ("bound_ms", "bound_by")}, rows["library_ms"],
+           extra=f" (2^20 rows of 2 into 2^19; all: {variants})", variants=variants)
     return results, march
+
+
+def encode_bwd_bound(levels, interpolation: str, x: torch.Tensor, g: torch.Tensor,
+                     n_entries: int, corners: int) -> dict:
+    """Kernel E's least time: x and g read once, the whole table gradient
+    written once; per position and level, C corner rows of F multiply-adds,
+    or k rows of F adds where k < C draws stand in for the C corners."""
+    from instant_ngp_torch.ops.hashgrid import _level_corners
+
+    n, F = x.shape[0], g.shape[1] // len(levels)
+    ops = 0
+    for lv in levels:
+        C = _level_corners(lv, interpolation, x[:1])[0].shape[0]
+        ops += n * F * (corners if lv.hashed and 1 <= corners < C else 2 * C)
+    return bound(nbytes(x, g) + n_entries * F * 4, ops)
+
+
+def mlp_bwd_ops(ws, n: int) -> int:
+    """The backward's products: the forward again for its masks, dX and
+    every dW, 2·n·in·out operations each."""
+    return 3 * 2 * n * sum(w.numel() for w in ws)
 
 
 def check_composite_train(gargs) -> dict:
@@ -440,13 +531,14 @@ def check_composite_train(gargs) -> dict:
     from instant_ngp_torch.nerf import train as nerf_train
 
     errs = []
-    for k_out, p_out in zip(nerf_train.composite_train(*gargs),
-                            nerf_train.composite_train_plain(*gargs)):
+    outs = nerf_train.composite_train(*gargs)
+    for k_out, p_out in zip(outs, nerf_train.composite_train_plain(*gargs)):
         err, scale = max_err(k_out, p_out)
         check(err <= TOL_COMPOSITE_TRAIN * scale, f"G err {err} at max |ref| {scale}")
         errs.append(err)
     return {"max_abs_err": max(errs), "ms": time_ms(lambda: nerf_train.composite_train(*gargs)),
-            "plain_ms": time_ms(lambda: nerf_train.composite_train_plain(*gargs))}
+            "plain_ms": time_ms(lambda: nerf_train.composite_train_plain(*gargs)),
+            **bound(nbytes(*[a for a in gargs if torch.is_tensor(a)], *outs))}
 
 
 def check_scatter(idx, vals, size: int, what: str) -> dict:
@@ -455,8 +547,15 @@ def check_scatter(idx, vals, size: int, what: str) -> dict:
 
     err, scale = max_err(scatter_add_rows(idx, vals, size), scatter_add_rows_plain(idx, vals, size))
     check(err <= TOL_SCATTER * max(1.0, scale), f"H {what} err {err} at max |ref| {scale}")
+    idx64 = idx.to(torch.int64)
+
+    def library():  # one PyTorch call beside the zeroed output both make
+        return torch.zeros((size, vals.shape[1]), device=vals.device).index_add_(0, idx64, vals)
+
     return {"max_abs_err": err, "ms": time_ms(lambda: scatter_add_rows(idx, vals, size)),
-            "plain_ms": time_ms(lambda: scatter_add_rows_plain(idx, vals, size))}
+            "plain_ms": time_ms(lambda: scatter_add_rows_plain(idx, vals, size)),
+            "library_ms": time_ms(library),
+            **bound(nbytes(idx64, vals) + size * vals.shape[1] * 4, vals.numel())}
 
 
 def step_check(task, device) -> dict:
@@ -617,7 +716,8 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
         if r["name"] in main:
             v = main[r["name"]]
             r["variants"]["main_path"] = v
-            r["ms"], r["plain_ms"] = v["ms"], v["plain_ms"]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+                r[key] = v.get(key)
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     after = eval_views(task, ds)
     for i, (lb, pb), (la, pa) in zip(EVAL_VIEWS, before[0], after[0]):
@@ -626,6 +726,318 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
     check(after[1] - before[1] >= MIN_PSNR_GAIN_DB,
           f"PSNR rose from {before[1]:.2f} to {after[1]:.2f} dB only")
     return results, march, launches
+
+
+IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
+                 "take_rows")
+BENCH_KERNELS = ("take_rows", "gather_cols_sum")
+
+
+def image_levels(res: int):
+    """The grid levels configs/image/base.json autoconfigures for a res^2 image."""
+    from instant_ngp_torch.config import load_network_config
+    from instant_ngp_torch.models.factory import autoconfig_grid_encoding
+    from instant_ngp_torch.ops.hashgrid import grid_encoding_from_config
+
+    cfg = autoconfig_grid_encoding(load_network_config(IMAGE_CONFIG)["encoding"], "image",
+                                   image_resolution=(res, res))
+    return grid_encoding_from_config(cfg, 2, device="meta")
+
+
+def check_encode(levels, interpolation: str, table, x, what: str) -> dict:
+    """Kernel A against its plain version on (table, x): error, times, bound."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_plain
+
+    args = (levels, interpolation, table, x)
+    out, ref = hashgrid_encode(*args), hashgrid_encode_plain(*args)
+    err, scale = max_err(out, ref)
+    check(err <= TOL_ENCODE * max(1.0, scale), f"A {what}: err {err} at max |ref| {scale}")
+    rows, corners = grid_work(levels, interpolation, x)
+    F = table.shape[1]
+    return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode(*args)),
+            "plain_ms": time_ms(lambda: hashgrid_encode_plain(*args), reps=10),
+            **bound(nbytes(x, out) + rows * F * 4, x.shape[0] * corners * 2 * F)}
+
+
+def check_encode_bwd(levels, interpolation: str, x, g, n_entries: int, corners: int,
+                     what: str) -> dict:
+    """Kernel E against its plain version: error, times, bound."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode_bwd, hashgrid_encode_bwd_plain
+
+    args = (levels, interpolation, x, g, n_entries, corners)
+    err, scale = max_err(hashgrid_encode_bwd(*args), hashgrid_encode_bwd_plain(*args))
+    check(err <= TOL_ENCODE_BWD * max(1.0, scale), f"E {what}: err {err} at max |ref| {scale}")
+    return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
+            "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args), reps=10),
+            **encode_bwd_bound(levels, interpolation, x, g, n_entries, corners)}
+
+
+def check_take(table, idx, what: str) -> dict:
+    """Kernel I against its plain version (exactly equal) and
+    torch.index_select, the library call: times and bound (the distinct
+    rows read once, the indices read and the rows written once)."""
+    from instant_ngp_torch.ops.gather import take_rows, take_rows_plain
+
+    out = take_rows(table, idx)
+    check(bool(torch.equal(out, take_rows_plain(table, idx))), f"I {what}: differs from plain")
+    row_bytes = table.shape[1] * table.element_size()
+    return {"max_abs_err": 0.0, "ms": time_ms(lambda: take_rows(table, idx)),
+            "plain_ms": time_ms(lambda: take_rows_plain(table, idx)),
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+            **bound(nbytes(idx, out) + int(torch.unique(idx).numel()) * row_bytes)}
+
+
+def check_cols(x, idx, what: str) -> dict:
+    """Kernel J against its plain version: f32 to TOL_GATHER_COLS_F32 of
+    max |ref|, bf16 exactly (both round after every add)."""
+    from instant_ngp_torch.ops.gather import gather_cols_sum, gather_cols_sum_plain
+
+    out, ref = gather_cols_sum(x, idx, COL_REPS), gather_cols_sum_plain(x, idx, COL_REPS)
+    err, scale = max_err(out.float(), ref.float())
+    if x.dtype == torch.bfloat16:
+        check(bool(torch.equal(out, ref)), f"J {what}: differs from plain")
+    check(err <= TOL_GATHER_COLS_F32 * scale, f"J {what}: err {err} at max |ref| {scale}")
+    return {"max_abs_err": err, "ms": time_ms(lambda: gather_cols_sum(x, idx, COL_REPS)),
+            "plain_ms": time_ms(lambda: gather_cols_sum_plain(x, idx, COL_REPS)),
+            **bound(nbytes(x, idx, out), COL_REPS * x.numel())}
+
+
+def headline(v: dict) -> dict:
+    """record_kernel's time, bound and library arguments from one check."""
+    return {"ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_": {k: v[k] for k in ("bound_ms", "bound_by")}, "library_ms": v.get("library_ms")}
+
+
+@torch.no_grad()
+def gather_kernel_checks(device) -> list[dict]:
+    """Kernels A and E at D = 2 on the level specs of a CHECK_IMAGE_RES^2
+    image, I at every shape of bench_gather_tpu.py and J at every shape of
+    bench_dyngather.py, each against its plain version."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    results = []
+    record = functools.partial(record_kernel, results)
+    enc = image_levels(CHECK_IMAGE_RES)
+    n_hashed = sum(lv.hashed for lv in enc.levels)
+    table = torch.rand((enc.n_entries, enc.n_features_per_level), generator=gen,
+                       device=device) * 2.0 - 1.0
+    x = torch.rand((N_IMAGE_ROWS, 2), generator=gen, device=device)
+    g = torch.randn((N_IMAGE_ROWS, enc.n_output_dims), generator=gen, device=device)
+    what = f"{CHECK_IMAGE_RES}^2 levels ({enc.n_entries} rows, {n_hashed} hashed)"
+    variants = {"check": check_encode(enc.levels, enc.interpolation, table, x, what)}
+    record("hashgrid_encode_fwd_d2", "instant_ngp_torch/csrc/hashgrid.cu",
+           "instant_ngp_tpu/ops/hashgrid.py:213", variants["check"]["max_abs_err"],
+           **headline(variants["check"]), extra=f" (D = 2, {N_IMAGE_ROWS} positions, {what})",
+           variants=variants, counter="hashgrid_encode_fwd", path="image")
+    variants = {f"corners{k}": check_encode_bwd(enc.levels, enc.interpolation, x, g,
+                                                enc.n_entries, k, f"{what}, {k} corner(s)")
+                for k in (1, 4)}
+    record("hashgrid_encode_bwd_d2", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
+           "instant_ngp_tpu/ops/hashgrid.py:244",
+           max(v["max_abs_err"] for v in variants.values()), **headline(variants["corners1"]),
+           extra=f" (D = 2, {what}; all: {variants})", variants=variants,
+           counter="hashgrid_encode_bwd", path="image")
+    del table
+
+    variants = {}
+    for log2_t, f, dtype in TAKE_CASES:
+        t = 1 << log2_t
+        table = torch.randn((t, f), generator=gen, device=device).to(dtype)
+        idx = torch.randint(0, t, (N_TAKE,), generator=gen, device=device, dtype=torch.int32)
+        variants[f"T2^{log2_t}_F{f}_{str(dtype)[6:]}"] = check_take(table, idx, f"T 2^{log2_t}")
+    record("take_rows", "instant_ngp_torch/csrc/gather.cu", "scripts/bench_gather_tpu.py:75", 0.0,
+           **headline(variants["T2^19_F4_float32"]), extra=f" (2^20 rows; all: {variants})",
+           variants=variants, path="image")
+
+    variants = {}
+    for t, dtype in COL_CASES:
+        x = torch.randn((t, COLS), generator=gen, device=device).to(dtype)
+        idx = torch.randint(0, t, (t, COLS), generator=gen, device=device, dtype=torch.int32)
+        variants[f"T{t}_{str(dtype)[6:]}"] = check_cols(x, idx, f"T {t} {dtype}")
+    record("gather_cols_sum", "instant_ngp_torch/csrc/gather.cu", "scripts/bench_dyngather.py:34",
+           max(v["max_abs_err"] for v in variants.values()), **headline(variants["T4096_float32"]),
+           extra=f" (L {COLS}, reps {COL_REPS}; all: {variants})", variants=variants, path="bench")
+    return results
+
+
+def make_image(res: int, seed: int) -> np.ndarray:
+    """A (res, res, 3) linear image in [0, 1] with detail at every octave:
+    per channel a sum of separable sinusoids, one per octave from one cycle
+    per image down to a 4-pixel period (a (res, n) @ (n, res) product), then
+    random disks of every radius from res/4 down to 2 pixels, 2^o of radius
+    res/2^(o+1), blended over it."""
+    rng = np.random.default_rng(seed)
+    n_oct = int(np.log2(res)) - 1
+    t = ((np.arange(res) + 0.5) / res).astype(np.float32)
+    img = np.empty((res, res, 3), np.float32)
+    for c in range(3):
+        waves = []
+        for _ in range(2):  # along y, then along x
+            freq = 2.0 ** np.arange(n_oct) * rng.uniform(0.7, 1.0, n_oct)
+            phase = rng.uniform(0.0, 2.0 * np.pi, n_oct)
+            waves.append(np.sin(2.0 * np.pi * t[:, None] * freq + phase).astype(np.float32))
+        img[..., c] = 0.5 + (waves[0] * np.float32(0.4 / n_oct)) @ waves[1].T
+    for o in range(1, n_oct):
+        r = res / 2 ** (o + 1)
+        for _ in range(2 ** o):
+            cx, cy = rng.uniform(0.0, res, 2)
+            color, a = rng.uniform(0.0, 1.0, 3).astype(np.float32), np.float32(rng.uniform(0.3, 0.8))
+            x0, x1 = max(int(cx - r), 0), min(int(cx + r) + 1, res)
+            y0, y1 = max(int(cy - r), 0), min(int(cy + r) + 1, res)
+            yy, xx = np.ogrid[y0:y1, x0:x1]
+            inside = (xx + 0.5 - cx) ** 2 + (yy + 0.5 - cy) ** 2 <= r * r
+            box = img[y0:y1, x0:x1]
+            box[inside] = box[inside] * (1.0 - a) + color * a
+    return img
+
+
+def image_main_path_checks(task, uv: torch.Tensor, device) -> dict:
+    """Kernels A, E and I against their plain versions on the image task's
+    own tables and texture, at a step's positions and texels."""
+    from instant_ngp_torch.image_fit.task import bilinear_texels
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    enc = task.model.encoding
+    table = enc.table.detach()
+    g = torch.randn((uv.shape[0], enc.n_output_dims), generator=gen, device=device)
+    idx, _ = bilinear_texels(task.resolution, uv)
+    main = {"hashgrid_encode_fwd_d2": check_encode(enc.levels, enc.interpolation, table, uv,
+                                                   "image step"),
+            "hashgrid_encode_bwd_d2": check_encode_bwd(enc.levels, enc.interpolation, uv, g,
+                                                       enc.n_entries, enc.hashed_grad_corners,
+                                                       "image step"),
+            "take_rows": check_take(task.texture, idx, "image step")}
+    for name, v in main.items():
+        print(f"kernel {name} on the image step ({uv.shape[0]} positions, {idx.shape[0]} texels "
+              f"of {task.texture.shape[0]}): max_abs_err {v['max_abs_err']:.3e} kernel "
+              f"{v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms bound {v['bound_ms']:.4f} ms")
+    return main
+
+
+def image_step_check(task) -> torch.Tensor:
+    """One step's gradients and loss through the kernels against the same
+    step through the plain versions, from the same state and positions.
+    Returns the positions."""
+    uv = task.sample_positions(task.draw_uniforms(), task.training_step)
+    runs = {}
+    for use_kernels in (True, False):
+        task.set_use_kernels(use_kernels)
+        runs[use_kernels] = task.step_gradients(uv)
+    task.set_use_kernels(True)
+    (grads, loss), (grads_p, loss_p) = runs[True], runs[False]
+    errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(grads, grads_p)]
+    loss, loss_p = float(loss), float(loss_p)
+    print(f"image step kernels vs plain, {uv.shape[0]} positions: grad ||k - p|| / ||p|| per "
+          f"leaf {[f'{e:.2e}' for e in errs]}, loss {loss:.6f} vs {loss_p:.6f}")
+    check(all(e <= TOL_STEP_GRAD for e in errs), f"image step gradients differ: {errs}")
+    check(abs(loss - loss_p) <= TOL_STEP_LOSS * abs(loss_p),
+          f"image step loss differs: {loss} vs {loss_p}")
+    return uv
+
+
+def image_phase(device, card) -> tuple[dict, dict]:
+    """The image path through its entry points. Returns (the main path's
+    kernel checks by record name, the launches of the training run)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.io.image import save_image
+    from instant_ngp_torch.testbed import Testbed
+
+    t0 = time.perf_counter()
+    img = make_image(IMAGE_RES, SEED)
+    print(f"image: {IMAGE_RES}x{IMAGE_RES} made from seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = Path(tmp) / "image.bin"
+        save_image(path, img)
+        del img
+        tb = Testbed("image", device=device)
+        tb.reload_network_from_file(IMAGE_CONFIG)
+        t0 = time.perf_counter()
+        tb.load_training_data(path)
+        torch.cuda.synchronize()
+        print(f"load_training_data ({path.stat().st_size} bytes of .bin): "
+              f"{time.perf_counter() - t0:.2f} s")
+    task = tb.task
+    enc = task.model.encoding
+    n_params = sum(p.numel() for p in task.model.param_list())
+    print(f"image model: {enc.n_levels} levels x {enc.n_features_per_level} features, "
+          f"{enc.n_entries} table rows ({sum(lv.hashed for lv in enc.levels)} hashed), "
+          f"{n_params} parameters, batch {task.batch_size}")
+    psnr_before = -10.0 * float(np.log10(tb.compute_image_mse()))
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    step_ms = []
+    for _ in range(IMAGE_STEPS - PROFILED_STEPS):
+        t0 = time.perf_counter()
+        tb.frame()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, busy_ms, top = profile_frames(tb)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"image launches: {launches}")
+    losses = tb.loss_graph
+    first, last = np.mean(losses[:LOSS_WINDOW]), np.mean(losses[-LOSS_WINDOW:])
+    print(f"image {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step "
+          f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) on {card}; loss first "
+          f"{LOSS_WINDOW} {first:.6f}, last {LOSS_WINDOW} {last:.6f}")
+    print(f"image profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; top device items (ms): "
+          f"{top}")
+    check(len(losses) == IMAGE_STEPS and all(np.isfinite(losses)), "an image loss is not finite")
+    check(last <= MAX_LOSS_RATIO * first, f"image loss fell from {first} to {last} only")
+    check(all(launches[k] > 0 for k in IMAGE_KERNELS), f"a kernel was not launched: {launches}")
+
+    t0 = time.perf_counter()
+    mse = tb.compute_image_mse()
+    mse_s = time.perf_counter() - t0
+    psnr_after = -10.0 * float(np.log10(mse))
+    print(f"image PSNR (compute_image_mse over {IMAGE_RES}^2 pixels) {psnr_before:.2f} -> "
+          f"{psnr_after:.2f} dB; compute_image_mse {mse_s:.3f} s")
+    check(psnr_after - psnr_before >= MIN_PSNR_GAIN_DB,
+          f"image PSNR rose from {psnr_before:.2f} to {psnr_after:.2f} dB only")
+
+    uv = image_step_check(task)
+    main = image_main_path_checks(task, uv, device)
+
+    w, h = RENDER_WH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = tb.render(w, h)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(frame.shape) == (h, w, 4), f"image frame shape {tuple(frame.shape)}")
+    check(bool(torch.isfinite(frame).all()), "image frame has non-finite values")
+    task.set_use_kernels(False)
+    frame_plain = tb.render(w, h)
+    task.set_use_kernels(True)
+    db = psnr(frame, frame_plain)
+    print(f"image render {w}x{h}: {frame_ms:.3f} ms on {card}; kernel vs plain PSNR {db:.2f} dB")
+    check(db >= MIN_PSNR_DB, f"image render kernel vs plain PSNR {db}")
+    print(f"image phase max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return main, launches
+
+
+def gather_phase() -> dict:
+    """``instant_ngp_torch.bench.gather`` at its case lists, few repetitions.
+    Returns its launches."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.bench import gather as bench_gather
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    lines = bench_gather.run(iters=BENCH_ITERS, warmup=BENCH_WARMUP, seed=SEED)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"gather microbenchmarks: {len(lines)} lines, launches {launches}")
+    n_cases = (len(bench_gather.TAKE_LIBRARY_CASES) + len(bench_gather.TAKE_KERNEL_CASES) + 1
+               + len(bench_gather.ONEHOT_LOG2_T) + len(bench_gather.COL_CASES))
+    check(len(lines) == n_cases, f"{len(lines)} microbenchmark lines for {n_cases} cases")
+    check(all(launches[k] > 0 for k in BENCH_KERNELS), f"a kernel was not launched: {launches}")
+    return launches
 
 
 def main() -> None:
@@ -677,13 +1089,32 @@ def main() -> None:
     # the training path
     train_results, march, train_launches = train_phase(tb, device, card)
     results += train_results
+
+    # the image path and the gather microbenchmarks
+    results += gather_kernel_checks(device)
+    image_main, image_launches = image_phase(device, card)
+    for r in results:
+        if r["name"] in image_main:
+            v = image_main[r["name"]]
+            r["variants"]["main_path"] = v
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+                r[key] = v.get(key)
+            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    bench_launches = gather_phase()
+
+    paths = {"render": render_launches, "train": train_launches, "image": image_launches,
+             "bench": bench_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)
-        # launches: the training run's for the kernels it runs, else the render's
-        r["launches"] = train_launches[r["name"]] or render_launches[r["name"]]
-        r["render_launches"] = render_launches[r["name"]]
-        r["train_launches"] = train_launches[r["name"]]
+        counter = r.pop("counter", r["name"])
+        path = r.pop("path", None)
+        for path_name, counts in paths.items():
+            r[f"{path_name}_launches"] = counts[counter]
+        # launches: those of the record's own path; for the kernels of the NeRF
+        # paths, the training run's where it runs them, else the render's
+        r["launches"] = (paths[path][counter] if path is not None
+                         else train_launches[counter] or render_launches[counter])
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

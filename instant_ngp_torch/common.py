@@ -1,8 +1,8 @@
-"""Constants, activations and small math helpers of the NeRF path.
+"""Constants, enums, activations and small math helpers.
 
-Port of ``instant_ngp_tpu/common.py`` (the parts the renderer and the
-NeRF training step read). The marching constants follow the reference's
-nerf_device.cuh.
+Port of ``instant_ngp_tpu/common.py`` (the parts the NeRF renderer and
+training step and the image primitive read). The marching constants
+follow the reference's nerf_device.cuh.
 """
 
 from __future__ import annotations
@@ -29,6 +29,33 @@ EPS_T = 1e-4  # transmittance early-stop (reference EPSILON, testbed_nerf.cu:919
 
 # Scene scale applied when importing standard nerf-convention datasets.
 NERF_SCALE = 0.33
+
+
+class TestbedMode(enum.Enum):
+    NONE = "none"
+    NERF = "nerf"
+    SDF = "sdf"
+    IMAGE = "image"
+    VOLUME = "volume"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Nerf = "nerf"
+    Sdf = "sdf"
+    Image = "image"
+    Volume = "volume"
+
+
+class RandomMode(enum.Enum):
+    """Training-position sampling of the image primitive."""
+
+    RANDOM = "random"
+    HALTON = "halton"
+    SOBOL = "sobol"
+    STRATIFIED = "stratified"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Random = "random"
+    Halton = "halton"
+    Sobol = "sobol"
+    Stratified = "stratified"
 
 
 class NerfActivation(enum.Enum):

@@ -1,4 +1,5 @@
-// Kernel E: hash-grid encode, backward: table gradients.
+// Kernel E: hash-grid encode, backward: table gradients, in 2 or 3
+// dimensions.
 //
 // Replaces the table-gradient half of instant_ngp_tpu/ops/hashgrid.py::
 // _hge_bwd (hashgrid.py:244-331): the stochastic-corner scatter on hashed
@@ -6,22 +7,23 @@
 // splat of dense levels (splat_dense), all as one f32 scatter-add here.
 // Plain version: instant_ngp_torch/ops/hashgrid.py::hashgrid_encode_bwd_plain.
 //
-// What bounds it on an H100: each (sample, level) adds C (8 trilinear, 4
+// What bounds it on an H100: each (sample, level) adds C (2^D d-linear, 4
 // simplex, 1 nearest; k draws on a stochastic hashed level) rows of F
-// floats into a 51 MB gradient table with f32 atomics at random rows. The
-// atomics resolve in L2; collisions are rare on hashed levels but frequent
-// on the coarse dense levels, where many samples share a cell. A few dozen
-// flops per row: the kernel is bound by atomic throughput and latency.
+// floats into the gradient table (51 MB on fox, 257 MB on an 8192^2
+// image) with f32 atomics at random rows. The atomics resolve in L2;
+// collisions are rare on hashed levels but frequent on the coarse dense
+// levels, where many samples share a cell. A few dozen flops per row: the
+// kernel is bound by atomic throughput and latency.
 //
 // Simple design: kernel A's layout, one thread per (sample, level) with
-// consecutive threads on consecutive levels. A thread recomputes its
-// level's corners and weights exactly as kernel A does, then either adds
-// w_c·g to every corner (exact), or, for 1 <= k < C draws on a hashed
-// level, adds g/k to the corner picked by cumsum(w)_c < u·cdf[C-1] per
-// draw. u is the JAX package's position-hash uniform plus the per-(level,
-// draw) offset the host computes in f64, rounded to f32: the draw is the
-// reference's draw bit for bit on the same x. Atomics make the sum order
-// vary from run to run.
+// consecutive threads on consecutive levels, D a template parameter. A
+// thread recomputes its level's corners and weights exactly as kernel A
+// does, then either adds w_c·g to every corner (exact), or, for 1 <= k < C
+// draws on a hashed level, adds g/k to the corner picked by
+// cumsum(w)_c < u·cdf[C-1] per draw. u is the JAX package's position-hash
+// uniform plus the per-(level, draw) offset the host computes in f64,
+// rounded to f32: the draw is the reference's draw bit for bit on the same
+// x. Atomics make the sum order vary from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,16 +43,19 @@ struct LevelTable {
     float draw_offset[kMaxLevels * kMaxDraws];
 };
 
+// corner of the cell at grid g offset by bit d of `bits` along axis d
+template <int D>
 __device__ __forceinline__ uint32_t corner_index(bool hashed, uint32_t res, uint32_t size,
-                                                 const int g[3], int b0, int b1, int b2) {
-    const uint32_t c0 = (uint32_t)(g[0] + b0);
-    const uint32_t c1 = (uint32_t)(g[1] + b1);
-    const uint32_t c2 = (uint32_t)(g[2] + b2);
+                                                 const int g[D], int bits) {
+    const uint32_t c0 = (uint32_t)(g[0] + (bits & 1));
+    const uint32_t c1 = (uint32_t)(g[1] + ((bits >> 1) & 1));
     uint32_t idx;
-    if (hashed) {
-        idx = (c0 * 1u) ^ (c1 * 2654435761u) ^ (c2 * 805459861u);
+    if constexpr (D == 3) {
+        const uint32_t c2 = (uint32_t)(g[2] + ((bits >> 2) & 1));
+        idx = hashed ? (c0 * 1u) ^ (c1 * 2654435761u) ^ (c2 * 805459861u)
+                     : c0 + c1 * res + c2 * (res * res);
     } else {
-        idx = c0 + c1 * res + c2 * (res * res);
+        idx = hashed ? (c0 * 1u) ^ (c1 * 2654435761u) : c0 + c1 * res;
     }
     return idx % size;
 }
@@ -63,23 +68,23 @@ __device__ __forceinline__ void add_row(float* __restrict__ tab, uint32_t idx, f
     for (int f = 0; f < F; ++f) atomicAdd(p + f, w * g[f]);
 }
 
-// uniform in [0, 1) from the bits of the position (hashgrid.py:273-279)
+// uniform in [0, 1) from the bits of the position (hashgrid.py:273-279):
+// the XOR of bits(x_d) times the prime after axis d's, times 0x9E3779B1
+template <int D>
 __device__ __forceinline__ float position_uniform(const float* __restrict__ xs) {
-    const uint32_t b0 = __float_as_uint(xs[0]);
-    const uint32_t b1 = __float_as_uint(xs[1]);
-    const uint32_t b2 = __float_as_uint(xs[2]);
+    const uint32_t primes[3] = {2654435761u, 805459861u, 3674653429u};
     uint32_t h = 0u;
-    h = h ^ (b0 * 2654435761u);
-    h = h ^ (b1 * 805459861u);
-    h = h ^ (b2 * 3674653429u);
+#pragma unroll
+    for (int d = 0; d < D; ++d) h = h ^ (__float_as_uint(xs[d]) * primes[d]);
     h = h * 0x9E3779B1u;
     return (float)(h >> 8) * 5.9604644775390625e-08f;  // 2^-24
 }
 
-template <int F>
+template <int D, int F>
 __global__ void hashgrid_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                                     LevelTable lv, int n_levels, int interp, int n_draws,
                                     float g_scale, long long n, float* __restrict__ dtable) {
+    constexpr int kC = 1 << D;
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n * n_levels) return;
     const long long s = i / n_levels;
@@ -94,53 +99,59 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ x, const float* __
 #pragma unroll
     for (int f = 0; f < F; ++f) gl[f] = gp[f];
 
-    float t[3];
-    int gr[3];
+    float t[D];
+    int gr[D];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-        const float p = fmaf(x[s * 3 + d], scale, 0.5f);
+    for (int d = 0; d < D; ++d) {
+        const float p = fmaf(x[s * D + d], scale, 0.5f);
         const float fl = floorf(p);
         t[d] = p - fl;
         gr[d] = (int)fl;
     }
 
     if (interp == kNearest) {
-        add_row<F>(tab, corner_index(hashed, res, size, gr, (int)rintf(t[0]), (int)rintf(t[1]),
-                                     (int)rintf(t[2])), 1.0f, gl);
+        int bits = 0;
+#pragma unroll
+        for (int d = 0; d < D; ++d) bits |= (int)rintf(t[d]) << d;
+        add_row<F>(tab, corner_index<D>(hashed, res, size, gr, bits), 1.0f, gl);
         return;
     }
-    uint32_t idx[8];
-    float w[8];
+    uint32_t idx[kC > 4 ? kC : 4];
+    float w[kC > 4 ? kC : 4];
     int C;
-    if (interp == kSimplex && hashed) {
+    if (D == 3 && interp == kSimplex && hashed) {
+        // runs at D = 3 only, where t[D - 1] is t[2]
         int amax = 0, amin = 0;
         if (t[1] > t[amax]) amax = 1;
-        if (t[2] > t[amax]) amax = 2;
+        if (t[D - 1] > t[amax]) amax = 2;
         if (t[1] < t[amin]) amin = 1;
-        if (t[2] < t[amin]) amin = 2;
+        if (t[D - 1] < t[amin]) amin = 2;
         if (amin == amax) amin = (amax + 1) % 3;
-        const float t_max = fmaxf(fmaxf(t[0], t[1]), t[2]);
-        const float t_min = fminf(fminf(t[0], t[1]), t[2]);
-        const float t_mid = ((t[0] + t[1]) + t[2]) - t_max - t_min;
+        const float t_max = fmaxf(fmaxf(t[0], t[1]), t[D - 1]);
+        const float t_min = fminf(fminf(t[0], t[1]), t[D - 1]);
+        const float t_mid = ((t[0] + t[1]) + t[D - 1]) - t_max - t_min;
         w[0] = 1.0f - t_max; w[1] = t_max - t_mid; w[2] = t_mid - t_min; w[3] = t_min;
-        idx[0] = corner_index(hashed, res, size, gr, 0, 0, 0);
-        idx[1] = corner_index(hashed, res, size, gr, amax == 0, amax == 1, amax == 2);
-        idx[2] = corner_index(hashed, res, size, gr, amin != 0, amin != 1, amin != 2);
-        idx[3] = corner_index(hashed, res, size, gr, 1, 1, 1);
+        // corners 000, e_max, 1 - e_min, 111
+        idx[0] = corner_index<D>(hashed, res, size, gr, 0);
+        idx[1] = corner_index<D>(hashed, res, size, gr, 1 << amax);
+        idx[2] = corner_index<D>(hashed, res, size, gr, 7 ^ (1 << amin));
+        idx[3] = corner_index<D>(hashed, res, size, gr, 7);
         C = 4;
     } else {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const int b0 = c & 1, b1 = (c >> 1) & 1, b2 = (c >> 2) & 1;
-            w[c] = ((b0 ? t[0] : 1.0f - t[0]) * (b1 ? t[1] : 1.0f - t[1])) * (b2 ? t[2] : 1.0f - t[2]);
-            idx[c] = corner_index(hashed, res, size, gr, b0, b1, b2);
+        for (int c = 0; c < kC; ++c) {
+            float wc = (c & 1) ? t[0] : 1.0f - t[0];
+#pragma unroll
+            for (int d = 1; d < D; ++d) wc = wc * (((c >> d) & 1) ? t[d] : 1.0f - t[d]);
+            w[c] = wc;
+            idx[c] = corner_index<D>(hashed, res, size, gr, c);
         }
-        C = 8;
+        C = kC;
     }
 
     if (hashed && n_draws >= 1 && n_draws < C) {
         // stochastic corners (hashgrid.py:283-309): k draws of g/k each
-        float cdf[8];
+        float cdf[kC > 4 ? kC : 4];
         float acc = 0.0f;
         for (int c = 0; c < C; ++c) {
             acc = acc + w[c];
@@ -149,7 +160,7 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ x, const float* __
         float gk[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) gk[f] = gl[f] * g_scale;
-        const float u = position_uniform(x + s * 3);
+        const float u = position_uniform<D>(x + s * D);
         for (int k = 0; k < n_draws; ++k) {
             const float u_l = fmodf(u + lv.draw_offset[l * kMaxDraws + k], 1.0f);
             const float thr = u_l * cdf[C - 1];
@@ -163,13 +174,31 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ x, const float* __
     for (int c = 0; c < C; ++c) add_row<F>(tab, idx[c], w[c], gl);
 }
 
+template <int D>
+int launch_bwd(const float* xp, const float* gp, const LevelTable& lv, int n_levels,
+               int n_features, int interp, int n_draws, float g_scale, long long n, float* dp,
+               cudaStream_t st) {
+    const int threads = 256;
+    const long long total = n * n_levels;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    switch (n_features) {
+        case 1: hashgrid_bwd_kernel<D, 1><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
+        case 2: hashgrid_bwd_kernel<D, 2><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
+        case 4: hashgrid_bwd_kernel<D, 4><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
+        case 8: hashgrid_bwd_kernel<D, 8><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void* scale,
                                        const void* res, const void* size, const void* offset,
-                                       const void* hashed, int n_levels, int n_features,
-                                       int interp, int n_draws, const void* draw_offset,
-                                       float g_scale, long long n, void* dtable, void* stream) {
+                                       const void* hashed, int n_dims, int n_levels,
+                                       int n_features, int interp, int n_draws,
+                                       const void* draw_offset, float g_scale, long long n,
+                                       void* dtable, void* stream) {
     if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
     LevelTable lv;
     for (int l = 0; l < n_levels; ++l) {
@@ -181,19 +210,13 @@ extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void*
         for (int k = 0; k < kMaxDraws; ++k)
             lv.draw_offset[l * kMaxDraws + k] = static_cast<const float*>(draw_offset)[l * kMaxDraws + k];
     }
-    const int threads = 256;
-    const long long total = n * n_levels;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* xp = static_cast<const float*>(x);
     const float* gp = static_cast<const float*>(g);
     float* dp = static_cast<float*>(dtable);
-    switch (n_features) {
-        case 1: hashgrid_bwd_kernel<1><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
-        case 2: hashgrid_bwd_kernel<2><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
-        case 4: hashgrid_bwd_kernel<4><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
-        case 8: hashgrid_bwd_kernel<8><<<blocks, threads, 0, st>>>(xp, gp, lv, n_levels, interp, n_draws, g_scale, n, dp); break;
+    switch (n_dims) {
+        case 2: return launch_bwd<2>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
+        case 3: return launch_bwd<3>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
         default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }

@@ -43,9 +43,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # argtypes of every launcher; the last argument is always the stream
 SIGNATURES = {
-    # x, table, level scale/res/size/offset/hashed (host arrays), n_levels,
-    # n_features, interpolation, n, out
-    "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    # x, table, level scale/res/size/offset/hashed (host arrays), n_dims,
+    # n_levels, n_features, interpolation, n, out
+    "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
     # x (bf16, padded), w (bf16, transposed, padded), dims (host
     # int[n_layers+1]), n_layers, out_real, act, out_act, n, out
     "fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
@@ -57,10 +57,11 @@ SIGNATURES = {
     # cost_new
     "composite_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _I, _I, _P, _P, _P, _P, _P, _P],
-    # x, g, level scale/res/size/offset/hashed (host arrays), n_levels,
-    # n_features, interpolation, n_draws, draw offsets (host float[L*8]),
-    # g_scale, n, dtable
-    "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _F, _L, _P, _P],
+    # x, g, level scale/res/size/offset/hashed (host arrays), n_dims,
+    # n_levels, n_features, interpolation, n_draws, draw offsets (host
+    # float[L*8]), g_scale, n, dtable
+    "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _L, _P,
+                            _P],
     # x (bf16), w (bf16, layers (in, out) concatenated), g (f32), dims (host
     # int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed)
     "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P],
@@ -71,6 +72,10 @@ SIGNATURES = {
                         _P, _P, _P],
     # idx (int64), vals, m, F, size, out (zeroed)
     "scatter_add_rows": [_P, _P, _L, _I, _L, _P, _P],
+    # table, idx (int32), n, n_rows, row_bytes, out
+    "take_rows": [_P, _P, _L, _L, _I, _P, _P],
+    # x, idx (int32), n_rows, n_cols, reps, dtype (0 f32, 1 bf16), out
+    "gather_cols_sum": [_P, _P, _L, _I, _I, _I, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

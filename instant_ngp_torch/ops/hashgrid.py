@@ -8,6 +8,8 @@
   * d-linear interpolation of 2^D corners; "simplex" interpolates the 4
     corners of the Freudenthal tetrahedron on hashed 3-D levels; "nearest"
     reads one corner
+  * D = 3 (NeRF) or D = 2 (the image primitive) on the kernels; the plain
+    versions take any D
   * per-level sizes aligned to multiples of 8; ``max_level`` masking
 
 The per-level tables live in one flat (n_entries, F) f32 parameter, level
@@ -224,8 +226,8 @@ def _level_arrays(levels):
 
 
 def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: int, name: str):
-    if n_dims != 3 or n_features not in (1, 2, 4, 8) or len(levels) > 32:
-        raise ValueError(f"kernel {name} takes D=3, F in (1,2,4,8), ≤32 levels; got "
+    if n_dims not in (2, 3) or n_features not in (1, 2, 4, 8) or len(levels) > 32:
+        raise ValueError(f"kernel {name} takes D in (2,3), F in (1,2,4,8), ≤32 levels; got "
                          f"D={n_dims}, F={n_features}, L={len(levels)}")
     if interpolation not in INTERPOLATIONS:
         raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
@@ -233,7 +235,7 @@ def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: in
 
 def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
-    """Encode x (N, 3) f32 with the flat table (n_entries, F) f32. CPU
+    """Encode x (N, D) f32 with the flat table (n_entries, F) f32. CPU
     tensors run the plain version; CUDA tensors launch kernel A."""
     if x.device.type == "cpu":
         return hashgrid_encode_plain(levels, interpolation, table, x)
@@ -246,7 +248,7 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
     if n > 0:
         cuda_lib.launch("hashgrid_encode_fwd", x.data_ptr(), table.data_ptr(),
-                        *map(ctypes.addressof, arrays), L, n_features,
+                        *map(ctypes.addressof, arrays), n_dims, L, n_features,
                         INTERPOLATIONS[interpolation], n, out.data_ptr())
     return out
 
@@ -274,7 +276,7 @@ def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Te
     dtable = torch.zeros((n_entries, n_features), dtype=torch.float32, device=x.device)
     if n > 0:
         cuda_lib.launch("hashgrid_encode_bwd", x.data_ptr(), g.data_ptr(),
-                        *map(ctypes.addressof, arrays), L, n_features,
+                        *map(ctypes.addressof, arrays), n_dims, L, n_features,
                         INTERPOLATIONS[interpolation], k, ctypes.addressof(offsets), g_scale, n,
                         dtable.data_ptr())
     return dtable

@@ -1,7 +1,11 @@
 """Hash-grid and direction encodings of the PyTorch port against the JAX
-package, on the CPU (the plain versions of kernel A)."""
+package, on the CPU (the plain versions of kernel A, and at D = 2 of
+kernel E)."""
+
+import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -126,3 +130,78 @@ def test_identity_in_composite_is_dropped_like_jax():
         {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 4}, {"otype": "Identity"}]}
     ours = port_enc.encoding_from_config(cfg, 3)
     assert len(ours.nested) == len(jax_enc.encoding_from_config(cfg, 3).nested) == 1
+
+
+# --- D = 2, the image primitive's grid: kernel A's and E's plain versions
+# 6 levels at resolutions 4..32 in a 2^8 table: levels 0-3 dense, 4-5 hashed
+IMAGE_ENC = {"otype": "HashGrid", "n_levels": 6, "n_features_per_level": 2,
+             "log2_hashmap_size": 8, "base_resolution": 4}
+IMAGE_RES = (64, 48)
+TOL_HASHED, TOL_DENSE = 1e-5, 2e-2  # as tests/test_torch_train_ops.py: JAX splats dense levels in bf16
+
+
+def _encodings_2d(interpolation="linear", corners=1):
+    cfg = autoconfig_grid_encoding(IMAGE_ENC, "image", image_resolution=IMAGE_RES)
+    assert cfg == jax_autoconfig(IMAGE_ENC, "image", image_resolution=IMAGE_RES)
+    cfg = dict(cfg, interpolation=interpolation)
+    theirs = dataclasses.replace(jax_hg.grid_encoding_from_config(cfg, 2),
+                                 hashed_grad_corners=corners)
+    return theirs, port_hg.grid_encoding_from_config(cfg, 2)
+
+
+def _positions_2d(rng, enc, n=3000):
+    """Random points, exact cell boundaries of every level, and the edges."""
+    x = [rng.random((n, 2), dtype=np.float32)]
+    for lv in enc.levels:
+        k = rng.integers(0, lv.resolution, (64, 2))
+        x.append(((k - 0.5) / np.float32(lv.scale)).astype(np.float32))
+    x.append(np.array([[0, 0], [1, 1], [0, 1], [0.5, 0.5]], np.float32))
+    return np.clip(np.concatenate(x), 0.0, 1.0).astype(np.float32)
+
+
+def test_levels_2d_equal_jax():
+    theirs, ours = _encodings_2d()
+    assert [_level_tuple(lv) for lv in ours.levels] == [_level_tuple(lv) for lv in theirs.levels]
+    assert [lv.hashed for lv in ours.levels] == [False] * 4 + [True] * 2
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "nearest", "simplex"])
+def test_encode_2d_equals_jax(interpolation):
+    """Simplex is 3-D only: at D = 2 both packages interpolate 4 corners."""
+    theirs, ours = _encodings_2d(interpolation)
+    rng = np.random.default_rng(8)
+    tables = tuple(rng.uniform(-1, 1, (lv.size, 2)).astype(np.float32) for lv in ours.levels)
+    with torch.no_grad():
+        ours.table.copy_(torch.from_numpy(np.concatenate(tables)))
+    x = _positions_2d(rng, ours)
+    ref = np.asarray(jax.jit(lambda t, p: theirs(t, p))(tables, x))
+    np.testing.assert_allclose(ours(torch.from_numpy(x)).detach().numpy(), ref, rtol=0, atol=1e-6)
+    for lv, jlv in zip(ours.levels, theirs.levels):
+        op = theirs._level_op(jlv)
+
+        def corners(p, op=op):
+            grid, t, _ = jax_hg._corner_setup(op, p)
+            return jax_hg._level_corners(op, grid, t)[0]
+
+        idx = port_hg._level_corners(lv, ours.interpolation, torch.from_numpy(x))[0]
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jax.jit(corners)(x)))
+
+
+@pytest.mark.parametrize("corners", [1, 2, 4])
+@pytest.mark.parametrize("interpolation", ["linear", "nearest"])
+def test_table_gradient_2d_equals_jax_vjp(interpolation, corners):
+    """Kernel E's plain version at D = 2 against jax.vjp, per level: hashed
+    levels (stochastic below 4 corners, the draw JAX's) to 1e-5 of the
+    level's max, dense levels to bf16 tolerance."""
+    theirs, ours = _encodings_2d(interpolation, corners)
+    rng = np.random.default_rng(9)
+    x = _positions_2d(rng, ours)
+    g = rng.standard_normal((x.shape[0], ours.n_output_dims)).astype(np.float32)
+    params = theirs.init(jax.random.PRNGKey(0))
+    _, vjp = jax.vjp(lambda p: jax_hg.hashgrid_encode(theirs, p, jnp.asarray(x)), params)
+    ref = [np.asarray(t) for t in vjp(jnp.asarray(g))[0]]
+    flat = port_hg.hashgrid_encode_bwd_plain(ours.levels, interpolation, torch.from_numpy(x),
+                                             torch.from_numpy(g), ours.n_entries, corners).numpy()
+    for lv, r in zip(ours.levels, ref):
+        tol = (TOL_HASHED if lv.hashed else TOL_DENSE) * float(np.abs(r).max())
+        np.testing.assert_allclose(flat[lv.offset:lv.offset + lv.size], r, rtol=0, atol=tol)

@@ -31,7 +31,7 @@ def _psnr(a, b):
 
 @pytest.mark.parametrize("name", ["tiny", "fox"])
 def test_nerf_network_equals_jax(name):
-    doc = port_testbed.Testbed("nerf")
+    doc = port_testbed.Testbed("nerf", device="cpu")
     doc.load_snapshot(FIXTURES[name])  # for the config and its autoconfigured encoding
     config = doc.task.config
     ours = NerfNetwork.from_config(config)

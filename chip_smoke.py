@@ -88,6 +88,8 @@ PROFILED_STEPS = 3  # the last steps, traced by torch.profiler
 LOSS_WINDOW = 20
 EVAL_VIEWS = (0, 24, 49)
 N_TRAIN_ROWS = 1 << 17  # the sample capacity: rows of the E and F checks
+RAGGED = 37  # kernel F also at N_TRAIN_ROWS - RAGGED rows: a ragged last tile
+ZERO_ROW = 3  # an all-zero input row in kernel F's checks: every ReLU at its tie
 N_SCATTER, SCATTER_SIZE = 1 << 20, 1 << 19  # scripts/bench_pallas_scatter*.py's shapes
 MAX_LOSS_RATIO = 0.5  # mean loss of the last LOSS_WINDOW steps over the first's
 MIN_PSNR_GAIN_DB = 6.0
@@ -130,20 +132,19 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn over reps runs, each timed by CUDA events."""
+    """Milliseconds per call of fn: reps calls back to back between one pair
+    of CUDA events, after warmup calls, divided by reps."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -293,7 +294,7 @@ def kernel_checks(tb, device) -> list[dict]:
     check(rel <= TOL_MARCH_T, f"march relative err {rel}")
     record("march_rays", "instant_ngp_torch/csrc/march.cu", "instant_ngp_tpu/nerf/sampler.py:49",
            err, time_ms(lambda: march_rays(*margs, t_init=tmin)),
-           time_ms(lambda: march_rays_plain(*margs, t_init=tmin), reps=10),
+           time_ms(lambda: march_rays_plain(*margs, t_init=tmin)),
            bound(nbytes(o, d, tmin, ts, dts, valid, t_exit, n_valid)),
            extra=f" (n_valid agrees on {agree:.6f} of {o.shape[0]} rays)")
 
@@ -405,7 +406,7 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     from instant_ngp_torch.nerf import train as nerf_train
     from instant_ngp_torch.nerf.sampler import march_rays, march_rays_plain
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
-    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     results = []
@@ -425,31 +426,31 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
            max(v["max_abs_err"] for v in variants.values()), **headline(variants["simplex_corners1"]),
            extra=f" ({n} positions, simplex 1 corner; all: {variants})", variants=variants)
 
-    # F: both MLPs of the snapshot's model on encodings of those positions
+    # F: both MLPs of the snapshot's model on encodings of those positions,
+    # with a zero row (the ReLU tie); the rgb MLP again at a ragged n
     model = tb.task.model
     penc = model.pos_encoding
     feats = hashgrid_encode(penc.levels, penc.interpolation, penc.table.detach(), x)
+    feats[ZERO_ROW] = 0.0
     density_ws = [w.detach() for w in model.density_network.weights]
     rgb_ws = [w.detach() for w in model.rgb_network.weights]
     dirs = warp_direction(torch.nn.functional.normalize(
         torch.randn((n, 3), generator=gen, device=device), dim=-1))
     rgb_in = torch.cat([fused_mlp(density_ws, feats), model.dir_encoding(dirs)], dim=-1)
-    errs, ms, plain_ms, n_bytes, n_ops = [], 0.0, 0.0, 0, 0
-    for ws, inp in ((density_ws, feats), (rgb_ws, rgb_in)):
-        g = torch.randn((n, ws[-1].shape[1]), generator=gen, device=device)
-        (dx, dws), (dx_p, dws_p) = fused_mlp_bwd(ws, inp, g), fused_mlp_bwd_plain(ws, inp, g)
-        n_bytes += nbytes(inp, g, *ws, dx, *dws)
-        n_ops += mlp_bwd_ops(ws, n)
-        for out, ref in zip([dx, *dws], [dx_p, *dws_p]):
-            err, scale = max_err(out, ref)
-            check(err <= TOL_MLP_BWD * max(1.0, scale), f"F err {err} at max |ref| {scale}")
-            errs.append(err)
-        ms += time_ms(lambda: fused_mlp_bwd(ws, inp, g))
-        plain_ms += time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g))
+    rgb_in[ZERO_ROW] = 0.0
+    variants = {}
+    for what, ws, inp in (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in),
+                          (f"rgb_n{n - RAGGED}", rgb_ws, rgb_in[:n - RAGGED])):
+        g = torch.randn((inp.shape[0], ws[-1].shape[1]), generator=gen, device=device)
+        variants[what] = check_mlp_bwd(ws, inp, g, f"fox {what}")
+    both = [variants["density"], variants["rgb"]]
     record("fused_mlp_bwd", "instant_ngp_torch/csrc/mlp_bwd.cu",
-           "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106", max(errs), ms, plain_ms,
-           bound(n_bytes, n_ops, "bfloat16"),
-           extra=f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW)")
+           "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106",
+           max(v["max_abs_err"] for v in variants.values()), sum(v["ms"] for v in both),
+           sum(v["plain_ms"] for v in both),
+           bound(sum(v["bytes"] for v in both), sum(v["ops"] for v in both), "bfloat16"),
+           extra=f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW; all: {variants})",
+           variants=variants)
 
     # C at the training march: rays of random pixels of the training views
     R = TRAIN_RAYS
@@ -469,7 +470,7 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     check(rel <= TOL_MARCH_T, f"training march relative err {rel}")
     march = {"train_max_abs_err": err, "train_n_valid_agree": agree,
              "train_ms": time_ms(lambda: march_rays(*margs)),
-             "train_plain_ms": time_ms(lambda: march_rays_plain(*margs), reps=5)}
+             "train_plain_ms": time_ms(lambda: march_rays_plain(*margs))}
     print(f"kernel march_rays at the training march ({R} rays, K {TRAIN_K}, {TRAIN_ITERS} iters, "
           f"random jitter): {march}, {float(n_valid.float().mean()):.2f} samples per ray")
 
@@ -524,6 +525,27 @@ def mlp_bwd_ops(ws, n: int) -> int:
     """The backward's products: the forward again for its masks, dX and
     every dW, 2·n·in·out operations each."""
     return 3 * 2 * n * sum(w.numel() for w in ws)
+
+
+def check_mlp_bwd(ws, inp, g, what: str) -> dict:
+    """Kernel F against its plain version on (ws, inp, g): error over dX and
+    every dW, times, and the bytes and operations of its bound."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd, fused_mlp_bwd_plain
+
+    (dx, dws), (dx_p, dws_p) = fused_mlp_bwd(ws, inp, g), fused_mlp_bwd_plain(ws, inp, g)
+    errs = []
+    for out, ref in zip([dx, *dws], [dx_p, *dws_p]):
+        err, scale = max_err(out, ref)
+        check(err <= TOL_MLP_BWD * max(1.0, scale), f"F {what}: err {err} at max |ref| {scale}")
+        errs.append(err)
+    zero = ZERO_ROW < inp.shape[0] and not bool(inp[ZERO_ROW].any())
+    check(not zero or bool(torch.equal(dx[ZERO_ROW], dx_p[ZERO_ROW])),
+          f"F {what}: dX of the zero row (the ReLU tie) differs")
+    n_bytes = nbytes(inp, g, *ws, dx, *dws)
+    return {"max_abs_err": max(errs), "ms": time_ms(lambda: fused_mlp_bwd(ws, inp, g)),
+            "plain_ms": time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g)),
+            **bound(n_bytes, mlp_bwd_ops(ws, inp.shape[0]), "bfloat16"),
+            "bytes": n_bytes, "ops": mlp_bwd_ops(ws, inp.shape[0])}
 
 
 def check_composite_train(gargs) -> dict:
@@ -755,7 +777,7 @@ def check_encode(levels, interpolation: str, table, x, what: str) -> dict:
     rows, corners = grid_work(levels, interpolation, x)
     F = table.shape[1]
     return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode(*args)),
-            "plain_ms": time_ms(lambda: hashgrid_encode_plain(*args), reps=10),
+            "plain_ms": time_ms(lambda: hashgrid_encode_plain(*args)),
             **bound(nbytes(x, out) + rows * F * 4, x.shape[0] * corners * 2 * F)}
 
 
@@ -768,7 +790,7 @@ def check_encode_bwd(levels, interpolation: str, x, g, n_entries: int, corners: 
     err, scale = max_err(hashgrid_encode_bwd(*args), hashgrid_encode_bwd_plain(*args))
     check(err <= TOL_ENCODE_BWD * max(1.0, scale), f"E {what}: err {err} at max |ref| {scale}")
     return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
-            "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args), reps=10),
+            "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args)),
             **encode_bwd_bound(levels, interpolation, x, g, n_entries, corners)}
 
 
@@ -913,6 +935,35 @@ def image_main_path_checks(task, uv: torch.Tensor, device) -> dict:
     return main
 
 
+@torch.no_grad()
+def image_first_step_mlp_check(task, device) -> dict:
+    """Kernel F against its plain version on the image task's first step:
+    its 2^18 stratified positions (the task's generator is rewound after
+    the draw), the encodings of the fresh table with one row zeroed (the
+    ReLU tie), the fresh MLP. Held before training: a trained MLP can put a
+    pre-activation so near 0 that the bf16 rounding of an upstream hidden
+    value decides its sign, and kernel F's tensor-core recompute and the
+    plain version's matmul may round that value apart; that row's dX then
+    differs by a whole ReLU branch (PERF.md §6). The inputs here are the
+    same in every run; the one-step check holds F on the trained state."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+
+    rng_state = task.generator.get_state()
+    uv = task.sample_positions(task.draw_uniforms(), task.training_step)
+    task.generator.set_state(rng_state)
+    enc = task.model.encoding
+    feats = hashgrid_encode(enc.levels, enc.interpolation, enc.table.detach(), uv)
+    feats[ZERO_ROW] = 0.0
+    ws = [w.detach() for w in task.model.network.weights]
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    g = torch.randn((uv.shape[0], ws[-1].shape[1]), generator=gen, device=device)
+    v = check_mlp_bwd(ws, feats, g, "image first step")
+    print(f"kernel fused_mlp_bwd on the image task's first step ({uv.shape[0]} positions): "
+          f"max_abs_err {v['max_abs_err']:.3e} kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} "
+          f"ms bound {v['bound_ms']:.4f} ms")
+    return v
+
+
 def image_step_check(task) -> torch.Tensor:
     """One step's gradients and loss through the kernels against the same
     step through the plain versions, from the same state and positions.
@@ -967,6 +1018,7 @@ def image_phase(device, card) -> tuple[dict, dict]:
           f"{enc.n_entries} table rows ({sum(lv.hashed for lv in enc.levels)} hashed), "
           f"{n_params} parameters, batch {task.batch_size}")
     psnr_before = -10.0 * float(np.log10(tb.compute_image_mse()))
+    f_check = image_first_step_mlp_check(task, device)
 
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
@@ -1001,7 +1053,7 @@ def image_phase(device, card) -> tuple[dict, dict]:
           f"image PSNR rose from {psnr_before:.2f} to {psnr_after:.2f} dB only")
 
     uv = image_step_check(task)
-    main = image_main_path_checks(task, uv, device)
+    main = {**image_main_path_checks(task, uv, device), "fused_mlp_bwd": f_check}
 
     w, h = RENDER_WH
     torch.cuda.synchronize()
@@ -1093,7 +1145,12 @@ def main() -> None:
     # the image path and the gather microbenchmarks
     results += gather_kernel_checks(device)
     image_main, image_launches = image_phase(device, card)
+    # kernel F's record stays the fox MLPs'; the image check is a variant
+    f_image = image_main.pop("fused_mlp_bwd")
     for r in results:
+        if r["name"] == "fused_mlp_bwd":
+            r["variants"]["image_first_step"] = f_image
+            r["max_abs_err"] = max(r["max_abs_err"], f_image["max_abs_err"])
         if r["name"] in image_main:
             v = image_main[r["name"]]
             r["variants"]["main_path"] = v

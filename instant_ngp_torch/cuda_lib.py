@@ -62,8 +62,8 @@ SIGNATURES = {
     # float[L*8]), g_scale, n, dtable
     "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _L, _P,
                             _P],
-    # x (bf16), w (bf16, layers (in, out) concatenated), g (f32), dims (host
-    # int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed)
+    # x (f32), w (host pointers, one f32 (in, out) layer each), g (f32), dims
+    # (host int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed)
     "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P],
     # out, ts, dts, valid, target, bg, pixel_ok, mean_density, R, K,
     # near_distance, reg_scale, inv_n_rays, eps_t, loss, rgb_act,

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -216,7 +217,9 @@ def hashgrid_encode_bwd_plain(levels, interpolation: str, x: torch.Tensor, g: to
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _level_arrays(levels):
+    """The levels' host arrays for a launch, built once per grid."""
     L = len(levels)
     return ((ctypes.c_float * L)(*[np.float32(lv.scale) for lv in levels]),
             (ctypes.c_int * L)(*[lv.resolution for lv in levels]),
@@ -253,11 +256,26 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _draw_offsets(n_levels: int, k: int) -> ctypes.Array:
+    """draw_offset(l, d) for d < k, as the host float[L·MAX_DRAWS] of a
+    launch, built once per (L, k)."""
+    return (ctypes.c_float * (n_levels * MAX_DRAWS))(
+        *[draw_offset(l, d) if d < k else 0.0 for l in range(n_levels) for d in range(MAX_DRAWS)])
+
+
+def row_alignment(n_features: int) -> int:
+    """Bytes to which kernel E's gradient rows must be aligned: a row of F
+    floats is one float2 (F = 2) or one or two float4 (F = 4, 8) atomic."""
+    return 4 * min(n_features, 4)
+
+
 def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Tensor,
                         n_entries: int, hashed_grad_corners: int) -> torch.Tensor:
     """See ``hashgrid_encode_bwd_plain``. CPU tensors run the plain
-    version; CUDA tensors launch kernel E (one thread per (sample,
-    level), f32 atomics into the table gradient)."""
+    version; CUDA tensors launch kernel E (a warp per 32 consecutive
+    samples at one level; lanes with the same row sum their adds before
+    one float2/float4 atomic into the table gradient)."""
     if x.device.type == "cpu":
         return hashgrid_encode_bwd_plain(levels, interpolation, x, g, n_entries,
                                          hashed_grad_corners)
@@ -270,10 +288,12 @@ def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Te
         raise ValueError(f"cotangent {tuple(g.shape)} for {n} samples and {L} levels")
     k = hashed_grad_corners
     arrays = _level_arrays(levels)
-    offsets = (ctypes.c_float * (L * MAX_DRAWS))(
-        *[draw_offset(l, d) if d < k else 0.0 for l in range(L) for d in range(MAX_DRAWS)])
+    offsets = _draw_offsets(L, k)
     g_scale = float(np.float32(1.0 / k)) if k >= 1 else 1.0
     dtable = torch.zeros((n_entries, n_features), dtype=torch.float32, device=x.device)
+    if dtable.data_ptr() % row_alignment(n_features):
+        raise ValueError(f"kernel E's vector atomics need rows aligned to "
+                         f"{row_alignment(n_features)} bytes")
     if n > 0:
         cuda_lib.launch("hashgrid_encode_bwd", x.data_ptr(), g.data_ptr(),
                         *map(ctypes.addressof, arrays), n_dims, L, n_features,

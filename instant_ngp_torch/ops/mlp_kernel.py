@@ -15,12 +15,15 @@ result (dh per layer, every dW, dX) is rounded to bf16; the ReLU mask
 comes from the f32 pre-activation and is 0.5 where it is exactly 0 (the
 derivative of ``jnp.maximum`` at a tie). ``fused_mlp_bwd`` launches
 kernel F (``csrc/mlp_bwd.cu``) on CUDA tensors and runs
-``fused_mlp_bwd_plain`` on CPU tensors.
+``fused_mlp_bwd_plain`` on CPU tensors. Kernel F runs every product on
+bf16 tensor cores: every inner cotangent is a bf16 value, and g enters as
+the three bf16 terms of ``split_bf16``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -100,6 +103,17 @@ def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
     return dx, dws
 
 
+def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """g as three bf16 terms (hi, mid, lo), f32 tensors: hi = bf16(g), mid
+    = bf16(g − hi), lo = g − hi − mid. f32 has 24 significant bits and bf16
+    8, so hi + mid + lo is g exactly; kernel F feeds the f32 output
+    cotangent to its bf16 products this way."""
+    g = g.float()
+    hi = _bf16(g)
+    mid = _bf16(g - hi)
+    return hi, mid, g - hi - mid
+
+
 def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
                   activation: str = "relu", output_activation: str = "none"):
     """See ``fused_mlp_bwd_plain``. CPU tensors run the plain version; CUDA
@@ -111,28 +125,37 @@ def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
     if act not in ACTIVATIONS or out_act != "none":
         raise NotImplementedError(f"kernel F takes relu/none hidden and none output, got "
                                   f"{activation}/{output_activation}")
-    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
     n = x.shape[0]
     if x.ndim != 2 or x.shape[1] != dims[0] or tuple(g.shape) != (n, dims[-1]):
         raise ValueError(f"x {tuple(x.shape)}, g {tuple(g.shape)} do not match layers {dims}")
     if max(dims) > MAX_WIDTH or len(ws) > MAX_LAYERS:
         raise ValueError(f"kernel F takes widths ≤ {MAX_WIDTH} and ≤ {MAX_LAYERS} layers, "
                          f"got {dims}")
-    xb = x.to(torch.bfloat16).contiguous()
-    w_flat = torch.cat([w.to(torch.bfloat16).reshape(-1) for w in ws]).contiguous()
+    # the kernel rounds x and the weights to bf16 and lays the weights out
+    # itself: one launch and no copies (a small backward is bound by its
+    # host overhead)
+    wf = [w.to(torch.float32).contiguous() for w in ws]
+    xf = x.to(torch.float32).contiguous()
     gf = g.to(torch.float32).contiguous()
-    cuda_lib.check_cuda(xb, w_flat, dtype=torch.bfloat16)
-    cuda_lib.check_cuda(gf, dtype=torch.float32)
+    cuda_lib.check_cuda(xf, gf, *wf, dtype=torch.float32)
     dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
-    dw_flat = torch.zeros((w_flat.numel(),), dtype=torch.float32, device=x.device)
-    dims_c = (ctypes.c_int * len(dims))(*dims)
+    dw_flat = torch.zeros((sum(w.numel() for w in ws),), dtype=torch.float32, device=x.device)
     if n > 0:
-        cuda_lib.launch("fused_mlp_bwd", xb.data_ptr(), w_flat.data_ptr(), gf.data_ptr(),
-                        ctypes.addressof(dims_c), len(ws), ACTIVATIONS[act], n,
+        w_ptrs = (ctypes.c_void_p * len(wf))(*[w.data_ptr() for w in wf])
+        cuda_lib.launch("fused_mlp_bwd", xf.data_ptr(), ctypes.addressof(w_ptrs), gf.data_ptr(),
+                        ctypes.addressof(_dims_c(dims)), len(ws), ACTIVATIONS[act], n,
                         dx.data_ptr(), dw_flat.data_ptr())
-    dws = [_bf16(d).reshape(w.shape)
-           for d, w in zip(torch.split(dw_flat, [w.numel() for w in ws]), ws)]
+    dws = [d.reshape(w.shape)
+           for d, w in zip(torch.split(_bf16(dw_flat), [w.numel() for w in ws]), ws)]
     return dx, dws
+
+
+@functools.lru_cache(maxsize=None)
+def _dims_c(dims) -> ctypes.Array:
+    """The widths as a host int array for a launch, one per shape (kept, so
+    that a launch does not build it anew)."""
+    return (ctypes.c_int * len(dims))(*dims)
 
 
 def _pad16(v: int) -> int:

@@ -18,7 +18,10 @@ microbenchmarks:
   through ``Testbed.frame()``, checked to go through kernels A-C and E-H,
   to lower its loss and to raise its PSNR on views 0/24/49; one step through
   the kernels is held against the same step through the plain versions,
-  and kernels G and H against theirs on that step's own inputs;
+  and kernels G and H against theirs on that step's own inputs (H in the
+  path's form, added straight into the error map, and into zeros); kernel C
+  is also held at the training march on the snapshot's trained grid, and H
+  at the Pallas probes' shapes, with rows of 4 and with int32 indices;
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py`` and kernel J at
   every shape of ``scripts/bench_dyngather.py`` against their plain versions;
@@ -32,12 +35,16 @@ microbenchmarks:
   lists with few repetitions, through kernels I and J.
 
 Every kernel's entry in the JSON line has its error against its plain
-version, its time and the plain version's, its launches on its path, and
-its bound: the larger of the bytes it must move (each input read once,
-each output written once; a gather counts the distinct rows it reads) over
-3.35 TB/s and its operations over the H100's peak for their type (989
-TFLOP/s bf16 on tensor cores, 67 TFLOP/s f32), and, where one PyTorch call
-computes the same function, that call's time.
+version, its time and the plain version's (back to back), its launches on
+its path, and its bound: the larger of the bytes it must move (each input
+read once, each output written once; a gather counts the distinct rows it
+reads) over 3.35 TB/s and its operations over the H100's peak for their
+type (989 TFLOP/s bf16 on tensor cores, 67 TFLOP/s f32), and, where one
+PyTorch call computes the same function, that call's time. H's entry adds
+the device time per call of the kernel and of ``index_add_``
+(torch.profiler), its device time per training step and the deposit's
+launches per step; C's adds the plain march's iterations per ray and the
+chain values read at the training march, and its device time per step.
 
 Prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -147,6 +154,25 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_split(fn, kernel: str, reps: int = 20) -> dict:
+    """Device milliseconds per call of fn: the durations of the card's events
+    of reps calls under torch.profiler, after one warm-up call, over reps.
+    ``device_ms``: all of them; ``kernel_ms``: those of the kernels whose
+    name holds ``kernel`` (the rest is fills and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3 / reps) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_ms": sum(ms for _, ms in events),
+            "kernel_ms": sum(ms for name, ms in events if kernel in name)}
+
+
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
     mse = float(torch.mean((a[..., :3].clamp(0, 1) - b[..., :3].clamp(0, 1)) ** 2))
     return -10.0 * float(np.log10(max(mse, 1e-12)))
@@ -222,12 +248,80 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return float((out - ref).abs().max()), float(ref.abs().max())
 
 
+def render_window_march(tb, device):
+    """The render path's first window of view 0 at RES^2 (K 8, 64
+    iterations, from the crop-box entry): (march arguments, tmin, tmax)."""
+    from instant_ngp_torch.nerf.sampler import MarchConfig
+
+    task, ds = tb.task, tb.nerf_dataset
+    w, h = ds.resolution
+    fl = task._t([ds.focal_lengths[0, 0] * RES / w, ds.focal_lengths[0, 1] * RES / h])
+    ys, xs = torch.meshgrid(torch.arange(RES, device=device), torch.arange(RES, device=device),
+                            indexing="ij")
+    uv = torch.stack([(xs.reshape(-1) + 0.5) / RES, (ys.reshape(-1) + 0.5) / RES], -1).float()
+    o, d, tmin, tmax = task._prep_rays(uv, task._t([RES, RES]), fl,
+                                       task._t(ds.principal_points[0]),
+                                       task._t(ds.xforms_start[0]))
+    cfg = MarchConfig(n_march_iters=task.render_march_iters,
+                      max_samples_per_ray=task.render_samples_per_window,
+                      cone_angle=task.cone_angle, max_mip=task.max_cascade)
+    return (o, d, task.skipmip, *task._aabb_t, torch.full_like(tmin, 0.5), cfg), tmin, tmax
+
+
+def training_march(task, skipmip, gen, device, n_iters: int = TRAIN_ITERS):
+    """The training march's arguments: TRAIN_RAYS rays of random pixels of
+    the task's views, random jitter, K TRAIN_K, n_iters iterations, on the
+    skip chain ``skipmip``."""
+    from instant_ngp_torch.nerf import train as nerf_train
+    from instant_ngp_torch.nerf.sampler import MarchConfig
+
+    R = TRAIN_RAYS
+    img = torch.randint(0, task.dataset.n_images, (R,), generator=gen, device=device)
+    o, d = nerf_train.generate_rays(task, img, torch.rand((R, 2), generator=gen, device=device))
+    jitter = torch.rand((R,), generator=gen, device=device)
+    cfg = MarchConfig(n_march_iters=n_iters, max_samples_per_ray=TRAIN_K,
+                      cone_angle=task.cone_angle, max_mip=task.max_cascade)
+    return o, d, skipmip, *task._aabb_t, jitter, cfg
+
+
+def check_march(margs, t_init, what: str) -> dict:
+    """Kernel C against its plain version on margs (o, d, chain, aabb_min,
+    aabb_max, jitter, cfg) from t_init (None: the jittered aabb entry):
+    n_valid agreement, the error on the rays that agree, times, device time
+    and bound, and the plain march's iterations per ray, samples per ray and
+    how often each chain value was read."""
+    from instant_ngp_torch.nerf.sampler import march_rays, march_rays_plain
+
+    outs = march_rays(*margs, t_init=t_init)
+    st = {}
+    refs = march_rays_plain(*margs, t_init=t_init, stats=st)
+    (ts, dts, valid, t_exit, n_valid), (ts_p, dts_p, valid_p, t_exit_p, n_valid_p) = outs, refs
+    same = n_valid == n_valid_p
+    agree = float(same.float().mean())
+    check(agree >= MIN_MARCH_AGREE, f"{what}: march n_valid agreement {agree}")
+    check(bool(torch.equal(valid[same], valid_p[same])), f"{what}: march valid flags differ")
+    err = max(float((a[same] - b[same]).abs().max()) for a, b in
+              ((ts, ts_p), (dts, dts_p), (t_exit, t_exit_p)))
+    rel = max(float(((a[same] - b[same]).abs() / b[same].abs().clamp(min=1.0)).max())
+              for a, b in ((ts, ts_p), (t_exit, t_exit_p)))
+    check(rel <= TOL_MARCH_T, f"{what}: march relative err {rel}")
+    t_in = margs[5] if t_init is None else t_init
+    return {"max_abs_err": err, "rel_err": rel, "n_valid_agree": agree,
+            "ms": time_ms(lambda: march_rays(*margs, t_init=t_init)),
+            "plain_ms": time_ms(lambda: march_rays_plain(*margs, t_init=t_init)),
+            **device_split(lambda: march_rays(*margs, t_init=t_init), "march_rays"),
+            **bound(nbytes(*margs[:2], t_in, *outs)),
+            "samples_mean": float(n_valid.float().mean()),
+            "iters_max": int(st["iters"].max()), "iters_mean": float(st["iters"].float().mean()),
+            "chain_counts": st["chain_counts"].tolist()}
+
+
 @torch.no_grad()
 def kernel_checks(tb, device) -> list[dict]:
     """Each kernel of the render path against its plain version on the card,
     at fox shapes."""
     from instant_ngp_torch.common import warp_direction
-    from instant_ngp_torch.nerf.sampler import MarchConfig, march_rays, march_rays_plain
+    from instant_ngp_torch.nerf.sampler import march_rays
     from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_plain
@@ -269,34 +363,14 @@ def kernel_checks(tb, device) -> list[dict]:
            extra=f" (32->64->16 plus 32->64->64->3; max |ref| {scales[0]:.3f}, {scales[1]:.3f})")
 
     # C: march the rays of view 0 at RES^2, K = 8, 64 iterations, fox grid
-    ds = tb.nerf_dataset
-    w, h = ds.resolution
-    fl = task._t([ds.focal_lengths[0, 0] * RES / w, ds.focal_lengths[0, 1] * RES / h])
-    ys, xs = torch.meshgrid(torch.arange(RES, device=device), torch.arange(RES, device=device),
-                            indexing="ij")
-    uv = torch.stack([(xs.reshape(-1) + 0.5) / RES, (ys.reshape(-1) + 0.5) / RES], -1).float()
-    o, d, tmin, tmax = task._prep_rays(uv, task._t([RES, RES]), fl,
-                                       task._t(ds.principal_points[0]),
-                                       task._t(ds.xforms_start[0]))
-    cfg = MarchConfig(n_march_iters=task.render_march_iters,
-                      max_samples_per_ray=task.render_samples_per_window,
-                      cone_angle=task.cone_angle, max_mip=task.max_cascade)
-    margs = (o, d, task.skipmip, *task._aabb_t, torch.full_like(tmin, 0.5), cfg)
-    ts, dts, valid, t_exit, n_valid = march_rays(*margs, t_init=tmin)
-    ts_p, dts_p, _, t_exit_p, n_valid_p = march_rays_plain(*margs, t_init=tmin)
-    same = n_valid == n_valid_p
-    agree = float(same.float().mean())
-    check(agree >= MIN_MARCH_AGREE, f"march n_valid agreement {agree}")
-    err = max(float((a[same] - b[same]).abs().max()) for a, b in
-              ((ts, ts_p), (dts, dts_p), (t_exit, t_exit_p)))
-    rel = max(float(((a[same] - b[same]).abs() / b[same].abs().clamp(min=1.0)).max())
-              for a, b in ((ts, ts_p), (t_exit, t_exit_p)))
-    check(rel <= TOL_MARCH_T, f"march relative err {rel}")
+    margs, tmin, tmax = render_window_march(tb, device)
+    o, d = margs[:2]
+    v = check_march(margs, tmin, "render window")
+    ts, dts, valid, t_exit, _ = march_rays(*margs, t_init=tmin)
     record("march_rays", "instant_ngp_torch/csrc/march.cu", "instant_ngp_tpu/nerf/sampler.py:49",
-           err, time_ms(lambda: march_rays(*margs, t_init=tmin)),
-           time_ms(lambda: march_rays_plain(*margs, t_init=tmin)),
-           bound(nbytes(o, d, tmin, ts, dts, valid, t_exit, n_valid)),
-           extra=f" (n_valid agrees on {agree:.6f} of {o.shape[0]} rays)")
+           v["max_abs_err"], **headline(v),
+           extra=f" (n_valid agrees on {v['n_valid_agree']:.6f} of {o.shape[0]} rays; {v})",
+           variants={"render_window": v})
 
     # D: composite that window with the model's outputs on its samples
     R = o.shape[0]
@@ -404,7 +478,7 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     snapshot's occupancy grid). Returns the records and the march's."""
     from instant_ngp_torch.common import warp_direction
     from instant_ngp_torch.nerf import train as nerf_train
-    from instant_ngp_torch.nerf.sampler import march_rays, march_rays_plain
+    from instant_ngp_torch.nerf.sampler import march_rays
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp
 
@@ -452,27 +526,15 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
            extra=f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW; all: {variants})",
            variants=variants)
 
-    # C at the training march: rays of random pixels of the training views
+    # C at the training march: rays of random pixels of the training views,
+    # on the snapshot's (trained) occupancy grid
     R = TRAIN_RAYS
-    img = torch.randint(0, task.dataset.n_images, (R,), generator=gen, device=device)
-    o, d = nerf_train.generate_rays(task, img, torch.rand((R, 2), generator=gen, device=device))
-    jitter = torch.rand((R,), generator=gen, device=device)
-    margs = (o, d, tb.task.skipmip, *task._aabb_t, jitter, task.march_cfg)
-    ts, dts, valid, t_exit, n_valid = march_rays(*margs)
-    ts_p, dts_p, _, t_exit_p, n_valid_p = march_rays_plain(*margs)
-    same = n_valid == n_valid_p
-    agree = float(same.float().mean())
-    check(agree >= MIN_MARCH_AGREE, f"training march n_valid agreement {agree}")
-    err = max(float((a[same] - b[same]).abs().max()) for a, b in
-              ((ts, ts_p), (dts, dts_p), (t_exit, t_exit_p)))
-    rel = max(float(((a[same] - b[same]).abs() / b[same].abs().clamp(min=1.0)).max())
-              for a, b in ((ts, ts_p), (t_exit, t_exit_p)))
-    check(rel <= TOL_MARCH_T, f"training march relative err {rel}")
-    march = {"train_max_abs_err": err, "train_n_valid_agree": agree,
-             "train_ms": time_ms(lambda: march_rays(*margs)),
-             "train_plain_ms": time_ms(lambda: march_rays_plain(*margs))}
+    margs = training_march(task, tb.task.skipmip, gen, device)
+    o, d = margs[:2]
+    march = {f"train_{k}": v for k, v in check_march(margs, None, "training march").items()}
     print(f"kernel march_rays at the training march ({R} rays, K {TRAIN_K}, {TRAIN_ITERS} iters, "
-          f"random jitter): {march}, {float(n_valid.float().mean()):.2f} samples per ray")
+          f"random jitter, the snapshot's grid): {march}")
+    ts, dts, valid, _, _ = march_rays(*margs)
 
     # G: the snapshot model's outputs on those samples against random pixels
     out = tb.task._eval_window(o, d, ts, valid)
@@ -490,19 +552,24 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
            extra=f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out)",
            variants={f"snapshot_R{R}": g})
 
-    # H: the Pallas probes' shapes, (2^20, 2) rows into 2^19, and flat
+    # H: the Pallas probes' shapes, (2^20, 2) rows into 2^19, and flat; rows
+    # of 4 (one float4 atomic) and int32 indices
     idx = torch.randint(0, SCATTER_SIZE, (N_SCATTER,), generator=gen, device=device)
     vals = torch.randn((N_SCATTER, 2), generator=gen, device=device)
     flat_idx = (idx[:, None] * 2 + torch.arange(2, device=device)).reshape(-1)
+    vals4 = torch.randn((N_SCATTER, 4), generator=gen, device=device)
     variants = {layout: check_scatter(*args, layout) for layout, args in (
         ("probe_rows", (idx, vals, SCATTER_SIZE)),
-        ("probe_flat", (flat_idx, vals.reshape(-1, 1), 2 * SCATTER_SIZE)))}
+        ("probe_flat", (flat_idx, vals.reshape(-1, 1), 2 * SCATTER_SIZE)),
+        ("probe_rows_f4", (idx, vals4, SCATTER_SIZE)),
+        ("probe_rows_int32", (idx.to(torch.int32), vals, SCATTER_SIZE)))}
     rows = variants["probe_rows"]
     record("scatter_add_rows", "instant_ngp_torch/csrc/scatter.cu",
            "scripts/bench_pallas_scatter.py:25",
            max(v["max_abs_err"] for v in variants.values()), rows["ms"], rows["plain_ms"],
            {k: rows[k] for k in ("bound_ms", "bound_by")}, rows["library_ms"],
-           extra=f" (2^20 rows of 2 into 2^19; all: {variants})", variants=variants)
+           extra=f" (2^20 rows of 2 into 2^19; all: {variants})", variants=variants,
+           **{k: rows[k] for k in H_DEVICE_KEYS})
     return results, march
 
 
@@ -563,21 +630,55 @@ def check_composite_train(gargs) -> dict:
             **bound(nbytes(*[a for a in gargs if torch.is_tensor(a)], *outs))}
 
 
-def check_scatter(idx, vals, size: int, what: str) -> dict:
-    """Kernel H against its plain version: error and times."""
-    from instant_ngp_torch.ops.scatter import scatter_add_rows, scatter_add_rows_plain
+# kernel H's device time per call under the profiler, all of it and its
+# kernel alone, and the same of the library call (zeros + index_add_)
+H_DEVICE_KEYS = ("device_ms", "kernel_device_ms", "library_device_ms", "library_kernel_device_ms")
 
-    err, scale = max_err(scatter_add_rows(idx, vals, size), scatter_add_rows_plain(idx, vals, size))
+
+def check_scatter(idx, vals, size: int, what: str, into=None) -> dict:
+    """Kernel H against its plain version: into zeros (``scatter_add_rows``),
+    or, given the (size, F) map ``into``, added into a copy of it in place
+    (``scatter_add_rows_``, the training path's form); beside it the library
+    call, index_add_ into zeros or in place. Error, times back to back and
+    device times (H_DEVICE_KEYS); the bound reads idx and vals once and
+    writes the output once (in place: reads and writes the rows idx hits)."""
+    from instant_ngp_torch.ops import scatter as sc
+
+    idx64, F = idx.to(torch.int64), vals.shape[1]
+    if into is None:
+        out, ref = sc.scatter_add_rows(idx, vals, size), sc.scatter_add_rows_plain(idx, vals, size)
+        out_bytes = size * F * 4
+
+        def kernel():
+            return sc.scatter_add_rows(idx, vals, size)
+
+        def plain():
+            return sc.scatter_add_rows_plain(idx, vals, size)
+
+        def library():  # one PyTorch call beside the zeroed output both make
+            return torch.zeros((size, F), device=vals.device).index_add_(0, idx64, vals)
+    else:
+        out = sc.scatter_add_rows_(into.clone(), idx, vals)
+        ref = sc.scatter_add_rows_plain_(into.clone(), idx, vals)
+        out_bytes = 2 * int(torch.unique(idx).numel()) * F * 4
+        work = into.clone()
+
+        def kernel():
+            return sc.scatter_add_rows_(work, idx, vals)
+
+        def plain():
+            return sc.scatter_add_rows_plain_(work, idx, vals)
+
+        def library():
+            return work.index_add_(0, idx64, vals)
+    err, scale = max_err(out, ref)
     check(err <= TOL_SCATTER * max(1.0, scale), f"H {what} err {err} at max |ref| {scale}")
-    idx64 = idx.to(torch.int64)
-
-    def library():  # one PyTorch call beside the zeroed output both make
-        return torch.zeros((size, vals.shape[1]), device=vals.device).index_add_(0, idx64, vals)
-
-    return {"max_abs_err": err, "ms": time_ms(lambda: scatter_add_rows(idx, vals, size)),
-            "plain_ms": time_ms(lambda: scatter_add_rows_plain(idx, vals, size)),
-            "library_ms": time_ms(library),
-            **bound(nbytes(idx64, vals) + size * vals.shape[1] * 4, vals.numel())}
+    k, lib = device_split(kernel, "scatter_add"), device_split(library, "index")
+    return {"max_abs_err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "device_ms": k["device_ms"],
+            "kernel_device_ms": k["kernel_ms"], "library_device_ms": lib["device_ms"],
+            "library_kernel_device_ms": lib["kernel_ms"],
+            **bound(nbytes(idx, vals) + out_bytes, vals.numel())}
 
 
 def step_check(task, device) -> dict:
@@ -646,19 +747,33 @@ def main_path_checks(task, draws, batch) -> dict:
     main = {"composite_train": {"shape": f"R {R}, K {K}", **check_composite_train(gargs)}}
     per_ray = nerf_train.composite_train(*gargs)[0]
     corners, vals = nerf_train.error_deposit(task, draws.img_idx, batch.uv, per_ray, draws.pdf)
-    size = task.state.error_map.numel()
-    main["scatter_add_rows"] = {"shape": f"{corners.shape[0]} rows of 1 into {size}",
-                                **check_scatter(corners, vals, size, "error-map deposit")}
+    emap = task.state.error_map.reshape(-1, 1)
+    size = emap.shape[0]
+    # the path's form, straight into the map, and into zeros as the probes run
+    zeros = check_scatter(corners, vals, size, "error-map deposit into zeros")
+    main["scatter_add_rows"] = {"shape": f"{corners.shape[0]} rows of 1 into the {size}-cell map",
+                                **check_scatter(corners, vals, size, "error-map deposit", emap),
+                                "into_zeros": zeros}
     for name, v in main.items():
         print(f"kernel {name} on the main path's step ({v['shape']}): max_abs_err "
               f"{v['max_abs_err']:.3e} kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms")
     return main
 
 
-def profile_frames(trainer) -> tuple[float, float, list]:
-    """(wall ms, device busy ms, top device items (name, ms)) of
-    PROFILED_STEPS training frames under torch.profiler; busy is the
-    union of the device events' intervals."""
+# each launcher's kernel function, as the profiler names it
+KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "fused_mlp_kernel",
+                "march_rays": "march_rays_kernel", "composite_window": "composite_window_kernel",
+                "hashgrid_encode_bwd": "hashgrid_bwd_kernel", "fused_mlp_bwd": "mlp_bwd_kernel",
+                "composite_train": "composite_train_kernel",
+                "scatter_add_rows": "scatter_add_kernel", "take_rows": "take_rows_kernel",
+                "gather_cols_sum": "gather_cols_sum_kernel"}
+
+
+def profile_frames(trainer) -> tuple[float, float, list, dict]:
+    """(wall ms, device busy ms, top device items (name, ms), device ms per
+    frame of each port kernel by launcher) of PROFILED_STEPS training frames
+    under torch.profiler; busy is the union of the device events'
+    intervals."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -678,7 +793,9 @@ def profile_frames(trainer) -> tuple[float, float, list]:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return wall_ms, busy_us / 1e3, [(name[:80], ms) for name, ms in top]
+    kernels = {launcher: sum(ms for name, ms in by_name.items() if sub in name) / PROFILED_STEPS
+               for launcher, sub in KERNEL_NAMES.items()}
+    return wall_ms, busy_us / 1e3, [(name[:80], ms) for name, ms in top], kernels
 
 
 def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
@@ -712,10 +829,12 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
         n_rays.append(task.n_rays_current)  # the count this step marched
         if task.training_step % task.grid_update_interval == 0:  # what sizes the next count
             fills.append(int(task.last_stats["measured_samples"]) / (n_rays[-1] * TRAIN_K))
-    wall_ms, busy_ms, top = profile_frames(trainer)
+    wall_ms, busy_ms, top, step_kernels = profile_frames(trainer)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     print(f"train launches: {launches}")
+    print(f"train device ms per step by port kernel (last {PROFILED_STEPS} steps): {step_kernels}")
+    march["train_step_device_ms"] = step_kernels["march_rays"]
     losses = trainer.loss_graph
     first, last = np.mean(losses[:LOSS_WINDOW]), np.mean(losses[-LOSS_WINDOW:])
     print(f"train {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step "
@@ -736,11 +855,10 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
     main = step_check(task, device)
     for r in results:
         if r["name"] in main:
-            v = main[r["name"]]
-            r["variants"]["main_path"] = v
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-                r[key] = v.get(key)
-            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+            take_main_path(r, main[r["name"]])
+        if r["name"] == "scatter_add_rows":
+            r["deposit_launches_per_step"] = launches["scatter_add_rows"] / TRAIN_STEPS
+            r["step_device_ms"] = step_kernels["scatter_add_rows"]
     after = eval_views(task, ds)
     for i, (lb, pb), (la, pa) in zip(EVAL_VIEWS, before[0], after[0]):
         print(f"view {i}: loss {lb:.6f} -> {la:.6f}, PSNR {pb:.2f} -> {pa:.2f} dB")
@@ -822,6 +940,15 @@ def check_cols(x, idx, what: str) -> dict:
     return {"max_abs_err": err, "ms": time_ms(lambda: gather_cols_sum(x, idx, COL_REPS)),
             "plain_ms": time_ms(lambda: gather_cols_sum_plain(x, idx, COL_REPS)),
             **bound(nbytes(x, idx, out), COL_REPS * x.numel())}
+
+
+def take_main_path(r: dict, v: dict) -> None:
+    """Make the main path's check v the headline of kernel record r."""
+    r["variants"]["main_path"] = v
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", *H_DEVICE_KEYS):
+        if key in v or key in r:
+            r[key] = v.get(key)
+    r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
 
 
 def headline(v: dict) -> dict:
@@ -1027,10 +1154,11 @@ def image_phase(device, card) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         tb.frame()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    wall_ms, busy_ms, top = profile_frames(tb)
+    wall_ms, busy_ms, top, step_kernels = profile_frames(tb)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     print(f"image launches: {launches}")
+    print(f"image device ms per step by port kernel (last {PROFILED_STEPS} steps): {step_kernels}")
     losses = tb.loss_graph
     first, last = np.mean(losses[:LOSS_WINDOW]), np.mean(losses[-LOSS_WINDOW:])
     print(f"image {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step "
@@ -1152,11 +1280,7 @@ def main() -> None:
             r["variants"]["image_first_step"] = f_image
             r["max_abs_err"] = max(r["max_abs_err"], f_image["max_abs_err"])
         if r["name"] in image_main:
-            v = image_main[r["name"]]
-            r["variants"]["main_path"] = v
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-                r[key] = v.get(key)
-            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+            take_main_path(r, image_main[r["name"]])
     bench_launches = gather_phase()
 
     paths = {"render": render_launches, "train": train_launches, "image": image_launches,

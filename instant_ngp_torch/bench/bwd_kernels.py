@@ -22,11 +22,11 @@ versions with ``chip_smoke.py``'s checks and tolerances (this checkout's
   image step's 2^18 rows of 32->64->64->3 and on 2^17 - 37 rows of
   32->64->64->3 (a ragged last tile); every input has a zero row.
 
-Weights, inputs and cotangents are random from SEED. ``--ab OLD_DIR`` runs,
-in the order old, new, new, old (new is this checkout), each tree's
-``chip_smoke.py`` and this script against that tree; it writes their
-outputs under DIR (default build/bwd_ab/) and prints E's and F's times and the
-NeRF and image step times of each run. Without a card it raises.
+Weights, inputs and cotangents are random from SEED. ``--ab OLD_DIR``
+compares OLD_DIR with this checkout through ``bench/ab.py`` (old, new, new,
+old: each tree's ``chip_smoke.py`` and this script), writes the outputs
+under DIR (default build/bwd_ab/) and prints E's and F's times and the NeRF
+and image step times of each run. Without a card it raises.
 
 ``--count`` runs on the CPU: for the image step's 2^18 stratified positions
 (seed-0 uniforms) on the 8192^2 grid, per level and in all, the row-adds of
@@ -39,8 +39,6 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -121,26 +119,6 @@ def mlp_weights(dims, gen, device):
             for a, b in zip(dims[:-1], dims[1:])]
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> tuple[float, float]:
-    """(device time per call of fn, that of the kernels whose name holds
-    ``kernel``): the summed durations of the card's events of reps calls
-    under torch.profiler, over reps. The wrapper's time less the first is
-    its host overhead."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(ms for _, ms in events) / reps,
-            sum(ms for name, ms in events if kernel in name) / reps)
-
-
 def run(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -163,9 +141,8 @@ def run(root: Path) -> dict:
         g = torch.randn((x.shape[0], enc.n_output_dims), generator=gen, device=device)
         args = (enc.levels, enc.interpolation, x, g, enc.n_entries, corners)
         v = cs.check_encode_bwd(*args, name)
-        dev, kern = device_ms(lambda: hashgrid_encode_bwd(*args), "hashgrid_bwd")
         out["E"][name] = {**{k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
-                          "device_ms": dev, "kernel_ms": kern}
+                          **cs.device_split(lambda: hashgrid_encode_bwd(*args), "hashgrid_bwd")}
 
     with torch.no_grad():
         enc = cs.image_levels(8192)
@@ -189,37 +166,14 @@ def run(root: Path) -> dict:
             inp[cs.ZERO_ROW] = 0.0
             g = torch.randn((n, dims[-1]), generator=gen, device=device)
             v = cs.check_mlp_bwd(ws, inp, g, name)
-            dev, kern = device_ms(lambda: fused_mlp_bwd(ws, inp, g), "mlp_bwd")
             out["F"][name] = {**{k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
-                              "device_ms": dev, "kernel_ms": kern}
+                              **cs.device_split(lambda: fused_mlp_bwd(ws, inp, g), "mlp_bwd")}
     return out
 
 
-STEP_LINES = {"nerf_ms_per_step": r"^train \d+ steps: median ([\d.]+) ms/step",
-              "image_ms_per_step": r"^image \d+ steps: median ([\d.]+) ms/step",
-              "nerf_profiled": r"^profiled \d+ steps: wall ([\d.]+) ms, device busy ([\d.]+) ms",
-              "image_profiled": r"^image profiled \d+ steps: wall ([\d.]+) ms, device busy ([\d.]+) ms"}
-
-
-def ab(old: Path, logs: Path) -> None:
-    """old, new, new, old: chip_smoke.py and run() of each tree."""
-    logs.mkdir(parents=True, exist_ok=True)
-    for i, (tag, root) in enumerate((("old", old), ("new", HERE), ("new", HERE), ("old", old))):
-        smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root, capture_output=True,
-                               text=True, timeout=1200)
-        (logs / f"{i}_{tag}_chip_smoke.log").write_text(smoke.stdout + smoke.stderr)
-        steps = {"chip_smoke_rc": smoke.returncode}
-        for key, pattern in STEP_LINES.items():
-            m = re.search(pattern, smoke.stdout, re.M)
-            steps[key] = [float(v) for v in m.groups()] if m else None
-        bench = subprocess.run([sys.executable, __file__, "--root", str(root)], capture_output=True,
-                               text=True, timeout=900)
-        (logs / f"{i}_{tag}_bwd_kernels.log").write_text(bench.stdout + bench.stderr)
-        lines = [ln for ln in bench.stdout.splitlines() if ln.startswith("{")]
-        kernels = json.loads(lines[-1]) if bench.returncode == 0 and lines else None
-        times = ({f"{k}:{c}": v["ms"] for k in ("E", "F") for c, v in kernels[k].items()}
-                 if kernels else {"bwd_kernels_rc": bench.returncode})
-        print(json.dumps({"run": i, "tree": tag, **steps, **times}), flush=True)
+def summarize(res: dict) -> dict:
+    """One --ab line's entries: each case's back-to-back ms."""
+    return {f"{k}:{case}": v["ms"] for k in ("E", "F") for case, v in res[k].items()}
 
 
 def main() -> None:
@@ -233,7 +187,10 @@ def main() -> None:
         print(json.dumps(count()))
         return
     if args.ab is not None:
-        ab(args.ab.resolve(), args.logs.resolve())
+        sys.path.insert(0, str(HERE))
+        from instant_ngp_torch.bench.ab import ab
+
+        ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize)
         return
     print(json.dumps(run(args.root.resolve())))
 

@@ -49,9 +49,11 @@ SIGNATURES = {
     # x (bf16, padded), w (bf16, transposed, padded), dims (host
     # int[n_layers+1]), n_layers, out_real, act, out_act, n, out
     "fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
-    # o, d, t0, skipmip, aabb_min, aabb_max, stepping (host float[11]), R, K,
-    # n_iters, min_mip, max_mip, dt_scale, ts, dts, t_exit, n_valid
-    "march_rays": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    # o, d, t0 (start or jitter), skipmip, aabb_min, aabb_max, stepping (host
+    # float[11]), R, K, n_iters, min_mip, max_mip, dt_scale, from_jitter, ts,
+    # dts, valid, t_exit, n_valid
+    "march_rays": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P,
+                   _P],
     # out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost, R, K,
     # eps_t, rgb_act, density_act, T_new, rgb_new, depth_new, alive_new,
     # cost_new
@@ -70,8 +72,9 @@ SIGNATURES = {
     # density_act, per_ray, dout
     "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                         _P, _P, _P],
-    # idx (int64), vals, m, F, size, out (zeroed)
-    "scatter_add_rows": [_P, _P, _L, _I, _L, _P, _P],
+    # idx, idx bytes (4 or 8), vals, m, F, vec (out and vals F-float
+    # aligned), size, out (added into)
+    "scatter_add_rows": [_P, _I, _P, _L, _I, _I, _L, _P, _P],
     # table, idx (int32), n, n_rows, row_bytes, out
     "take_rows": [_P, _P, _L, _L, _I, _P, _P],
     # x, idx (int32), n_rows, n_cols, reps, dtype (0 f32, 1 bf16), out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -31,6 +32,13 @@ from ..ops.raymarch import (
     stepping,
 )
 from .occupancy import skip_at
+
+
+@functools.lru_cache(maxsize=None)
+def _stepping_c(cone_angle: float):
+    """The stepping constants kernel C takes, as a host float array."""
+    step = stepping(cone_angle).as_array()
+    return (ctypes.c_float * len(step))(*step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +60,12 @@ def _start(o, d, aabb_min, aabb_max, t_start_jitter, cfg, t_init):
 
 
 def march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
-                     cfg: MarchConfig, t_init=None):
+                     cfg: MarchConfig, t_init=None, stats: dict | None = None):
     """Lockstep march of all rays. Returns ts (R, K) (0 where invalid),
-    dts (R, K), valid (R, K) bool, t_exit (R,), n_valid (R,) int32."""
+    dts (R, K), valid (R, K) bool, t_exit (R,), n_valid (R,) int32.
+    ``stats``, when given, receives the iterations each ray ran (``iters``
+    (R,)) and how often each chain value was read (``chain_counts``
+    (NERF_CASCADES + 1,); positions outside the grid read 1)."""
     R = o.shape[0]
     K = cfg.max_samples_per_ray
     ca = cfg.cone_angle
@@ -64,6 +75,10 @@ def march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
     slot_iota = torch.arange(K, device=o.device)[None, :]
     n_emitted = torch.zeros((R,), dtype=torch.int32, device=o.device)
     ts = torch.zeros((R, K), dtype=torch.float32, device=o.device)
+    if stats is not None:
+        stats["iters"] = torch.zeros((R,), dtype=torch.int32, device=o.device)
+        stats["chain_counts"] = torch.zeros((NERF_CASCADES + 1,), dtype=torch.int64,
+                                            device=o.device)
     for _ in range(cfg.n_march_iters):
         pos = fma(t[:, None], d, o)
         inside = torch.all((pos >= aabb_min) & (pos <= aabb_max), dim=-1)
@@ -73,6 +88,10 @@ def march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
         dt = calc_dt(t, ca) * cfg.dt_scale
         mip = torch.clamp(mip_from_dt(dt, pos, cfg.max_mip), cfg.min_mip, cfg.max_mip)
         chain = skip_at(skipfield, pos, mip)
+        if stats is not None:
+            stats["iters"] += ok.to(torch.int32)
+            stats["chain_counts"] += torch.bincount(chain[ok].to(torch.int64),
+                                                    minlength=NERF_CASCADES + 1)
         occ = chain == 0.0
         skip_mip = torch.clamp(mip + torch.clamp(chain - 1.0, min=0.0).to(torch.int32),
                                max=NERF_CASCADES - 1)
@@ -95,24 +114,25 @@ def march_rays(o, d, skipfield, aabb_min, aabb_max, t_start_jitter,
     (NERF_CASCADES, G, G, G) f32 skip chain; aabb_min/max: (3,) f32 tensors
     on the rays' device; t_start_jitter: (R,) in [0, 1) stepping-space
     start offset, unless t_init (R,) gives the start distances. CPU tensors
-    run the plain version; CUDA tensors launch kernel C."""
+    run the plain version; CUDA tensors launch kernel C, which computes the
+    start from the jitter itself."""
     if o.device.type == "cpu":
         return march_rays_plain(o, d, skipfield, aabb_min, aabb_max, t_start_jitter, cfg, t_init)
-    t0 = _start(o, d, aabb_min, aabb_max, t_start_jitter, cfg, t_init).to(torch.float32).contiguous()
+    from_jitter = t_init is None
+    t0 = (t_start_jitter if from_jitter else t_init).to(torch.float32).contiguous()
     o, d = o.contiguous(), d.contiguous()
     cuda_lib.check_cuda(o, d, t0, skipfield, aabb_min, aabb_max, dtype=torch.float32)
     R, K = o.shape[0], cfg.max_samples_per_ray
-    step = stepping(cfg.cone_angle).as_array()
-    step_c = (ctypes.c_float * len(step))(*step)
     ts = torch.empty((R, K), dtype=torch.float32, device=o.device)
     dts = torch.empty_like(ts)
+    valid = torch.empty((R, K), dtype=torch.bool, device=o.device)
     t_exit = torch.empty((R,), dtype=torch.float32, device=o.device)
     n_valid = torch.empty((R,), dtype=torch.int32, device=o.device)
     if R > 0:
         cuda_lib.launch("march_rays", o.data_ptr(), d.data_ptr(), t0.data_ptr(),
                         skipfield.data_ptr(), aabb_min.data_ptr(), aabb_max.data_ptr(),
-                        ctypes.addressof(step_c), R, K,
-                        cfg.n_march_iters, cfg.min_mip, cfg.max_mip, cfg.dt_scale,
-                        ts.data_ptr(), dts.data_ptr(), t_exit.data_ptr(), n_valid.data_ptr())
-    valid = torch.arange(K, device=o.device)[None, :] < n_valid[:, None]
+                        ctypes.addressof(_stepping_c(cfg.cone_angle)), R, K, cfg.n_march_iters,
+                        cfg.min_mip, cfg.max_mip, cfg.dt_scale, int(from_jitter),
+                        ts.data_ptr(), dts.data_ptr(), valid.data_ptr(), t_exit.data_ptr(),
+                        n_valid.data_ptr())
     return ts, dts, valid, t_exit, n_valid

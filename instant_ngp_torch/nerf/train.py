@@ -44,7 +44,7 @@ from ..common import (
 )
 from ..ops.losses import HUBER_ALPHA, huber, l2
 from ..ops.compaction import compact_gather, expand_gather, prefix_compaction_maps
-from ..ops.scatter import scatter_add_rows, scatter_add_rows_plain
+from ..ops.scatter import scatter_add_rows_, scatter_add_rows_plain_
 from ..render.camera import uv_to_ray_cam
 from .occupancy import OccupancyGrid, draw_grid_update, update_grid
 from .sampler import march_rays, march_rays_plain
@@ -377,11 +377,11 @@ def error_deposit(task, img_idx, uv, per_ray, pdf):
 
 
 def deposit_error(task, img_idx, uv, per_ray, pdf) -> None:
-    """Add the step's ``error_deposit`` into the error map (kernel H)."""
+    """Add the step's ``error_deposit`` straight into the error map, in
+    place (kernel H), as the JAX step's ``error_map.at[corners].add``."""
     corners, vals = error_deposit(task, img_idx, uv, per_ray, pdf)
-    scatter = scatter_add_rows if task.use_kernels else scatter_add_rows_plain
-    emap = task.state.error_map
-    emap += scatter(corners, vals, emap.numel()).reshape(emap.shape)
+    scatter_ = scatter_add_rows_ if task.use_kernels else scatter_add_rows_plain_
+    scatter_(task.state.error_map.view(-1, 1), corners, vals)
 
 
 def train_step(task, draws: StepDraws) -> dict:

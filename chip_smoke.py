@@ -31,6 +31,11 @@ microbenchmarks:
   A, B, E, F and I, to lower its loss and to raise its PSNR; one step through
   the kernels is held against the same step through the plain versions, and
   a 1920x1080 render against the plain render;
+- kernels B and F together: one ``fused_mlp`` call profiled (one device
+  kernel and no PyTorch op besides the output's allocation); B's forward
+  bit for bit against F's forward recompute, every layer's pre-activation,
+  for both trained fox MLPs and the trained image MLP; F against its plain
+  version on the trained image MLP with the rows near a ReLU tie left out;
 - gather microbenchmarks: ``instant_ngp_torch.bench.gather`` at its case
   lists with few repetitions, through kernels I and J.
 
@@ -324,7 +329,7 @@ def kernel_checks(tb, device) -> list[dict]:
     from instant_ngp_torch.nerf.sampler import march_rays
     from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
-    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_plain
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp
 
     task, model = tb.task, tb.task.model
     enc = model.pos_encoding
@@ -346,21 +351,15 @@ def kernel_checks(tb, device) -> list[dict]:
     d_out = fused_mlp(density_ws, feats, "relu", "none")
     rgb_in = torch.cat([d_out, model.dir_encoding(dirs)], dim=-1)
     rgb_ws = list(model.rgb_network.weights)
-    errs, scales, ms, plain_ms, n_bytes, n_ops = [], [], 0.0, 0.0, 0, 0
-    for ws, inp in ((density_ws, feats), (rgb_ws, rgb_in)):
-        out, ref = fused_mlp(ws, inp, "relu", "none"), fused_mlp_plain(ws, inp, "relu", "none")
-        n_bytes += nbytes(inp, out, *ws)
-        n_ops += 2 * inp.shape[0] * sum(w.numel() for w in ws)
-        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
-        check(err <= TOL_MLP * max(1.0, scale), f"mlp err {err} at max |ref| {scale}")
-        errs.append(err)
-        scales.append(scale)
-        ms += time_ms(lambda: fused_mlp(ws, inp, "relu", "none"))
-        plain_ms += time_ms(lambda: fused_mlp_plain(ws, inp, "relu", "none"))
+    both = [check_mlp(ws, inp, what) for what, ws, inp in
+            (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in))]
+    one = check_one_launch(rgb_ws, rgb_in)
     record("fused_mlp", "instant_ngp_torch/csrc/mlp.cu",
-           "instant_ngp_tpu/ops/pallas/mlp_kernel.py:53", max(errs), ms, plain_ms,
-           bound(n_bytes, n_ops, "bfloat16"),
-           extra=f" (32->64->16 plus 32->64->64->3; max |ref| {scales[0]:.3f}, {scales[1]:.3f})")
+           "instant_ngp_tpu/ops/pallas/mlp_kernel.py:53", max(v["max_abs_err"] for v in both),
+           sum(v["ms"] for v in both), sum(v["plain_ms"] for v in both),
+           bound(sum(v["bytes"] for v in both), sum(v["ops"] for v in both), "bfloat16"),
+           extra=f" (32->64->16 plus 32->64->64->3; max |ref| {both[0]['scale']:.3f}, "
+                 f"{both[1]['scale']:.3f}; one call: {one})", one_launch=one)
 
     # C: march the rays of view 0 at RES^2, K = 8, 64 iterations, fox grid
     margs, tmin, tmax = render_window_march(tb, device)
@@ -405,7 +404,7 @@ def view0(tb, res: int):
 def psnr_vs_plain(tb, frame: torch.Tensor, res: int, xf, kw) -> float:
     """PSNR of a kernel frame against the same render through the plain versions."""
     tb.task.set_use_kernels(False)
-    frame_plain = tb.render(res, res, xf, **kw)
+    frame_plain = tb.render_tensor(res, res, xf, **kw)
     tb.task.set_use_kernels(True)
     return psnr(frame, frame_plain)
 
@@ -440,8 +439,9 @@ def render_training_set(tb):
     crop = task.render_aabb_min, task.render_aabb_max
     task.render_aabb_min, task.render_aabb_max = task.aabb_min, task.aabb_max
     for i in range(ds.n_images):
-        frame = tb.render(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
-                          principal_point=tuple(ds.principal_points[i]), background=(0, 0, 0, 0))
+        frame = tb.render_tensor(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
+                                 principal_point=tuple(ds.principal_points[i]),
+                                 background=(0, 0, 0, 0))
         alpha = frame[..., 3:4].clamp(0.0, 1.0)
         straight = torch.where(alpha > 0, frame[..., :3] / alpha.clamp(min=1e-6), 0.0)
         rgba = torch.cat([straight.clamp(0.0, 1.0), alpha], dim=-1)
@@ -594,6 +594,21 @@ def mlp_bwd_ops(ws, n: int) -> int:
     return 3 * 2 * n * sum(w.numel() for w in ws)
 
 
+def check_mlp(ws, inp, what: str) -> dict:
+    """Kernel B against its plain version on (ws, inp): error, its max |ref|,
+    times, and the bytes and operations of its bound."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_plain
+
+    out, ref = fused_mlp(ws, inp, "relu", "none"), fused_mlp_plain(ws, inp, "relu", "none")
+    err, scale = max_err(out, ref)
+    check(err <= TOL_MLP * max(1.0, scale), f"B {what}: err {err} at max |ref| {scale}")
+    n_bytes, n_ops = nbytes(inp, out, *ws), 2 * inp.shape[0] * sum(w.numel() for w in ws)
+    return {"max_abs_err": err, "scale": scale,
+            "ms": time_ms(lambda: fused_mlp(ws, inp, "relu", "none")),
+            "plain_ms": time_ms(lambda: fused_mlp_plain(ws, inp, "relu", "none")),
+            **bound(n_bytes, n_ops, "bfloat16"), "bytes": n_bytes, "ops": n_ops}
+
+
 def check_mlp_bwd(ws, inp, g, what: str) -> dict:
     """Kernel F against its plain version on (ws, inp, g): error over dX and
     every dW, times, and the bytes and operations of its bound."""
@@ -613,6 +628,90 @@ def check_mlp_bwd(ws, inp, g, what: str) -> dict:
             "plain_ms": time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g)),
             **bound(n_bytes, mlp_bwd_ops(ws, inp.shape[0]), "bfloat16"),
             "bytes": n_bytes, "ops": mlp_bwd_ops(ws, inp.shape[0])}
+
+
+def check_one_launch(ws, inp) -> dict:
+    """One fused_mlp call on the card under torch.profiler: one device
+    kernel, kernel B, and no PyTorch op besides the output's allocation
+    (no copy, cast, pad or concatenation of x or of the weights)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp
+
+    fused_mlp(ws, inp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_mlp(ws, inp)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith("aten::")})
+    check(len(kernels) == 1 and KERNEL_NAMES["fused_mlp"] in kernels[0],
+          f"one fused_mlp call ran the device kernels {kernels}")
+    check(set(ops) <= {"aten::empty"}, f"one fused_mlp call ran the PyTorch ops {ops}")
+    return {"device_kernels": kernels, "torch_ops": ops}
+
+
+def check_fwd_bwd_pair(ws, inp, what: str) -> dict:
+    """Kernel B's forward against kernel F's forward recompute on (ws,
+    inp): every layer's f32 pre-activation bit for bit (B through the
+    first i layers with output activation none, against F's record), so
+    that F differentiates the network B ran."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, mlp_recompute
+
+    zs = mlp_recompute(ws, inp)
+    for i, z in enumerate(zs):
+        zb = fused_mlp(ws[:i + 1], inp, "relu", "none")
+        rows = int((zb != z).any(dim=1).sum())
+        check(torch.equal(zb, z), f"{what}: B and F's recompute differ at layer {i} in {rows} rows")
+    print(f"kernels B and F ({what}, {inp.shape[0]} rows): the pre-activations of all {len(zs)} "
+          f"layers equal bit for bit")
+    return {"rows": inp.shape[0], "layers": len(zs), "bit_equal": True}
+
+
+def near_tie_rows(ws, inp) -> torch.Tensor:
+    """(N,) bool: rows of inp where a hidden pre-activation z of the plain
+    forward lies within one bf16 step of 0, |z| ≤ 2^-7 · max_k |h_k| ·
+    max_k |w_k|: one bf16 step of an input h_k (≤ 2^-7 |h_k|) moves z by at
+    most that much. Kernel F's tensor-core sums and the plain version's
+    matmul can round an upstream hidden value a step apart, so such a row's
+    ReLU mask may differ between the two, and its dX by a whole branch."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    h = bf16(inp)
+    near = torch.zeros(inp.shape[0], dtype=torch.bool, device=inp.device)
+    for w in ws[:-1]:
+        wb = bf16(w)
+        z = h @ wb
+        step = 2.0**-7 * h.abs().amax(dim=1, keepdim=True) * wb.abs().amax(dim=0, keepdim=True)
+        near |= (z.abs() <= step).any(dim=1)
+        h = bf16(torch.clamp(z, min=0.0))
+    return near
+
+
+def check_mlp_bwd_trained(ws, inp, g, what: str) -> dict:
+    """Kernel F against its plain version on a trained MLP's inputs, the
+    rows near a ReLU tie (``near_tie_rows``) left out; every row whose ReLU
+    mask differs between F's recompute and the plain forward must be one of
+    them."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_plain, mlp_recompute
+
+    near = near_tie_rows(ws, inp)
+    flipped = torch.zeros_like(near)
+    for i, zk in enumerate(mlp_recompute(ws, inp)[:-1]):
+        zp = fused_mlp_plain(ws[:i + 1], inp, "relu", "none")
+        flipped |= ((zk > 0) != (zp > 0)).any(dim=1) | ((zk == 0) != (zp == 0)).any(dim=1)
+    check(not bool((flipped & ~near).any()),
+          f"{what}: {int((flipped & ~near).sum())} rows whose ReLU mask differs are not masked")
+    keep = ~near
+    v = check_mlp_bwd(ws, inp[keep].contiguous(), g[keep].contiguous(), what)
+    v["masked_rows"], v["mask_differs_rows"] = int(near.sum()), int(flipped.sum())
+    print(f"kernel fused_mlp_bwd on {what} ({inp.shape[0]} rows; {v['masked_rows']} within one "
+          f"bf16 step of a ReLU tie left out, {v['mask_differs_rows']} of them with a ReLU mask "
+          f"that differs): max_abs_err {v['max_abs_err']:.3e} kernel {v['ms']:.3f} ms plain "
+          f"{v['plain_ms']:.3f} ms")
+    return v
 
 
 def check_composite_train(gargs) -> dict:
@@ -745,6 +844,7 @@ def main_path_checks(task, draws, batch) -> dict:
              float(np.float32(1.0) / np.float32(R)), task.loss_type, task.rgb_activation,
              task.density_activation)
     main = {"composite_train": {"shape": f"R {R}, K {K}", **check_composite_train(gargs)}}
+    main["fwd_bwd_pair"] = nerf_pair_checks(task, batch)
     per_ray = nerf_train.composite_train(*gargs)[0]
     corners, vals = nerf_train.error_deposit(task, draws.img_idx, batch.uv, per_ray, draws.pdf)
     emap = task.state.error_map.reshape(-1, 1)
@@ -754,10 +854,31 @@ def main_path_checks(task, draws, batch) -> dict:
     main["scatter_add_rows"] = {"shape": f"{corners.shape[0]} rows of 1 into the {size}-cell map",
                                 **check_scatter(corners, vals, size, "error-map deposit", emap),
                                 "into_zeros": zeros}
-    for name, v in main.items():
+    for name in ("composite_train", "scatter_add_rows"):
+        v = main[name]
         print(f"kernel {name} on the main path's step ({v['shape']}): max_abs_err "
               f"{v['max_abs_err']:.3e} kernel {v['ms']:.3f} ms plain {v['plain_ms']:.3f} ms")
     return main
+
+
+@torch.no_grad()
+def nerf_pair_checks(task, batch) -> dict:
+    """check_fwd_bwd_pair for both MLPs of the trained model on a step's
+    own inputs: the encodings of its samples, and the density output beside
+    the SH encoding of their directions."""
+    from instant_ngp_torch.nerf import train as nerf_train
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp
+
+    model = task.model
+    enc = model.pos_encoding
+    pos, dirs, _ = nerf_train.sample_inputs(task, batch)
+    feats = hashgrid_encode(enc.levels, enc.interpolation, enc.table.detach(), pos)
+    density_ws = [w.detach() for w in model.density_network.weights]
+    rgb_ws = [w.detach() for w in model.rgb_network.weights]
+    rgb_in = torch.cat([fused_mlp(density_ws, feats), model.dir_encoding(dirs)], dim=-1)
+    return {"density": check_fwd_bwd_pair(density_ws, feats, "trained fox density MLP"),
+            "rgb": check_fwd_bwd_pair(rgb_ws, rgb_in, "trained fox rgb MLP")}
 
 
 # each launcher's kernel function, as the profiler names it
@@ -798,9 +919,10 @@ def profile_frames(trainer) -> tuple[float, float, list, dict]:
     return wall_ms, busy_us / 1e3, [(name[:80], ms) for name, ms in top], kernels
 
 
-def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
+def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
     """The training path. Returns (the E-H records, the training march's
-    record, the launches of the training run)."""
+    record, the launches of the training run, B against F's recompute on
+    the trained model)."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.nerf.task import NerfTask
     from instant_ngp_torch.testbed import Testbed
@@ -853,6 +975,7 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
     check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {launches}")
 
     main = step_check(task, device)
+    pair = main.pop("fwd_bwd_pair")
     for r in results:
         if r["name"] in main:
             take_main_path(r, main[r["name"]])
@@ -865,7 +988,7 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict]:
     print(f"views {EVAL_VIEWS}: PSNR of the mean MSE {before[1]:.2f} -> {after[1]:.2f} dB")
     check(after[1] - before[1] >= MIN_PSNR_GAIN_DB,
           f"PSNR rose from {before[1]:.2f} to {after[1]:.2f} dB only")
-    return results, march, launches
+    return results, march, launches, pair
 
 
 IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
@@ -1091,6 +1214,22 @@ def image_first_step_mlp_check(task, device) -> dict:
     return v
 
 
+@torch.no_grad()
+def image_trained_mlp_checks(task, uv: torch.Tensor, device) -> dict:
+    """On the trained image task, at a step's positions uv: kernel B
+    against F's recompute bit for bit, and F against its plain version with
+    the rows near a ReLU tie left out."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+
+    enc = task.model.encoding
+    feats = hashgrid_encode(enc.levels, enc.interpolation, enc.table.detach(), uv)
+    ws = [w.detach() for w in task.model.network.weights]
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    g = torch.randn((uv.shape[0], ws[-1].shape[1]), generator=gen, device=device)
+    return {"fwd_bwd_pair": check_fwd_bwd_pair(ws, feats, "trained image MLP"),
+            "fused_mlp_bwd_trained": check_mlp_bwd_trained(ws, feats, g, "the trained image MLP")}
+
+
 def image_step_check(task) -> torch.Tensor:
     """One step's gradients and loss through the kernels against the same
     step through the plain versions, from the same state and positions.
@@ -1181,18 +1320,19 @@ def image_phase(device, card) -> tuple[dict, dict]:
           f"image PSNR rose from {psnr_before:.2f} to {psnr_after:.2f} dB only")
 
     uv = image_step_check(task)
-    main = {**image_main_path_checks(task, uv, device), "fused_mlp_bwd": f_check}
+    main = {**image_main_path_checks(task, uv, device), "fused_mlp_bwd": f_check,
+            **image_trained_mlp_checks(task, uv, device)}
 
     w, h = RENDER_WH
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frame = tb.render(w, h)
+    frame = tb.render_tensor(w, h)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
     check(tuple(frame.shape) == (h, w, 4), f"image frame shape {tuple(frame.shape)}")
     check(bool(torch.isfinite(frame).all()), "image frame has non-finite values")
     task.set_use_kernels(False)
-    frame_plain = tb.render(w, h)
+    frame_plain = tb.render_tensor(w, h)
     task.set_use_kernels(True)
     db = psnr(frame, frame_plain)
     print(f"image render {w}x{h}: {frame_ms:.3f} ms on {card}; kernel vs plain PSNR {db:.2f} dB")
@@ -1236,7 +1376,8 @@ def main() -> None:
     tiny = Testbed("nerf", device=device)
     tiny.load_snapshot(TINY_SNAPSHOT)
     xf, kw = view0(tiny, TINY_RES)
-    db = psnr_vs_plain(tiny, tiny.render(TINY_RES, TINY_RES, xf, **kw), TINY_RES, xf, kw)
+    frame = tiny.render_tensor(TINY_RES, TINY_RES, xf, **kw)
+    db = psnr_vs_plain(tiny, frame, TINY_RES, xf, kw)
     print(f"tiny fixture {TINY_RES}x{TINY_RES} kernel vs plain: PSNR {db:.2f} dB")
     check(db >= MIN_PSNR_DB, f"tiny fixture kernel vs plain PSNR {db}")
 
@@ -1244,7 +1385,7 @@ def main() -> None:
     xf, kw = view0(tb, RES)
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
-    frame = tb.render(RES, RES, xf, **kw)
+    frame = tb.render_tensor(RES, RES, xf, **kw)
     torch.cuda.synchronize()
     render_launches = dict(cuda_lib.LAUNCHES)
     print(f"render launches: {render_launches}")
@@ -1260,25 +1401,31 @@ def main() -> None:
     check(db >= MIN_PSNR_DB, f"kernel vs plain PSNR {db}")
 
     t0 = time.perf_counter()
-    tb.render(RES, RES, xf, **kw)
+    tb.render_tensor(RES, RES, xf, **kw)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
     print(f"render {RES}x{RES}: {frame_s * 1e3:.2f} ms, {RES * RES / frame_s / 1e6:.3f} Mrays/s "
           f"on {card}")
 
     # the training path
-    train_results, march, train_launches = train_phase(tb, device, card)
+    train_results, march, train_launches, nerf_pair = train_phase(tb, device, card)
     results += train_results
 
     # the image path and the gather microbenchmarks
     results += gather_kernel_checks(device)
     image_main, image_launches = image_phase(device, card)
-    # kernel F's record stays the fox MLPs'; the image check is a variant
+    # kernel F's record stays the fox MLPs'; the image checks are variants
     f_image = image_main.pop("fused_mlp_bwd")
+    f_trained = image_main.pop("fused_mlp_bwd_trained")
+    image_pair = image_main.pop("fwd_bwd_pair")
     for r in results:
         if r["name"] == "fused_mlp_bwd":
             r["variants"]["image_first_step"] = f_image
-            r["max_abs_err"] = max(r["max_abs_err"], f_image["max_abs_err"])
+            r["variants"]["image_trained"] = f_trained
+            r["max_abs_err"] = max(r["max_abs_err"], f_image["max_abs_err"],
+                                   f_trained["max_abs_err"])
+        if r["name"] == "fused_mlp":
+            r["fwd_bwd_pair"] = {"fox_trained": nerf_pair, "image_trained": image_pair}
         if r["name"] in image_main:
             take_main_path(r, image_main[r["name"]])
     bench_launches = gather_phase()

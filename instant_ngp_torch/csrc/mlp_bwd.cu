@@ -60,6 +60,11 @@
 // - At the end, one global f32 atomicAdd per dW element per block.
 // A ragged last tile reads zero rows and a zero cotangent past n, which add
 // nothing to dW; dX is written for rows below n only.
+//
+// Given zf (the recompute's record), phase 1 also writes each layer's f32
+// pre-activation z_{i+1} = h_i·W_i, the last layer's included, for rows
+// below n: the forward that this backward differentiates, to be held bit for
+// bit against kernel B's (ops/mlp_kernel.py::mlp_recompute).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +89,7 @@ struct Dims {
     int h_off[kMaxLayers];       // first transposed row of h_i in the h tile
     int z_off[kMaxLayers + 1];   // first transposed row of dz_i; z_off[L]: g's mid, then lo term
     int t_off[kMaxLayers + 1];   // first dW mma tile of layer i; t_off[L]: their count
+    int zf_col[kMaxLayers];      // columns of the recompute's record before z_{i+1}
     int w_total;                 // bf16 values of the shared weights
     int h_rows, z_rows;          // transposed rows of the h and dz tiles
 };
@@ -146,6 +152,20 @@ __device__ __forceinline__ uint32_t ld_pair_rows(const __nv_bfloat16* p, int str
     return (uint32_t)s[0] | ((uint32_t)s[stride] << 16);
 }
 
+// accumulator fragments (rows r0, r1; `width` real columns) into the rows of
+// the (n, width) f32 array z
+__device__ __forceinline__ void store_rows(float* z, int width, const float (*acc)[4], long long r0,
+                                           long long r1, long long n, int tig) {
+#pragma unroll
+    for (int nb = 0; nb < kMaxWidth / 8; ++nb) {
+        const int c = nb * 8 + tig * 2;
+        if (r0 < n && c < width) z[r0 * width + c] = acc[nb][0];
+        if (r0 < n && c + 1 < width) z[r0 * width + c + 1] = acc[nb][1];
+        if (r1 < n && c < width) z[r1 * width + c] = acc[nb][2];
+        if (r1 < n && c + 1 < width) z[r1 * width + c + 1] = acc[nb][3];
+    }
+}
+
 // the layer and (m, n) block of dW mma tile t
 __device__ __forceinline__ void dw_tile(const Dims& dm, int t, int& i, int& mb, int& nb) {
     i = 0;
@@ -160,7 +180,7 @@ template <int kTW>
 __global__ void __launch_bounds__(kThreads, kTW <= 8 ? 2 : 1)
 mlp_bwd_kernel(const float* __restrict__ x, Weights w,
                const float* __restrict__ g, Dims dm, int act, int tile_rows, long long n,
-               float* __restrict__ dx, float* __restrict__ dw) {
+               float* __restrict__ dx, float* __restrict__ dw, float* __restrict__ zf) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int ts = tile_rows + kRowPad;  // row stride of the transposed tiles
     __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -236,6 +256,7 @@ mlp_bwd_kernel(const float* __restrict__ x, Weights w,
                         }
                     }
                 }
+                if (zf != nullptr) store_rows(zf + n * dm.zf_col[i], dm.d[i + 1], acc, r0, r1, n, tig);
                 uint64_t m = 0;
 #pragma unroll
                 for (int nb = 0; nb < kMaxWidth / 8; ++nb) {
@@ -262,6 +283,25 @@ mlp_bwd_kernel(const float* __restrict__ x, Weights w,
                         store_t(hn, ts, c + 8, c1, a[kb][3]);
                     }
                 }
+            }
+            if (zf != nullptr) {  // the last layer's forward, for the record only
+                const int i = L - 1, kin = dm.p[i], kout = dm.p[i + 1];
+                const int stride = kin + kRowPad;
+                const __nv_bfloat16* wt = ws + dm.wt_off[i];
+                float acc[kMaxWidth / 8][4];
+#pragma unroll
+                for (int nb = 0; nb < kMaxWidth / 8; ++nb) {
+                    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.0f;
+                    if (nb * 8 < kout) {
+                        const __nv_bfloat16* wrow = wt + (nb * 8 + gq) * stride + tig * 2;
+#pragma unroll
+                        for (int kb = 0; kb < kMaxWidth / 16; ++kb) {
+                            if (kb * 16 < kin)
+                                mma_bf16(acc[nb], a[kb], ld32(wrow + kb * 16), ld32(wrow + kb * 16 + 8));
+                        }
+                    }
+                }
+                store_rows(zf + n * dm.zf_col[i], dL, acc, r0, r1, n, tig);
             }
             // the output cotangent (output activation none) as hi + mid +
             // lo: hi in a, all three in the shared tile (the hi rows are
@@ -422,7 +462,8 @@ const DeviceInfo& device_info() {
 
 template <int kTW>
 int launch(const float* x, const Weights& w, const float* g, const Dims& dm, int act,
-           int tile_rows, size_t smem, long long n, float* dx, float* dw, cudaStream_t st) {
+           int tile_rows, size_t smem, long long n, float* dx, float* dw, float* zf,
+           cudaStream_t st) {
     // the shared-memory opt-in and the occupancy of the last size, kept
     // across launches (host API calls cost more than a small launch)
     static size_t set_smem = 0, occ_smem = 0;
@@ -441,16 +482,18 @@ int launch(const float* x, const Weights& w, const float* g, const Dims& dm, int
     const long long n_tiles = (n + tile_rows - 1) / tile_rows;
     const long long want = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
     const unsigned blocks = (unsigned)(n_tiles < want ? n_tiles : want);
-    mlp_bwd_kernel<kTW><<<blocks, kThreads, smem, st>>>(x, w, g, dm, act, tile_rows, n, dx, dw);
+    mlp_bwd_kernel<kTW><<<blocks, kThreads, smem, st>>>(x, w, g, dm, act, tile_rows, n, dx, dw, zf);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (n, d_0) f32, rounded to bf16 here; w: n_layers pointers, layer i f32
-// (d_i, d_{i+1}), rounded to bf16 here; dims: the widths d_0 .. d_L.
+// (d_i, d_{i+1}), rounded to bf16 here; dims: the widths d_0 .. d_L; zf:
+// null, or (n, d_1 + .. + d_L) f32 for the recompute's pre-activations,
+// layer by layer.
 extern "C" int ngp_fused_mlp_bwd(const void* x, const void* w, const void* g, const void* dims,
-                                 int n_layers, int act, long long n, void* dx, void* dw,
+                                 int n_layers, int act, long long n, void* dx, void* dw, void* zf,
                                  void* stream) {
     if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
     Dims dm;
@@ -461,13 +504,15 @@ extern "C" int ngp_fused_mlp_bwd(const void* x, const void* w, const void* g, co
         dm.d[i] = d[i];
         dm.p[i] = (d[i] + 15) / 16 * 16;
     }
-    int wt = 0, wo = 0, hr = 0, zr = 0, tt = 0;
+    int wt = 0, wo = 0, hr = 0, zr = 0, tt = 0, zc = 0;
     for (int i = 0; i < n_layers; ++i) {
         dm.wt_off[i] = wt;
         dm.w_off[i] = wo;
         dm.h_off[i] = hr;
         dm.z_off[i] = zr;
         dm.t_off[i] = tt;
+        dm.zf_col[i] = zc;
+        zc += d[i + 1];
         wt += dm.p[i + 1] * (dm.p[i] + kRowPad);
         wo += d[i] * d[i + 1];
         hr += dm.p[i];
@@ -498,7 +543,8 @@ extern "C" int ngp_fused_mlp_bwd(const void* x, const void* w, const void* g, co
     const float* gp = static_cast<const float*>(g);
     float* dxp = static_cast<float*>(dx);
     float* dwp = static_cast<float*>(dw);
-    if (per_warp <= 8) return launch<8>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, st);
-    if (per_warp <= 16) return launch<16>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, st);
-    return launch<32>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, st);
+    float* zfp = static_cast<float*>(zf);
+    if (per_warp <= 8) return launch<8>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, zfp, st);
+    if (per_warp <= 16) return launch<16>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, zfp, st);
+    return launch<32>(xp, wp, gp, dm, act, tile_rows, smem, n, dxp, dwp, zfp, st);
 }

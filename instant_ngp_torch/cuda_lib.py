@@ -43,12 +43,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # argtypes of every launcher; the last argument is always the stream
 SIGNATURES = {
-    # x, table, level scale/res/size/offset/hashed (host arrays), n_dims,
-    # n_levels, n_features, interpolation, n, out
-    "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
-    # x (bf16, padded), w (bf16, transposed, padded), dims (host
-    # int[n_layers+1]), n_layers, out_real, act, out_act, n, out
-    "fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    # x, table, level scale/res/size/offset/hashed/magic/shift (host
+    # arrays), n_dims, n_levels, n_features, interpolation, n, out
+    "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    # x (f32), w (host pointers, one f32 (in, out) layer each), dims (host
+    # int[n_layers+1]), n_layers, act, out_act, n, out
+    "fused_mlp": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     # o, d, t0 (start or jitter), skipmip, aabb_min, aabb_max, stepping (host
     # float[11]), R, K, n_iters, min_mip, max_mip, dt_scale, from_jitter, ts,
     # dts, valid, t_exit, n_valid
@@ -65,8 +65,9 @@ SIGNATURES = {
     "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _L, _P,
                             _P],
     # x (f32), w (host pointers, one f32 (in, out) layer each), g (f32), dims
-    # (host int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed)
-    "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P],
+    # (host int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed), the
+    # recompute's record (f32) or null
+    "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     # out, ts, dts, valid, target, bg, pixel_ok, mean_density, R, K,
     # near_distance, reg_scale, inv_n_rays, eps_t, loss, rgb_act,
     # density_act, per_ray, dout

@@ -155,11 +155,10 @@ def draw_grid_update(generator: torch.Generator, n_cascades: int, full: bool) ->
 PROBE_CHUNK = 1 << 18  # probes per density-network call
 
 
-@torch.no_grad()
-def update_grid(grid: OccupancyGrid, density_fn: Callable[[torch.Tensor], torch.Tensor],
-                draws: GridDraws, decay: float, density_activation, full: bool) -> None:
-    """One grid update in place. density_fn: (N, 3) positions in the unit
-    cube of the cascades → (N,) density logits."""
+def probe_cells(grid: OccupancyGrid, draws: GridDraws, full: bool):
+    """(cascade (N,), cell (N,)) int64 of every probe of a grid update: all
+    cells of every cascade, or the draws' uniform cells and, of each
+    candidate quadruple, the first occupied cell (else the first)."""
     n_casc = grid.density.shape[0]
     n_cells = G**3
     dev = grid.density.device
@@ -173,16 +172,32 @@ def update_grid(grid: OccupancyGrid, density_fn: Callable[[torch.Tensor], torch.
         o_idx = torch.gather(draws.cand, 1, first[:, None])[:, 0]
         mips = torch.cat([draws.u_mip, draws.o_mip])
         idx = torch.cat([draws.u_idx, o_idx])
-    mips, idx = mips.to(dev, torch.int64), idx.to(dev, torch.int64)
+    return mips.to(dev, torch.int64), idx.to(dev, torch.int64)
+
+
+def probe_positions(mips: torch.Tensor, idx: torch.Tensor, jitter: torch.Tensor) -> torch.Tensor:
+    """(N, 3) positions of probes in cells idx of cascades mips, jittered
+    by jitter (3, N), in the unit cube of the cascades."""
+    scale = torch.exp2(mips.to(torch.float32))
+    cells = ((idx // (G * G)), (idx // G) % G, idx % G)
+    return torch.stack([((c.to(torch.float32) + j) / G - 0.5) * scale + 0.5
+                        for c, j in zip(cells, jitter)], dim=-1)
+
+
+@torch.no_grad()
+def update_grid(grid: OccupancyGrid, density_fn: Callable[[torch.Tensor], torch.Tensor],
+                draws: GridDraws, decay: float, density_activation, full: bool) -> None:
+    """One grid update in place. density_fn: (N, 3) positions in the unit
+    cube of the cascades → (N,) density logits."""
+    n_casc = grid.density.shape[0]
+    n_cells = G**3
+    dev = grid.density.device
+    mips, idx = probe_cells(grid, draws, full)
     logits = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     for i in range(0, idx.shape[0], PROBE_CHUNK):
-        c_idx, c_mip = idx[i:i + PROBE_CHUNK], mips[i:i + PROBE_CHUNK]
-        jit3 = draws.jitter[:, i:i + PROBE_CHUNK]
-        scale = torch.exp2(c_mip.to(torch.float32))
-        cells = ((c_idx // (G * G)), (c_idx // G) % G, c_idx % G)
-        pos = torch.stack([((c.to(torch.float32) + j) / G - 0.5) * scale + 0.5
-                           for c, j in zip(cells, jit3)], dim=-1)
-        logits[i:i + PROBE_CHUNK] = density_fn(pos).to(torch.float32)
+        sl = slice(i, i + PROBE_CHUNK)
+        pos = probe_positions(mips[sl], idx[sl], draws.jitter[:, sl])
+        logits[sl] = density_fn(pos).to(torch.float32)
     thickness = network_to_density(logits, density_activation) * MIN_CONE_STEPSIZE
     tmp = torch.zeros((n_casc * n_cells,), dtype=torch.float32, device=dev).scatter_reduce(
         0, mips * n_cells + idx, thickness, "amax").reshape(grid.density.shape)

@@ -217,6 +217,26 @@ def hashgrid_encode_bwd_plain(levels, interpolation: str, x: torch.Tensor, g: to
 # ---------------------------------------------------------------------------
 
 
+def divisor_magic(size: int) -> tuple[int, int]:
+    """(magic, shift) with which kernel A forms v % size for every uint32 v
+    without a division: t = umulhi(v, magic), q = (t + ((v − t) >> 1)) >>
+    shift, v % size = v − q·size (Hacker's Delight 10-8, exact for 2 ≤ size
+    < 2^32). A power-of-two size gives (0, 0): the kernel masks instead."""
+    if size & (size - 1) == 0:
+        return 0, 0
+    log2_up = size.bit_length()  # ceil(log2 size) for a size that is no power of two
+    return (((1 << 32) * ((1 << log2_up) - size)) // size + 1, log2_up - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _magic_arrays(levels):
+    """Each level's (magic, shift) as the host uint32 arrays of kernel A's
+    launch, built once per grid."""
+    pairs = [divisor_magic(lv.size) for lv in levels]
+    return ((ctypes.c_uint32 * len(levels))(*[m for m, _ in pairs]),
+            (ctypes.c_uint32 * len(levels))(*[s for _, s in pairs]))
+
+
 @functools.lru_cache(maxsize=None)
 def _level_arrays(levels):
     """The levels' host arrays for a launch, built once per grid."""
@@ -239,7 +259,9 @@ def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: in
 def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """Encode x (N, D) f32 with the flat table (n_entries, F) f32. CPU
-    tensors run the plain version; CUDA tensors launch kernel A."""
+    tensors run the plain version; CUDA tensors launch kernel A (a block
+    per 32 samples, a warp per level, the output rows staged in shared
+    memory)."""
     if x.device.type == "cpu":
         return hashgrid_encode_plain(levels, interpolation, table, x)
     cuda_lib.check_cuda(x, table, dtype=torch.float32)
@@ -247,7 +269,7 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     n_features = table.shape[1]
     _check_kernel_shapes(levels, interpolation, n_dims, n_features, "A")
     L = len(levels)
-    arrays = _level_arrays(levels)
+    arrays = (*_level_arrays(levels), *_magic_arrays(levels))
     out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
     if n > 0:
         cuda_lib.launch("hashgrid_encode_fwd", x.data_ptr(), table.data_ptr(),

@@ -5,9 +5,9 @@ autodiff backward it gets from ``_reference_forward``).
 Forward contract, as ``MLP.__call__`` in the JAX package: a bf16 input and
 bf16 weights, f32 accumulation, each hidden activation rounded back to
 bf16, an f32 output. On CUDA tensors ``fused_mlp`` launches kernel B
-(``csrc/mlp.cu``), which keeps all weights in shared memory, runs the
-products on tensor cores and takes any row count; on CPU tensors it runs
-``fused_mlp_plain``.
+(``csrc/mlp.cu``), which rounds the f32 input and weights to bf16 itself,
+keeps all weights in shared memory, runs the products on tensor cores and
+takes any row count; on CPU tensors it runs ``fused_mlp_plain``.
 
 Backward contract, as JAX's vjp of ``MLP.__call__``: every product takes
 the f32 cotangent against a bf16 operand with f32 accumulation, and each
@@ -17,7 +17,10 @@ derivative of ``jnp.maximum`` at a tie). ``fused_mlp_bwd`` launches
 kernel F (``csrc/mlp_bwd.cu``) on CUDA tensors and runs
 ``fused_mlp_bwd_plain`` on CPU tensors. Kernel F runs every product on
 bf16 tensor cores: every inner cotangent is a bf16 value, and g enters as
-the three bf16 terms of ``split_bf16``.
+the three bf16 terms of ``split_bf16``. Kernel F recomputes the forward
+with kernel B's products in kernel B's order; ``mlp_recompute`` returns
+that recompute's pre-activations, to hold the two kernels to the same
+network.
 """
 
 from __future__ import annotations
@@ -27,14 +30,12 @@ import functools
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from .. import cuda_lib
 
 ACTIVATIONS = {"none": 0, "relu": 1}
-MAX_WIDTH = 64  # widest layer kernel B holds in registers
+MAX_WIDTH = 64  # widest layer kernels B and F hold in registers
 MAX_LAYERS = 8
-ROW_PAD = 8  # padding of each transposed weight row in shared memory (bank spread)
 
 
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
@@ -77,12 +78,9 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
-                        activation: str = "relu", output_activation: str = "none"):
-    """Backward of ``fused_mlp_plain``: x (N, in), g (N, out) f32 cotangent
-    → (dx (N, in) f32, [dW (in, out) f32 per layer]), each value
-    bf16-representable. The hidden activations are recomputed."""
-    wb = [_bf16(w) for w in ws]
+def _forward_record(wb: Sequence[torch.Tensor], x: torch.Tensor, activation: str):
+    """The plain forward with bf16-valued weights wb: (each layer's input
+    h_i, bf16-valued; each layer's f32 pre-activation z_{i+1} = h_i·W_i)."""
     hs = [_bf16(x)]
     zs = []
     for i, w in enumerate(wb):
@@ -90,6 +88,16 @@ def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
         zs.append(z)
         if i < len(wb) - 1:
             hs.append(_bf16(_act(activation, z)))
+    return hs, zs
+
+
+def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
+                        activation: str = "relu", output_activation: str = "none"):
+    """Backward of ``fused_mlp_plain``: x (N, in), g (N, out) f32 cotangent
+    → (dx (N, in) f32, [dW (in, out) f32 per layer]), each value
+    bf16-representable. The hidden activations are recomputed."""
+    wb = [_bf16(w) for w in ws]
+    hs, zs = _forward_record(wb, x, activation)
     dz = g.float() * _act_grad(output_activation, zs[-1])
     dws = [None] * len(wb)
     dx = None
@@ -114,6 +122,40 @@ def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     return hi, mid, g - hi - mid
 
 
+def _check_kernel_layers(name: str, ws: Sequence[torch.Tensor], x: torch.Tensor) -> tuple:
+    """The widths (d_0, .., d_L) of ws after the kernels' limits are checked
+    against x (N, d_0)."""
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
+    if x.ndim != 2 or x.shape[1] != dims[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match the first layer {dims[0]}")
+    if max(dims) > MAX_WIDTH or len(ws) > MAX_LAYERS:
+        raise ValueError(f"kernel {name} takes widths ≤ {MAX_WIDTH} and ≤ {MAX_LAYERS} layers, "
+                         f"got {dims}")
+    return dims
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous f32 tensor; t itself where it is one (no op)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def _launch_bwd(ws, x, g, dims, act: str, zf=None):
+    """One launch of kernel F: (dx, the flat f32 dW sums); zf, where given,
+    takes the recompute's pre-activations."""
+    wf = [_f32(w) for w in ws]
+    xf, gf = _f32(x), _f32(g)
+    cuda_lib.check_cuda(xf, gf, *wf, dtype=torch.float32)
+    n = x.shape[0]
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
+    dw_flat = torch.zeros((sum(w.numel() for w in ws),), dtype=torch.float32, device=x.device)
+    if n > 0:
+        w_ptrs = (ctypes.c_void_p * len(wf))(*[w.data_ptr() for w in wf])
+        cuda_lib.launch("fused_mlp_bwd", xf.data_ptr(), ctypes.addressof(w_ptrs), gf.data_ptr(),
+                        ctypes.addressof(_dims_c(dims)), len(ws), ACTIVATIONS[act], n,
+                        dx.data_ptr(), dw_flat.data_ptr(), None if zf is None else zf.data_ptr())
+    return dx, dw_flat
+
+
 def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
                   activation: str = "relu", output_activation: str = "none"):
     """See ``fused_mlp_bwd_plain``. CPU tensors run the plain version; CUDA
@@ -125,30 +167,39 @@ def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
     if act not in ACTIVATIONS or out_act != "none":
         raise NotImplementedError(f"kernel F takes relu/none hidden and none output, got "
                                   f"{activation}/{output_activation}")
-    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
-    n = x.shape[0]
-    if x.ndim != 2 or x.shape[1] != dims[0] or tuple(g.shape) != (n, dims[-1]):
-        raise ValueError(f"x {tuple(x.shape)}, g {tuple(g.shape)} do not match layers {dims}")
-    if max(dims) > MAX_WIDTH or len(ws) > MAX_LAYERS:
-        raise ValueError(f"kernel F takes widths ≤ {MAX_WIDTH} and ≤ {MAX_LAYERS} layers, "
-                         f"got {dims}")
+    dims = _check_kernel_layers("F", ws, x)
+    if tuple(g.shape) != (x.shape[0], dims[-1]):
+        raise ValueError(f"g {tuple(g.shape)} does not match x {tuple(x.shape)} and layers {dims}")
     # the kernel rounds x and the weights to bf16 and lays the weights out
     # itself: one launch and no copies (a small backward is bound by its
     # host overhead)
-    wf = [w.to(torch.float32).contiguous() for w in ws]
-    xf = x.to(torch.float32).contiguous()
-    gf = g.to(torch.float32).contiguous()
-    cuda_lib.check_cuda(xf, gf, *wf, dtype=torch.float32)
-    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
-    dw_flat = torch.zeros((sum(w.numel() for w in ws),), dtype=torch.float32, device=x.device)
-    if n > 0:
-        w_ptrs = (ctypes.c_void_p * len(wf))(*[w.data_ptr() for w in wf])
-        cuda_lib.launch("fused_mlp_bwd", xf.data_ptr(), ctypes.addressof(w_ptrs), gf.data_ptr(),
-                        ctypes.addressof(_dims_c(dims)), len(ws), ACTIVATIONS[act], n,
-                        dx.data_ptr(), dw_flat.data_ptr())
+    dx, dw_flat = _launch_bwd(ws, x, g, dims, act)
     dws = [d.reshape(w.shape)
            for d, w in zip(torch.split(_bf16(dw_flat), [w.numel() for w in ws]), ws)]
     return dx, dws
+
+
+def mlp_recompute(ws: Sequence[torch.Tensor], x: torch.Tensor,
+                  activation: str = "relu") -> list[torch.Tensor]:
+    """The f32 pre-activations z_{i+1} = h_i·W_i (N, d_{i+1}) of every layer
+    that the backward's forward recompute forms on x (N, d_0): kernel F's
+    own on CUDA tensors (its record mode, a zero cotangent), the plain
+    version's on CPU tensors."""
+    if x.device.type == "cpu":
+        return _forward_record([_bf16(w) for w in ws], x, activation)[1]
+    act = activation.lower()
+    if act not in ACTIVATIONS:
+        raise NotImplementedError(f"kernel F takes relu/none hidden, got {activation}")
+    dims = _check_kernel_layers("F", ws, x)
+    n = x.shape[0]
+    zf = torch.empty((n * sum(dims[1:]),), dtype=torch.float32, device=x.device)
+    _launch_bwd(ws, x, torch.zeros((n, dims[-1]), dtype=torch.float32, device=x.device), dims,
+                act, zf)
+    out, start = [], 0
+    for d in dims[1:]:
+        out.append(zf[start:start + n * d].reshape(n, d))
+        start += n * d
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,40 +209,26 @@ def _dims_c(dims) -> ctypes.Array:
     return (ctypes.c_int * len(dims))(*dims)
 
 
-def _pad16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
 def fused_mlp(ws: Sequence[torch.Tensor], x: torch.Tensor, activation: str = "relu",
               output_activation: str = "none") -> torch.Tensor:
     """Forward through a bias-free MLP. CPU tensors run the plain version;
-    CUDA tensors launch kernel B (activations relu and none, widths ≤ 64)."""
+    CUDA tensors launch kernel B (activations relu and none, widths ≤ 64):
+    one launch on x and the weights as they are (f32, contiguous), which
+    the kernel rounds to bf16 and lays out itself."""
     if x.device.type == "cpu":
         return fused_mlp_plain(ws, x, activation, output_activation)
     act, out_act = activation.lower(), output_activation.lower()
     if act not in ACTIVATIONS or out_act not in ACTIVATIONS:
         raise NotImplementedError(f"kernel B takes relu/none, got {activation}/{output_activation}")
-    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
-    if x.ndim != 2 or x.shape[1] != dims[0]:
-        raise ValueError(f"x {tuple(x.shape)} does not match the first layer {dims[0]}")
-    if max(dims) > MAX_WIDTH or len(ws) > MAX_LAYERS:
-        raise ValueError(f"kernel B takes widths ≤ {MAX_WIDTH} and ≤ {MAX_LAYERS} layers, got {dims}")
-    # widths padded to multiples of 16 with zeros (the mma tile); each
-    # layer stored transposed (out, in) with ROW_PAD extra values per row,
-    # the shared-memory layout kernel B reads its B fragments from
-    pdims = [_pad16(v) for v in dims]
-    w_flat = torch.cat([
-        F.pad(w.to(torch.bfloat16).T,
-              (0, pdims[i] + ROW_PAD - w.shape[0], 0, pdims[i + 1] - w.shape[1])).reshape(-1)
-        for i, w in enumerate(ws)
-    ]).contiguous()
-    xb = F.pad(x.to(torch.bfloat16), (0, pdims[0] - dims[0])).contiguous()
-    cuda_lib.check_cuda(xb, w_flat, dtype=torch.bfloat16)
+    dims = _check_kernel_layers("B", ws, x)
+    wf = [_f32(w) for w in ws]
+    xf = _f32(x)
+    cuda_lib.check_cuda(xf, *wf, dtype=torch.float32)
     n = x.shape[0]
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=x.device)
-    dims_c = (ctypes.c_int * len(pdims))(*pdims)
     if n > 0:
-        cuda_lib.launch("fused_mlp", xb.data_ptr(), w_flat.data_ptr(), ctypes.addressof(dims_c),
-                        len(ws), dims[-1], ACTIVATIONS[act], ACTIVATIONS[out_act], n,
-                        out.data_ptr())
+        w_ptrs = (ctypes.c_void_p * len(wf))(*[w.data_ptr() for w in wf])
+        cuda_lib.launch("fused_mlp", xf.data_ptr(), ctypes.addressof(w_ptrs),
+                        ctypes.addressof(_dims_c(dims)), len(ws), ACTIVATIONS[act],
+                        ACTIVATIONS[out_act], n, out.data_ptr())
     return out

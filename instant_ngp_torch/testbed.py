@@ -5,7 +5,7 @@ an in-memory dataset, or fit and render an image.
 
     tb = Testbed("nerf")  # on the card; device="cpu" runs the plain versions
     tb.load_snapshot("data/fox_1536.ingp")
-    frame = tb.render(256, 256, camera_matrix, focal_length=..., ...)
+    frame = tb.render(256, 256, camera_matrix, focal_length=..., ...)  # numpy (H, W, 4)
 
     tb = Testbed("nerf")
     tb.nerf_dataset, tb.network_config = ds, cfg
@@ -18,8 +18,12 @@ an in-memory dataset, or fit and render an image.
     tb.load_training_data("image.exr")  # .exr, .bin, or an LDR format
     for _ in range(n):
         tb.frame()
-    frame = tb.render(1920, 1080)  # (H, W, 4), linear unless linear=False
+    frame = tb.render(1920, 1080)  # numpy (H, W, 4), linear unless linear=False
     mse = tb.compute_image_mse()
+
+``render`` returns the frame on the host, as pyngp's ``render_to_cpu`` and
+the JAX package's ``Testbed.render`` do; ``render_tensor`` returns the same
+frame as a tensor on the task's device, for code that keeps working on it.
 """
 
 from __future__ import annotations
@@ -223,11 +227,16 @@ class Testbed:
         self.task = task
         self.training_step = task.training_step
 
-    def render(self, *args, **kwargs) -> torch.Tensor:
+    def render(self, *args, **kwargs) -> np.ndarray:
+        """The frame of ``render_tensor`` as a numpy (H, W, 4) f32 array
+        (pyngp render_to_cpu; the JAX package's testbed.py:1196-1248)."""
+        return self.render_tensor(*args, **kwargs).cpu().numpy()
+
+    def render_tensor(self, *args, **kwargs) -> torch.Tensor:
         """NeRF: ``NerfTask.render``'s arguments and frame. Image:
         ``render(width, height, linear=True)`` → (H, W, 4) with alpha 1, in
-        linear colour unless ``linear`` is False (pyngp render_to_cpu;
-        testbed.py:1245-1248)."""
+        linear colour unless ``linear`` is False (testbed.py:1245-1248). A
+        tensor on the task's device."""
         if self.task is None:
             raise RuntimeError("load a snapshot or training data before rendering")
         if self.mode == TestbedMode.IMAGE:

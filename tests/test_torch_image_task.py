@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from instant_ngp_tpu.image_fit.task import ImageTask as JaxImageTask
+from instant_ngp_tpu.testbed import Testbed as JaxTestbed
 from instant_ngp_torch import testbed as port_testbed
 from instant_ngp_torch import common
 from instant_ngp_torch.image_fit.task import ImageTask
@@ -184,12 +185,15 @@ def test_testbed_image_surface(tmp_path):
         tb.frame()
     assert tb.training_step == 5 and len(tb.loss_graph) == 5 and tb.loss > 0
     assert tb.compute_image_mse() < mse0
-    frame = tb.render(16, 8)
-    assert frame.shape == (8, 16, 4) and bool(torch.isfinite(frame).all())
-    assert torch.equal(frame[..., 3], torch.ones(8, 16))
+    frame = tb.render(16, 8)  # pyngp render_to_cpu: a numpy frame on the host
+    assert isinstance(frame, np.ndarray) and frame.dtype == np.float32
+    assert frame.shape == (8, 16, 4) and np.isfinite(frame).all()
+    np.testing.assert_array_equal(frame[..., 3], np.ones((8, 16), np.float32))
+    np.testing.assert_array_equal(tb.render_tensor(16, 8).numpy(), frame)
     srgb = tb.render(16, 8, linear=False)  # .bin is HDR: the task's output is linear
-    np.testing.assert_allclose(srgb[..., :3].numpy(),
-                               port_testbed.linear_to_srgb(frame[..., :3].clamp(min=0)).numpy())
+    np.testing.assert_allclose(
+        srgb[..., :3],
+        port_testbed.linear_to_srgb(torch.from_numpy(frame[..., :3]).clamp(min=0)).numpy())
     tb.image.random_mode = "halton"
     tb.image.training.linear_colors = True
     tb.image.training.snap_to_pixel_centers = True
@@ -199,6 +203,35 @@ def test_testbed_image_surface(tmp_path):
     assert tb.training_step == 6
     tb.reload_network_from_file("base.json")  # configs/image/base.json: a new task
     assert tb.training_step == 0 and tb.task.model.encoding.log2_hashmap_size == 24
+
+
+def test_testbed_render_equals_jax_testbed_render(tmp_path):
+    """Image mode: the port's Testbed.render against the JAX Testbed.render
+    on the same trained state (5 JAX frames, copied into the port), in both
+    colour spaces: a numpy (H, W, 4) f32 frame each, alpha exactly 1, rgb
+    within the MLP tolerance (bf16 compute on both sides; only the f32
+    summation order differs)."""
+    path = tmp_path / "img.bin"
+    save_image(path, _image(20, 28))
+    theirs = JaxTestbed()
+    theirs.training_batch_size = 1024
+    theirs.reload_network_from_json(_config())
+    theirs.load_training_data(str(path))
+    for _ in range(5):
+        theirs.frame()
+    ours = port_testbed.Testbed("image", device="cpu")
+    ours.training_batch_size = 1024
+    ours.reload_network_from_json(_config())
+    ours.load_training_data(path)
+    ours.task.opt_state = train_state_from_jax(ours.task.model, ours.task.opt,
+                                               jax.tree.map(np.asarray, theirs.task.params),
+                                               jax.tree.map(np.asarray, theirs.task.opt_state))
+    for linear in (True, False):
+        ref, out = theirs.render(16, 8, linear=linear), ours.render(16, 8, linear=linear)
+        assert isinstance(ref, np.ndarray) and isinstance(out, np.ndarray)
+        assert out.dtype == ref.dtype == np.float32 and out.shape == ref.shape == (8, 16, 4)
+        np.testing.assert_array_equal(out[..., 3], ref[..., 3])
+        np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-3)
 
 
 def test_testbed_runs_on_the_card_by_default():

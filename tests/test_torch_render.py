@@ -66,7 +66,7 @@ def test_snapshot_render_matches_jax(name):
     # bench.py bench_render_fox's arguments, at 32x32
     kw = dict(focal_length=(ds.focal_lengths[v, 0] * res / w, ds.focal_lengths[v, 1] * res / h),
               principal_point=tuple(ds.principal_points[v]), background=(0, 0, 0, 0))
-    frame = ours.render(res, res, xf, **kw).numpy()
+    frame = ours.render(res, res, xf, **kw)
     ref = np.asarray(theirs.task.render(res, res, xf, **kw))
     assert frame.shape == ref.shape == (res, res, 4)
     assert np.isfinite(frame).all()

@@ -19,18 +19,24 @@ microbenchmarks:
   to lower its loss and to raise its PSNR on views 0/24/49; one step through
   the kernels is held against the same step through the plain versions,
   and kernels G and H against theirs on that step's own inputs (H in the
-  path's form, added straight into the error map, and into zeros); kernel C
-  is also held at the training march on the snapshot's trained grid, and H
-  at the Pallas probes' shapes, with rows of 4 and with int32 indices;
+  path's form, added straight into the error map, and into zeros), G also on
+  the 8,192-ray ceiling's step; kernel C is also held at the training march
+  on the snapshot's trained grid, G on the snapshot model's outputs there
+  and on random inputs at K 48, 40 and 100, two calls of G bit for bit equal,
+  and H at the Pallas probes' shapes, with rows of 4 and with int32 indices;
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
-  kernel I at every shape of ``scripts/bench_gather_tpu.py`` and kernel J at
-  every shape of ``scripts/bench_dyngather.py`` against their plain versions;
-  then an 8192^2 RGBA image made from SEED, written as a ``.bin`` file, is
-  fitted with ``configs/image/base.json`` for 300 steps of 2^18 samples
-  through ``Testbed("image")`` and ``frame()``, checked to go through kernels
-  A, B, E, F and I, to lower its loss and to raise its PSNR; one step through
-  the kernels is held against the same step through the plain versions, and
-  a 1920x1080 render against the plain render;
+  kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
+  entry at the edges of its clamps on a non-square texture and kernel J at
+  every shape of ``scripts/bench_dyngather.py`` against their plain versions
+  (I bit for bit); then an 8192^2 RGBA image made from SEED, written as a
+  ``.bin`` file, is fitted with ``configs/image/base.json`` for 300 steps of
+  2^18 samples through ``Testbed("image")`` and ``frame()``, checked to go
+  through kernels A, B, E, F and I's bilinear entry, to lower its loss and to
+  raise its PSNR; ``compute_image_mse`` and a render with ground-truth tiles
+  are checked to go through both entries of I; one step through the kernels
+  is held against the same step through the plain versions, both entries of
+  I against theirs bit for bit at a step's positions, and a 1920x1080 render
+  against the plain render;
 - kernels B and F together: one ``fused_mlp`` call profiled (one device
   kernel and no PyTorch op besides the output's allocation); B's forward
   bit for bit against F's forward recompute, every layer's pre-activation,
@@ -131,6 +137,7 @@ RENDER_WH = (1920, 1080)
 TAKE_CASES = ((19, 4, torch.float32), (19, 4, torch.bfloat16), (19, 16, torch.bfloat16),
               (15, 4, torch.float32), (19, 32, torch.bfloat16))
 N_TAKE = 1 << 20
+EDGE_TEXTURE = (1021, 517)  # (W, H) of the bilinear entry's check at its clamps
 # kernel J at every case of scripts/bench_dyngather.py:68-70
 COL_CASES = ((8, torch.float32), (64, torch.float32), (512, torch.float32),
              (4096, torch.float32), (32768, torch.float32), (4096, torch.bfloat16))
@@ -163,7 +170,8 @@ def device_split(fn, kernel: str, reps: int = 20) -> dict:
     """Device milliseconds per call of fn: the durations of the card's events
     of reps calls under torch.profiler, after one warm-up call, over reps.
     ``device_ms``: all of them; ``kernel_ms``: those of the kernels whose
-    name holds ``kernel`` (the rest is fills and copies)."""
+    name holds ``kernel`` (the rest is fills and copies); ``events_per_call``:
+    how many device events a call has."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -175,7 +183,8 @@ def device_split(fn, kernel: str, reps: int = 20) -> dict:
     events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3 / reps) for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"device_ms": sum(ms for _, ms in events),
-            "kernel_ms": sum(ms for name, ms in events if kernel in name)}
+            "kernel_ms": sum(ms for name, ms in events if kernel in name),
+            "events_per_call": len(events) / reps}
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -273,18 +282,18 @@ def render_window_march(tb, device):
     return (o, d, task.skipmip, *task._aabb_t, torch.full_like(tmin, 0.5), cfg), tmin, tmax
 
 
-def training_march(task, skipmip, gen, device, n_iters: int = TRAIN_ITERS):
-    """The training march's arguments: TRAIN_RAYS rays of random pixels of
-    the task's views, random jitter, K TRAIN_K, n_iters iterations, on the
-    skip chain ``skipmip``."""
+def training_march(task, skipmip, gen, device, n_iters: int = TRAIN_ITERS, n_rays=None, k=None):
+    """The training march's arguments: n_rays (default TRAIN_RAYS) rays of
+    random pixels of the task's views, random jitter, K k (default TRAIN_K),
+    n_iters iterations, on the skip chain ``skipmip``."""
     from instant_ngp_torch.nerf import train as nerf_train
     from instant_ngp_torch.nerf.sampler import MarchConfig
 
-    R = TRAIN_RAYS
+    R, k = n_rays or TRAIN_RAYS, k or TRAIN_K
     img = torch.randint(0, task.dataset.n_images, (R,), generator=gen, device=device)
     o, d = nerf_train.generate_rays(task, img, torch.rand((R, 2), generator=gen, device=device))
     jitter = torch.rand((R,), generator=gen, device=device)
-    cfg = MarchConfig(n_march_iters=n_iters, max_samples_per_ray=TRAIN_K,
+    cfg = MarchConfig(n_march_iters=n_iters, max_samples_per_ray=k,
                       cone_angle=task.cone_angle, max_mip=task.max_cascade)
     return o, d, skipmip, *task._aabb_t, jitter, cfg
 
@@ -327,7 +336,6 @@ def kernel_checks(tb, device) -> list[dict]:
     at fox shapes."""
     from instant_ngp_torch.common import warp_direction
     from instant_ngp_torch.nerf.sampler import march_rays
-    from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp
 
@@ -372,7 +380,22 @@ def kernel_checks(tb, device) -> list[dict]:
            variants={"render_window": v})
 
     # D: composite that window with the model's outputs on its samples
-    R = o.shape[0]
+    v = check_composite_window(task, o, d, (ts, dts, valid, t_exit), tmin, tmax, gen)
+    record("composite_window", "instant_ngp_torch/csrc/composite.cu",
+           "instant_ngp_tpu/nerf/task.py:1853", v["max_abs_err"], **headline(v),
+           extra=f" (R {o.shape[0]}, K {ts.shape[1]}; device {v['device_ms']:.4f} ms a call)",
+           device_ms=v["device_ms"])
+    return results
+
+
+def check_composite_window(task, o, d, march, tmin, tmax, gen) -> dict:
+    """Kernel D against its plain version on a render window: the model's
+    outputs on the march's samples (ts, dts, valid, t_exit) and a random
+    running state (T, rgb, depth). Error, times, device time and bound."""
+    from instant_ngp_torch.nerf.task import composite_window, composite_window_plain
+
+    ts, dts, valid, t_exit = march
+    R, device = o.shape[0], o.device
     out = task._eval_window(o, d, ts, valid)
     state = (torch.rand((R,), generator=gen, device=device),  # T
              torch.rand((R, 3), generator=gen, device=device),  # rgb
@@ -384,11 +407,10 @@ def kernel_checks(tb, device) -> list[dict]:
     check(bool(torch.equal(k_res[4], p_res[4])), "composite alive flags differ")
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k_res, p_res))
     check(err <= TOL_COMPOSITE, f"composite err {err}")
-    record("composite_window", "instant_ngp_torch/csrc/composite.cu",
-           "instant_ngp_tpu/nerf/task.py:1853", err, time_ms(lambda: composite_window(*cargs)),
-           time_ms(lambda: composite_window_plain(*cargs)),
-           bound(nbytes(*[a for a in cargs if torch.is_tensor(a)], *k_res[1:])))
-    return results
+    return {"max_abs_err": err, "ms": time_ms(lambda: composite_window(*cargs)),
+            "plain_ms": time_ms(lambda: composite_window_plain(*cargs)),
+            **device_split(lambda: composite_window(*cargs), "composite_window"),
+            **bound(nbytes(*[a for a in cargs if torch.is_tensor(a)], *k_res[1:]))}
 
 
 def view0(tb, res: int):
@@ -477,7 +499,6 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
     path's shapes, and kernel C again at the training march (against the
     snapshot's occupancy grid). Returns the records and the march's."""
     from instant_ngp_torch.common import warp_direction
-    from instant_ngp_torch.nerf import train as nerf_train
     from instant_ngp_torch.nerf.sampler import march_rays
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp
@@ -536,21 +557,24 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
           f"random jitter, the snapshot's grid): {march}")
     ts, dts, valid, _, _ = march_rays(*margs)
 
-    # G: the snapshot model's outputs on those samples against random pixels
+    # G: the snapshot model's outputs on those samples against random pixels;
+    # random outputs at K 48 (the JAX NerfTask default), K 40 (a ragged chunk
+    # of 8, foggy grid) and K 100 (the forward state of samples past 64 kept
+    # in the wrapper's scratch), made from SEED
     out = tb.task._eval_window(o, d, ts, valid)
-    target = torch.rand((R, 3), generator=gen, device=device)
-    bg = torch.rand((R, 3), generator=gen, device=device)
-    pixel_ok = torch.rand((R,), generator=gen, device=device) > 0.05
-    gargs = (out, ts, dts, valid.contiguous(), target, bg, pixel_ok,
-             tb.task.state.grid.mean_density, task.training_near_distance,
-             task.density_reg_scale * nerf_train.INV_LOSS_SCALE, 1.0 / R, task.loss_type,
-             task.rgb_activation, task.density_activation)
-    g = check_composite_train(gargs)
+    variants = {f"snapshot_R{R}": check_composite_train(composite_train_args(
+        task, out, ts, dts, valid, *random_pixels(R, gen), tb.task.state.grid.mean_density))}
+    seed_gen = torch.Generator(device=device).manual_seed(SEED)
+    for k, foggy in ((48, False), (40, True), (100, False)):
+        gargs = seed_composite_train_args(task, R, k, seed_gen, None if foggy else
+                                          tb.task.state.grid.mean_density)
+        variants[f"seed_R{R}_K{k}"] = check_composite_train(gargs)
+    g = variants[f"snapshot_R{R}"]
     record("composite_train", "instant_ngp_torch/csrc/composite_train.cu",
-           "instant_ngp_tpu/nerf/task.py:743", g["max_abs_err"], g["ms"], g["plain_ms"],
-           {k: g[k] for k in ("bound_ms", "bound_by")},
-           extra=f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out)",
-           variants={f"snapshot_R{R}": g})
+           "instant_ngp_tpu/nerf/task.py:683", max(v["max_abs_err"] for v in variants.values()),
+           g["ms"], g["plain_ms"], {k: g[k] for k in ("bound_ms", "bound_by")},
+           extra=f" (R {R}, K {TRAIN_K}, Huber: per-ray loss and d/d out; all: {variants})",
+           variants=variants, device_ms=g["device_ms"])
 
     # H: the Pallas probes' shapes, (2^20, 2) rows into 2^19, and flat; rows
     # of 4 (one float4 atomic) and int32 indices
@@ -714,18 +738,65 @@ def check_mlp_bwd_trained(ws, inp, g, what: str) -> dict:
     return v
 
 
+def composite_train_args(task, out, ts, dts, valid, target, bg, pixel_ok,
+                         mean_density) -> tuple:
+    """Kernel G's arguments for a window's network outputs (R, K, 4), its
+    march and its pixels, with the task's loss, activations and regularizer,
+    as ``nerf_train.step_gradients`` forms them."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    R = ts.shape[0]
+    return (out.contiguous(), ts.contiguous(), dts.contiguous(), valid.contiguous(),
+            target.contiguous(), bg.contiguous(), pixel_ok.contiguous(), mean_density,
+            task.training_near_distance, task.density_reg_scale * nerf_train.INV_LOSS_SCALE,
+            float(np.float32(1.0) / np.float32(R)), task.loss_type, task.rgb_activation,
+            task.density_activation)
+
+
+def random_pixels(R: int, gen) -> tuple:
+    """R random target pixels and backgrounds, 5 % of the pixels masked."""
+    return (torch.rand((R, 3), generator=gen, device=gen.device),
+            torch.rand((R, 3), generator=gen, device=gen.device),
+            torch.rand((R,), generator=gen, device=gen.device) > 0.05)
+
+
+def seed_composite_train_args(task, R: int, K: int, gen, mean_density=None) -> tuple:
+    """Kernel G's arguments on random inputs: outputs N(0, 2^2), a valid
+    prefix of 0..K samples a ray, distances from 0.05 (some nearer than the
+    near distance) in random steps, random dts; mean_density None: a foggy
+    grid (0, below the optical-thickness floor)."""
+    device = gen.device
+    n_valid = torch.randint(0, K + 1, (R, 1), generator=gen, device=device)
+    valid = torch.arange(K, device=device)[None, :] < n_valid
+    steps = torch.rand((R, K), generator=gen, device=device) * 0.03
+    ts = torch.where(valid, 0.05 + torch.cumsum(steps, dim=1), 0.0)
+    dts = torch.where(valid, torch.rand((R, K), generator=gen, device=device) * 0.02 + 0.002, 0.0)
+    out = torch.randn((R, K, 4), generator=gen, device=device) * 2.0
+    if mean_density is None:
+        mean_density = torch.zeros((), device=device)
+    return composite_train_args(task, out, ts, dts, valid, *random_pixels(R, gen), mean_density)
+
+
 def check_composite_train(gargs) -> dict:
-    """Kernel G against its plain version on gargs: error and times."""
+    """Kernel G against its plain version on gargs (TOL_COMPOSITE_TRAIN of
+    max |ref|), and a second call bit for bit equal to the first: error,
+    times, device time and bound."""
     from instant_ngp_torch.nerf import train as nerf_train
 
     errs = []
     outs = nerf_train.composite_train(*gargs)
+    again = nerf_train.composite_train(*gargs)
+    R, K = gargs[1].shape
+    check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+          f"G R {R} K {K}: two calls on the same inputs differ")
     for k_out, p_out in zip(outs, nerf_train.composite_train_plain(*gargs)):
         err, scale = max_err(k_out, p_out)
-        check(err <= TOL_COMPOSITE_TRAIN * scale, f"G err {err} at max |ref| {scale}")
+        check(err <= TOL_COMPOSITE_TRAIN * scale, f"G R {R} K {K}: err {err} at max |ref| {scale}")
         errs.append(err)
-    return {"max_abs_err": max(errs), "ms": time_ms(lambda: nerf_train.composite_train(*gargs)),
+    return {"shape": f"R {R}, K {K}", "max_abs_err": max(errs),
+            "ms": time_ms(lambda: nerf_train.composite_train(*gargs)),
             "plain_ms": time_ms(lambda: nerf_train.composite_train_plain(*gargs)),
+            **device_split(lambda: nerf_train.composite_train(*gargs), "composite_train"),
             **bound(nbytes(*[a for a in gargs if torch.is_tensor(a)], *outs))}
 
 
@@ -786,7 +857,8 @@ def step_check(task, device) -> dict:
     the adaptive ceiling, where the step packs its valid samples into the
     capacity. Then kernels G and H against their plain versions on the main
     path's step's own inputs: its window's composite and its error-map
-    deposit. Returns those two checks by kernel name."""
+    deposit, and G on the ceiling's step too. Returns those checks by kernel
+    name (G at the ceiling as ``composite_train_ceiling``)."""
     from instant_ngp_torch.nerf import train as nerf_train
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -796,7 +868,9 @@ def step_check(task, device) -> dict:
         draws = nerf_train.draw_step(task, gen, n_rays, task.cdf_valid)
         batch = nerf_train.march_batch(task, draws)
         step_gradients_check(task, draws, batch)
-    return main_path_checks(task, draws, batch)
+        if n_rays == ceiling:
+            at_ceiling = check_composite_train(step_composite_args(task, draws, batch))
+    return {**main_path_checks(task, draws, batch), "composite_train_ceiling": at_ceiling}
 
 
 def step_gradients_check(task, draws, batch) -> None:
@@ -830,20 +904,24 @@ def step_gradients_check(task, draws, batch) -> None:
     enc.hashed_grad_corners = corners_before
 
 
+def step_composite_args(task, draws, batch) -> tuple:
+    """Kernel G's arguments of a step: the network outputs on its window
+    (after packing) and its targets."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    with torch.no_grad():
+        out, valid = nerf_train.eval_samples(task, batch)
+    return composite_train_args(task, out, batch.ts, batch.dts, valid,
+                                *nerf_train.targets(task, draws, batch.uv),
+                                task.state.grid.mean_density)
+
+
 def main_path_checks(task, draws, batch) -> dict:
     """Kernels G and H against their plain versions on a step's own inputs."""
     from instant_ngp_torch.nerf import train as nerf_train
 
-    R, K = batch.ts.shape
-    with torch.no_grad():
-        out, valid = nerf_train.eval_samples(task, batch)
-    target, bg, pixel_ok = nerf_train.targets(task, draws, batch.uv)
-    gargs = (out.contiguous(), batch.ts, batch.dts, valid.contiguous(), target.contiguous(),
-             bg.contiguous(), pixel_ok.contiguous(), task.state.grid.mean_density,
-             task.training_near_distance, task.density_reg_scale * nerf_train.INV_LOSS_SCALE,
-             float(np.float32(1.0) / np.float32(R)), task.loss_type, task.rgb_activation,
-             task.density_activation)
-    main = {"composite_train": {"shape": f"R {R}, K {K}", **check_composite_train(gargs)}}
+    gargs = step_composite_args(task, draws, batch)
+    main = {"composite_train": check_composite_train(gargs)}
     main["fwd_bwd_pair"] = nerf_pair_checks(task, batch)
     per_ray = nerf_train.composite_train(*gargs)[0]
     corners, vals = nerf_train.error_deposit(task, draws.img_idx, batch.uv, per_ray, draws.pdf)
@@ -887,6 +965,7 @@ KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "f
                 "hashgrid_encode_bwd": "hashgrid_bwd_kernel", "fused_mlp_bwd": "mlp_bwd_kernel",
                 "composite_train": "composite_train_kernel",
                 "scatter_add_rows": "scatter_add_kernel", "take_rows": "take_rows_kernel",
+                "bilinear_read": "bilinear_read_kernel",
                 "gather_cols_sum": "gather_cols_sum_kernel"}
 
 
@@ -976,9 +1055,13 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
 
     main = step_check(task, device)
     pair = main.pop("fwd_bwd_pair")
+    at_ceiling = main.pop("composite_train_ceiling")
     for r in results:
         if r["name"] in main:
             take_main_path(r, main[r["name"]])
+        if r["name"] == "composite_train":
+            r["variants"]["step_ceiling"] = at_ceiling
+            r["max_abs_err"] = max(r["max_abs_err"], at_ceiling["max_abs_err"])
         if r["name"] == "scatter_add_rows":
             r["deposit_launches_per_step"] = launches["scatter_add_rows"] / TRAIN_STEPS
             r["step_device_ms"] = step_kernels["scatter_add_rows"]
@@ -992,7 +1075,9 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
 
 
 IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
-                 "take_rows")
+                 "bilinear_read")
+# compute_image_mse (bilinear targets) and a render with ground-truth tiles (nearest texels)
+IMAGE_EVAL_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "bilinear_read", "take_rows")
 BENCH_KERNELS = ("take_rows", "gather_cols_sum")
 
 
@@ -1047,7 +1132,58 @@ def check_take(table, idx, what: str) -> dict:
     return {"max_abs_err": 0.0, "ms": time_ms(lambda: take_rows(table, idx)),
             "plain_ms": time_ms(lambda: take_rows_plain(table, idx)),
             "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+            "device_ms": device_split(lambda: take_rows(table, idx), "take_rows")["device_ms"],
             **bound(nbytes(idx, out) + int(torch.unique(idx).numel()) * row_bytes)}
+
+
+def grid_sample_read(texture, resolution, uv):
+    """The library call for a bilinear read: torch's grid_sample on a
+    channels-last view of the texture (no copy), with the same pixel
+    addressing (uv·res − 0.5, align_corners=False) and a border clamp. It
+    differs from the read only past pos = res − 1.0001, where the read
+    clamps and grid_sample does not. Returns a function of no arguments, and
+    the grid made once outside it. Timed only; the port never calls it."""
+    w, h = resolution
+    tex = texture.view(1, h, w, texture.shape[1]).permute(0, 3, 1, 2)
+    grid = (uv * 2.0 - 1.0).view(1, 1, -1, 2)
+    return lambda: torch.nn.functional.grid_sample(tex, grid, mode="bilinear",
+                                                   padding_mode="border", align_corners=False)
+
+
+def check_bilinear(texture, resolution, uv, what: str) -> dict:
+    """Kernel I's bilinear entry against its plain version, bit for bit:
+    times, device time, the library call's time (grid_sample) and bound
+    (the positions read once, the distinct texels of their corners read
+    once, the reads written once)."""
+    from instant_ngp_torch.ops.gather import bilinear_read, bilinear_read_plain, bilinear_texels
+
+    out, ref = bilinear_read(texture, resolution, uv), bilinear_read_plain(texture, resolution, uv)
+    differ = int((out != ref).any(dim=1).sum())
+    check(differ == 0, f"I bilinear {what}: {differ} of {uv.shape[0]} reads differ from plain")
+    idx, _ = bilinear_texels(resolution, uv)
+    row_bytes = texture.shape[1] * texture.element_size()
+    return {"max_abs_err": 0.0, "ms": time_ms(lambda: bilinear_read(texture, resolution, uv)),
+            "plain_ms": time_ms(lambda: bilinear_read_plain(texture, resolution, uv)),
+            "library_ms": time_ms(grid_sample_read(texture, resolution, uv)),
+            "device_ms": device_split(lambda: bilinear_read(texture, resolution, uv),
+                                      "bilinear_read")["device_ms"],
+            **bound(nbytes(uv, out) + int(torch.unique(idx).numel()) * row_bytes)}
+
+
+def edge_positions(resolution) -> torch.Tensor:
+    """Positions on the edges of a bilinear read's clamps: u and v each in
+    {0, 1e-7, 1 − 1e-7, 1}, a few pixel centres and texel corners near both
+    borders, and the positions whose pos falls on, and just past, the upper
+    clamp res − 1.0001 (every pair of them, as f32)."""
+    axes = []
+    for r in resolution:
+        hi = np.float32(r) - np.float32(1.0 + 1e-4)
+        px = np.array([0, 1, 2, r // 2, r - 2, r - 1], np.float64)
+        vals = [0.0, 1e-7, 1.0 - 1e-7, 1.0, *((px + 0.5) / r), *(px / r), *((px + 1.0) / r),
+                (float(hi) + 0.5) / r, (float(hi) + 0.5) / r + 1e-6]
+        axes.append(np.array(vals, np.float32))
+    u, v = np.meshgrid(*axes)
+    return torch.from_numpy(np.stack([u.ravel(), v.ravel()], -1))
 
 
 def check_cols(x, idx, what: str) -> dict:
@@ -1118,7 +1254,18 @@ def gather_kernel_checks(device) -> list[dict]:
         variants[f"T2^{log2_t}_F{f}_{str(dtype)[6:]}"] = check_take(table, idx, f"T 2^{log2_t}")
     record("take_rows", "instant_ngp_torch/csrc/gather.cu", "scripts/bench_gather_tpu.py:75", 0.0,
            **headline(variants["T2^19_F4_float32"]), extra=f" (2^20 rows; all: {variants})",
-           variants=variants, path="image")
+           variants=variants, path="image_eval",
+           device_ms=variants["T2^19_F4_float32"]["device_ms"])
+
+    # kernel I's bilinear entry at the edges of its clamps on a non-square texture
+    res = EDGE_TEXTURE
+    texture = torch.rand((res[0] * res[1], 4), generator=gen, device=device)
+    edges = check_bilinear(texture, res, edge_positions(res).to(device),
+                           f"edge positions, {res[0]}x{res[1]}")
+    record("bilinear_read", "instant_ngp_torch/csrc/gather.cu",
+           "instant_ngp_tpu/image_fit/task.py:34", 0.0, **headline(edges),
+           extra=f" (edge positions on a {res[0]}x{res[1]} texture)",
+           variants={"edges": edges}, path="image", device_ms=edges["device_ms"])
 
     variants = {}
     for t, dtype in COL_CASES:
@@ -1163,9 +1310,11 @@ def make_image(res: int, seed: int) -> np.ndarray:
 
 
 def image_main_path_checks(task, uv: torch.Tensor, device) -> dict:
-    """Kernels A, E and I against their plain versions on the image task's
-    own tables and texture, at a step's positions and texels."""
-    from instant_ngp_torch.image_fit.task import bilinear_texels
+    """Kernels A, E and I's bilinear entry against their plain versions on
+    the image task's own tables and texture, at a step's positions; and
+    take_rows at the texels of the step's bilinear corners, which the step
+    no longer gathers by row (a variant of take_rows's record)."""
+    from instant_ngp_torch.ops.gather import bilinear_texels
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     enc = task.model.encoding
@@ -1177,7 +1326,8 @@ def image_main_path_checks(task, uv: torch.Tensor, device) -> dict:
             "hashgrid_encode_bwd_d2": check_encode_bwd(enc.levels, enc.interpolation, uv, g,
                                                        enc.n_entries, enc.hashed_grad_corners,
                                                        "image step"),
-            "take_rows": check_take(task.texture, idx, "image step")}
+            "take_rows_image_step": check_take(task.texture, idx, "image step texels"),
+            "bilinear_read": check_bilinear(task.texture, task.resolution, uv, "image step")}
     for name, v in main.items():
         print(f"kernel {name} on the image step ({uv.shape[0]} positions, {idx.shape[0]} texels "
               f"of {task.texture.shape[0]}): max_abs_err {v['max_abs_err']:.3e} kernel "
@@ -1252,9 +1402,11 @@ def image_step_check(task) -> torch.Tensor:
     return uv
 
 
-def image_phase(device, card) -> tuple[dict, dict]:
+def image_phase(device, card) -> tuple[dict, dict, dict]:
     """The image path through its entry points. Returns (the main path's
-    kernel checks by record name, the launches of the training run)."""
+    kernel checks by record name, the launches of the training run, those
+    of the evaluation: compute_image_mse and a render with ground-truth
+    tiles)."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.io.image import save_image
     from instant_ngp_torch.testbed import Testbed
@@ -1310,9 +1462,29 @@ def image_phase(device, card) -> tuple[dict, dict]:
     check(last <= MAX_LOSS_RATIO * first, f"image loss fell from {first} to {last} only")
     check(all(launches[k] > 0 for k in IMAGE_KERNELS), f"a kernel was not launched: {launches}")
 
+    # evaluation: compute_image_mse reads its targets through the bilinear
+    # entry, a render with ground-truth tiles reads nearest texels through take_rows
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     mse = tb.compute_image_mse()
     mse_s = time.perf_counter() - t0
+    gt_frame = task.render(*RENDER_WH, gt_checkerboard=True)
+    torch.cuda.synchronize()
+    eval_launches = dict(cuda_lib.LAUNCHES)
+    print(f"image evaluation launches (compute_image_mse, a render with ground-truth tiles): "
+          f"{eval_launches}")
+    check(all(eval_launches[k] > 0 for k in IMAGE_EVAL_KERNELS),
+          f"a kernel was not launched: {eval_launches}")
+    check(tuple(gt_frame.shape) == (RENDER_WH[1], RENDER_WH[0], 3) and
+          bool(torch.isfinite(gt_frame).all()), "the ground-truth checkerboard frame")
+    # take_rows at the texels of those tiles, the one shape its path gives it
+    gt_idx = task.gt_texels(*RENDER_WH)
+    gt_take = check_take(task.texture, gt_idx, f"ground-truth tiles {RENDER_WH[0]}x{RENDER_WH[1]}")
+    print(f"kernel take_rows on the ground-truth tiles ({gt_idx.shape[0]} texels of "
+          f"{task.texture.shape[0]}): bit for bit; kernel {gt_take['ms']:.3f} ms plain "
+          f"{gt_take['plain_ms']:.3f} ms index_select {gt_take['library_ms']:.3f} ms device "
+          f"{gt_take['device_ms']:.4f} ms bound {gt_take['bound_ms']:.4f} ms")
     psnr_after = -10.0 * float(np.log10(mse))
     print(f"image PSNR (compute_image_mse over {IMAGE_RES}^2 pixels) {psnr_before:.2f} -> "
           f"{psnr_after:.2f} dB; compute_image_mse {mse_s:.3f} s")
@@ -1321,7 +1493,7 @@ def image_phase(device, card) -> tuple[dict, dict]:
 
     uv = image_step_check(task)
     main = {**image_main_path_checks(task, uv, device), "fused_mlp_bwd": f_check,
-            **image_trained_mlp_checks(task, uv, device)}
+            **image_trained_mlp_checks(task, uv, device), "take_rows": gt_take}
 
     w, h = RENDER_WH
     torch.cuda.synchronize()
@@ -1338,7 +1510,7 @@ def image_phase(device, card) -> tuple[dict, dict]:
     print(f"image render {w}x{h}: {frame_ms:.3f} ms on {card}; kernel vs plain PSNR {db:.2f} dB")
     check(db >= MIN_PSNR_DB, f"image render kernel vs plain PSNR {db}")
     print(f"image phase max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    return main, launches
+    return main, launches, eval_launches
 
 
 def gather_phase() -> dict:
@@ -1413,11 +1585,12 @@ def main() -> None:
 
     # the image path and the gather microbenchmarks
     results += gather_kernel_checks(device)
-    image_main, image_launches = image_phase(device, card)
+    image_main, image_launches, image_eval_launches = image_phase(device, card)
     # kernel F's record stays the fox MLPs'; the image checks are variants
     f_image = image_main.pop("fused_mlp_bwd")
     f_trained = image_main.pop("fused_mlp_bwd_trained")
     image_pair = image_main.pop("fwd_bwd_pair")
+    take_image_step = image_main.pop("take_rows_image_step")
     for r in results:
         if r["name"] == "fused_mlp_bwd":
             r["variants"]["image_first_step"] = f_image
@@ -1426,12 +1599,14 @@ def main() -> None:
                                    f_trained["max_abs_err"])
         if r["name"] == "fused_mlp":
             r["fwd_bwd_pair"] = {"fox_trained": nerf_pair, "image_trained": image_pair}
+        if r["name"] == "take_rows":
+            r["variants"]["image_step_texels"] = take_image_step
         if r["name"] in image_main:
             take_main_path(r, image_main[r["name"]])
     bench_launches = gather_phase()
 
     paths = {"render": render_launches, "train": train_launches, "image": image_launches,
-             "bench": bench_launches}
+             "image_eval": image_eval_launches, "bench": bench_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

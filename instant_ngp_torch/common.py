@@ -166,13 +166,37 @@ def warp_direction(d: torch.Tensor) -> torch.Tensor:
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """a·b + c in f32 with ONE rounding, like a fused multiply-add.
+    """a·b + c in f32, like a fused multiply-add.
 
     The JAX reference's compiled CPU code contracts ``a*b + c`` into an
     FMA (and the upstream CUDA code does too), and rays start exactly on
     box faces, where the rounding decides whether a position is inside.
-    Emulated in f64: the product of two f32 values is exact there."""
+    Emulated in f64: the product of two f32 values is exact there, but the
+    f64 sum rounds before the cast to f32, so where the exact sum lies
+    within half an f64 ulp of a tie between two f32 values the result can
+    differ from a true FMA's in its last bit. ``fma_exact`` rounds once."""
     f64 = torch.float64
     b = b.to(f64) if torch.is_tensor(b) else b
     c = c.to(f64) if torch.is_tensor(c) else c
     return (a.to(f64) * b + c).to(torch.float32)
+
+
+def fma_exact(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a·b + c in f32 with one rounding, equal to a hardware FMA bit for
+    bit, for f32 a, b (or b a float an f32 holds) and f32 c.
+
+    The f64 product is exact. The f64 sum s is made round-to-odd: TwoSum
+    gives its error, and an inexact s with an even last bit steps one f64
+    ulp toward the exact sum. Round-to-odd in 53 bits followed by
+    round-to-nearest in 24 rounds as round-to-nearest once (53 >= 2·24 + 2).
+    About a dozen more elementwise ops than ``fma``: used where a kernel is
+    held to its plain version bit for bit over millions of FMAs."""
+    f64 = torch.float64
+    p = a.to(f64) * (b.to(f64) if torch.is_tensor(b) else b)
+    c = c.to(f64) if torch.is_tensor(c) else c
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    step = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
+    s = torch.where(step, torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf), err)), s)
+    return s.to(torch.float32)

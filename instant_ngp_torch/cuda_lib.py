@@ -70,16 +70,25 @@ SIGNATURES = {
     "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     # out, ts, dts, valid, target, bg, pixel_ok, mean_density, R, K,
     # near_distance, reg_scale, inv_n_rays, eps_t, loss, rgb_act,
-    # density_act, per_ray, dout
+    # density_act, per_ray, dout, scratch (null where K <= 64)
     "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
-                        _P, _P, _P],
+                        _P, _P, _P, _P],
     # idx, idx bytes (4 or 8), vals, m, F, vec (out and vals F-float
     # aligned), size, out (added into)
     "scatter_add_rows": [_P, _I, _P, _L, _I, _I, _L, _P, _P],
     # table, idx (int32), n, n_rows, row_bytes, out
     "take_rows": [_P, _P, _L, _L, _I, _P, _P],
+    # texture ((w·h, 4) f32), uv ((n, 2) f32), n, w, h, the upper clamps of
+    # pos in x and y, out ((n, 4) f32)
+    "bilinear_read": [_P, _P, _L, _I, _I, _F, _F, _P, _P],
     # x, idx (int32), n_rows, n_cols, reps, dtype (0 f32, 1 bf16), out
     "gather_cols_sum": [_P, _P, _L, _I, _I, _I, _P, _P],
+}
+
+# (argtypes, restype) of the library's functions that launch nothing
+QUERIES = {
+    # R, K -> the f32 scratch composite_train needs
+    "composite_train_scratch_floats": ([_I, _I], _L),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -160,6 +169,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"ngp_{name}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in QUERIES.items():
+            fn = getattr(lib, f"ngp_{name}")
+            fn.argtypes, fn.restype = argtypes, restype
         _lib = lib
     return _lib
 
@@ -172,6 +184,12 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def query(name: str, *args):
+    """Call the library's function ``name``, one that launches nothing
+    (``QUERIES``), and return its result."""
+    return getattr(load(), f"ngp_{name}")(*args)
 
 
 def check_cuda(*tensors: torch.Tensor, dtype=None) -> None:

@@ -12,16 +12,17 @@ testbed_image.cu).
     (:490-547); ``render`` per-pixel inference, optionally with ground-truth
     tiles in a checkerboard (render_image, :304-391)
 
-The texture is one (H·W, 4) f32 tensor on the device, stored linear. Every
-read of it (training targets, ``compute_mse``, the ground-truth tiles) is
-a row gather through ``ops.gather.take_rows``, kernel I on the card, with
-the texel indices and weights computed here. A training step makes no host
-sync; ``train`` reads the last step's loss once per call.
+The texture is one (H·W, 4) f32 tensor on the device, stored linear. Its
+bilinear reads (training targets, ``compute_mse``) are
+``ops.gather.bilinear_read``, one launch of kernel I's bilinear entry on the
+card, equal bit for bit to the jitted JAX read (``bilinear_read_plain``
+mirrors XLA's FMAs). Its nearest-texel reads (``snapped_read``, the
+ground-truth tiles) are row gathers through ``ops.gather.take_rows``, kernel
+I on the card. A training step makes no host sync; ``train`` reads the last
+step's loss once per call.
 
-The JAX step is jitted, and XLA contracts ``uv * res - 0.5`` of the
-bilinear read into one FMA, so ``bilinear_read`` computes it with
-``common.fma``. Halton and Sobol sequences work on uint32 in the JAX
-package; here they are emulated in int64 with masks.
+Halton and Sobol sequences work on uint32 in the JAX package; here they are
+emulated in int64 with masks.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..common import RandomMode, fma, linear_to_srgb, srgb_to_linear
+from ..common import RandomMode, linear_to_srgb, srgb_to_linear
 from ..models.factory import autoconfig_grid_encoding
 from ..models.network import NetworkWithInputEncoding
-from ..ops.gather import take_rows
+from ..ops.gather import bilinear_read, take_rows, texel_index
 from ..ops.losses import loss_fn, loss_type_from_string
 from ..ops.optimizers import Optimizer, OptimizerSpec
 
@@ -44,50 +45,13 @@ _MASK32 = 0xFFFFFFFF
 CHUNK = 1 << 17
 
 
-def _texel_index(x: torch.Tensor, y: torch.Tensor, width: int) -> torch.Tensor:
-    return (y * width + x).to(torch.int32)
-
-
-def bilinear_texels(resolution: tuple[int, int], uv: torch.Tensor):
-    """The texels and weights of ``bilinear_read``: (indices (4N,) int32,
-    the N reads' corners 00 then 10, 01 and 11; frac (N, 2))."""
-    w, h = resolution
-    # per axis with host scalars: a small tensor made on the host each step
-    # would be a blocking copy to the card; the upper clamp is res − 1.0001
-    # rounded to f32, as the JAX package computes it
-    pos = torch.stack([torch.clamp(fma(uv[:, d], float(r), -0.5), 0.0,
-                                   float(np.float32(r) - np.float32(1.0 + 1e-4)))
-                       for d, r in enumerate(resolution)], dim=-1)
-    pos_int = torch.floor(pos)
-    frac = pos - pos_int
-    x0 = torch.clamp(pos_int[:, 0].to(torch.int64), 0, w - 2)
-    y0 = torch.clamp(pos_int[:, 1].to(torch.int64), 0, h - 2)
-    idx = torch.cat([_texel_index(x0, y0, w), _texel_index(x0 + 1, y0, w),
-                     _texel_index(x0, y0 + 1, w), _texel_index(x0 + 1, y0 + 1, w)])
-    return idx, frac
-
-
-def bilinear_read(texture: torch.Tensor, resolution: tuple[int, int],
-                  uv: torch.Tensor) -> torch.Tensor:
-    """Bilinear fetch with the reference's pixel addressing (pos·res − 0.5,
-    clamped; testbed_image.cu:196-211). texture (H·W, C) row-major;
-    resolution (W, H); uv (N, 2) in [0, 1], x = u along the width. The 4
-    texels of all N reads are one row gather of 4N rows."""
-    idx, frac = bilinear_texels(resolution, uv)
-    v00, v10, v01, v11 = take_rows(texture, idx).chunk(4)
-    fx = frac[:, 0:1]
-    fy = frac[:, 1:2]
-    return ((1 - fx) * (1 - fy) * v00 + fx * (1 - fy) * v10
-            + (1 - fx) * fy * v01 + fx * fy * v11)
-
-
 def snapped_read(texture: torch.Tensor, resolution: tuple[int, int],
                  uv: torch.Tensor) -> torch.Tensor:
     """The texel under uv (nearest, no filtering): one row gather."""
     w, h = resolution
     x = torch.clamp(torch.floor(uv[:, 0] * w).to(torch.int64), 0, w - 1)
     y = torch.clamp(torch.floor(uv[:, 1] * h).to(torch.int64), 0, h - 1)
-    return take_rows(texture, _texel_index(x, y, w))
+    return take_rows(texture, texel_index(x, y, w))
 
 
 def halton(index: torch.Tensor, base: int) -> torch.Tensor:
@@ -175,7 +139,8 @@ class ImageTask:
         """True (default): the model runs kernels A, B, E and F on CUDA
         tensors. False: their plain versions, the reference a kernel run is
         checked against on the card. Texture reads always go through
-        ``take_rows``, which is exact either way."""
+        kernel I (``bilinear_read``, ``take_rows``), which equals its plain
+        versions bit for bit either way."""
         self.model.set_use_kernels(flag)
 
     # --- training ---
@@ -274,18 +239,26 @@ class ImageTask:
             for i in range(0, w * h, CHUNK)]).to(torch.float32).reshape(h, w, 3)
         if not gt_checkerboard:
             return out
-        iw, ih = self.resolution
-        ys, xs = torch.meshgrid(torch.arange(h, device=self.device),
-                                torch.arange(w, device=self.device), indexing="ij")
-        f64 = torch.float64
-        px = torch.clamp(torch.div((xs.to(f64) + 0.5) * iw, w, rounding_mode="floor"), 0, iw - 1)
-        py = torch.clamp(torch.div((ys.to(f64) + 0.5) * ih, h, rounding_mode="floor"), 0, ih - 1)
-        gt = take_rows(self.texture, _texel_index(px.to(torch.int64).reshape(-1),
-                                                  py.to(torch.int64).reshape(-1), iw))[:, :3]
+        gt = take_rows(self.texture, self.gt_texels(w, h))[:, :3]
         if not self.is_hdr and not self.linear_colors:
             gt = linear_to_srgb(torch.clamp(gt, 0.0, 1.0))
+        ys = torch.arange(h, device=self.device)[:, None]
+        xs = torch.arange(w, device=self.device)[None, :]
         tiles = ((xs // checker_px) + (ys // checker_px)) % 2 == 0
         return torch.where(tiles[..., None], out, gt.reshape(h, w, 3))
+
+    def gt_texels(self, width: int, height: int) -> torch.Tensor:
+        """The texture rows of a width×height render's ground-truth tiles:
+        the nearest texel of each pixel centre, computed as the JAX package
+        does in f64; (height·width,) int32, row-major."""
+        iw, ih = self.resolution
+        f64 = torch.float64
+        xs = torch.arange(width, device=self.device, dtype=f64)
+        ys = torch.arange(height, device=self.device, dtype=f64)
+        px = torch.clamp(torch.div((xs + 0.5) * iw, width, rounding_mode="floor"), 0, iw - 1)
+        py = torch.clamp(torch.div((ys + 0.5) * ih, height, rounding_mode="floor"), 0, ih - 1)
+        return texel_index(px.to(torch.int64)[None, :], py.to(torch.int64)[:, None],
+                           iw).reshape(-1)
 
     @torch.no_grad()
     def compute_mse(self, quantize_to_byte: bool = False) -> float:

@@ -232,8 +232,10 @@ def composite_train(out, ts, dts, valid, target, bg, pixel_ok, mean_density,
                     loss_type: LossType, rgb_activation: NerfActivation,
                     density_activation: NerfActivation):
     """See ``composite_train_plain``. CPU tensors run the plain version;
-    CUDA tensors launch kernel G (one thread per ray, forward and backward
-    over its K samples)."""
+    CUDA tensors launch kernel G (a warp per ray, a lane per sample: the
+    forward's sums as warp scans, the backward from the forward's state;
+    where K > 64 that state of the samples past 64 goes to a scratch
+    buffer allocated here at the size the kernel's library gives)."""
     args = (out, ts, dts, valid, target, bg, pixel_ok, mean_density, near_distance, reg_scale,
             inv_n_rays, loss_type, rgb_activation, density_activation)
     if out.device.type == "cpu":
@@ -247,15 +249,20 @@ def composite_train(out, ts, dts, valid, target, bg, pixel_ok, mean_density,
     if out.shape != (R, K, 4) or target.shape != (R, 3) or bg.shape != (R, 3):
         raise ValueError(f"composite shapes out {tuple(out.shape)}, target "
                          f"{tuple(target.shape)}, bg {tuple(bg.shape)} for ({R}, {K})")
+    if out.data_ptr() % 16:
+        raise ValueError("kernel G reads out's rows as float4: out must be 16-byte aligned")
     per_ray = torch.empty((R,), dtype=torch.float32, device=out.device)
     dout = torch.empty_like(out)
     if R > 0:
+        n_scratch = cuda_lib.query("composite_train_scratch_floats", R, K)
+        scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=out.device)
+                   if n_scratch > 0 else None)
         cuda_lib.launch("composite_train", out.data_ptr(), ts.data_ptr(), dts.data_ptr(),
                         valid.data_ptr(), target.data_ptr(), bg.data_ptr(), pixel_ok.data_ptr(),
                         mean_density.data_ptr(), R, K, near_distance, reg_scale, inv_n_rays,
                         EPS_T, LOSS_CODES[loss_type], ACTIVATION_CODES[rgb_activation],
                         ACTIVATION_CODES[density_activation], per_ray.data_ptr(),
-                        dout.data_ptr())
+                        dout.data_ptr(), None if scratch is None else scratch.data_ptr())
     return per_ray, dout
 
 

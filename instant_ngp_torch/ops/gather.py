@@ -1,25 +1,106 @@
-"""Row gather and summed column gather (ports of the Pallas kernels of
-``scripts/bench_gather_tpu.py::make_pallas_take`` and
-``scripts/bench_dyngather.py::run_one``).
+"""Row gather, the bilinear texture read and summed column gather (ports of
+the Pallas kernels of ``scripts/bench_gather_tpu.py::make_pallas_take`` and
+``scripts/bench_dyngather.py::run_one``, and of the JAX image step's
+``bilinear_read``).
 
 ``take_rows(table, idx)`` is ``jnp.take(table, idx, axis=0)`` on a (T, F)
-table with int32 indices in [0, T): the image primitive's texture fetches
-go through it. ``gather_cols_sum(x, idx, reps)`` is Σ_{k<reps}
+table with int32 indices in [0, T): the image primitive's nearest-texel
+reads go through it. ``bilinear_read(texture, resolution, uv)`` is the
+image primitive's bilinear read (its training targets and
+``compute_mse``). ``gather_cols_sum(x, idx, reps)`` is Σ_{k<reps}
 ``take_along_axis(x, (idx + k) % T, axis=0)``, summed in x's type from
 zero in k order, as the Pallas kernel carries its sum (a bf16 sum rounds
 to bf16 after every add).
 
-On CUDA tensors they launch kernel I and kernel J (``csrc/gather.cu``); on
-CPU tensors they run ``take_rows_plain`` and ``gather_cols_sum_plain``.
+On CUDA tensors they launch kernel I (row gather, bilinear entry) and kernel
+J (``csrc/gather.cu``); on CPU tensors they run ``take_rows_plain``,
+``bilinear_read_plain`` and ``gather_cols_sum_plain``.
+
+The JAX image step is jitted, and XLA contracts the bilinear read's
+``uv * res - 0.5`` into one FMA and its weighted sum of the four corners into
+three, so ``bilinear_read_plain`` computes them with ``common.fma_exact``
+(one rounding, as a hardware FMA) and equals the jitted JAX read and the
+card's ``fmaf`` bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import cuda_lib
+from ..common import fma_exact
 
 GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def texel_index(x: torch.Tensor, y: torch.Tensor, width: int) -> torch.Tensor:
+    """Row of texel (x, y) of a row-major (H·W, C) texture, int32."""
+    return (y * width + x).to(torch.int32)
+
+
+def bilinear_upper(resolution: tuple[int, int]) -> tuple[float, float]:
+    """The upper clamps of a bilinear read's pos per axis: res − 1.0001
+    rounded to f32, as the JAX package computes them."""
+    return tuple(float(np.float32(r) - np.float32(1.0 + 1e-4)) for r in resolution)
+
+
+def bilinear_texels(resolution: tuple[int, int], uv: torch.Tensor):
+    """The texels and weights of ``bilinear_read``: (indices (4N,) int32,
+    the N reads' corners 00 then 10, 01 and 11; frac (N, 2))."""
+    w, h = resolution
+    # per axis with host scalars: a small tensor made on the host each step
+    # would be a blocking copy to the card
+    pos = torch.stack([torch.clamp(fma_exact(uv[:, d], float(r), -0.5), 0.0, hi)
+                       for d, (r, hi) in enumerate(zip(resolution, bilinear_upper(resolution)))],
+                      dim=-1)
+    pos_int = torch.floor(pos)
+    frac = pos - pos_int
+    x0 = torch.clamp(pos_int[:, 0].to(torch.int64), 0, w - 2)
+    y0 = torch.clamp(pos_int[:, 1].to(torch.int64), 0, h - 2)
+    idx = torch.cat([texel_index(x0, y0, w), texel_index(x0 + 1, y0, w),
+                     texel_index(x0, y0 + 1, w), texel_index(x0 + 1, y0 + 1, w)])
+    return idx, frac
+
+
+def bilinear_read_plain(texture: torch.Tensor, resolution: tuple[int, int],
+                        uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch with the reference's pixel addressing (pos·res − 0.5,
+    clamped; testbed_image.cu:196-211). texture (H·W, C) row-major;
+    resolution (W, H); uv (N, 2) in [0, 1], x = u along the width. The
+    corners' weighted sum in the jitted JAX read's FMAs."""
+    idx, frac = bilinear_texels(resolution, uv)
+    v00, v10, v01, v11 = take_rows_plain(texture, idx).chunk(4)
+    fx = frac[:, 0:1]
+    fy = frac[:, 1:2]
+    return fma_exact(fx * fy, v11, fma_exact((1 - fx) * fy, v01,
+                                             fma_exact((1 - fx) * (1 - fy), v00,
+                                                       fx * (1 - fy) * v10)))
+
+
+def bilinear_read(texture: torch.Tensor, resolution: tuple[int, int],
+                  uv: torch.Tensor) -> torch.Tensor:
+    """See ``bilinear_read_plain``. CPU tensors run the plain version; CUDA
+    tensors launch kernel I's bilinear entry (one thread a read: its four
+    corner rows as independent 16-byte loads, weighed in the plain version's
+    arithmetic, bit for bit). The entry takes an (H·W, 4) f32 texture,
+    16-byte aligned, and raises on anything else."""
+    if texture.device.type == "cpu":
+        return bilinear_read_plain(texture, resolution, uv)
+    cuda_lib.check_cuda(texture, uv, dtype=torch.float32)
+    w, h = resolution
+    if texture.shape != (w * h, 4) or uv.ndim != 2 or uv.shape[1] != 2 or w < 2 or h < 2:
+        raise ValueError(f"kernel I's bilinear entry takes a (W·H, 4) texture of W, H >= 2 and "
+                         f"(N, 2) positions, got {tuple(texture.shape)} for {resolution} and "
+                         f"{tuple(uv.shape)}")
+    if texture.data_ptr() % 16 or uv.data_ptr() % 8:
+        raise ValueError("kernel I's bilinear entry reads 16-byte texels and 8-byte positions: "
+                         "texture and uv must be aligned to them")
+    out = torch.empty((uv.shape[0], 4), dtype=torch.float32, device=texture.device)
+    if uv.shape[0] > 0:
+        cuda_lib.launch("bilinear_read", texture.data_ptr(), uv.data_ptr(), uv.shape[0], w, h,
+                        *bilinear_upper(resolution), out.data_ptr())
+    return out
 
 
 def take_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -30,7 +111,8 @@ def take_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """See ``take_rows_plain``. CPU tensors run the plain version; CUDA
     tensors launch kernel I, which copies each row as 16-, 8- or 4-byte
-    pieces and writes a zero row for an index outside [0, T)."""
+    pieces, several a thread with their loads in flight together, and
+    writes a zero row for an index outside [0, T)."""
     if table.device.type == "cpu":
         return take_rows_plain(table, idx)
     cuda_lib.check_cuda(table)

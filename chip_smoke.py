@@ -27,8 +27,9 @@ microbenchmarks:
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
   entry at the edges of its clamps on a non-square texture and kernel J at
-  every shape of ``scripts/bench_dyngather.py`` against their plain versions
-  (I bit for bit); then an 8192^2 RGBA image made from SEED, written as a
+  every shape of ``scripts/bench_dyngather.py`` and at ragged shapes with
+  negative indices and indices near 2^31 − 1, on both of its routes, against
+  their plain versions (I and J bit for bit); then an 8192^2 RGBA image made from SEED, written as a
   ``.bin`` file, is fitted with ``configs/image/base.json`` for 300 steps of
   2^18 samples through ``Testbed("image")`` and ``frame()``, checked to go
   through kernels A, B, E, F and I's bilinear entry, to lower its loss and to
@@ -138,11 +139,24 @@ TAKE_CASES = ((19, 4, torch.float32), (19, 4, torch.bfloat16), (19, 16, torch.bf
               (15, 4, torch.float32), (19, 32, torch.bfloat16))
 N_TAKE = 1 << 20
 EDGE_TEXTURE = (1021, 517)  # (W, H) of the bilinear entry's check at its clamps
-# kernel J at every case of scripts/bench_dyngather.py:68-70
+# kernel J at every case of scripts/bench_dyngather.py:68-70, bit for bit
 COL_CASES = ((8, torch.float32), (64, torch.float32), (512, torch.float32),
              (4096, torch.float32), (32768, torch.float32), (4096, torch.bfloat16))
 COLS, COL_REPS = 128, 8
-TOL_GATHER_COLS_F32 = 1e-6  # relative; the same adds in the same order
+# and beside them (T, L, dtype, indices, reps): a T that is no power of two and
+# an L that is no multiple of a tile, indices negative, within COL_REPS of
+# 2^31 − 1 (idx + k wraps as int32) or anywhere in int32, on the shared route
+# (T ≤ 4,096; at L 13 a row is 52 bytes, so it stages one element a load) and
+# on the transpose route (T 32,767; at reps 3 it loads a window an element at
+# a time)
+COL_EXTRA_CASES = ((4095, 100, torch.float32, "range", COL_REPS),
+                   (4095, 100, torch.float32, "negative", COL_REPS),
+                   (4095, 100, torch.bfloat16, "near_max", COL_REPS),
+                   (7, COLS, torch.float32, "near_max", COL_REPS),
+                   (4095, 13, torch.float32, "negative", COL_REPS),
+                   (32767, 100, torch.float32, "int32", COL_REPS),
+                   (32767, 100, torch.bfloat16, "near_max", COL_REPS),
+                   (32767, 100, torch.float32, "near_max", 3))
 BENCH_ITERS, BENCH_WARMUP = 10, 2  # the gather microbenchmark phase, reduced
 
 # the least time of a kernel: H100 SXM data sheet rates
@@ -166,22 +180,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_split(fn, kernel: str, reps: int = 20) -> dict:
+def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3) -> dict:
     """Device milliseconds per call of fn: the durations of the card's events
     of reps calls under torch.profiler, after one warm-up call, over reps.
     ``device_ms``: all of them; ``kernel_ms``: those of the kernels whose
     name holds ``kernel`` (the rest is fills and copies); ``events_per_call``:
-    how many device events a call has."""
+    how many device events a call has. A trace that caught no device event
+    at all (the profiler drops one now and then) is taken again, up to
+    ``attempts`` traces; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3 / reps) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3 / reps)
+                  for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    check(bool(events), f"torch.profiler caught no device event in {attempts} traces")
     return {"device_ms": sum(ms for _, ms in events),
             "kernel_ms": sum(ms for name, ms in events if kernel in name),
             "events_per_call": len(events) / reps}
@@ -966,7 +986,8 @@ KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "f
                 "composite_train": "composite_train_kernel",
                 "scatter_add_rows": "scatter_add_kernel", "take_rows": "take_rows_kernel",
                 "bilinear_read": "bilinear_read_kernel",
-                "gather_cols_sum": "gather_cols_sum_kernel"}
+                "gather_cols_sum": "gather_cols_sum_",
+                "gather_cols_transpose": "gather_cols_transpose"}
 
 
 def profile_frames(trainer) -> tuple[float, float, list, dict]:
@@ -1078,7 +1099,7 @@ IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fus
                  "bilinear_read")
 # compute_image_mse (bilinear targets) and a render with ground-truth tiles (nearest texels)
 IMAGE_EVAL_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "bilinear_read", "take_rows")
-BENCH_KERNELS = ("take_rows", "gather_cols_sum")
+BENCH_KERNELS = ("take_rows", "gather_cols_sum", "gather_cols_transpose")
 
 
 def image_levels(res: int):
@@ -1186,19 +1207,59 @@ def edge_positions(resolution) -> torch.Tensor:
     return torch.from_numpy(np.stack([u.ravel(), v.ravel()], -1))
 
 
-def check_cols(x, idx, what: str) -> dict:
-    """Kernel J against its plain version: f32 to TOL_GATHER_COLS_F32 of
-    max |ref|, bf16 exactly (both round after every add)."""
+def check_cols(x, idx, reps: int, what: str) -> dict:
+    """Kernel J against its plain version, bit for bit in f32 and bf16 (the
+    same adds in the same order, a bf16 sum rounded after every add):
+    times and bound (x, idx and out once each)."""
     from instant_ngp_torch.ops.gather import gather_cols_sum, gather_cols_sum_plain
 
-    out, ref = gather_cols_sum(x, idx, COL_REPS), gather_cols_sum_plain(x, idx, COL_REPS)
-    err, scale = max_err(out.float(), ref.float())
-    if x.dtype == torch.bfloat16:
-        check(bool(torch.equal(out, ref)), f"J {what}: differs from plain")
-    check(err <= TOL_GATHER_COLS_F32 * scale, f"J {what}: err {err} at max |ref| {scale}")
-    return {"max_abs_err": err, "ms": time_ms(lambda: gather_cols_sum(x, idx, COL_REPS)),
-            "plain_ms": time_ms(lambda: gather_cols_sum_plain(x, idx, COL_REPS)),
-            **bound(nbytes(x, idx, out), COL_REPS * x.numel())}
+    out, ref = gather_cols_sum(x, idx, reps), gather_cols_sum_plain(x, idx, reps)
+    bits = torch.int16 if x.element_size() == 2 else torch.int32
+    differ = int((out.view(bits) != ref.view(bits)).sum())
+    check(differ == 0, f"J {what}: {differ} of {x.numel()} outputs differ from plain")
+    return {"max_abs_err": 0.0, "ms": time_ms(lambda: gather_cols_sum(x, idx, reps)),
+            "plain_ms": time_ms(lambda: gather_cols_sum_plain(x, idx, reps)),
+            **bound(nbytes(x, idx, out), reps * x.numel())}
+
+
+def cols_route(call) -> str:
+    """The route one call of kernel J's wrapper took, as its launches show
+    it: ``transpose`` where it launched the transpose, else ``shared``."""
+    from instant_ngp_torch import cuda_lib
+
+    before = cuda_lib.LAUNCHES["gather_cols_transpose"]
+    call()
+    return "transpose" if cuda_lib.LAUNCHES["gather_cols_transpose"] > before else "shared"
+
+
+def col_indices(kind: str, t: int, cols: int, gen, device) -> torch.Tensor:
+    """(t, cols) int32 indices of kernel J's checks: in [0, t), negative,
+    within COL_REPS of 2^31 − 1, or anywhere in int32."""
+    lo, hi = {"range": (0, t), "negative": (-(1 << 31), 0),
+              "near_max": ((1 << 31) - 1 - COL_REPS, 1 << 31), "int32": (-(1 << 31), 1 << 31)}[kind]
+    return torch.randint(lo, hi, (t, cols), generator=gen, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def check_cols_case(t: int, cols: int, dtype, kind: str, reps: int, gen, device) -> dict:
+    """check_cols on a random (t, cols) table, with the route the wrapper
+    took (which must be the one its plan names) and the device time per
+    call (every kernel of the call)."""
+    from instant_ngp_torch.ops import gather
+
+    x = torch.randn((t, cols), generator=gen, device=device).to(dtype)
+    idx = col_indices(kind, t, cols, gen, device)
+    what = f"T {t} L {cols} {str(dtype)[6:]} {kind} reps {reps}"
+    v = check_cols(x, idx, reps, what)
+    v["route"] = cols_route(lambda: gather.gather_cols_sum(x, idx, reps))
+    planned = gather.cols_plan(t, cols, reps, x.element_size(),
+                               gather.cols_limits(x.device.index or 0)).route
+    check(v["route"] == planned, f"J {what}: took the {v['route']} route, planned {planned}")
+    v["device_ms"] = device_split(lambda: gather.gather_cols_sum(x, idx, reps),
+                                  "gather_cols")["device_ms"]
+    print(f"J {what}: bit for bit, route {v['route']}, device {v['device_ms']:.5f} ms, "
+          f"back to back {v['ms']:.4f} ms, bound {v['bound_ms']:.5f} ms")
+    return v
 
 
 def take_main_path(r: dict, v: dict) -> None:
@@ -1267,14 +1328,18 @@ def gather_kernel_checks(device) -> list[dict]:
            extra=f" (edge positions on a {res[0]}x{res[1]} texture)",
            variants={"edges": edges}, path="image", device_ms=edges["device_ms"])
 
-    variants = {}
-    for t, dtype in COL_CASES:
-        x = torch.randn((t, COLS), generator=gen, device=device).to(dtype)
-        idx = torch.randint(0, t, (t, COLS), generator=gen, device=device, dtype=torch.int32)
-        variants[f"T{t}_{str(dtype)[6:]}"] = check_cols(x, idx, f"T {t} {dtype}")
+    variants = {f"T{t}_{str(dtype)[6:]}":
+                check_cols_case(t, COLS, dtype, "range", COL_REPS, gen, device)
+                for t, dtype in COL_CASES}
+    variants.update({f"T{t}_L{cols}_{str(dtype)[6:]}_{kind}_reps{reps}":
+                     check_cols_case(t, cols, dtype, kind, reps, gen, device)
+                     for t, cols, dtype, kind, reps in COL_EXTRA_CASES})
+    check({v["route"] for v in variants.values()} == {"shared", "transpose"},
+          "J's checks did not take both routes")
     record("gather_cols_sum", "instant_ngp_torch/csrc/gather.cu", "scripts/bench_dyngather.py:34",
-           max(v["max_abs_err"] for v in variants.values()), **headline(variants["T4096_float32"]),
-           extra=f" (L {COLS}, reps {COL_REPS}; all: {variants})", variants=variants, path="bench")
+           0.0, **headline(variants["T4096_float32"]),
+           extra=f" (reps {COL_REPS}; all: {variants})", variants=variants, path="bench",
+           device_ms=variants["T4096_float32"]["device_ms"])
     return results
 
 
@@ -1618,6 +1683,8 @@ def main() -> None:
         # paths, the training run's where it runs them, else the render's
         r["launches"] = (paths[path][counter] if path is not None
                          else train_launches[counter] or render_launches[counter])
+        if r["name"] == "gather_cols_sum":  # the transpose route's first launch
+            r["transpose_launches"] = bench_launches["gather_cols_transpose"]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

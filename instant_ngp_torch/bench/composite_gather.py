@@ -26,7 +26,9 @@ prints one JSON line. The cases:
   positions, every kernel of the call (and, where the tree has the bilinear
   entry, its plain version and ``grid_sample``, the library call);
 - D at the 256^2 render window of view 0 (65,536 rays, K 8), and J at every
-  ``chip_smoke.COL_CASES`` case.
+  ``chip_smoke.COL_CASES`` case (both of its launches on the transpose
+  route), with the route it took and, where that was the shared route, the
+  device time of the transpose route on the same inputs.
 
 Each case has its time back to back (``chip_smoke.time_ms``), its device
 time per call under torch.profiler (``device_ms``: every kernel of the call;
@@ -42,6 +44,7 @@ prints one JSON line per run. Without a card it raises.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import sys
@@ -149,18 +152,40 @@ def d_case(cs, tb, gen, device) -> dict:
                                         tmin, tmax, gen)}
 
 
+# J between the microbenchmark's T 512 and 4,096, where the routes' times cross
+J_BETWEEN = ((1024, "float32"), (2048, "float32"), (2048, "bfloat16"))
+
+
 def j_cases(cs, gen, device) -> dict:
+    """J at every chip_smoke.COL_CASES case and at J_BETWEEN; ``kernel_ms``
+    is every J launch of the call (the transpose route launches twice),
+    ``transpose_ms`` the transpose's share of it, ``route`` the one the
+    tree's wrapper took, as its launches show it (none before the routes).
+    Where it took the shared route, ``transpose_route_ms`` is the device
+    time of the same call on the transpose route (``gather.transpose_plan``),
+    held bit for bit too."""
     import torch
 
-    from instant_ngp_torch.ops.gather import gather_cols_sum
+    from instant_ngp_torch.ops import gather
 
-    out = {}
-    for t, dtype in cs.COL_CASES:
+    routes = hasattr(gather, "transpose_plan")
+    reps, out = cs.COL_REPS, {}
+    for t, dtype in (*cs.COL_CASES, *((t, getattr(torch, d)) for t, d in J_BETWEEN)):
         x = torch.randn((t, cs.COLS), generator=gen, device=device).to(dtype)
         idx = torch.randint(0, t, (t, cs.COLS), generator=gen, device=device, dtype=torch.int32)
-        out[f"T{t}_{str(dtype)[6:]}"] = {
-            **cs.check_cols(x, idx, f"T {t} {dtype}"),
-            **cs.device_split(lambda: gather_cols_sum(x, idx, cs.COL_REPS), "gather_cols_sum")}
+        call = functools.partial(gather.gather_cols_sum, x, idx, reps)
+        v = out[f"T{t}_{str(dtype)[6:]}"] = {
+            **cs.check_cols(x, idx, reps, f"T {t} {dtype}"),
+            **cs.device_split(call, "gather_cols"),
+            "transpose_ms": cs.device_split(call, "gather_cols_transpose")["kernel_ms"],
+            "route": cs.cols_route(call) if routes else None}
+        if v["route"] == "shared":
+            plan = gather.transpose_plan(t, reps)
+            forced = functools.partial(gather.gather_cols_sum_on, x, idx, reps, plan)
+            bits = torch.int16 if x.element_size() == 2 else torch.int32
+            cs.check(torch.equal(forced().view(bits), call().view(bits)),
+                     f"J T {t} {dtype}: the transpose route differs from the shared route")
+            v["transpose_route_ms"] = cs.device_split(forced, "gather_cols")["device_ms"]
     return out
 
 
@@ -188,9 +213,13 @@ def run(root: Path) -> dict:
 
 
 def summarize(res: dict) -> dict:
-    """One --ab line's entries: per case [ms, device_ms, kernel_ms]."""
-    return {f"{k}:{case}": [v["ms"], v["device_ms"], v["kernel_ms"]]
+    """One --ab line's entries: per case [ms, device_ms, kernel_ms]; and J's
+    device ms on the transpose route where its wrapper took the shared one."""
+    line = {f"{k}:{case}": [v["ms"], v["device_ms"], v["kernel_ms"]]
             for k in ("G", "I", "D", "J") for case, v in res[k].items()}
+    line.update({f"J_transpose_route:{case}": v["transpose_route_ms"]
+                 for case, v in res["J"].items() if "transpose_route_ms" in v})
+    return line
 
 
 def main() -> None:

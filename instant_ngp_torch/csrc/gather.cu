@@ -59,20 +59,63 @@
 // keeps every other product rounded), and writes one 16-byte row.
 //
 // Kernel J, column gather summed over reps: out[i, j] =
-// sum_{k < reps} x[(idx[i, j] + k) mod T, j] on (T, L).
+// sum_{k < reps} x[(idx[i, j] + k) mod T, j] on (T, L), where idx + k is
+// int32 arithmetic (it wraps past 2^31 − 1, as the Pallas kernel's int32
+// sum does) and mod is a floor modulo.
 // Replaces the Pallas kernel in scripts/bench_dyngather.py::run_one
 // (jnp.take_along_axis inside a fori_loop, everything in VMEM).
-// Plain version: instant_ngp_torch/ops/gather.py::gather_cols_sum_plain.
+// Plain version: instant_ngp_torch/ops/gather.py::gather_cols_sum_plain;
+// the route and tiling: ops/gather.py::cols_plan, sized by what
+// ngp_gather_cols_limits reads (this file's block, the device's SMs and
+// shared memory).
 //
-// What bounds it on an H100: each output element reads reps elements of
-// its own column at random rows, 4 (f32) or 2 (bf16) bytes out of a
-// 32-byte sector each. The (T, 128) table is at most 16 MB and sits in
-// L2, so the L2's sector rate bounds it, not device memory.
+// What bounds it on an H100: an output reads reps rows of its own column.
+// In the row-major (T, L) table they lie L elements apart, so each read
+// costs its own 32-byte sector for 4 (f32) or 2 (bf16) bytes: 8 sectors,
+// 256 B of L2 traffic an output at reps 8, which is what the L2's sector
+// rate made the one-thread-an-output design pay (PERF.md §6). In a
+// column-major copy the window is reps contiguous elements: 32 B in f32,
+// one or two sectors (1.875 at random starts), 16 B in bf16 (one or two,
+// 1.5). The bound counts x, idx and out once each, over device memory's
+// rate. What bounds this design, per output at reps 8: on the shared route
+// 4 B of idx and 4 B of out, plus the tile staged once per split (T 4,096
+// f32: 8 splits, so 8 × 4 B = one 32-byte sector an output, from L2), and
+// the window as 8 reads of shared memory at random banks; on the transpose
+// route 4 B of x read and 4 B written by the transpose, 4 B of idx, 4 B of
+// out, and the window from the L2-resident scratch: 1.875 sectors, 60 B
+// (bf16 1.5, 48 B), so the L2's sector rate bounds it (PERF.md §6).
 //
-// Simple design: one thread per output element, consecutive threads on
-// consecutive columns. The sum runs in the element type, in k order from
-// zero, as the Pallas kernel carries it: a bf16 sum is rounded to bf16
-// after every add.
+// Design. Both routes read each column from a padded copy whose entry p
+// holds x[p mod T, j] for p < T + reps − 1, so the window of a start r0 in
+// [0, T) is entries r0 .. r0 + reps − 1: the mod-T wrap costs nothing. One
+// 32-bit remainder an output, r0 = idx mod T (floor); the int32 sum
+// idx + k wraps at k = 2^31 − idx (idx > 0), where the row becomes
+// rw = (−2^31) mod T (the wrapper's), one compare a k. The sum runs in the
+// element type in k order from zero, as the plain version's: bit for bit
+// in f32 and bf16.
+//  - shared route, where a tile of all padded rows at one sector a row fits
+//    a block's shared memory (T up to ~7,000): block (t, s) stages columns
+//    [t·c, t·c + c) in shared memory, column-major, c = 8 f32 or 16 bf16,
+//    so a row is one coalesced 32-byte sector (16-byte vector loads where
+//    aligned); then it sums the outputs of its rows from there, consecutive
+//    threads on consecutive columns (idx and out coalesced). A thread's first
+//    kColsOuts indices are loaded before the tile, to arrive while it
+//    stages. Rows split over as many blocks as one wave holds, but no more
+//    than leave each thread an output (T 4,096 f32: 8 splits of 16 tiles,
+//    128 KB a block; T 512: 4 splits), and every split stages its tile
+//    again: 16 MB of L2 reads at T 4,096 against 134 MB of sectors.
+//  - transpose route (larger T): 32x32 tiles through shared memory write
+//    the padded copies to an (L, stride) scratch tensor (16 MB at T 32,768
+//    f32: it stays in L2); then a thread sums kColsOuts outputs a block
+//    width apart, all their windows' loads in flight, idx read and out
+//    written evict-first so that the scratch keeps its place in L2. At
+//    reps 8 (the microbenchmark's) a window is two or three 16-byte loads
+//    (one or two in bf16) shifted into place in registers, not 8 loads. A
+//    thread's column is one remainder by L, then a compare-and-wrap a step.
+//    Both launches come from one wrapper call. At the microbenchmark's
+//    T 8–4,096 the transpose route is the slower one on an H100 (two
+//    launches where one does, and the window sectors; PERF.md §6), so the
+//    shared route stays.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,21 +193,215 @@ __device__ __forceinline__ __nv_bfloat16 add<__nv_bfloat16>(__nv_bfloat16 a, __n
     return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
 }
 
+// T's value from its bits; the evict-first store of a T
 template <typename T>
-__global__ void gather_cols_sum_kernel(const T* __restrict__ x, const int* __restrict__ idx,
-                                       long long n_rows, int n_cols, int reps,
-                                       T* __restrict__ out) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_rows * n_cols) return;
-    const long long j = i % n_cols;
-    const long long base = idx[i];
+__device__ __forceinline__ T from_bits(unsigned b);
+
+template <>
+__device__ __forceinline__ float from_bits<float>(unsigned b) { return __uint_as_float(b); }
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_bits<__nv_bfloat16>(unsigned b) {
+    return __ushort_as_bfloat16((unsigned short)b);
+}
+
+__device__ __forceinline__ void store_stream(float* p, float v) { __stcs(p, v); }
+
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p, __nv_bfloat16 v) {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(v));
+}
+
+// element q of a 16-byte vector of T
+template <typename T>
+__device__ __forceinline__ T lane_of(const uint4& w, int q) {
+    constexpr int per_word = 4 / sizeof(T);
+    const int i = q / per_word;
+    const unsigned word = i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+    return from_bits<T>(word >> (8 * sizeof(T) * (q % per_word)));
+}
+
+constexpr int kColsThreads = 1024;   // shared route, a block
+constexpr int kColsOuts = 4;         // outputs a thread holds at once
+constexpr int kScratchThreads = 256; // transpose route's sum, a block
+constexpr int kTile = 32;            // transpose tile, kTile x kTile
+constexpr int kTileRows = 8;         // transpose block: kTile x kTileRows threads
+constexpr int kVecReps = 8;          // reps the transpose route loads as 16-byte chunks
+
+// r0 = v mod T (a floor modulo), the one remainder an output
+__device__ __forceinline__ int first_row(int v, int n_rows) {
+    const int p = v % n_rows;
+    return p < 0 ? p + n_rows : p;
+}
+
+// the k at which the int32 sum v + k wraps past 2^31 − 1 (never: 2^32 − 1)
+__device__ __forceinline__ unsigned wrap_k(int v) {
+    return v > 0 ? 0x80000000u - (unsigned)v : 0xffffffffu;
+}
+
+// One output: the sum of a window of a padded column copy (col[p] =
+// x[p mod T, j] for p < T + reps − 1) from row v mod T, the int32 wrap of
+// v + k sending it to row rw at k = wrap_k(v).
+template <typename T>
+__device__ __forceinline__ T window_sum(const T* col, int v, int n_rows, int reps, int rw) {
+    int p = first_row(v, n_rows);
+    const unsigned kw = wrap_k(v);
     T acc = T(0.0f);
-    for (int k = 0; k < reps; ++k) {
-        long long r = (base + k) % n_rows;  // floor modulo, as jnp's % on ints
-        if (r < 0) r += n_rows;
-        acc = add<T>(acc, x[r * n_cols + j]);
+#pragma unroll 8
+    for (int k = 0; k < reps; ++k, ++p) {
+        if ((unsigned)k == kw) p = rw;
+        acc = add<T>(acc, col[p]);
     }
-    out[i] = acc;
+    return acc;
+}
+
+// The same for kVecReps entries from entry p, no int32 wrap, of a column
+// copy aligned to 16 bytes: its 16-byte chunks (2 or 3 in f32, 1 or 2 in
+// bf16) are loaded together, shifted so that element k is lane k (a funnel
+// shift of half a word in bf16, then selects by 1 and 2 words), and summed
+// in k order.
+template <typename T>
+__device__ __forceinline__ T window_sum_vec(const T* col, int p) {
+    constexpr int V = 16 / sizeof(T), per_word = 4 / sizeof(T);
+    constexpr int NC = (kVecReps + V - 2) / V + 1, NW = 4 * NC;
+    const int e0 = p % V;
+    const int nc = (e0 + kVecReps - 1) / V + 1;
+    const uint4* chunk = reinterpret_cast<const uint4*>(col + (p - e0));
+    unsigned w[NW];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+        const uint4 u = c < nc ? __ldg(chunk + c) : make_uint4(0u, 0u, 0u, 0u);
+        w[4 * c] = u.x;
+        w[4 * c + 1] = u.y;
+        w[4 * c + 2] = u.z;
+        w[4 * c + 3] = u.w;
+    }
+    int sw = e0;  // words to shift by
+    if constexpr (per_word == 2) {
+        const unsigned sh = 16u * (e0 & 1);
+#pragma unroll
+        for (int m = 0; m + 1 < NW; ++m) w[m] = __funnelshift_r(w[m], w[m + 1], sh);
+        sw = e0 >> 1;
+    }
+#pragma unroll
+    for (int m = 0; m + 1 < NW; ++m) w[m] = (sw & 1) ? w[m + 1] : w[m];
+#pragma unroll
+    for (int m = 0; m + 2 < NW; ++m) w[m] = (sw & 2) ? w[m + 2] : w[m];
+    T acc = T(0.0f);
+#pragma unroll
+    for (int k = 0; k < kVecReps; ++k) {
+        acc = add<T>(acc, from_bits<T>(w[k / per_word] >> (8 * sizeof(T) * (k % per_word))));
+    }
+    return acc;
+}
+
+// shared route: block (tile, split) of (n_cols / cols, splits); V elements a
+// staging load (16 bytes' worth, or 1)
+template <typename T, int V>
+__global__ void __launch_bounds__(kColsThreads)
+gather_cols_sum_shared_kernel(const T* __restrict__ x, const int* __restrict__ idx, int n_rows,
+                              int n_cols, int reps, int rw, int stride, int c_log2, int rows,
+                              T* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* tile = reinterpret_cast<T*>(smem_raw);
+    const int c_mask = (1 << c_log2) - 1;
+    const int j0 = blockIdx.x << c_log2;
+    const int r0 = blockIdx.y * rows;
+    const int n_out = (min(n_rows, r0 + rows) - r0) << c_log2;
+    int v[kColsOuts];
+    auto load_idx = [&](int base) {
+#pragma unroll
+        for (int u = 0; u < kColsOuts; ++u) {
+            const int o = base + u * kColsThreads + threadIdx.x;
+            const int j = j0 + (o & c_mask);
+            v[u] = o < n_out && j < n_cols ? __ldcs(idx + (r0 + (o >> c_log2)) * n_cols + j) : 0;
+        }
+    };
+    load_idx(0);
+    // tile[jl * stride + p] = x[p mod T, j0 + jl], p < T + reps − 1
+    const int padded = n_rows + max(reps, 1) - 1;
+    const int row_log2 = c_log2 - (V == 1 ? 0 : V == 4 ? 2 : 3);  // loads a tile row: 2^row_log2
+    const int row_mask = (1 << row_log2) - 1;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < padded << row_log2; e += kColsThreads) {
+        const int p = e >> row_log2, jl = (e & row_mask) * V;
+        const int src = p < n_rows ? p : p % n_rows;
+        if (j0 + jl >= n_cols) continue;
+        if constexpr (V == 1) {
+            tile[jl * stride + p] = x[src * n_cols + j0 + jl];
+        } else {
+            const uint4 w = *reinterpret_cast<const uint4*>(x + src * n_cols + j0 + jl);
+#pragma unroll
+            for (int q = 0; q < V; ++q) tile[(jl + q) * stride + p] = lane_of<T>(w, q);
+        }
+    }
+    __syncthreads();
+    for (int base = 0; base < n_out; base += kColsOuts * kColsThreads) {
+        if (base > 0) load_idx(base);
+#pragma unroll
+        for (int u = 0; u < kColsOuts; ++u) {
+            const int o = base + u * kColsThreads + threadIdx.x;
+            const int jl = o & c_mask;
+            if (o < n_out && j0 + jl < n_cols) {
+                out[(r0 + (o >> c_log2)) * n_cols + j0 + jl] =
+                    window_sum<T>(tile + jl * stride, v[u], n_rows, reps, rw);
+            }
+        }
+    }
+}
+
+// transpose route, first launch: xt[j * stride + p] = x[p mod T, j] for
+// p < T + reps − 1, block (p tile, j tile); S: the elements' bits
+template <typename S>
+__global__ void __launch_bounds__(kTile * kTileRows)
+gather_cols_transpose_kernel(const S* __restrict__ x, int n_rows, int n_cols, int padded,
+                             int stride, S* __restrict__ xt) {
+    __shared__ S tile[kTile][kTile + 1];
+    const int p0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
+#pragma unroll
+    for (int r = threadIdx.y; r < kTile; r += kTileRows) {
+        const int p = p0 + r, j = j0 + threadIdx.x;
+        if (p < padded && j < n_cols) {
+            const int src = p < n_rows ? p : p % n_rows;
+            tile[r][threadIdx.x] = __ldg(x + src * n_cols + j);
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = threadIdx.y; r < kTile; r += kTileRows) {
+        const int j = j0 + r, p = p0 + threadIdx.x;
+        if (p < padded && j < n_cols) xt[j * stride + p] = tile[threadIdx.x][r];
+    }
+}
+
+// transpose route, second launch: kColsOuts outputs a thread, a block width
+// apart, their windows read from the scratch copies (as 16-byte chunks
+// where kVec: reps is kVecReps)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kScratchThreads)
+gather_cols_sum_scratch_kernel(const T* __restrict__ xt, const int* __restrict__ idx, int n_rows,
+                               int n_cols, int reps, int rw, int stride, T* __restrict__ out) {
+    const int n_out = n_rows * n_cols;
+    const int first = blockIdx.x * (kScratchThreads * kColsOuts) + threadIdx.x;
+    int v[kColsOuts];
+#pragma unroll
+    for (int u = 0; u < kColsOuts; ++u) {
+        const int o = first + u * kScratchThreads;
+        v[u] = o < n_out ? __ldcs(idx + o) : 0;
+    }
+    const int step = kScratchThreads % n_cols;
+    int j = first % n_cols;
+#pragma unroll
+    for (int u = 0; u < kColsOuts; ++u) {
+        const int o = first + u * kScratchThreads;
+        if (o < n_out) {
+            const T* col = xt + j * stride;
+            store_stream(out + o, kVec && wrap_k(v[u]) >= kVecReps
+                                      ? window_sum_vec<T>(col, first_row(v[u], n_rows))
+                                      : window_sum<T>(col, v[u], n_rows, reps, rw));
+        }
+        j += step;
+        if (j >= n_cols) j -= n_cols;
+    }
 }
 
 template <typename V>
@@ -207,24 +444,109 @@ extern "C" int ngp_bilinear_read(const void* texture, const void* uv, long long 
     return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16
-extern "C" int ngp_gather_cols_sum(const void* x, const void* idx, long long n_rows, int n_cols,
-                                   int reps, int dtype, void* out, void* stream) {
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((n_rows * n_cols + threads - 1) / threads);
+namespace {
+
+template <typename T, int V>
+cudaError_t launch_cols_shared(const void* x, const int* idx, int n_rows, int n_cols, int reps,
+                               int rw, int stride, int cols, int rows, int splits, void* out,
+                               cudaStream_t st) {
+    // above 48 KB of dynamic shared memory only after opting in: to the most
+    // a launch has asked for
+    static int opted_in = 0;
+    auto kernel = gather_cols_sum_shared_kernel<T, V>;
+    const int smem = cols * stride * (int)sizeof(T);
+    if (smem > opted_in) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        opted_in = smem;
+    }
+    int c_log2 = 0;
+    while ((1 << c_log2) < cols) ++c_log2;
+    const dim3 grid((unsigned)((n_cols + cols - 1) / cols), (unsigned)splits);
+    kernel<<<grid, kColsThreads, smem, st>>>(static_cast<const T*>(x), idx, n_rows, n_cols, reps,
+                                             rw, stride, c_log2, rows, static_cast<T*>(out));
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cols_sum(const void* src, const int* idx, int n_rows, int n_cols, int reps,
+                            int rw, int stride, int cols, int rows, int splits, int vec, void* out,
+                            cudaStream_t st) {
+    if (cols == 0) {
+        const long long n_out = (long long)n_rows * n_cols;
+        const unsigned blocks = (unsigned)((n_out + kScratchThreads * kColsOuts - 1) /
+                                           (kScratchThreads * kColsOuts));
+        auto kernel = reps == kVecReps ? gather_cols_sum_scratch_kernel<T, true>
+                                       : gather_cols_sum_scratch_kernel<T, false>;
+        kernel<<<blocks, kScratchThreads, 0, st>>>(static_cast<const T*>(src), idx, n_rows,
+                                                   n_cols, reps, rw, stride, static_cast<T*>(out));
+        return cudaGetLastError();
+    }
+    if (vec == 16 / (int)sizeof(T)) {
+        return launch_cols_shared<T, (int)(16 / sizeof(T))>(src, idx, n_rows, n_cols, reps, rw,
+                                                            stride, cols, rows, splits, out, st);
+    }
+    return launch_cols_shared<T, 1>(src, idx, n_rows, n_cols, reps, rw, stride, cols, rows,
+                                    splits, out, st);
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16; xt: (n_cols, stride) scratch
+extern "C" int ngp_gather_cols_transpose(const void* x, int n_rows, int n_cols, int reps,
+                                         int stride, int dtype, void* xt, void* stream) {
+    const int padded = n_rows + (reps > 1 ? reps : 1) - 1;
+    const dim3 grid((unsigned)((padded + kTile - 1) / kTile),
+                    (unsigned)((n_cols + kTile - 1) / kTile));
+    const dim3 block(kTile, kTileRows);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* ip = static_cast<const int*>(idx);
     switch (dtype) {
         case 0:
-            gather_cols_sum_kernel<float><<<blocks, threads, 0, st>>>(
-                static_cast<const float*>(x), ip, n_rows, n_cols, reps, static_cast<float*>(out));
+            gather_cols_transpose_kernel<unsigned><<<grid, block, 0, st>>>(
+                static_cast<const unsigned*>(x), n_rows, n_cols, padded, stride,
+                static_cast<unsigned*>(xt));
             break;
         case 1:
-            gather_cols_sum_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-                static_cast<const __nv_bfloat16*>(x), ip, n_rows, n_cols, reps,
-                static_cast<__nv_bfloat16*>(out));
+            gather_cols_transpose_kernel<unsigned short><<<grid, block, 0, st>>>(
+                static_cast<const unsigned short*>(x), n_rows, n_cols, padded, stride,
+                static_cast<unsigned short*>(xt));
             break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
+}
+
+// What ops/gather.py::cols_plan sizes kernel J's shared route by: out =
+// {kColsThreads, the device's SMs, the shared memory a block may opt in to,
+// an SM's, the runtime's reserve a block, threads an SM}
+extern "C" int ngp_gather_cols_limits(int device, int* out) {
+    out[0] = kColsThreads;
+    const cudaDeviceAttr attrs[5] = {
+        cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+        cudaDevAttrMaxSharedMemoryPerMultiprocessor, cudaDevAttrReservedSharedMemoryPerBlock,
+        cudaDevAttrMaxThreadsPerMultiProcessor};
+    for (int a = 0; a < 5; ++a) {
+        const cudaError_t err = cudaDeviceGetAttribute(out + 1 + a, attrs[a], device);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+}
+
+// src: x (shared route) or the transpose's xt (cols == 0); rw: the row past
+// the int32 wrap, (−2^31) mod T; vec: elements a staging load takes
+extern "C" int ngp_gather_cols_sum(const void* src, const void* idx, int n_rows, int n_cols,
+                                   int reps, int rw, int dtype, int stride, int cols, int rows,
+                                   int splits, int vec, void* out, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* ip = static_cast<const int*>(idx);
+    switch (dtype) {
+        case 0:
+            return (int)launch_cols_sum<float>(src, ip, n_rows, n_cols, reps, rw, stride, cols,
+                                               rows, splits, vec, out, st);
+        case 1:
+            return (int)launch_cols_sum<__nv_bfloat16>(src, ip, n_rows, n_cols, reps, rw, stride,
+                                                       cols, rows, splits, vec, out, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

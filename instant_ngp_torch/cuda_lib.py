@@ -81,14 +81,21 @@ SIGNATURES = {
     # texture ((w·h, 4) f32), uv ((n, 2) f32), n, w, h, the upper clamps of
     # pos in x and y, out ((n, 4) f32)
     "bilinear_read": [_P, _P, _L, _I, _I, _F, _F, _P, _P],
-    # x, idx (int32), n_rows, n_cols, reps, dtype (0 f32, 1 bf16), out
-    "gather_cols_sum": [_P, _P, _L, _I, _I, _I, _P, _P],
+    # x, n_rows, n_cols, reps, stride, dtype (0 f32, 1 bf16), xt ((n_cols,
+    # stride) scratch, the columns' padded copies)
+    "gather_cols_transpose": [_P, _I, _I, _I, _I, _I, _P, _P],
+    # x (or xt where cols is 0), idx (int32), n_rows, n_cols, reps, the row
+    # past the int32 wrap, dtype, stride, cols, rows, splits, vec (elements a
+    # staging load), out
+    "gather_cols_sum": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 # (argtypes, restype) of the library's functions that launch nothing
 QUERIES = {
     # R, K -> the f32 scratch composite_train needs
     "composite_train_scratch_floats": ([_I, _I], _L),
+    # device, out (6 int32) -> cudaError: what kernel J's plan is sized by
+    "gather_cols_limits": ([_I, _P], _I),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

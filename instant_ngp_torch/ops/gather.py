@@ -10,7 +10,8 @@ image primitive's bilinear read (its training targets and
 ``compute_mse``). ``gather_cols_sum(x, idx, reps)`` is Σ_{k<reps}
 ``take_along_axis(x, (idx + k) % T, axis=0)``, summed in x's type from
 zero in k order, as the Pallas kernel carries its sum (a bf16 sum rounds
-to bf16 after every add).
+to bf16 after every add); ``idx + k`` is int32 arithmetic, as in the Pallas
+kernel: it wraps past 2^31 − 1 before the floor modulo by T.
 
 On CUDA tensors they launch kernel I (row gather, bilinear entry) and kernel
 J (``csrc/gather.cu``); on CPU tensors they run ``take_rows_plain``,
@@ -24,6 +25,10 @@ card's ``fmaf`` bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -131,20 +136,117 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+SECTOR_BYTES = 32
+INT32_MIN = -(1 << 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColsLimits:
+    """What kernel J's shared route is sized by: its block's threads
+    (csrc/gather.cu's kColsThreads) and the card's SMs, shared memory a
+    block may opt in to, an SM's, the runtime's reserve a block (bytes) and
+    threads an SM. ``cols_limits`` reads them from the library."""
+
+    threads: int
+    n_sms: int
+    smem_per_block: int
+    smem_per_sm: int
+    smem_reserved: int
+    threads_per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def cols_limits(device_index: int) -> ColsLimits:
+    out = (ctypes.c_int * 6)()
+    err = cuda_lib.query("gather_cols_limits", device_index, out)
+    if err != 0:
+        raise RuntimeError(f"kernel J's limits of device {device_index}: cudaError {err}")
+    return ColsLimits(*out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColsPlan:
+    """How kernel J covers a (T, L) problem. Both routes read each column
+    from a staged copy, ``stride`` entries long, whose entry p holds
+    x[p mod T, j] for p < T + max(reps, 1) − 1: a window of reps rows from
+    any start in [0, T) is then contiguous.
+
+    ``shared``: block (t, s) stages the ``cols`` columns of tile t in
+    ``smem`` bytes of shared memory and sums the outputs of rows [s·rows,
+    (s + 1)·rows) of them, consecutive threads on consecutive columns.
+    ``transpose``: one launch writes every column's copy to an (L, stride)
+    scratch tensor; a second sums the outputs from it (csrc/gather.cu says
+    how each kernel's threads take their outputs)."""
+
+    route: str
+    stride: int
+    cols: int = 0
+    rows: int = 0
+    splits: int = 0
+    smem: int = 0
+
+
+def transpose_plan(n_rows: int, reps: int) -> ColsPlan:
+    """The transpose route: the scratch columns rounded up to 8 entries,
+    32-byte aligned in f32 for the 16-byte window loads."""
+    padded = n_rows + max(reps, 1) - 1
+    return ColsPlan("transpose", -(-padded // 8) * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def cols_plan(n_rows: int, n_cols: int, reps: int, elem_bytes: int,
+              limits: ColsLimits) -> ColsPlan:
+    """Kernel J's route and tiling for a (T, L) table of elem_bytes
+    elements on a card of these limits. The shared route when a tile of one
+    32-byte sector a row (8 f32 or 16 bf16 columns; fewer if L is narrower)
+    and all padded rows fits a block's shared memory; its rows split over as
+    many blocks as one wave holds, but no more than leaves each thread an
+    output (every split stages the whole tile again). Else the transpose
+    route (on an H100 the slower one at the microbenchmark's T 8–4,096 in
+    f32, not at every T between: PERF.md §6)."""
+    padded = n_rows + max(reps, 1) - 1
+    stride = padded + (4 - padded) % 8  # ≡ 4 (mod 8): a staging warp's row halves, other banks
+    cols = min(SECTOR_BYTES // elem_bytes, 1 << (n_cols - 1).bit_length())
+    smem = cols * stride * elem_bytes
+    if smem > limits.smem_per_block:
+        return transpose_plan(n_rows, reps)
+    tiles = -(-n_cols // cols)
+    per_sm = min(limits.threads_per_sm // limits.threads,
+                 limits.smem_per_sm // (smem + limits.smem_reserved))
+    wave = max(1, limits.n_sms * per_sm // tiles)
+    work = -(-n_rows * cols // limits.threads)
+    rows = -(-n_rows // min(wave, work))
+    return ColsPlan("shared", stride, cols, rows, -(-n_rows // rows), smem)
+
+
+def staging_vec(n_cols: int, elem_bytes: int, cols: int, aligned: bool) -> int:
+    """Elements a shared-route staging load takes: a 16-byte vector where
+    every row of x, the tile's first column and x itself are 16-byte
+    aligned and a tile row holds a vector; else one."""
+    if aligned and (n_cols * elem_bytes) % 16 == 0 and cols * elem_bytes >= 16:
+        return 16 // elem_bytes
+    return 1
+
+
 def gather_cols_sum_plain(x: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
-    """x (T, L), idx (T, L) integer → (T, L) of x's type:
-    out[i, j] = Σ_{k<reps} x[(idx[i, j] + k) mod T, j]."""
+    """x (T, L), idx (T, L) of int32 values → (T, L) of x's type:
+    out[i, j] = Σ_{k<reps} x[(idx[i, j] + k) mod T, j], the sum idx + k
+    wrapped to int32 as the Pallas kernel's int32 arithmetic wraps it, the
+    modulo a floor modulo, the adds in x's type from zero in k order."""
     n_rows = x.shape[0]
     idx = idx.to(torch.int64)
     acc = torch.zeros_like(x)
     for k in range(reps):
-        acc = acc + torch.gather(x, 0, torch.remainder(idx + k, n_rows))
+        wrapped = torch.remainder(idx + k - INT32_MIN, 1 << 32) + INT32_MIN
+        acc = acc + torch.gather(x, 0, torch.remainder(wrapped, n_rows))
     return acc
 
 
 def gather_cols_sum(x: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tensor:
     """See ``gather_cols_sum_plain``. CPU tensors run the plain version;
-    CUDA tensors launch kernel J (f32 or bf16, one thread per element)."""
+    CUDA tensors launch kernel J on the route ``cols_plan`` picks from the
+    shapes (the transpose route launches twice), bit for bit the plain
+    version in f32 and bf16."""
     if x.device.type == "cpu":
         return gather_cols_sum_plain(x, idx, reps)
     if x.dtype not in GATHER_DTYPES:
@@ -154,8 +256,30 @@ def gather_cols_sum(x: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tens
     if x.ndim != 2 or idx.shape != x.shape:
         raise ValueError(f"kernel J takes x and idx of one (T, L) shape, got "
                          f"{tuple(x.shape)} and {tuple(idx.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    reps = max(reps, 0)
+    limits = cols_limits(x.device.index or 0)
+    return gather_cols_sum_on(x, idx, reps, cols_plan(*x.shape, reps, x.element_size(), limits))
+
+
+def gather_cols_sum_on(x: torch.Tensor, idx: torch.Tensor, reps: int,
+                       plan: ColsPlan) -> torch.Tensor:
+    """Kernel J on a given plan: ``gather_cols_sum``'s, or
+    ``transpose_plan``'s where bench/composite_gather.py weighs the routes.
+    x and idx as ``gather_cols_sum`` checks them, not empty, reps ≥ 0."""
+    n_rows, n_cols = x.shape
+    if n_cols * plan.stride >= 1 << 31:
+        raise ValueError(f"kernel J indexes with int32: (T + reps) · L must be below 2^31, got "
+                         f"T {n_rows}, L {n_cols}, reps {reps}")
     out = torch.empty_like(x)
-    if x.numel() > 0:
-        cuda_lib.launch("gather_cols_sum", x.data_ptr(), idx.data_ptr(), x.shape[0], x.shape[1],
-                        reps, GATHER_DTYPES[x.dtype], out.data_ptr())
+    dtype, wrap_row = GATHER_DTYPES[x.dtype], INT32_MIN % n_rows
+    src, vec = x, staging_vec(n_cols, x.element_size(), plan.cols, x.data_ptr() % 16 == 0)
+    if plan.route == "transpose":
+        src = torch.empty((n_cols, plan.stride), dtype=x.dtype, device=x.device)
+        cuda_lib.launch("gather_cols_transpose", x.data_ptr(), n_rows, n_cols, reps, plan.stride,
+                        dtype, src.data_ptr())
+    cuda_lib.launch("gather_cols_sum", src.data_ptr(), idx.data_ptr(), n_rows, n_cols, reps,
+                    wrap_row, dtype, plan.stride, plan.cols, plan.rows, plan.splits, vec,
+                    out.data_ptr())
     return out

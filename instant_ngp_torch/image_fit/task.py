@@ -35,10 +35,11 @@ from torch.func import functional_call
 
 from ..common import RandomMode, linear_to_srgb, srgb_to_linear
 from ..models.factory import autoconfig_grid_encoding
-from ..models.network import NetworkWithInputEncoding
+from ..models.network import (NetworkWithInputEncoding, flat_from_tree, params_from_jax,
+                              tree_from_flat)
 from ..ops.gather import bilinear_read, take_rows, texel_index
 from ..ops.losses import loss_fn, loss_type_from_string
-from ..ops.optimizers import Optimizer, OptimizerSpec
+from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
 
 _MASK32 = 0xFFFFFFFF
 # pixels per inference pass of render and compute_mse (the JAX package's)
@@ -134,6 +135,25 @@ class ImageTask:
         # pyngp shall_train_encoding / shall_train_network freeze toggles
         self.shall_train_encoding = True
         self.shall_train_network = True
+
+    def opt_state_tree(self) -> dict:
+        """The optimizer state as the JAX package's tree of numpy arrays."""
+        return state_to_tree(self.opt_state, lambda flat: tree_from_flat(self.model, flat))
+
+    @torch.no_grad()
+    def load_state(self, params: dict, opt_state: dict | None = None,
+                   training_step: int = 0) -> None:
+        """Load a snapshot's parameters, optimizer state (else a fresh one
+        from the loaded parameters) and step, as the JAX package's
+        ``Testbed.load_snapshot`` does for an image (testbed.py:2224-2233).
+        Trees are numpy trees in the JAX layout."""
+        params_from_jax(self.model, params)
+        if opt_state is None:
+            self.opt_state = self.opt.init(self.model.param_list())
+        else:
+            self.opt_state = state_from_tree(
+                opt_state, lambda tree: flat_from_tree(self.model, tree), self.device)
+        self.training_step = int(training_step)
 
     def set_use_kernels(self, flag: bool) -> None:
         """True (default): the model runs kernels A, B, E and F on CUDA

@@ -1,16 +1,43 @@
-"""NeRF dataset record (port of the ``NerfDataset`` fields of
-``instant_ngp_tpu/io/nerf_loader.py`` that a snapshot's dataset block
-fills and the training step reads). Reading scenes from disk is not
-ported yet: a training set is built in memory."""
+"""NeRF scenes from disk: ``transforms.json`` → ``NerfDataset`` (port of
+``instant_ngp_tpu/io/nerf_loader.py``; reference nerf_loader.cu:175-560).
+
+``load_nerf`` reads the key set of the reference loader: natural-sorted
+frames, frames whose image is missing dropped, the image extension probed
+when ``file_path`` has none, global and per-frame ``fl_*`` /
+``camera_angle_*`` / ``cx`` / ``cy``, ``aabb_scale`` (at most 2^(cascades
+− 1)), ``scale``, ``offset`` as a scalar or a list, ``white_transparent`` /
+``black_transparent``, ``rolling_shutter``, ``transform_matrix_start`` /
+``_end``, per-frame ``sharpness``, the lens keys (opencv k1…p2, fisheye,
+ftheta, latlong, equirectangular, orthographic), ``up`` and
+``render_aabb``. Matrices go from the nerf convention to NGP's
+(nerf_loader.h:101-168).
+
+What the port's ``NerfTask`` cannot train raises ``NotImplementedError``
+here, before anything is dropped: images of differing sizes, supplied rays
+(``rays_*.dat``), depth maps (``depth_path``) and an environment map
+(``envmap``).
+
+LDR pixels stay sRGB uint8 with straight alpha, as the reference reads them
+back (read_rgba, common_device.cuh:846-869); HDR pixels stay linear float16.
+"""
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
+import json
+import math
+import re
+import warnings
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from ..common import NERF_SCALE
+from ..common import NERF_CASCADES, NERF_SCALE
+from .image import load_image
+
+IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".exr")
 
 
 @dataclasses.dataclass
@@ -32,6 +59,7 @@ class NerfDataset:
     offset: np.ndarray = dataclasses.field(default_factory=lambda: np.array([0.5, 0.5, 0.5]))
     lens_params: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(4))  # k1,k2,p1,p2
     lens_mode: str = "perspective"
+    sharpness: Optional[np.ndarray] = None  # (N,) per-frame sharpness from transforms.json
     n_extra_learnable_dims: int = 0
     depths: Optional[np.ndarray] = None  # (N, H, W) depth supervision: not ported
     rays: Optional[np.ndarray] = None  # (N, H, W, 6) supplied rays: not ported
@@ -40,8 +68,183 @@ class NerfDataset:
     render_aabb: Optional[np.ndarray] = None  # (2, 3) min/max in NGP space
     # rotation into the crop box's local frame; None = identity
     render_aabb_to_local: Optional[np.ndarray] = None  # (3, 3)
+    envmap_path: Optional[str] = None  # not ported: load_nerf raises
     paths: tuple = ()
+    # (N, 2) per-image (w, h) of a scene with differing sizes: not ported,
+    # load_nerf raises; None for a scene of one size
+    per_image_resolution: Optional[np.ndarray] = None
 
     @property
     def n_images(self) -> int:
         return self.images.shape[0]
+
+    def nerf_matrix_to_ngp(self, m: np.ndarray) -> np.ndarray:
+        """reference nerf_loader.h:101-120."""
+        m = np.array(m, np.float32)[:3, :4].copy()
+        m[:, 1] *= -1.0
+        m[:, 2] *= -1.0
+        m[:, 3] = m[:, 3] * self.scale + np.asarray(self.offset, np.float32)
+        if self.from_mitsuba:
+            m[:, 0] *= -1.0
+            m[:, 2] *= -1.0
+        else:
+            m = m[[1, 2, 0], :]
+        return m
+
+    def ngp_matrix_to_nerf(self, m: np.ndarray) -> np.ndarray:
+        """reference nerf_loader.h:122-140 (the inverse of the above)."""
+        m = np.array(m, np.float32)[:3, :4].copy()
+        if self.from_mitsuba:
+            m[:, 0] *= -1.0
+            m[:, 2] *= -1.0
+        else:
+            m = m[[2, 0, 1], :]
+        m[:, 1] *= -1.0
+        m[:, 2] *= -1.0
+        m[:, 3] = (m[:, 3] - np.asarray(self.offset, np.float32)) / self.scale
+        return m
+
+
+def _natural_key(s: str):
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+
+
+def _image_path(base_dir: Path, frame: dict) -> Optional[Path]:
+    """The frame's image file, its extension probed when ``file_path`` has
+    none; None when it is missing."""
+    p = base_dir / frame["file_path"]
+    if p.suffix:
+        return p if p.exists() else None
+    return next((p.with_suffix(e) for e in IMAGE_SUFFIXES if p.with_suffix(e).exists()), None)
+
+
+def _focal(d: dict, axis: str, res: int, other=None):
+    if f"fl_{axis}" in d:
+        return float(d[f"fl_{axis}"])
+    if f"camera_angle_{axis}" in d:
+        return 0.5 * res / math.tan(0.5 * float(d[f"camera_angle_{axis}"]))
+    return other
+
+
+def load_nerf(path) -> NerfDataset:
+    """Load a NeRF scene from a ``transforms.json`` or a directory holding
+    one (the first ``*transforms*.json`` in name order)."""
+    path = Path(path)
+    if path.is_dir():
+        json_paths = sorted(path.glob("*.json"))
+        json_paths = [p for p in json_paths if "transforms" in p.name] or json_paths
+        if not json_paths:
+            raise FileNotFoundError(f"no transforms json in {path}")
+        json_path = json_paths[0]
+    else:
+        json_path = path
+    base_dir = json_path.parent
+    with open(json_path) as f:
+        meta = json.load(f)
+
+    aabb_scale = int(meta.get("aabb_scale", 1))
+    max_aabb = 1 << (NERF_CASCADES - 1)
+    if aabb_scale > max_aabb:
+        raise ValueError(f"aabb_scale must be <= {max_aabb}, got {aabb_scale}")
+    scale = float(meta.get("scale", NERF_SCALE))
+    offset = np.array(meta.get("offset", [0.5, 0.5, 0.5]), np.float32)
+    if np.isscalar(meta.get("offset")):
+        offset = np.full(3, float(meta["offset"]), np.float32)
+
+    frames = sorted(meta["frames"], key=lambda fr: _natural_key(fr.get("file_path", "")))
+    image_paths = [_image_path(base_dir, fr) for fr in frames]
+    kept = [i for i, p in enumerate(image_paths) if p is not None]
+    if len(kept) < len(frames):
+        warnings.warn(f"skipped {len(frames) - len(kept)} frames with missing image files")
+    frames = [frames[i] for i in kept]
+    image_paths = [image_paths[i] for i in kept]
+    if any("depth_path" in fr for fr in frames):
+        raise NotImplementedError("depth supervision (frames with depth_path) is not ported yet")
+    if "envmap" in meta:
+        raise NotImplementedError("an environment map (envmap) is not ported yet")
+    ray_files = [p.parent / f"rays_{p.stem}.dat" for p in image_paths]
+    if any(rf.exists() for rf in ray_files):
+        raise NotImplementedError("supplied rays (rays_*.dat) are not ported yet")
+
+    with cf.ThreadPoolExecutor(max_workers=16) as pool:
+        results = list(pool.map(load_image, image_paths))
+    imgs = [r[0] for r in results]
+    paths = tuple(str(p) for p in image_paths)
+    is_hdr = results[0][1]
+    sizes = np.asarray([[im.shape[1], im.shape[0]] for im in imgs])  # (N, 2) wh
+    if (sizes != sizes[0]).any():
+        raise NotImplementedError("images of differing sizes (per-image resolution) are not "
+                                  "ported yet")
+    w, h = int(sizes[0, 0]), int(sizes[0, 1])
+    if is_hdr:
+        images = np.stack(imgs).astype(np.float16)
+    else:
+        images = (np.stack(imgs) * 255.0 + 0.5).astype(np.uint8)
+
+    if meta.get("white_transparent") or meta.get("black_transparent"):
+        # alpha from luminance (reference nerf_loader.cu mask handling)
+        lum = images[..., :3].astype(np.float32).mean(-1)
+        if meta.get("white_transparent"):
+            alpha = 255.0 - lum if not is_hdr else 1.0 - lum
+        else:
+            alpha = lum
+        images[..., 3] = alpha.astype(images.dtype)
+
+    n = len(frames)
+    focal_lengths = np.zeros((n, 2), np.float32)
+    principal = np.zeros((n, 2), np.float32)
+    xf_start = np.zeros((n, 3, 4), np.float32)
+    xf_end = np.zeros((n, 3, 4), np.float32)
+    rolling = np.zeros((n, 4), np.float32)
+    sharp = np.zeros((n,), np.float32)
+    ds = NerfDataset(
+        images=images, is_hdr=is_hdr, xforms_start=xf_start, xforms_end=xf_end,
+        focal_lengths=focal_lengths, principal_points=principal, rolling_shutter=rolling,
+        resolution=(w, h), aabb_scale=aabb_scale, scale=scale, offset=offset,
+        from_mitsuba=bool(meta.get("from_mitsuba", False)),
+        n_extra_learnable_dims=int(meta.get("n_extra_learnable_dims", 0)), paths=paths)
+
+    fx_g = _focal(meta, "x", w)
+    fy_g = _focal(meta, "y", h, other=fx_g)
+    if fx_g is None:
+        fx_g = fy_g
+    cx_g = float(meta.get("cx", 0.5 * w)) / w
+    cy_g = float(meta.get("cy", 0.5 * h)) / h
+    rs_g = np.array(meta.get("rolling_shutter", [0, 0, 0, 0]), np.float32)
+    for i, fr in enumerate(frames):
+        # a global camera_angle falls back at the image's own resolution
+        fx = _focal(fr, "x", w, other=_focal(meta, "x", w, other=fx_g))
+        fy = _focal(fr, "y", h, other=_focal(meta, "y", h, other=fy_g)) or fx
+        focal_lengths[i] = (fx, fy if fy else fx)
+        principal[i] = (float(fr["cx"]) / w if "cx" in fr else cx_g,
+                        float(fr["cy"]) / h if "cy" in fr else cy_g)
+        rolling[i] = np.array(fr.get("rolling_shutter", rs_g), np.float32)
+        m = fr.get("transform_matrix", fr.get("transform_matrix_start"))
+        m_end = fr.get("transform_matrix_end", m)
+        xf_start[i] = ds.nerf_matrix_to_ngp(np.array(m, np.float32))
+        xf_end[i] = ds.nerf_matrix_to_ngp(np.array(m_end, np.float32))
+        sharp[i] = float(fr.get("sharpness", 1.0))
+    ds.sharpness = sharp
+
+    ds.lens_params = np.array([float(meta.get(k, 0.0)) for k in ("k1", "k2", "p1", "p2")],
+                              np.float32)
+    ds.lens_mode = "opencv" if np.any(ds.lens_params != 0) else "perspective"
+    if meta.get("fisheye") or meta.get("is_fisheye"):
+        ds.lens_mode = "opencv_fisheye"
+    if "ftheta_p0" in meta:
+        # (p0..p4, w, h): the uv offset is rescaled to the intrinsics'
+        # resolution (reference nerf_loader.cu:218-227)
+        ds.lens_params = np.array([float(meta[f"ftheta_p{i}"]) for i in range(5)]
+                                  + [float(meta["w"]), float(meta["h"])], np.float32)
+        ds.lens_mode = "ftheta"
+    if "latlong" in meta:
+        ds.lens_mode = "latlong"
+    elif "equirectangular" in meta:
+        ds.lens_mode = "equirectangular"
+    elif "orthographic" in meta:
+        ds.lens_mode = "orthographic"
+    if "up" in meta:
+        ds.up = np.array(meta["up"], np.float32)
+    if "render_aabb" in meta:
+        ds.render_aabb = np.array(meta["render_aabb"], np.float32).reshape(2, 3)
+    return ds

@@ -26,6 +26,7 @@ from torch import nn
 from ..ops.encodings import Composite, encoding_from_config
 from ..ops.hashgrid import GridEncoding
 from ..ops.mlp import MLP, mlp_from_config
+from ..ops.optimizers import state_from_tree, state_to_tree
 
 
 class NerfNetwork(nn.Module):
@@ -97,14 +98,26 @@ class NerfNetwork(nn.Module):
 
 
 def params_to_numpy(model: NerfNetwork) -> dict:
-    """The model's parameters as the JAX package's numpy tree. A Composite
-    direction encoding contributes its (parameter-free) leaves as None,
-    as ``Composite.init`` does there."""
-    tree = {
-        "density_net": [w.detach().cpu().numpy() for w in model.density_network.weights],
-        "rgb_net": [w.detach().cpu().numpy() for w in model.rgb_network.weights],
-        "pos_enc": tuple(t.detach().cpu().numpy() for t in model.pos_encoding.unpack_params()),
-    }
+    """The model's parameters as the JAX package's numpy tree."""
+    return tree_from_flat(model, model.param_list())
+
+
+def tree_from_flat(model: NerfNetwork, flat) -> dict:
+    """A list in ``param_list`` order (the parameters, or an optimizer
+    moment) as the JAX package's parameter tree of numpy arrays. A
+    Composite direction encoding contributes its (parameter-free) leaves
+    as None, as ``Composite.init`` does there.
+
+    The tree's ``jax.tree.leaves`` order (``snapshot.tree_leaves``), which
+    snapshots store optimizer states in: density_net's matrices,
+    pos_enc's per-level tables, rgb_net's matrices (keys sorted; dir_enc's
+    None leaves dropped). ``param_list`` order is [density_net, rgb_net,
+    pos_enc], with the levels in one flat table."""
+    n_d = len(model.density_network.weights)
+    n_r = len(model.rgb_network.weights)
+    arrs = [t.detach().cpu().numpy() for t in flat]
+    tree = {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r],
+            "pos_enc": tuple(model.pos_encoding.unpack_params(arrs[n_d + n_r]))}
     if isinstance(model.dir_encoding, Composite):
         tree["dir_enc"] = [None] * len(model.dir_encoding.nested)
     return tree
@@ -138,7 +151,7 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
     return model
 
 
-def _flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
+def flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
     """A JAX parameter-shaped tree (params, or an optimizer moment) as
     numpy arrays in ``param_list`` order."""
     flat = [np.asarray(w, np.float32) for w in tree["density_net"]]
@@ -150,14 +163,6 @@ def _flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
     return flat
 
 
-def _tree_from_flat(model: NerfNetwork, flat) -> dict:
-    n_d = len(model.density_network.weights)
-    n_r = len(model.rgb_network.weights)
-    arrs = [t.detach().cpu().numpy() for t in flat]
-    return {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r],
-            "pos_enc": model.pos_encoding.unpack_params(arrs[n_d + n_r])}
-
-
 @torch.no_grad()
 def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
     """Copy a JAX ``NerfTrainState`` (or a tree of the same fields with
@@ -167,13 +172,9 @@ def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
     The bitfield and skip chain are derived again from the density."""
     get = (lambda o, k: o[k]) if isinstance(jax_state, dict) else getattr
     params_from_jax(model, get(jax_state, "params"))
-    opt = get(jax_state, "opt_state")
-    device = model.pos_encoding.table.device
-    state.opt_state = {"step": int(np.asarray(opt["step"]))}
-    for key in ("m", "v", "ema"):
-        if key in opt:
-            state.opt_state[key] = [torch.tensor(src, device=device)
-                                    for src in _flat_from_tree(model, opt[key])]
+    state.opt_state = state_from_tree(get(jax_state, "opt_state"),
+                                      lambda tree: flat_from_tree(model, tree),
+                                      model.pos_encoding.table.device)
     grid = get(jax_state, "grid")
     state.grid.set_density(torch.from_numpy(np.array(get(grid, "density"), np.float32)),
                            float(np.asarray(get(grid, "mean_density"))),
@@ -184,13 +185,9 @@ def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
 def train_state_to_numpy(model: NerfNetwork, state) -> dict:
     """The port's training state as numpy trees in the JAX layout (the
     inverse of ``train_state_from_jax``, for the tests)."""
-    opt = {"step": np.int32(state.opt_state["step"])}
-    for key in ("m", "v", "ema"):
-        if key in state.opt_state:
-            opt[key] = _tree_from_flat(model, state.opt_state[key])
     return {
         "params": params_to_numpy(model),
-        "opt_state": opt,
+        "opt_state": state_to_tree(state.opt_state, lambda flat: tree_from_flat(model, flat)),
         "grid": {"density": state.grid.density.cpu().numpy(),
                  "mean_density": np.float32(state.grid.mean_density.cpu()),
                  "ema_step": np.int32(state.grid.ema_step)},

@@ -19,6 +19,7 @@ from torch import nn
 from ..ops.encodings import encoding_from_config
 from ..ops.hashgrid import GridEncoding
 from ..ops.mlp import MLP, mlp_from_config
+from ..ops.optimizers import state_from_tree, state_to_tree
 
 
 class NetworkWithInputEncoding(nn.Module):
@@ -81,13 +82,23 @@ class NetworkWithInputEncoding(nn.Module):
 
 def params_to_numpy(model: NetworkWithInputEncoding) -> dict:
     """The model's parameters as the JAX package's numpy tree."""
-    tree = {"net": [w.detach().cpu().numpy() for w in model.network.weights]}
+    return tree_from_flat(model, model.param_list())
+
+
+def tree_from_flat(model: NetworkWithInputEncoding, flat) -> dict:
+    """A list in ``param_list`` order (the parameters, or an optimizer
+    moment) as the JAX package's parameter tree of numpy arrays. Its
+    ``jax.tree.leaves`` order (``snapshot.tree_leaves``): enc's per-level
+    tables, then net's matrices (keys sorted)."""
+    arrs = [t.detach().cpu().numpy() for t in flat]
+    n = len(model.network.weights)
+    tree = {"net": arrs[:n]}
     if isinstance(model.encoding, GridEncoding):
-        tree["enc"] = tuple(t.detach().cpu().numpy() for t in model.encoding.unpack_params())
+        tree["enc"] = tuple(model.encoding.unpack_params(arrs[n]))
     return tree
 
 
-def _flat_from_tree(model: NetworkWithInputEncoding, tree: dict) -> list[np.ndarray]:
+def flat_from_tree(model: NetworkWithInputEncoding, tree: dict) -> list[np.ndarray]:
     """A JAX parameter-shaped tree (params, or an optimizer moment) as
     numpy arrays in ``param_list`` order."""
     flat = [np.array(w, np.float32) for w in tree["net"]]
@@ -99,20 +110,11 @@ def _flat_from_tree(model: NetworkWithInputEncoding, tree: dict) -> list[np.ndar
     return flat
 
 
-def _tree_from_flat(model: NetworkWithInputEncoding, flat) -> dict:
-    arrs = [t.detach().cpu().numpy() for t in flat]
-    n = len(model.network.weights)
-    tree = {"net": arrs[:n]}
-    if isinstance(model.encoding, GridEncoding):
-        tree["enc"] = model.encoding.unpack_params(arrs[n])
-    return tree
-
-
 @torch.no_grad()
 def params_from_jax(model: NetworkWithInputEncoding, tree: dict) -> NetworkWithInputEncoding:
     """Load the JAX package's parameter tree (numpy arrays) into ``model``
     in place and return it. Shapes must match the model exactly."""
-    for dst, src in zip(model.param_list(), _flat_from_tree(model, tree)):
+    for dst, src in zip(model.param_list(), flat_from_tree(model, tree)):
         dst.copy_(torch.from_numpy(src))
     return model
 
@@ -124,12 +126,8 @@ def train_state_from_jax(model: NetworkWithInputEncoding, opt, params, opt_state
     optimizer state dict (``step``, ``m``, ``v``, and ``ema`` where the
     JAX state has one) for ``opt``."""
     params_from_jax(model, params)
-    device = model.param_list()[0].device
-    state = {"step": int(np.asarray(opt_state["step"]))}
-    for key in ("m", "v", "ema"):
-        if key in opt_state:
-            state[key] = [torch.tensor(a, device=device)
-                          for a in _flat_from_tree(model, opt_state[key])]
+    state = state_from_tree(opt_state, lambda tree: flat_from_tree(model, tree),
+                            model.param_list()[0].device)
     if opt.spec.ema_decay is not None and "ema" not in state:
         raise ValueError("the optimizer keeps a parameter EMA but the JAX state has none")
     return state
@@ -137,8 +135,4 @@ def train_state_from_jax(model: NetworkWithInputEncoding, opt, params, opt_state
 
 def train_state_to_numpy(model: NetworkWithInputEncoding, opt_state: dict) -> dict:
     """The port's optimizer state as a numpy tree in the JAX layout."""
-    out = {"step": np.int32(opt_state["step"])}
-    for key in ("m", "v", "ema"):
-        if key in opt_state:
-            out[key] = _tree_from_flat(model, opt_state[key])
-    return out
+    return state_to_tree(opt_state, lambda flat: tree_from_flat(model, flat))

@@ -40,9 +40,9 @@ from ..common import (
 )
 from ..io.nerf_loader import NerfDataset
 from ..models.factory import autoconfig_grid_encoding
-from ..models.nerf_network import NerfNetwork
+from ..models.nerf_network import NerfNetwork, flat_from_tree, params_from_jax, tree_from_flat
 from ..ops.losses import loss_type_from_string
-from ..ops.optimizers import Optimizer, OptimizerSpec
+from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
 from ..ops.raymarch import ray_intersect_aabb
 from ..render.camera import uv_to_ray_cam
 from . import train as nerf_train
@@ -53,18 +53,36 @@ from .sampler import MarchConfig, march_rays, march_rays_plain
 RENDER_CHUNK = 1 << 18
 
 
+def running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last dimension in x's dtype, one
+    element after another."""
+    cols, acc = [], torch.zeros_like(x[..., 0])
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
 def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost,
                            eps_t: float, rgb_activation: NerfActivation,
                            density_activation: NerfActivation):
     """Composite one (R, K) window of network outputs onto the rays'
     running (T, rgb, depth). The weight of sample k is (1 − e^{−τ_k})·T·
     e^{−Σ_{j<k} τ_j} with τ = σ·dt. Returns the new (t, T, rgb, depth,
-    alive, cost)."""
+    alive, cost).
+
+    The exponent is −cumsum(τ)_k + τ_k, as the JAX package writes it: past
+    a dense sample (τ ~ 1e3) it keeps only that sum's last bits, so a
+    one-ulp change of the running sum moves a weight by ~1e-4 of itself.
+    The running sum is therefore taken in f32, one sample after another:
+    the order of kernel D and of XLA's cumsum (a reduce-window), where
+    torch.cumsum accumulates in f64 on the CPU and by a parallel scan on
+    the GPU."""
     rgb_s = network_to_rgb(out[..., :3].to(torch.float32), rgb_activation)
     sigma = network_to_density(out[..., 3].to(torch.float32), density_activation)
     sigma = torch.where(valid, sigma, 0.0)
     tau = sigma * dts
-    T_cum = T[:, None] * torch.exp(-torch.cumsum(tau, dim=-1) + tau)
+    T_cum = T[:, None] * torch.exp(-running_sum(tau) + tau)
     weight = (1.0 - torch.exp(-tau)) * T_cum
     rgb = rgb + torch.sum(weight[..., None] * rgb_s, dim=1)
     depth = depth + torch.sum(weight * ts, dim=1)
@@ -110,10 +128,11 @@ def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
 
 class NerfTask:
     """A NeRF scene: model, optimizer, occupancy grid, error map, aabb and
-    crop box, the render loop and ``train``. Built from an in-memory
-    dataset, or from a snapshot's dataset block by
-    ``Testbed.load_snapshot``. The constructor follows the JAX package's
-    (task.py:91-461) for the options this slice ports."""
+    crop box, the render loop and ``train``. Built from a dataset (loaded
+    from disk by ``Testbed.load_training_data``, built in memory, or from a
+    snapshot's dataset block by ``Testbed.load_snapshot``); a snapshot's
+    state loads onto it with ``load_state``. The constructor follows the
+    JAX package's (task.py:91-461) for the options this slice ports."""
 
     def __init__(self, dataset: NerfDataset, config: dict, device, seed: int = 1337,
                  target_batch_size: int = 1 << 18, n_rays_per_batch: int = 1 << 13,
@@ -223,6 +242,13 @@ class NerfTask:
         self.lens_params = self._t(dataset.lens_params)
         self.resolution_t = self._t(dataset.resolution)
         self.error_map_wh = self._t([ew, eh])
+        # the per-image camera offsets of the JAX package's camera
+        # optimization (task.py:265-270), which is not ported: zeros, carried
+        # through snapshots; training raises if a snapshot set any
+        self.cam_offsets = {"rot": np.zeros((n_img, 3), np.float32),
+                            "pos": np.zeros((n_img, 3), np.float32),
+                            "exposure": np.zeros((n_img, 3), np.float32),
+                            "focal": np.zeros((2,), np.float32)}
         if not np.allclose(dataset.xforms_start, dataset.xforms_end) or np.any(
                 np.asarray(dataset.rolling_shutter) != 0):
             raise NotImplementedError("motion blur and rolling shutter are not ported yet")
@@ -242,8 +268,42 @@ class NerfTask:
 
     def set_density_grid(self, density: torch.Tensor) -> None:
         """Take a (n_cascades, G, G, G) float density grid: derive the
-        bitfield and the skip chain the marcher reads."""
-        self.state.grid.set_density(density)
+        bitfield and the skip chain the marcher reads. The grid's update
+        count stays, as the JAX package's snapshot load keeps it."""
+        self.state.grid.set_density(density, ema_step=self.state.grid.ema_step)
+
+    def opt_state_tree(self) -> dict:
+        """The optimizer state as the JAX package's tree of numpy arrays;
+        before the first training step, the state that step would start
+        from."""
+        state = self.state.opt_state or self.opt.init(self.model.param_list())
+        return state_to_tree(state, lambda flat: tree_from_flat(self.model, flat))
+
+    @torch.no_grad()
+    def load_state(self, params: dict, opt_state: dict | None = None,
+                   density_grid: np.ndarray | None = None, training_step: int = 0,
+                   cam_offsets: dict | None = None) -> None:
+        """Load a snapshot's state onto this task, as the JAX package's
+        ``Testbed.load_snapshot`` does (testbed.py:2188-2222): the
+        parameters; the optimizer state, or a fresh one from the loaded
+        parameters; the density grid with its bitfield and skip chain; the
+        step; the camera offsets. Trees are numpy trees in the JAX layout.
+        The images, the error map and the grid's update count stay."""
+        params_from_jax(self.model, params)
+        if opt_state is None:
+            self.state.opt_state = self.opt.init(self.model.param_list())
+        else:
+            self.state.opt_state = state_from_tree(
+                opt_state, lambda tree: flat_from_tree(self.model, tree), self.device)
+        if density_grid is not None:
+            self.set_density_grid(torch.from_numpy(np.asarray(density_grid, np.float32)))
+        self.training_step = int(training_step)
+        if cam_offsets is not None:
+            shapes = {k: np.shape(v) for k, v in cam_offsets.items()}
+            if shapes != {k: v.shape for k, v in self.cam_offsets.items()}:
+                raise ValueError(f"camera offsets {shapes} do not fit this scene's "
+                                 f"{self.dataset.n_images} images (or are not ported)")
+            self.cam_offsets = {k: np.array(v, np.float32) for k, v in cam_offsets.items()}
 
     def optimizer_state(self) -> dict:
         """The optimizer state, made from the current parameters at its
@@ -284,6 +344,9 @@ class NerfTask:
         """n training steps (``nerf/train.py``); returns the last loss. A
         fresh grid is first culled to the cells the training cameras see
         (task.py:228-259)."""
+        if any(np.any(v != 0) for v in self.cam_offsets.values()):
+            raise NotImplementedError("training with a snapshot's camera offsets (camera "
+                                      "optimization) is not ported yet")
         if self.state.grid.fresh:
             ds = self.dataset
             self.state.grid.set_density(

@@ -9,14 +9,16 @@ Plain PyTorch over the parameter list, updated in place, in the JAX
 package's order of operations. The state is a dict ``{"step": int, "m":
 [...], "v": [...], "ema": [...]}``; the step is a host integer, so the
 learning rate and the bias corrections are host f32 scalars and an update
-needs no device read. Shampoo is not ported yet.
+needs no device read. ``state_to_tree`` / ``state_from_tree`` carry a state
+to and from the JAX package's tree of numpy arrays (snapshots, tests).
+Shampoo is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,3 +134,29 @@ class Optimizer:
         if self.spec.ema_decay is not None and "ema" in state:
             return state["ema"]
         return list(params)
+
+
+STATE_KEYS = ("m", "v", "ema")
+
+
+def state_to_tree(state: dict, to_tree: Callable) -> dict:
+    """The state as the JAX package's optimizer-state tree of numpy arrays:
+    ``step`` an int32 scalar, and m, v and (where kept) ema each through
+    ``to_tree``, the model's converter from a ``param_list``-ordered list to
+    its JAX parameter tree. Its ``jax.tree.leaves`` order is ema, m, step, v
+    (keys sorted), each moment in its parameter tree's order."""
+    tree = {"step": np.int32(state["step"])}
+    for key in STATE_KEYS:
+        if key in state:
+            tree[key] = to_tree(state[key])
+    return tree
+
+
+def state_from_tree(tree: dict, to_flat: Callable, device) -> dict:
+    """The inverse of ``state_to_tree``: ``to_flat`` turns a JAX parameter
+    tree into numpy arrays in ``param_list`` order."""
+    state = {"step": int(np.asarray(tree["step"]))}
+    for key in STATE_KEYS:
+        if key in tree:
+            state[key] = [torch.tensor(a, device=device) for a in to_flat(tree[key])]
+    return state

@@ -1,11 +1,20 @@
-"""Snapshot loading (port of the load side of ``instant_ngp_tpu/snapshot.py``).
+"""Snapshot save and load (port of ``instant_ngp_tpu/snapshot.py``;
+reference save_snapshot / load_snapshot, testbed.cu:5288-5491).
 
-Layout: the full network config dict plus a ``"snapshot"`` subobject with
+Layout: the full network config dict plus a ``"snapshot"`` subobject:
+version, mode, training_step, loss, camera, ``params_type`` "__half" and
 ``params_binary`` (fp16 blob in tcnn packing order [density_net, rgb_net,
 pos_enc per level, dir_enc]; MLP matrices stored (out, in) at widths padded
-to 16) and ``density_grid_binary`` (fp16, Morton-ordered per cascade).
-``.ingp`` files are zlib-compressed msgpack; ``.msgpack`` is raw. Decoding
-uses the package's own msgpack reader, so loading needs no msgpack module.
+to 16), ``density_grid_size`` and ``density_grid_binary`` (fp16,
+Morton-ordered per cascade), ``nerf`` {aabb_scale, rgb.rays_per_batch,
+dataset}, and optionally ``optimizer_state`` and ``cam_offsets`` as
+``pack_tree`` lists. ``.ingp`` files are zlib-compressed msgpack;
+``.msgpack`` is raw. The package's own msgpack codec reads and writes them,
+so snapshots need no msgpack module.
+
+Trees (parameters, optimizer state, camera offsets) move in the JAX
+package's layout as numpy arrays: ``tree_leaves`` gives their leaves in
+``jax.tree.leaves`` order without importing JAX.
 """
 
 from __future__ import annotations
@@ -18,9 +27,38 @@ import numpy as np
 from .io import msgpack_lite
 from .io.nerf_loader import NerfDataset
 
+SNAPSHOT_FORMAT_VERSION = 1
+
 
 def _pad16(v: int) -> int:
     return (v + 15) // 16 * 16
+
+
+def _pack_params(params: dict) -> np.ndarray:
+    """A JAX-layout parameter tree → the tcnn fp16 blob [density_net,
+    rgb_net (or net), pos_enc (or enc) per level, dir_enc]: matrices
+    transposed to (out, in) at widths padded to 16 with zeros, everything
+    rounded to fp16 by numpy, as the JAX package rounds it."""
+    blobs = []
+    for net_key in ("density_net", "rgb_net", "net"):
+        for w in params.get(net_key, ()):
+            w = np.asarray(w, np.float32)
+            fan_in, fan_out = w.shape
+            pw = np.zeros((_pad16(fan_out), _pad16(fan_in)), np.float32)
+            pw[:fan_out, :fan_in] = w.T
+            blobs.append(pw.reshape(-1))
+    for enc_key in ("pos_enc", "enc"):
+        if enc_key in params:
+            tbl = params[enc_key]
+            leaves = tbl if isinstance(tbl, (list, tuple)) else (tbl,)
+            blobs += [np.asarray(leaf, np.float32).reshape(-1) for leaf in leaves]
+    dir_leaves = params.get("dir_enc")
+    if dir_leaves is not None:
+        if not isinstance(dir_leaves, (list, tuple)):
+            dir_leaves = (dir_leaves,)
+        blobs += [np.asarray(leaf, np.float32).reshape(-1) for leaf in dir_leaves
+                  if leaf is not None]
+    return np.concatenate(blobs).astype(np.float16) if blobs else np.zeros(0, np.float16)
 
 
 def _unpack_params(blob: np.ndarray, params_template: dict) -> dict:
@@ -67,6 +105,24 @@ def _unpack_params(blob: np.ndarray, params_template: dict) -> dict:
     return out
 
 
+def lens_to_json(mode: str, params) -> dict:
+    """Lens → json (reference json_binding.h:37-65 to_json(Lens))."""
+    p = np.asarray(params, np.float32).reshape(-1)
+    p = np.concatenate([p, np.zeros(max(0, 7 - p.size), np.float32)])
+    if mode == "opencv":
+        return {"is_fisheye": False, "k1": float(p[0]), "k2": float(p[1]),
+                "p1": float(p[2]), "p2": float(p[3])}
+    if mode == "opencv_fisheye":
+        return {"is_fisheye": True, "k1": float(p[0]), "k2": float(p[1]),
+                "k3": float(p[2]), "k4": float(p[3])}
+    if mode == "ftheta":
+        return {f"ftheta_p{i}": float(p[i]) for i in range(5)} | {
+            "w": float(p[5]), "h": float(p[6])}
+    if mode in ("latlong", "equirectangular", "orthographic"):
+        return {mode: True}
+    return {}
+
+
 def lens_from_json(j: dict) -> tuple[str, np.ndarray]:
     """json → (mode, params) (reference json_binding.h:67-100)."""
     j = j or {}
@@ -88,6 +144,11 @@ def lens_from_json(j: dict) -> tuple[str, np.ndarray]:
     return "perspective", np.zeros(4, np.float32)
 
 
+def _mat_cols(m: np.ndarray) -> list:
+    """(3, 4) row-major → 4 column vec3s (tcnn's mat4x3 json layout)."""
+    return np.asarray(m, np.float32).T.tolist()
+
+
 def _mat_from_json(v) -> np.ndarray:
     """Accept a mat4x3 as 4 columns of 3 (tcnn vec_json) or (3, 4)
     rows; return (3, 4) row-major."""
@@ -97,6 +158,48 @@ def _mat_from_json(v) -> np.ndarray:
     if a.shape == (3, 4):
         return a.copy()
     raise ValueError(f"unrecognized xform shape {a.shape}")
+
+
+def dataset_to_json(ds: NerfDataset) -> dict:
+    """NerfDataset → the reference snapshot schema (json_binding.h:112-137
+    to_json(NerfDataset)). No crop box is written as the reference's empty
+    box (min +inf, max −inf), which ``dataset_from_json`` reads back as no
+    crop."""
+    n = int(ds.n_images)
+    w, h = int(ds.resolution[0]), int(ds.resolution[1])
+    lens = lens_to_json(ds.lens_mode, ds.lens_params)
+    metadata = [{
+        "focal_length": np.asarray(ds.focal_lengths[i], np.float32).tolist(),
+        "lens": lens,
+        "principal_point": np.asarray(ds.principal_points[i], np.float32).tolist(),
+        "rolling_shutter": np.asarray(ds.rolling_shutter[i], np.float32).tolist(),
+        "resolution": [w, h],
+    } for i in range(n)]
+    xforms = [{"start": _mat_cols(ds.xforms_start[i]), "end": _mat_cols(ds.xforms_end[i])}
+              for i in range(n)]
+    if ds.render_aabb is not None:
+        ra = {"min": np.asarray(ds.render_aabb[0], np.float32).tolist(),
+              "max": np.asarray(ds.render_aabb[1], np.float32).tolist()}
+    else:
+        inf = float("inf")
+        ra = {"min": [inf, inf, inf], "max": [-inf, -inf, -inf]}
+    return {
+        "n_images": n,
+        "paths": [str(p) for p in ds.paths] or [""] * n,
+        "metadata": metadata,
+        "xforms": xforms,
+        "render_aabb": ra,
+        "render_aabb_to_local": np.eye(3, dtype=np.float32).tolist(),
+        "up": np.asarray(ds.up, np.float32).tolist(),
+        "offset": np.asarray(ds.offset, np.float32).tolist(),
+        "envmap_resolution": [0, 0],
+        "scale": float(ds.scale),
+        "aabb_scale": int(ds.aabb_scale),
+        "from_mitsuba": bool(ds.from_mitsuba),
+        "is_hdr": bool(ds.is_hdr),
+        "wants_importance_sampling": True,
+        "n_extra_learnable_dims": int(ds.n_extra_learnable_dims),
+    }
 
 
 def dataset_from_json(block: dict) -> NerfDataset:
@@ -164,6 +267,101 @@ def dataset_from_json(block: dict) -> NerfDataset:
         render_aabb=render_aabb,
         paths=tuple(block.get("paths", ())),
     )
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list / tuple tree in ``jax.tree.leaves``
+    order: dict entries by sorted key, lists and tuples in their order,
+    None dropped (an empty subtree to JAX); anything else is a leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves: list):
+    """``template``'s structure with its leaves replaced, in
+    ``tree_leaves`` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def pack_tree(tree) -> list:
+    """A tree of arrays → [[dtype, shape, bytes], ...] in ``jax.tree.leaves``
+    order (the JAX package's optimizer-state and camera-offset format)."""
+    out = []
+    for leaf in tree_leaves(tree):
+        a = np.asarray(leaf)
+        out.append([str(a.dtype), list(a.shape), a.tobytes()])
+    return out
+
+
+def unpack_tree(packed: list, template):
+    """The inverse of ``pack_tree`` onto ``template``'s structure; each leaf
+    takes the dtype and shape that the file states."""
+    n_leaves = len(tree_leaves(template))
+    if len(packed) != n_leaves:
+        raise ValueError(f"optimizer-state leaf count mismatch: snapshot has {len(packed)}, "
+                         f"template needs {n_leaves}")
+    return tree_unflatten(template, [np.frombuffer(raw, dtype=np.dtype(dt)).reshape(shape)
+                                     for dt, shape, raw in packed])
+
+
+def save_snapshot(path, network_config: dict, params: dict, mode: str, training_step: int = 0,
+                  loss: float = 0.0, density_grid: np.ndarray | None = None,
+                  nerf_extra: dict | None = None, camera: dict | None = None,
+                  optimizer_state=None, cam_offsets=None) -> None:
+    """Write a snapshot document (the JAX package's ``save_snapshot``, key
+    for key): trees are numpy trees in the JAX layout; the density grid
+    (n_cascades, G, G, G) is stored fp16, Morton-ordered per cascade."""
+    from .ops.morton import dense_to_morton_perm
+
+    snapshot = {
+        "version": SNAPSHOT_FORMAT_VERSION,
+        "mode": mode,
+        "training_step": int(training_step),
+        "loss": float(loss),
+        "params_type": "__half",
+        "params_binary": _pack_params(params).tobytes(),
+    }
+    if camera:
+        snapshot["camera"] = camera
+    if density_grid is not None:
+        g = int(density_grid.shape[-1])
+        flat = np.asarray(density_grid, np.float32).reshape(density_grid.shape[0], -1)
+        snapshot["density_grid_size"] = g
+        snapshot["density_grid_binary"] = flat[:, dense_to_morton_perm(g)].astype(
+            np.float16).tobytes()
+    if nerf_extra:
+        snapshot["nerf"] = nerf_extra
+    if optimizer_state is not None:
+        snapshot["optimizer_state"] = pack_tree(optimizer_state)
+    if cam_offsets is not None:
+        snapshot["cam_offsets"] = pack_tree(cam_offsets)
+    doc = dict(network_config)
+    doc["snapshot"] = snapshot
+    data = msgpack_lite.packb(doc)
+    path = Path(path)
+    if path.suffix == ".ingp":
+        data = zlib.compress(data)
+    path.write_bytes(data)
 
 
 def load_snapshot_file(path) -> dict:

@@ -1,17 +1,25 @@
-"""A minimal ``Testbed`` (port of the NeRF snapshot branch, the training
-tick and the image primitive of ``instant_ngp_tpu/testbed.py``): load a
-``.ingp`` snapshot and render frames from it, train a NeRF task set from
-an in-memory dataset, or fit and render an image.
+"""A minimal ``Testbed`` (port of the NeRF and image branches, the
+training tick and the snapshots of ``instant_ngp_tpu/testbed.py``): train a
+NeRF scene from disk or an in-memory dataset, fit an image, save a
+snapshot, and load one to render or to train on.
 
     tb = Testbed("nerf")  # on the card; device="cpu" runs the plain versions
-    tb.load_snapshot("data/fox_1536.ingp")
+    tb.load_training_data("scene_dir")  # a transforms.json scene, configs/nerf/base.json
+    for _ in range(n):
+        tb.frame()  # one training step; tb.loss is its EMA
+    tb.save_snapshot("scene.ingp", include_optimizer_state=True)
+
+    tb = Testbed("nerf")
+    tb.load_snapshot("scene.ingp")  # no scene: cameras from the snapshot, render only
     frame = tb.render(256, 256, camera_matrix, focal_length=..., ...)  # numpy (H, W, 4)
 
     tb = Testbed("nerf")
+    tb.load_training_data("scene_dir")
+    tb.load_snapshot("scene.ingp")  # onto the scene: training continues
+
+    tb = Testbed("nerf")
     tb.nerf_dataset, tb.network_config = ds, cfg
-    tb.task = NerfTask(ds, cfg, "cuda", n_rays_per_batch=4096, ...)
-    for _ in range(n):
-        tb.frame()  # one training step; tb.loss is its EMA
+    tb.task = NerfTask(ds, cfg, "cuda", n_rays_per_batch=4096, ...)  # an in-memory set
 
     tb = Testbed("image")
     tb.reload_network_from_file("configs/image/base.json")
@@ -20,6 +28,10 @@ an in-memory dataset, or fit and render an image.
         tb.frame()
     frame = tb.render(1920, 1080)  # numpy (H, W, 4), linear unless linear=False
     mse = tb.compute_image_mse()
+    tb.save_snapshot("image.ingp")  # loads back onto a Testbed holding the image
+
+Snapshots are the JAX package's format, key for key: each package reads
+the other's.
 
 ``render`` returns the frame on the host, as pyngp's ``render_to_cpu`` and
 the JAX package's ``Testbed.render`` do; ``render_tensor`` returns the same
@@ -38,8 +50,9 @@ from .common import RandomMode, TestbedMode, linear_to_srgb, srgb_to_linear
 from .config import default_config, load_network_config
 from .image_fit.task import ImageTask
 from .io.image import load_image
-from .io.nerf_loader import NerfDataset
-from .models.nerf_network import params_from_jax, params_to_numpy
+from .io.nerf_loader import NerfDataset, load_nerf
+from .models import network as image_network
+from .models import nerf_network
 from .nerf.task import NerfTask
 
 
@@ -159,6 +172,9 @@ class Testbed:
         self.training_batch_size = 1 << 18
         self.training_step = 0
         self.shall_train = True
+        # the view a snapshot records: a scene's first training camera
+        self.camera_matrix = np.concatenate(
+            [np.eye(3, dtype=np.float32), np.array([[0.5], [0.5], [-1.5]], np.float32)], axis=1)
         self.loss_graph: list[float] = []
         self._loss_ema = LossEma()
         self.image = _ImageView(self)
@@ -175,9 +191,8 @@ class Testbed:
         mode = mode_from_scene(path)
         if mode == TestbedMode.NONE:
             raise ValueError(f"cannot infer mode from scene path {path}")
-        if mode != TestbedMode.IMAGE:
-            raise NotImplementedError(f"loading {mode.value} training data from disk is not "
-                                      "ported yet")
+        if mode not in (TestbedMode.NERF, TestbedMode.IMAGE):
+            raise NotImplementedError(f"loading {mode.value} training data is not ported yet")
         self.scene_path = str(path)
         self.mode = mode
         if not self.network_config:
@@ -196,35 +211,84 @@ class Testbed:
             self._build_task()
 
     def _build_task(self) -> None:
-        """A fresh image task on the scene (testbed.py:1028-1036)."""
-        img, is_hdr = load_image(self.scene_path)
-        self.task = ImageTask(img, is_hdr, self.network_config, device=self.device,
-                              seed=self.seed, batch_size=self.training_batch_size)
+        """A fresh task on the scene (testbed.py:1028-1058): an image, or a
+        NeRF scene whose first training camera becomes the view."""
+        if self.mode == TestbedMode.NERF:
+            self.nerf_dataset = load_nerf(self.scene_path)
+            self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
+                                 seed=self.seed, target_batch_size=self.training_batch_size)
+            self.camera_matrix = self.nerf_dataset.xforms_start[0].copy()
+        else:
+            img, is_hdr = load_image(self.scene_path)
+            self.task = ImageTask(img, is_hdr, self.network_config, device=self.device,
+                                  seed=self.seed, batch_size=self.training_batch_size)
         self.training_step = 0
 
+    def save_snapshot(self, path, include_optimizer_state: bool = False) -> None:
+        """Write the task's snapshot (testbed.py:2079-2128): the config, the
+        parameters in fp16, the step, the loss and the view; for NeRF also
+        the density grid, the dataset block and the camera offsets; the
+        optimizer state if asked."""
+        task = self.task
+        if task is None:
+            raise RuntimeError("load training data or a snapshot before saving one")
+        nerf = self.mode == TestbedMode.NERF
+        model_io = nerf_network if nerf else image_network
+        kw = {}
+        if nerf:
+            ds = task.dataset
+            kw = {"density_grid": task.state.grid.density.cpu().numpy(),
+                  "nerf_extra": {"aabb_scale": ds.aabb_scale,
+                                 "rgb": {"rays_per_batch": task.n_rays_per_batch},
+                                 "dataset": snapshot_io.dataset_to_json(ds)},
+                  "cam_offsets": task.cam_offsets}
+            # the JAX package builds the live crop box (task.render_aabb_min/max)
+            # here but never writes it (testbed.py:2102), so a round trip loses
+            # it; matched on purpose, so that both packages write one document
+        snapshot_io.save_snapshot(
+            path, self.network_config, model_io.params_to_numpy(task.model), self.mode.value,
+            training_step=task.training_step, loss=self.loss,
+            camera={"matrix": np.asarray(self.camera_matrix).tolist(), "fov_axis": 1},
+            optimizer_state=task.opt_state_tree() if include_optimizer_state else None, **kw)
+
     def load_snapshot(self, path) -> None:
+        """Load a snapshot (testbed.py:2165-2233). NeRF: onto the loaded
+        scene's task, so that training continues on its images; with no
+        scene, onto a task built from the snapshot's dataset block (cameras
+        only, for rendering). Image: onto the loaded image's task. The loss
+        meter stays as it was, as the JAX package's does."""
         doc = snapshot_io.load_snapshot_file(path)
         snap = doc["snapshot"]
-        if snap["mode"] != "nerf":
-            raise NotImplementedError(f"snapshot mode {snap['mode']!r} is not ported yet")
+        mode = TestbedMode(snap["mode"])
+        if mode not in (TestbedMode.NERF, TestbedMode.IMAGE):
+            raise NotImplementedError(f"snapshot mode {mode.value!r} is not ported yet")
         self.network_config = {k: v for k, v in doc.items() if k != "snapshot"}
-        optimizer = self.network_config.get("optimizer", {})
-        if optimizer.get("otype", "").lower() == "ema" and "optimizer_state" in snap:
-            # the JAX package renders the saved parameter EMA here
-            raise NotImplementedError("rendering a snapshot's saved parameter EMA is not ported yet")
-        if "nerf" not in snap or "dataset" not in snap["nerf"]:
-            raise RuntimeError("snapshot lacks a dataset block and no scene is loaded")
-        ds = _empty_nerf_dataset_from_snapshot(snap)
-        self.nerf_dataset = ds
-        task = NerfTask(ds, self.network_config, device=self.device)
-        params = snapshot_io.restore_params(snap, params_to_numpy(task.model))
-        params_from_jax(task.model, params)
-        grid = snapshot_io.restore_density_grid(snap, task.max_cascade + 1)
-        if grid is not None:
-            task.set_density_grid(torch.from_numpy(grid))
-        task.training_step = int(snap.get("training_step", 0))
-        self.mode = TestbedMode.NERF
-        self.task = task
+        self.mode = mode
+        nerf = mode == TestbedMode.NERF
+        task_type, model_io = (NerfTask, nerf_network) if nerf else (ImageTask, image_network)
+        if nerf and not isinstance(self.task, NerfTask):
+            if "nerf" not in snap or "dataset" not in snap["nerf"]:
+                raise RuntimeError("snapshot lacks a dataset block and no scene is loaded")
+            self.nerf_dataset = _empty_nerf_dataset_from_snapshot(snap)
+            self.task = NerfTask(self.nerf_dataset, self.network_config, device=self.device)
+        task = self.task
+        if not isinstance(task, task_type):
+            raise RuntimeError("load the image before its snapshot: an image snapshot holds "
+                               "no image")
+        params = snapshot_io.restore_params(snap, model_io.params_to_numpy(task.model))
+        opt_state = None
+        if "optimizer_state" in snap:
+            opt_state = snapshot_io.unpack_tree(snap["optimizer_state"], task.opt_state_tree())
+        step = int(snap.get("training_step", 0))
+        if nerf:
+            cam = None
+            if "cam_offsets" in snap:
+                cam = snapshot_io.unpack_tree(snap["cam_offsets"], task.cam_offsets)
+            task.load_state(params, opt_state,
+                            snapshot_io.restore_density_grid(snap, task.max_cascade + 1), step,
+                            cam)
+        else:
+            task.load_state(params, opt_state, step)
         self.training_step = task.training_step
 
     def render(self, *args, **kwargs) -> np.ndarray:

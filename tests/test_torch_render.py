@@ -12,6 +12,7 @@ from instant_ngp_tpu.models.nerf_network import NerfNetwork as JaxNerfNetwork
 from instant_ngp_tpu.testbed import Testbed as JaxTestbed
 from instant_ngp_torch.models.nerf_network import NerfNetwork, params_from_jax, params_to_numpy
 from instant_ngp_torch import testbed as port_testbed
+from instant_ngp_torch.common import fma
 
 torch.set_num_threads(2)
 
@@ -22,6 +23,8 @@ FIXTURES = {"tiny": ROOT / "tests" / "fixtures" / "tiny_nerf.ingp",
 # this test's inputs: tiny 112.4 dB, fox 84.8 dB (the JAX renderer reads
 # bf16 "bricks" for dense levels, the port the f32 tables).
 MIN_PSNR_DB = 45.0
+# rays of the 32x32 frame that start outside the aabb, measured on the CPU
+LOST_RAYS = {"tiny": 552, "fox": 0}
 
 
 def _psnr(a, b):
@@ -53,22 +56,50 @@ def test_nerf_network_equals_jax(name):
     np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("name", ["tiny", "fox"])
-def test_snapshot_render_matches_jax(name):
+def _view0_frames(name, res=32):
+    """The snapshot's view 0 at res^2 with bench.py bench_render_fox's
+    arguments, rendered by both packages: (port task, camera, render
+    arguments, port frame, JAX frame)."""
     ours = port_testbed.Testbed("nerf", device="cpu")
     ours.load_snapshot(FIXTURES[name])
     theirs = JaxTestbed("nerf")
     theirs.load_snapshot(str(FIXTURES[name]))
     ds = ours.nerf_dataset
-    v, res = 0, 32
     w, h = ds.resolution
-    xf = np.asarray(ds.xforms_start[v], np.float32)
-    # bench.py bench_render_fox's arguments, at 32x32
-    kw = dict(focal_length=(ds.focal_lengths[v, 0] * res / w, ds.focal_lengths[v, 1] * res / h),
-              principal_point=tuple(ds.principal_points[v]), background=(0, 0, 0, 0))
+    xf = np.asarray(ds.xforms_start[0], np.float32)
+    kw = dict(focal_length=(ds.focal_lengths[0, 0] * res / w, ds.focal_lengths[0, 1] * res / h),
+              principal_point=tuple(ds.principal_points[0]), background=(0, 0, 0, 0))
     frame = ours.render(res, res, xf, **kw)
     ref = np.asarray(theirs.task.render(res, res, xf, **kw))
+    return ours.task, xf, kw, frame, ref
+
+
+@pytest.mark.parametrize("name", ["tiny", "fox"])
+def test_snapshot_render_matches_jax(name):
+    res = 32
+    _, _, _, frame, ref = _view0_frames(name, res)
     assert frame.shape == ref.shape == (res, res, 4)
     assert np.isfinite(frame).all()
     assert frame[..., 3].mean() > 0.05
     assert _psnr(frame, ref) >= MIN_PSNR_DB
+
+
+@pytest.mark.parametrize("name", ["tiny", "fox"])
+def test_render_rays_start_on_the_crop_box_face_as_in_jax(name):
+    """Known reference defect, matched on purpose (ROADMAP.md Queue 3): a
+    render ray starts exactly at its crop-box entry; where its first
+    position o + t·d rounds to just outside the aabb the march stops and the
+    pixel renders transparent. Both packages lose those rays. The tiny
+    fixture's camera lies outside its aabb, fox's inside (none lost)."""
+    res = 32
+    task, xf, kw, frame, ref = _view0_frames(name, res)
+    ys, xs = torch.meshgrid(torch.arange(res), torch.arange(res), indexing="ij")
+    uv = torch.stack([(xs.reshape(-1) + 0.5) / res, (ys.reshape(-1) + 0.5) / res], -1).float()
+    o, d, tmin, tmax = task._prep_rays(uv, task._t([res, res]), task._t(kw["focal_length"]),
+                                       task._t(kw["principal_point"]), task._t(xf))
+    amin, amax = task._aabb_t
+    start = fma(tmin[:, None], d, o)
+    outside = ~torch.all((start >= amin) & (start <= amax), dim=-1)
+    lost = ((tmax > tmin) & outside).numpy().reshape(res, res)
+    assert int(lost.sum()) == LOST_RAYS[name]
+    assert (frame[..., 3][lost] == 0).all() and (ref[..., 3][lost] == 0).all()

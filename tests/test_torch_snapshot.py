@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import __graft_entry__ as graft
 from instant_ngp_tpu import snapshot as jax_snapshot
 from instant_ngp_tpu.testbed import Testbed as JaxTestbed
 from instant_ngp_torch import snapshot as port_snapshot
@@ -149,13 +150,30 @@ def test_params_from_jax_round_trips():
 
 
 def test_port_runtime_imports_neither_jax_nor_msgpack():
+    """A snapshot render, and a scene generated, loaded from disk, saved
+    with its optimizer state and loaded back, import no jax, msgpack,
+    imageio, PIL (the scene is PNG) or JAX package module."""
     code = (
-        "import sys\n"
+        "import sys, tempfile\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         "import instant_ngp_torch.testbed as tb\n"
+        "from instant_ngp_torch.io.synthetic import generate_synthetic_dataset\n"
         "t = tb.Testbed('nerf', device='cpu')\n"
         f"t.load_snapshot({str(FIXTURES['tiny'])!r})\n"
         "assert t.render(4, 4, t.nerf_dataset.xforms_start[0]).shape == (4, 4, 4)\n"
-        "bad = [m for m in ('jax', 'msgpack', 'instant_ngp_tpu') if m in sys.modules]\n"
+        "d = tempfile.mkdtemp()\n"
+        "scene, _ = generate_synthetic_dataset(d + '/s', res=16, n_train=2, n_test=1, n_steps=8)\n"
+        "s = tb.Testbed('nerf', device='cpu')\n"
+        "s.training_batch_size = 1 << 11\n"
+        f"s.reload_network_from_json({graft._tiny_nerf_config()!r})\n"
+        "s.load_training_data(scene)\n"
+        "s.save_snapshot(d + '/s.ingp', include_optimizer_state=True)\n"
+        "u = tb.Testbed('nerf', device='cpu')\n"
+        "u.load_snapshot(d + '/s.ingp')\n"
+        "assert u.task.state.opt_state['step'] == 0 and u.nerf_dataset.n_images == 2\n"
+        "bad = [m for m in ('jax', 'msgpack', 'imageio', 'PIL', 'instant_ngp_tpu') "
+        "if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

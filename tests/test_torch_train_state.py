@@ -21,7 +21,7 @@ from instant_ngp_tpu.ops import optimizers as jax_opt
 from instant_ngp_torch.common import NerfActivation
 from instant_ngp_torch.models.nerf_network import (
     NerfNetwork,
-    _flat_from_tree,
+    flat_from_tree,
     params_from_jax,
     params_to_numpy,
     train_state_from_jax,
@@ -77,12 +77,12 @@ def test_optimizer_steps_equal_jax_on_identical_gradients():
         grads = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32)
                              * 10.0 ** rng.integers(-6, 0), params)
         params, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate, params)
-        opt.update([torch.from_numpy(g) for g in _flat_from_tree(model, grads)], state,
+        opt.update([torch.from_numpy(g) for g in flat_from_tree(model, grads)], state,
                    model.param_list())
         for key, ref_tree in (("params", params), ("m", jstate["m"]), ("v", jstate["v"]),
                               ("ema", jstate["ema"])):
             ours = model.param_list() if key == "params" else state[key]
-            for a, b in zip(ours, _flat_from_tree(model, jax.tree.map(np.asarray, ref_tree))):
+            for a, b in zip(ours, flat_from_tree(model, jax.tree.map(np.asarray, ref_tree))):
                 np.testing.assert_allclose(a.detach().numpy(), b, rtol=0,
                                            atol=1e-6 * float(np.abs(b).max()))
     assert state["step"] == int(jstate["step"]) == 6

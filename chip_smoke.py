@@ -55,7 +55,22 @@ microbenchmarks:
   for both trained fox MLPs and the trained image MLP; F against its plain
   version on the trained image MLP with the rows near a ReLU tie left out;
 - gather microbenchmarks: ``instant_ngp_torch.bench.gather`` at its case
-  lists with few repetitions, through kernels I and J.
+  lists with few repetitions, through kernels I and J;
+- sdf: a closed procedural mesh of 69,632 triangles (a torus with seeded
+  bumps, ``geometry/procedural.py``; the reference's ``bunny.obj`` has 69,451)
+  written as ``.obj``, loaded by ``Testbed("sdf").load_training_data`` with
+  ``configs/sdf/base.json`` at full width (the BVH built from
+  ``csrc/bvh.cpp`` with g++) and trained 300 frames on the batch producer's
+  points, checked to go through kernels A, B, E and F and none of C, D, G,
+  H and K, and to reach the JAX package's least IoU on this mesh (300 fresh
+  steps, 3 seeds) less 0.02; A, B, E and F held against their plain
+  versions at its shapes on the fresh and the trained model, one step's
+  gradients within 1e-2 a leaf; a 256^2 render through kernels A, B, F and K
+  (not E) against the plain render (hit masks differing on at most 0.5 % of
+  the pixels, ≥ 40 dB over the rest), K against its plain version on that
+  render's hit positions, the normals after normalization; a 1920x1080
+  render timed; a snapshot with the optimizer state saved and loaded onto
+  the mesh (state bit for bit, its render as above).
 
 Every kernel's entry in the JSON line has its error against its plain
 version, its time and the plain version's (back to back), its launches on
@@ -263,6 +278,11 @@ def phase_build() -> None:
     path, seconds = cuda_lib.build()
     cuda_lib.load()
     print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}")
+    from instant_ngp_torch.geometry import bvh
+
+    path, seconds = bvh.build()
+    bvh.load()
+    print(f"build of the host BVH (g++): {seconds:.1f} s -> {path.relative_to(ROOT)}")
 
 
 def bound(n_bytes: float, n_ops: float = 0.0, op_type: str = "float32") -> dict:
@@ -1126,14 +1146,16 @@ KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "f
                 "scatter_add_rows": "scatter_add_kernel", "take_rows": "take_rows_kernel",
                 "bilinear_read": "bilinear_read_kernel",
                 "gather_cols_sum": "gather_cols_sum_",
-                "gather_cols_transpose": "gather_cols_transpose"}
+                "gather_cols_transpose": "gather_cols_transpose",
+                "hashgrid_encode_dx": "hashgrid_dx_kernel"}
 
 
 def profile_frames(trainer) -> tuple[float, float, list, dict]:
     """(wall ms, device busy ms, top device items (name, ms), device ms per
     frame of each port kernel by launcher) of PROFILED_STEPS training frames
     under torch.profiler; busy is the union of the device events'
-    intervals."""
+    intervals, None where the profiler dropped the trace (no device event
+    at all: ``busy_text`` says "not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1155,7 +1177,15 @@ def profile_frames(trainer) -> tuple[float, float, list, dict]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     kernels = {launcher: sum(ms for name, ms in by_name.items() if sub in name) / PROFILED_STEPS
                for launcher, sub in KERNEL_NAMES.items()}
-    return wall_ms, busy_us / 1e3, [(name[:80], ms) for name, ms in top], kernels
+    return (wall_ms, busy_us / 1e3 if events else None, [(name[:80], ms) for name, ms in top],
+            kernels)
+
+
+def busy_text(wall_ms: float, busy_ms) -> str:
+    """A profiled window's device busy time and idle share, for a print."""
+    if busy_ms is None:
+        return "device busy and idle share not measured (the profiler dropped the trace)"
+    return f"device busy {busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}"
 
 
 def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
@@ -1206,8 +1236,8 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
           f"valid samples per ray slot at steps 15, 31, ...: {[round(f, 4) for f in fills]}; "
           f"{compacted} of {len(n_rays)} steps packed their samples into "
           f"{task.compact_samples} rows")
-    print(f"profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {1.0 - busy_ms / wall_ms:.3f}; top device items (ms): {top}")
+    print(f"profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, {busy_text(wall_ms, busy_ms)}; "
+          f"top device items (ms): {top}")
     check(not task.training_aborted and len(losses) == TRAIN_STEPS, "training stopped early")
     check(all(np.isfinite(losses)), "a training loss is not finite")
     check(last <= MAX_LOSS_RATIO * first, f"loss fell from {first} to {last} only")
@@ -1276,19 +1306,23 @@ def split_psnr(task, test) -> tuple[float, float]:
 
 def state_bits_equal(saved, loaded) -> None:
     """The loaded task's parameters (the saved ones rounded to fp16),
-    optimizer state and density grid (rounded to fp16) against the saved
-    task's, bit for bit."""
+    optimizer state and, for NeRF, density grid (rounded to fp16) against
+    the saved task's, bit for bit."""
     fp16 = lambda t: t.detach().to(torch.float16).to(torch.float32)  # noqa: E731
     for a, b in zip(saved.model.param_list(), loaded.model.param_list()):
         check(torch.equal(fp16(a), b.detach()), "a loaded parameter differs from the saved fp16")
-    so, lo = saved.state.opt_state, loaded.state.opt_state
+    nerf = hasattr(saved, "state")
+    so, lo = (saved.state.opt_state, loaded.state.opt_state) if nerf else (saved.opt_state,
+                                                                          loaded.opt_state)
     check(so["step"] == lo["step"] and saved.training_step == loaded.training_step,
           f"steps {so['step']}/{saved.training_step} against {lo['step']}/{loaded.training_step}")
+    check(so.keys() == lo.keys(), f"optimizer states {sorted(so)} against {sorted(lo)}")
     for key in ("m", "v", "ema"):
-        check(all(torch.equal(a, b) for a, b in zip(so[key], lo[key])),
+        check(all(torch.equal(a, b) for a, b in zip(so.get(key, ()), lo.get(key, ()))),
               f"the loaded optimizer's {key} differs")
-    check(torch.equal(fp16(saved.state.grid.density), loaded.state.grid.density),
-          "the loaded density grid differs from the saved fp16")
+    if nerf:
+        check(torch.equal(fp16(saved.state.grid.density), loaded.state.grid.density),
+              "the loaded density grid differs from the saved fp16")
 
 
 def disk_kernel_checks(task, device) -> dict:
@@ -1409,8 +1443,8 @@ def disk_phase(device, card) -> tuple[dict, dict, dict]:
               f" valid samples at steps 0, 16, 32, ...: {measured[::task.grid_update_interval]}; "
               f"{packed} of {len(n_rays)} steps packed their {K}-sample windows into "
               f"{task.compact_samples} rows, {dropped} of them dropped samples past it")
-        print(f"disk profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, device busy "
-              f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; device ms per step by "
+        print(f"disk profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, "
+              f"{busy_text(wall_ms, busy_ms)}; device ms per step by "
               f"port kernel: {step_kernels}; top device items (ms): {top}")
         check(last <= MAX_LOSS_RATIO * first, f"disk loss fell from {first} to {last} only")
         check(all(launches[k] > 0 for k in TRAIN_KERNELS), f"a kernel was not launched: {launches}")
@@ -1917,8 +1951,8 @@ def image_phase(device, card) -> tuple[dict, dict, dict]:
     print(f"image {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step "
           f"(min {min(step_ms):.3f}, max {max(step_ms):.3f}) on {card}; loss first "
           f"{LOSS_WINDOW} {first:.6f}, last {LOSS_WINDOW} {last:.6f}")
-    print(f"image profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; top device items (ms): "
+    print(f"image profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, "
+          f"{busy_text(wall_ms, busy_ms)}; top device items (ms): "
           f"{top}")
     check(len(losses) == IMAGE_STEPS and all(np.isfinite(losses)), "an image loss is not finite")
     check(last <= MAX_LOSS_RATIO * first, f"image loss fell from {first} to {last} only")
@@ -1973,6 +2007,363 @@ def image_phase(device, card) -> tuple[dict, dict, dict]:
     check(db >= MIN_PSNR_DB, f"image render kernel vs plain PSNR {db}")
     print(f"image phase max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     return main, launches, eval_launches
+
+
+# the sdf phase: configs/sdf/base.json at full width on a procedural closed
+# mesh the size of the reference's bunny.obj (69,451 triangles; no scanned
+# mesh is in the repository)
+SDF_CONFIG = ROOT / "configs" / "sdf" / "base.json"
+SDF_GRID = (256, 136)  # (u, v) of geometry/procedural.bumpy_torus: 69,632 triangles
+SDF_STEPS = 300
+SDF_IOU_SAMPLES = 1 << 21
+# the JAX package's IoU after 300 steps of fresh batches on this mesh, seeds
+# 1337 / 1 / 2 (tests/compare_sdf_training.py --package jax, on the CPU)
+JAX_SDF_IOU = (0.9976924148083312, 0.9912448160094793, 0.9962556000318108)
+MIN_SDF_IOU = min(JAX_SDF_IOU) - 0.02
+SDF_RES = 256  # the kernel-vs-plain render and the snapshot's render
+SDF_FRAME_WH = (1920, 1080)
+# Discrete decisions flip on the network's last bits: the trace's hit tests
+# and the step it stops at, the back-facing test of the shading and the shadow
+# trace's stop. After 300 steps the field's analytic normal jumps between the
+# finest cells (2048^3, hashed), so two traces that stop 1e-4 apart can shade
+# a pixel differently. A pixel is decided apart where the hit masks differ or
+# a channel differs by more than SDF_FLIP; such pixels may be this share of
+# the frame, and the frames hold MIN_PSNR_DB over the rest.
+MAX_SDF_MASK_DIFF = 0.005
+SDF_FLIP = 0.05
+# the render's analytic normals, kernels vs plain after normalization, at
+# every hit whose input gradient exceeds NORMAL_FLOOR on either side (as the
+# CPU test), save at most MAX_SDF_MASK_DIFF of them near a ReLU tie
+MIN_NORMAL_COSINE = 0.9999
+NORMAL_FLOOR = 1e-3
+TOL_DX = 1e-6  # K against its plain version, of max |dx|: the same order, so bit for bit
+SDF_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd")
+SDF_RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "fused_mlp_bwd", "hashgrid_encode_dx")
+NERF_ONLY_KERNELS = ("march_rays", "composite_window", "composite_train", "scatter_add_rows")
+
+
+def sdf_frame_parity(frame: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, float]:
+    """(share of pixels whose hit masks differ, share decided apart: masks,
+    or a channel more than SDF_FLIP apart; PSNR over the rest)."""
+    masks = (frame[..., 3] > 0.5) != (ref[..., 3] > 0.5)
+    apart = masks | ((frame[..., :3] - ref[..., :3]).abs().amax(-1) > SDF_FLIP)
+    return float(masks.float().mean()), float(apart.float().mean()), psnr(frame[~apart],
+                                                                           ref[~apart])
+
+
+def sdf_camera() -> np.ndarray:
+    """The sdf phase's view: from above the torus's plane, looking at the
+    cube's centre; columns right, down, forward, origin."""
+    eye = np.array([0.5, 1.3, -0.3])
+    fwd = (0.5 - eye) / np.linalg.norm(0.5 - eye)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    return np.stack([right, np.cross(fwd, right), fwd, eye], 1).astype(np.float32)
+
+
+def check_encode_dx(levels, table, x, g, what: str) -> dict:
+    """Kernel K against its plain version: error, times, bound (x, g, the
+    distinct corner rows and dx moved once; per position and level, C·2F
+    flops of dots and D·C·4 of the products)."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode_dx, hashgrid_encode_dx_plain
+
+    args = (levels, "linear", table, x, g)
+    out, ref = hashgrid_encode_dx(*args), hashgrid_encode_dx_plain(*args)
+    err, scale = max_err(out, ref)
+    equal = int((out == ref).all(dim=1).sum())
+    check(err <= TOL_DX * scale, f"K {what}: err {err} at max |ref| {scale}")
+    rows, corners = grid_work(levels, "linear", x)
+    F, D = table.shape[1], x.shape[1]
+    ops = x.shape[0] * corners * (2 * F + 4 * D)
+    print(f"kernel hashgrid_encode_dx on {what} ({x.shape[0]} positions): {equal} rows bit for "
+          f"bit, max_abs_err {err:.3e} at max |dx| {scale:.3e}")
+    return {"max_abs_err": err, "equal_rows": equal, "rows": x.shape[0],
+            "ms": time_ms(lambda: hashgrid_encode_dx(*args)),
+            "plain_ms": time_ms(lambda: hashgrid_encode_dx_plain(*args)),
+            **bound(nbytes(x, g, out) + rows * F * 4, ops)}
+
+
+def sdf_model_checks(task, pts, target, what: str, trained: bool) -> dict:
+    """Kernels A, B, E and F against their plain versions at the SDF step's
+    shapes (2^16 positions, 14 levels × 2 features, D 3, linear, 1 corner;
+    MLP 28→64→64→1), on one batch: A on its positions, B and F on their
+    encodings with the MAPE loss's cotangent, E on F's dX. F on a trained
+    MLP leaves out the rows near a ReLU tie (``check_mlp_bwd_trained``).
+    Returns {kernel name: {variant: check}}."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_bwd
+
+    enc, ws = task.model.encoding, [w.detach() for w in task.model.network.weights]
+    table = enc.table.detach()
+    feats = hashgrid_encode(enc.levels, enc.interpolation, table, pts)
+    pred = fused_mlp(ws, feats)[:, 0]
+    # d mean(MAPE) / d pred, the denominator detached
+    g_out = (torch.sign(pred - target) / (torch.abs(pred) + 1e-2) / pts.shape[0])[:, None]
+    g_enc = fused_mlp_bwd(ws, feats, g_out.contiguous())[0]
+    out = {"hashgrid_encode_fwd": {what: check_encode(enc.levels, enc.interpolation, table, pts,
+                                                      what)},
+           "fused_mlp": {what: check_mlp(ws, feats, what)},
+           "hashgrid_encode_bwd": {what: check_encode_bwd(
+               enc.levels, enc.interpolation, pts, g_enc, enc.n_entries,
+               enc.hashed_grad_corners, what)}}
+    check_f = check_mlp_bwd_trained if trained else check_mlp_bwd
+    out["fused_mlp_bwd"] = {what: check_f(ws, feats, g_out.contiguous(), what)}
+    for name, v in out.items():
+        print(f"kernel {name} at the SDF shapes ({what}): max_abs_err "
+              f"{v[what]['max_abs_err']:.3e} kernel {v[what]['ms']:.3f} ms plain "
+              f"{v[what]['plain_ms']:.3f} ms bound {v[what]['bound_ms']:.4f} ms")
+    return out
+
+
+def sdf_step_gradients_check(task, pts, target) -> None:
+    """One step's gradients and loss, kernels against plain versions, from
+    the same state and batch."""
+    runs = {}
+    for use_kernels in (True, False):
+        task.set_use_kernels(use_kernels)
+        runs[use_kernels] = task.step_gradients(pts, target)
+    task.set_use_kernels(True)
+    (grads, loss), (grads_p, loss_p) = runs[True], runs[False]
+    errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(grads, grads_p)]
+    print(f"sdf train step kernels vs plain, {pts.shape[0]} points: grad ||k - p|| / ||p|| per "
+          f"leaf {[f'{e:.2e}' for e in errs]}, loss {float(loss):.6f} vs {float(loss_p):.6f}")
+    check(all(e <= TOL_STEP_GRAD for e in errs), f"sdf step gradients differ: {errs}")
+    check(abs(float(loss) - float(loss_p)) <= TOL_STEP_LOSS * abs(float(loss_p)),
+          f"sdf step loss differs: {float(loss)} vs {float(loss_p)}")
+
+
+def sdf_normals_check(task, hits) -> dict:
+    """The render's analytic normals at its hits (``SdfTask._gradient``,
+    normalized as ``_normals`` does), kernels A, B, F and K against the
+    plain versions: the cosine must reach MIN_NORMAL_COSINE at every hit
+    whose gradient exceeds NORMAL_FLOOR on either side, save hits whose MLP
+    lies within a bf16 step of a ReLU tie (``near_tie_rows``: F and the
+    plain backward may take the two sides of it); those may be at most
+    MAX_SDF_MASK_DIFF of the hits. The hits below the floor are counted."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode_plain
+
+    params = task.inference_params()
+    grads = {}
+    for use_kernels in (True, False):
+        task.set_use_kernels(use_kernels)
+        grads[use_kernels] = task._gradient(params, hits)
+    task.set_use_kernels(True)
+    gk, gp = grads[True], grads[False]
+    nk, np_ = gk.norm(dim=-1), gp.norm(dim=-1)
+    cos = torch.sum(gk * gp, -1) / (torch.clamp(nk, min=1e-9) * torch.clamp(np_, min=1e-9))
+    enc = task.model.encoding
+    feats = hashgrid_encode_plain(enc.levels, enc.interpolation, enc.table.detach(), hits)
+    near = near_tie_rows([w.detach() for w in task.model.network.weights], feats)
+    above = torch.maximum(nk, np_) > NORMAL_FLOOR
+    low = above & (cos < MIN_NORMAL_COSINE)
+    field = task.sdf(hits)
+
+    def least(t, mask):
+        return float(t[mask].min()) if bool(mask.any()) else None
+
+    def most(t, mask):
+        return float(t[mask].max()) if bool(mask.any()) else None
+
+    v = {"hits": hits.shape[0], "above_floor": int(above.sum()),
+         "min_cosine": least(cos, above), "min_cosine_not_near_tie": least(cos, above & ~near),
+         "near_tie": int((above & near).sum()), "low": int(low.sum()),
+         "low_not_near_tie": int((low & ~near).sum()), "below_floor": int((~above).sum()),
+         "max_grad_below_floor": most(torch.maximum(nk, np_), ~above),
+         "max_abs_field_below_floor": most(field.abs(), ~above),
+         "min_cosine_below_floor": least(cos, ~above),
+         "zero_grad": int(((nk == 0) | (np_ == 0)).sum())}
+    print(f"sdf normals at {v['hits']} hits, kernels vs plain: {v['above_floor']} with |grad| > "
+          f"{NORMAL_FLOOR}, cosine min {v['min_cosine']} ({v['min_cosine_not_near_tie']} away "
+          f"from a ReLU tie); {v['near_tie']} within a bf16 step of a tie; {v['low']} below "
+          f"{MIN_NORMAL_COSINE}, {v['low_not_near_tie']} of them away from a tie; "
+          f"{v['below_floor']} with |grad| <= {NORMAL_FLOOR} on both sides (largest "
+          f"{v['max_grad_below_floor']}, |field| there at most {v['max_abs_field_below_floor']}, "
+          f"cosine min {v['min_cosine_below_floor']}, {v['zero_grad']} exactly 0 on a side)")
+    if v["low"]:
+        i = torch.nonzero(low).reshape(-1)[:8]
+        print(f"sdf normals below {MIN_NORMAL_COSINE}: cosine {cos[i].tolist()}, |grad| kernels "
+              f"{nk[i].tolist()} plain {np_[i].tolist()}, field {field[i].tolist()}, near a tie "
+              f"{near[i].tolist()}")
+    check(v["low_not_near_tie"] == 0 and v["low"] <= MAX_SDF_MASK_DIFF * v["hits"],
+          f"sdf normals: {v['low']} hits below {MIN_NORMAL_COSINE}, {v['low_not_near_tie']} of "
+          f"them away from a ReLU tie")
+    return v
+
+
+def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
+    """The SDF path through the entry points a user calls: a procedural mesh
+    written as .obj, ``Testbed("sdf").load_training_data`` with
+    configs/sdf/base.json, SDF_STEPS frames on the batch producer's points,
+    the IoU before and after, then renders (SDF_RES^2 kernels against plain,
+    1920x1080 timed) and a snapshot round trip. Kernels A, B, E and F are
+    held against their plain versions at this path's shapes on a fresh and
+    on the trained model, K on the render's hit positions. Returns (the
+    launches of the training run, those of the render, the checks by kernel
+    name, K's check)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.geometry.procedural import bumpy_torus, write_obj
+    from instant_ngp_torch.testbed import Testbed
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        v, f = bumpy_torus(*SDF_GRID, seed=SEED)
+        path = Path(tmp) / "torus.obj"
+        write_obj(path, v, f)
+        print(f"sdf mesh: a bumpy torus of {len(f)} triangles from seed {SEED}, made and written "
+              f"as .obj ({path.stat().st_size} bytes) in {time.perf_counter() - t0:.2f} s")
+        tb = Testbed("sdf", device=device)
+        tb.reload_network_from_file(SDF_CONFIG)
+        t0 = time.perf_counter()
+        tb.load_training_data(path)
+        torch.cuda.synchronize()
+        task = tb.task
+        enc = task.model.encoding
+        print(f"sdf load_training_data: {time.perf_counter() - t0:.3f} s, the BVH built in "
+              f"{task.bvh_build_s:.3f} s; {enc.n_levels} levels x {enc.n_features_per_level} "
+              f"features, {enc.n_entries} table rows ({sum(lv.hashed for lv in enc.levels)} "
+              f"hashed), MLP {[tuple(w.shape) for w in task.model.network.weights]}, batch "
+              f"{task.batch_size}")
+        t0 = time.perf_counter()
+        iou_before = tb.calculate_iou(SDF_IOU_SAMPLES)
+        iou_s = time.perf_counter() - t0
+        fresh_batch = task.to_device(task.generate_training_batch())
+        checks = sdf_model_checks(task, *fresh_batch, "sdf_fresh", trained=False)
+
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        step_ms = []
+        for _ in range(SDF_STEPS - PROFILED_STEPS):
+            t0 = time.perf_counter()
+            tb.frame()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        wall_ms, busy_ms, top, step_kernels = profile_frames(tb)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        losses = tb.loss_graph
+        print(f"sdf launches: {launches}")
+        print(f"sdf {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step (min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}) on {card}; loss first "
+              f"{LOSS_WINDOW} {np.mean(losses[:LOSS_WINDOW]):.6f}, last {LOSS_WINDOW} "
+              f"{np.mean(losses[-LOSS_WINDOW:]):.6f}")
+        print(f"sdf batch producer: {task.batches_produced} batches at "
+              f"{task.producer_seconds / max(task.batches_produced, 1) * 1e3:.1f} ms a batch; "
+              f"{task.fresh_batches} steps took a fresh batch, {task.reused_batches} reused the "
+              f"last")
+        print(f"sdf profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, "
+              f"{busy_text(wall_ms, busy_ms)}; device ms per step by "
+              f"port kernel: {step_kernels}; top device items (ms): {top}")
+        check(len(losses) == SDF_STEPS and all(np.isfinite(losses)), "an SDF loss is not finite")
+        check(task.fresh_batches == SDF_STEPS and task.reused_batches == 0,
+              "a frame's step did not wait for a fresh batch")
+        check(all(launches[k] > 0 for k in SDF_KERNELS), f"a kernel was not launched: {launches}")
+        check(all(launches[k] == 0 for k in (*NERF_ONLY_KERNELS, "hashgrid_encode_dx")),
+              f"the SDF step launched a kernel it does not run: {launches}")
+        t0 = time.perf_counter()
+        iou_after = tb.calculate_iou(SDF_IOU_SAMPLES)
+        print(f"sdf IoU ({SDF_IOU_SAMPLES} points): {iou_before:.6f} -> {iou_after:.6f} (the "
+              f"JAX package's after {SDF_STEPS} fresh steps: {JAX_SDF_IOU}, gate {MIN_SDF_IOU:.4f})"
+              f"; calculate_iou {iou_s:.3f} s the first time (the BVH's side of every point), "
+              f"{time.perf_counter() - t0:.3f} s after")
+        check(iou_after >= MIN_SDF_IOU, f"sdf IoU {iou_after} below {MIN_SDF_IOU}")
+
+        batch = task.to_device(task.generate_training_batch())
+        sdf_step_gradients_check(task, *batch)
+        for name, v in sdf_model_checks(task, *batch, "sdf_trained", trained=True).items():
+            checks[name].update(v)
+
+        # the render: SDF_RES^2 through the kernels, then through the plain versions
+        tb.camera_matrix = sdf_camera()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        frame = tb.render_tensor(SDF_RES, SDF_RES)
+        torch.cuda.synchronize()
+        render_launches = dict(cuda_lib.LAUNCHES)
+        print(f"sdf render launches: {render_launches}")
+        check(all(render_launches[k] > 0 for k in SDF_RENDER_KERNELS),
+              f"a kernel was not launched: {render_launches}")
+        check(all(render_launches[k] == 0 for k in (*NERF_ONLY_KERNELS, "hashgrid_encode_bwd")),
+              f"the SDF render launched a kernel it does not run: {render_launches}")
+        check(tuple(frame.shape) == (SDF_RES, SDF_RES, 4) and bool(torch.isfinite(frame).all()),
+              "the SDF frame")
+        hit_share = float(frame[..., 3].mean())
+        check(hit_share > 0.05, f"the SDF frame hits {hit_share} of its pixels")
+        task.set_use_kernels(False)
+        frame_plain = tb.render_tensor(SDF_RES, SDF_RES)
+        task.set_use_kernels(True)
+        masks, apart, db = sdf_frame_parity(frame, frame_plain)
+        same = (frame[..., 3] > 0.5) == (frame_plain[..., 3] > 0.5)
+        print(f"sdf render {SDF_RES}x{SDF_RES} kernel vs plain: hit masks differ on {masks:.5f} "
+              f"of the pixels, {apart:.5f} decided apart, PSNR {db:.2f} dB over the rest (over "
+              f"the pixels whose masks agree {psnr(frame[same], frame_plain[same]):.2f} dB, all "
+              f"pixels {psnr(frame, frame_plain):.2f} dB); hits {hit_share:.4f}")
+        check(apart <= MAX_SDF_MASK_DIFF and db >= MIN_PSNR_DB,
+              f"sdf render kernel vs plain: {apart} decided apart, PSNR {db}")
+
+        # K on the render's hit positions, with the cotangent F's dX gives it
+        from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd
+        from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+
+        hits = task.hit_positions(SDF_RES, SDF_RES, tb.camera_matrix, tb.fov)
+        ws = [w.detach() for w in task.model.network.weights]
+        table = enc.table.detach()
+        feats = hashgrid_encode(enc.levels, enc.interpolation, table, hits)
+        g_enc = fused_mlp_bwd(ws, feats, torch.ones((hits.shape[0], 1), device=device))[0]
+        k_check = check_encode_dx(enc.levels, table, hits, g_enc, f"the {SDF_RES}^2 render's hits")
+        k_check["normals"] = sdf_normals_check(task, hits)
+
+        w, h = SDF_FRAME_WH
+        tb.render_tensor(w, h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = tb.render_tensor(w, h)
+        torch.cuda.synchronize()
+        big_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(big.shape) == (h, w, 4) and bool(torch.isfinite(big).all()), "the SDF frame")
+        print(f"sdf render {w}x{h} (sun, soft shadows, analytic normals): {big_ms:.3f} ms on "
+              f"{card}; hits {float(big[..., 3].mean()):.4f}")
+
+        snap = Path(tmp) / "torus.ingp"
+        t0 = time.perf_counter()
+        tb.save_snapshot(snap, include_optimizer_state=True)
+        save_s = time.perf_counter() - t0
+        onto = Testbed("sdf", device=device)
+        onto.camera_matrix = tb.camera_matrix
+        onto.load_training_data(path)
+        t0 = time.perf_counter()
+        onto.load_snapshot(snap)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        state_bits_equal(task, onto.task)
+        loaded = onto.render_tensor(SDF_RES, SDF_RES)
+        # the file holds the parameters in fp16: the saved task rendered with
+        # them rounded so is the render the loaded state must give
+        params = task.model.param_list()
+        kept = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p in params:
+                p.copy_(p.to(torch.float16).to(torch.float32))
+        ref16 = tb.render_tensor(SDF_RES, SDF_RES)
+        with torch.no_grad():
+            for p, k in zip(params, kept):
+                p.copy_(k)
+        _, apart, db = sdf_frame_parity(loaded, ref16)
+        _, apart32, db32 = sdf_frame_parity(loaded, frame)
+        print(f"sdf snapshot: {snap.stat().st_size} bytes, saved in {save_s:.3f} s, loaded onto "
+              f"the mesh in {load_s:.3f} s; parameters (fp16) and optimizer state bit for bit; "
+              f"its render against the saved task's with fp16 parameters: {apart:.5f} of the "
+              f"pixels decided apart, PSNR {db:.2f} dB over the rest (all pixels "
+              f"{psnr(loaded, ref16):.2f} dB); against the saved task's own (f32 parameters): "
+              f"{apart32:.5f} apart, {db32:.2f} dB")
+        check(apart <= MAX_SDF_MASK_DIFF and db >= MIN_LOADED_PSNR_DB,
+              f"the loaded SDF render: {apart} decided apart, PSNR {db}")
+        for t in (tb, onto):
+            t.task.stop_producer()
+    print(f"sdf phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, render_launches, checks, k_check
 
 
 def gather_phase() -> dict:
@@ -2076,9 +2467,22 @@ def main() -> None:
             take_main_path(r, image_main[r["name"]])
     bench_launches = gather_phase()
 
+    # the SDF path: its shapes of A, B, E and F are variants of their records
+    sdf_launches, sdf_render_launches, sdf_checks, k_check = sdf_phase(device, card)
+    for r in results:
+        for variant, v in sdf_checks.get(r["name"], {}).items():
+            r.setdefault("variants", {})[variant] = v
+            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    record_kernel(results, "hashgrid_encode_dx", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
+                  "instant_ngp_tpu/ops/hashgrid.py:333", k_check["max_abs_err"],
+                  **headline(k_check),
+                  extra=f" ({k_check['equal_rows']} of {k_check['rows']} rows bit for bit)",
+                  path="sdf_render", variants={"sdf_render_hits": k_check})
+
     paths = {"render": render_launches, "train": train_launches, "disk": disk_launches,
              "disk_render": disk_render_launches, "image": image_launches,
-             "image_eval": image_eval_launches, "bench": bench_launches}
+             "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
+             "sdf_render": sdf_render_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

@@ -1,5 +1,6 @@
 // Kernel E: hash-grid encode, backward: table gradients, in 2 or 3
-// dimensions.
+// dimensions; and kernel K (at the end of this file): the position
+// gradient d/dx.
 //
 // Replaces the table-gradient half of instant_ngp_tpu/ops/hashgrid.py::
 // _hge_bwd (hashgrid.py:244-331): the stochastic-corner scatter on hashed
@@ -259,6 +260,145 @@ int launch_bwd(const float* xp, const float* gp, const LevelTable& lv, int n_lev
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel K: hash-grid encode, backward: the analytic position gradient d/dx.
+//
+// Replaces the d/dx half of instant_ngp_tpu/ops/hashgrid.py::_hge_bwd
+// (hashgrid.py:333-373, tcnn's dy_dx): per level, gf_c = g · f_c (the
+// cotangent against corner c's feature row), then
+//   d-linear: dx_d += (Σ_c gf_c · sign_d(c) · Π_{d'≠d} a_{d'}) · scale
+//   simplex (hashed 3-D levels): dx_d += (gf1−gf0, gf3−gf2 or gf2−gf1, as
+//             axis d holds the largest, smallest or middle fraction) · scale
+//   nearest: nothing (dt/dx = 0).
+// Plain version: instant_ngp_torch/ops/hashgrid.py::hashgrid_encode_dx_plain.
+// It runs where the SDF render takes its analytic normals, on the hit
+// positions of a frame.
+//
+// What bounds it on an H100: each (sample, level) reads 2^D (or 4) random
+// corner rows of F floats, as kernel A does, and a few dozen flops; it is
+// bound by its dependent gathers, and its byte bound counts x, g, the
+// distinct rows read and dx written.
+//
+// Design: a thread a sample walks the levels in order from level 0, so dx
+// accumulates in the JAX package's order without a reduction; the corners
+// go c = 0 … 2^D−1, each gf_c an f-ordered dot, and the product over d' in
+// increasing d'. Corner indices, weights and the simplex rank masks are
+// computed as kernel E computes them (ties: the first index is the max, the
+// first the min, and amin = (amax + 1) % 3 where they coincide). The forward
+// keeps no residuals, so the corner rows are gathered again; the tables do
+// not change between forward and backward. With -fmad=false K equals its
+// plain version bit for bit.
+
+template <int D, int F>
+__global__ void __launch_bounds__(kThreads)
+hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ table,
+                   const float* __restrict__ g, LevelTable lv, int n_levels, int interp,
+                   long long n, float* __restrict__ dx) {
+    constexpr int kC = 1 << D;
+    const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (s >= n) return;
+    float xs[D], acc[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        xs[d] = x[s * D + d];
+        acc[d] = 0.0f;
+    }
+    const float* __restrict__ gs = g + s * ((long long)n_levels * F);
+    if (interp != kNearest) {
+        for (int l = 0; l < n_levels; ++l) {
+            const float scale = lv.scale[l];
+            const uint32_t res = lv.res[l], size = lv.size[l];
+            const bool hashed = lv.hashed[l] != 0;
+            const float* __restrict__ tab = table + (size_t)lv.offset[l] * F;
+            float gl[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) gl[f] = gs[l * F + f];
+            float t[D];
+            int gr[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float p = fmaf(xs[d], scale, 0.5f);
+                const float fl = floorf(p);
+                t[d] = p - fl;
+                gr[d] = (int)fl;
+            }
+            if (D == 3 && interp == kSimplex && hashed) {
+                int amax = 0, amin = 0;
+                if (t[1] > t[amax]) amax = 1;
+                if (t[D - 1] > t[amax]) amax = 2;
+                if (t[1] < t[amin]) amin = 1;
+                if (t[D - 1] < t[amin]) amin = 2;
+                if (amin == amax) amin = (amax + 1) % 3;
+                const int bits[4] = {0, 1 << amax, 7 ^ (1 << amin), 7};
+                float gf[4];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const uint32_t idx = corner_index<D>(hashed, res, size, gr, bits[c]);
+                    const float* row = tab + (size_t)idx * F;
+                    float v = gl[0] * __ldg(row);
+#pragma unroll
+                    for (int f = 1; f < F; ++f) v = v + gl[f] * __ldg(row + f);
+                    gf[c] = v;
+                }
+#pragma unroll
+                for (int d = 0; d < D; ++d) {
+                    const float dt = d == amax ? gf[1] - gf[0] : d == amin ? gf[3] - gf[2]
+                                                                           : gf[2] - gf[1];
+                    acc[d] = acc[d] + dt * scale;
+                }
+                continue;
+            }
+            float gf[kC];
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+                const float* row = tab + (size_t)corner_index<D>(hashed, res, size, gr, c) * F;
+                float v = gl[0] * __ldg(row);
+#pragma unroll
+                for (int f = 1; f < F; ++f) v = v + gl[f] * __ldg(row + f);
+                gf[c] = v;
+            }
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                float col = 0.0f;
+#pragma unroll
+                for (int c = 0; c < kC; ++c) {
+                    float prod = 1.0f;
+                    bool first = true;
+#pragma unroll
+                    for (int e = 0; e < D; ++e) {
+                        if (e == d) continue;
+                        const float a = ((c >> e) & 1) ? t[e] : 1.0f - t[e];
+                        prod = first ? a : prod * a;
+                        first = false;
+                    }
+                    const float term = gf[c] * (((c >> d) & 1) ? prod : -prod);
+                    col = c == 0 ? term : col + term;
+                }
+                acc[d] = acc[d] + col * scale;
+            }
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) dx[s * D + d] = acc[d];
+}
+
+template <int D>
+int launch_dx(const float* xp, const float* tp, const float* gp, const LevelTable& lv,
+              int n_levels, int n_features, int interp, long long n, float* dxp,
+              cudaStream_t st) {
+    const long long blocks_ll = (n + kThreads - 1) / kThreads;
+    if (blocks_ll > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)blocks_ll;
+    switch (n_features) {
+        case 1: hashgrid_dx_kernel<D, 1><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
+        case 2: hashgrid_dx_kernel<D, 2><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
+        case 4: hashgrid_dx_kernel<D, 4><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
+        case 8: hashgrid_dx_kernel<D, 8><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void* scale,
@@ -285,6 +425,34 @@ extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void*
     switch (n_dims) {
         case 2: return launch_bwd<2>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
         case 3: return launch_bwd<3>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Kernel K's launcher: x (n, D), the flat table (rows, F), g (n, L·F), the
+// level arrays (host), dx (n, D) out.
+extern "C" int ngp_hashgrid_encode_dx(const void* x, const void* table, const void* g,
+                                      const void* scale, const void* res, const void* size,
+                                      const void* offset, const void* hashed, int n_dims,
+                                      int n_levels, int n_features, int interp, long long n,
+                                      void* dx, void* stream) {
+    if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+    LevelTable lv{};  // K reads no draw offsets
+    for (int l = 0; l < n_levels; ++l) {
+        lv.scale[l] = static_cast<const float*>(scale)[l];
+        lv.res[l] = (uint32_t) static_cast<const int*>(res)[l];
+        lv.size[l] = (uint32_t) static_cast<const int*>(size)[l];
+        lv.offset[l] = (uint32_t) static_cast<const int*>(offset)[l];
+        lv.hashed[l] = static_cast<const int*>(hashed)[l];
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* xp = static_cast<const float*>(x);
+    const float* tp = static_cast<const float*>(table);
+    const float* gp = static_cast<const float*>(g);
+    float* dxp = static_cast<float*>(dx);
+    switch (n_dims) {
+        case 2: return launch_dx<2>(xp, tp, gp, lv, n_levels, n_features, interp, n, dxp, st);
+        case 3: return launch_dx<3>(xp, tp, gp, lv, n_levels, n_features, interp, n, dxp, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -35,11 +35,8 @@ from torch.func import functional_call
 
 from ..common import RandomMode, linear_to_srgb, srgb_to_linear
 from ..models.factory import autoconfig_grid_encoding
-from ..models.network import (NetworkWithInputEncoding, flat_from_tree, params_from_jax,
-                              tree_from_flat)
+from ..models.network import NetworkTask
 from ..ops.gather import bilinear_read, take_rows, texel_index
-from ..ops.losses import loss_fn, loss_type_from_string
-from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
 
 _MASK32 = 0xFFFFFFFF
 # pixels per inference pass of render and compute_mse (the JAX package's)
@@ -96,7 +93,7 @@ def sobol2d(index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return x0, acc.to(torch.float32) * scale
 
 
-class ImageTask:
+class ImageTask(NetworkTask):
     """A neural image: the texture, the model, the optimizer and its state,
     the step, ``render`` and ``compute_mse``. The constructor follows the
     JAX package's (task.py:120-169)."""
@@ -122,38 +119,8 @@ class ImageTask:
             # LDR files are sRGB-encoded; the texture is stored linear
             tex[:, :3] = srgb_to_linear(tex[:, :3])
         self.texture = tex
-        self.model = NetworkWithInputEncoding.from_config(self.config, 2, 3, device=self.device)
-        self.loss = loss_fn(loss_type_from_string(self.config.get("loss", {}).get("otype", "L2")))
-        self.model.init(torch.Generator(device=self.device).manual_seed(seed))
-        names = {id(p): name for name, p in self.model.named_parameters()}
-        self._param_names = [names[id(p)] for p in self.model.param_list()]
-        self.opt = Optimizer(OptimizerSpec.from_config(self.config.get("optimizer", {})),
-                             self.model.matrix_mask())
-        self.opt_state = self.opt.init(self.model.param_list())
-        self.training_step = 0
+        self._init_network(self.config, 2, 3, seed, "L2")
         self.generator = torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED)
-        # pyngp shall_train_encoding / shall_train_network freeze toggles
-        self.shall_train_encoding = True
-        self.shall_train_network = True
-
-    def opt_state_tree(self) -> dict:
-        """The optimizer state as the JAX package's tree of numpy arrays."""
-        return state_to_tree(self.opt_state, lambda flat: tree_from_flat(self.model, flat))
-
-    @torch.no_grad()
-    def load_state(self, params: dict, opt_state: dict | None = None,
-                   training_step: int = 0) -> None:
-        """Load a snapshot's parameters, optimizer state (else a fresh one
-        from the loaded parameters) and step, as the JAX package's
-        ``Testbed.load_snapshot`` does for an image (testbed.py:2224-2233).
-        Trees are numpy trees in the JAX layout."""
-        params_from_jax(self.model, params)
-        if opt_state is None:
-            self.opt_state = self.opt.init(self.model.param_list())
-        else:
-            self.opt_state = state_from_tree(
-                opt_state, lambda tree: flat_from_tree(self.model, tree), self.device)
-        self.training_step = int(training_step)
 
     def set_use_kernels(self, flag: bool) -> None:
         """True (default): the model runs kernels A, B, E and F on CUDA
@@ -204,25 +171,6 @@ class ImageTask:
             grads = torch.autograd.grad(loss, self.model.param_list())
         return list(grads), loss.detach()
 
-    @torch.no_grad()
-    def train_step(self, uv: torch.Tensor) -> torch.Tensor:
-        """One step at positions uv in place; returns the loss on the device.
-        A frozen part takes no update, but Adam's moments advance, as in
-        the JAX step."""
-        grads, loss = self.step_gradients(uv)
-        params = self.model.param_list()
-        n_net = len(self.model.network.weights)
-        frozen = []
-        if not self.shall_train_network:
-            frozen += params[:n_net]
-        if not self.shall_train_encoding:
-            frozen += params[n_net:]
-        kept = [p.clone() for p in frozen]
-        self.opt.update(grads, self.opt_state, params)
-        for p, k in zip(frozen, kept):
-            p.copy_(k)
-        return loss
-
     def train(self, n_steps: int = 1) -> float:
         """n steps; returns the last step's loss (the one host read)."""
         loss = None
@@ -233,11 +181,6 @@ class ImageTask:
         return float(loss) if loss is not None else 0.0
 
     # --- inference / evaluation ---
-    def inference_params(self) -> dict:
-        """The parameters inference reads, by name: the optimizer's
-        parameter EMA where the config keeps one, else the model's own."""
-        params = self.opt.inference_params(self.opt_state, self.model.param_list())
-        return dict(zip(self._param_names, params))
 
     def _pixel_centers(self, start: int, stop: int, width: int, height: int) -> torch.Tensor:
         i = torch.arange(start, stop, device=self.device)

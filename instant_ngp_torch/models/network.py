@@ -19,7 +19,8 @@ from torch import nn
 from ..ops.encodings import encoding_from_config
 from ..ops.hashgrid import GridEncoding
 from ..ops.mlp import MLP, mlp_from_config
-from ..ops.optimizers import state_from_tree, state_to_tree
+from ..ops.losses import loss_fn, loss_type_from_string
+from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
 
 
 class NetworkWithInputEncoding(nn.Module):
@@ -136,3 +137,75 @@ def train_state_from_jax(model: NetworkWithInputEncoding, opt, params, opt_state
 def train_state_to_numpy(model: NetworkWithInputEncoding, opt_state: dict) -> dict:
     """The port's optimizer state as a numpy tree in the JAX layout."""
     return state_to_tree(opt_state, lambda flat: tree_from_flat(model, flat))
+
+
+class NetworkTask:
+    """What the image and SDF tasks share: a ``NetworkWithInputEncoding``
+    trained by the config's optimizer chain, its state in the JAX layout,
+    the step with the pyngp freeze toggles, and the parameters inference
+    reads. A subclass builds it with ``_init_network`` and defines
+    ``step_gradients(*batch) → (grads in param_list order, mean loss)``."""
+
+    def _init_network(self, config: dict, n_input_dims: int, n_output_dims: int, seed: int,
+                      default_loss: str) -> None:
+        """The model (fresh weights from ``seed``), the loss, the optimizer and
+        its state, the step count and the freeze toggles, from ``config``
+        (its grid already autoconfigured)."""
+        self.model = NetworkWithInputEncoding.from_config(config, n_input_dims, n_output_dims,
+                                                          device=self.device)
+        self.loss = loss_fn(loss_type_from_string(config.get("loss", {}).get("otype",
+                                                                             default_loss)))
+        self.model.init(torch.Generator(device=self.device).manual_seed(seed))
+        names = {id(p): name for name, p in self.model.named_parameters()}
+        self._param_names = [names[id(p)] for p in self.model.param_list()]
+        self.opt = Optimizer(OptimizerSpec.from_config(config.get("optimizer", {})),
+                             self.model.matrix_mask())
+        self.opt_state = self.opt.init(self.model.param_list())
+        self.training_step = 0
+        # pyngp shall_train_encoding / shall_train_network freeze toggles
+        self.shall_train_encoding = True
+        self.shall_train_network = True
+
+    def opt_state_tree(self) -> dict:
+        """The optimizer state as the JAX package's tree of numpy arrays."""
+        return state_to_tree(self.opt_state, lambda flat: tree_from_flat(self.model, flat))
+
+    @torch.no_grad()
+    def load_state(self, params: dict, opt_state: dict | None = None,
+                   training_step: int = 0) -> None:
+        """Load a snapshot's parameters, optimizer state (else a fresh one
+        from the loaded parameters) and step, as the JAX package's
+        ``Testbed.load_snapshot`` does for an image or an SDF
+        (testbed.py:2224-2233). Trees are numpy trees in the JAX layout."""
+        params_from_jax(self.model, params)
+        if opt_state is None:
+            self.opt_state = self.opt.init(self.model.param_list())
+        else:
+            self.opt_state = state_from_tree(
+                opt_state, lambda tree: flat_from_tree(self.model, tree), self.device)
+        self.training_step = int(training_step)
+
+    @torch.no_grad()
+    def train_step(self, *batch: torch.Tensor) -> torch.Tensor:
+        """One step on a batch in place; returns the loss on the device. A
+        frozen part takes no update, but Adam's moments advance, as in the
+        JAX step."""
+        grads, loss = self.step_gradients(*batch)
+        params = self.model.param_list()
+        n_net = len(self.model.network.weights)
+        frozen = []
+        if not self.shall_train_network:
+            frozen += params[:n_net]
+        if not self.shall_train_encoding:
+            frozen += params[n_net:]
+        kept = [p.clone() for p in frozen]
+        self.opt.update(grads, self.opt_state, params)
+        for p, k in zip(frozen, kept):
+            p.copy_(k)
+        return loss
+
+    def inference_params(self) -> dict:
+        """The parameters inference reads, by name, detached: the optimizer's
+        parameter EMA where the config keeps one, else the model's own."""
+        params = self.opt.inference_params(self.opt_state, self.model.param_list())
+        return {name: p.detach() for name, p in zip(self._param_names, params)}

@@ -25,8 +25,14 @@ g/k to the corner picked by ``cumsum(w) < u·cdf[-1]``, where u is a hash
 of the position bits plus a per-(level, draw) offset, so the draw is the
 JAX package's draw bit for bit on the same x. Dense levels always take
 every corner, in f32 (the JAX package sums them in a bf16 matmul splat).
-The position gradient is not ported yet: positions take no gradient
-without camera optimization.
+
+Position gradient (the SDF render's analytic normals): on CUDA tensors
+``hashgrid_encode_dx`` launches kernel K (the end of
+``csrc/hashgrid_bwd.cu``), on CPU tensors it runs
+``hashgrid_encode_dx_plain``, the JAX package's analytic d/dx in its order.
+The autograd function computes the table gradient only where the table
+takes one and dx only where x does, so a training step launches E alone
+and the render's normals K alone.
 """
 
 from __future__ import annotations
@@ -212,8 +218,60 @@ def hashgrid_encode_bwd_plain(levels, interpolation: str, x: torch.Tensor, g: to
     return dtable
 
 
+def hashgrid_encode_dx_plain(levels, interpolation: str, table: torch.Tensor, x: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """Position gradient (N, D) f32 of the encoding of x (N, D) for the
+    output cotangent g (N, L·F), in the JAX package's order (``_hge_bwd``'s
+    d/dx): level by level from level 0 into zeros; per level gf_c = g·f_c
+    summed over f in order, then for d-linear levels, per axis d, the sum
+    over corners c = 0 … 2^D−1 of gf_c · (±Π_{d'≠d} a_{d'}) (the product in
+    increasing d'), times the level scale; for simplex levels the rank
+    masks pick gf1−gf0 (largest fraction), gf2−gf1 (middle) or gf3−gf2
+    (smallest); nearest levels add nothing."""
+    n, n_dims = x.shape
+    n_features = table.shape[1]
+    dx = torch.zeros((n, n_dims), dtype=torch.float32, device=x.device)
+    if interpolation == "nearest":
+        return dx
+    for l, level in enumerate(levels):
+        idx, _ = _level_corners(level, interpolation, x)
+        feats = table[level.offset + idx].to(torch.float32)  # (C, N, F)
+        g_l = g[:, l * n_features:(l + 1) * n_features].to(torch.float32)
+        gf = g_l[None, :, 0] * feats[:, :, 0]
+        for f in range(1, n_features):
+            gf = gf + g_l[None, :, f] * feats[:, :, f]
+        scale = float(np.float32(level.scale))
+        pos = fma(x, scale, 0.5)
+        t = pos - torch.floor(pos)
+        if interpolation == "simplex" and level.hashed and n_dims == 3:
+            amax = torch.argmax(t, dim=-1)
+            amin = torch.argmin(t, dim=-1)
+            amin = torch.where(amin == amax, (amax + 1) % 3, amin)
+            axis = torch.arange(3, device=x.device)[None, :]
+            dt = torch.where(axis == amax[:, None], (gf[1] - gf[0])[:, None],
+                             torch.where(axis == amin[:, None], (gf[3] - gf[2])[:, None],
+                                         (gf[2] - gf[1])[:, None]))
+            dx = dx + dt * scale
+            continue
+        cols = []
+        for d in range(n_dims):
+            acc = None
+            for c in range(1 << n_dims):
+                prod = None
+                for e in range(n_dims):
+                    if e == d:
+                        continue
+                    a = t[:, e] if (c >> e) & 1 else (1.0 - t[:, e])
+                    prod = a if prod is None else prod * a
+                term = gf[c] * (prod if (c >> d) & 1 else -prod)
+                acc = term if acc is None else acc + term
+            cols.append(acc * scale)
+        dx = dx + torch.stack(cols, dim=-1)
+    return dx
+
+
 # ---------------------------------------------------------------------------
-# wrappers: kernel A and kernel E on CUDA tensors
+# wrappers: kernels A, E and K on CUDA tensors
 # ---------------------------------------------------------------------------
 
 
@@ -324,22 +382,52 @@ def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Te
     return dtable
 
 
+def hashgrid_encode_dx(levels, interpolation: str, table: torch.Tensor, x: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+    """See ``hashgrid_encode_dx_plain``. CPU tensors run the plain version;
+    CUDA tensors launch kernel K (a thread a sample, walking the levels in
+    order)."""
+    if x.device.type == "cpu":
+        return hashgrid_encode_dx_plain(levels, interpolation, table, x, g)
+    cuda_lib.check_cuda(x, table, g, dtype=torch.float32)
+    n, n_dims = x.shape
+    L = len(levels)
+    n_features = table.shape[1]
+    _check_kernel_shapes(levels, interpolation, n_dims, n_features, "K")
+    if g.shape != (n, L * n_features):
+        raise ValueError(f"cotangent {tuple(g.shape)} for {n} samples and {L} levels")
+    dx = torch.empty((n, n_dims), dtype=torch.float32, device=x.device)
+    if n > 0:
+        cuda_lib.launch("hashgrid_encode_dx", x.data_ptr(), table.data_ptr(), g.data_ptr(),
+                        *map(ctypes.addressof, _level_arrays(levels)), n_dims, L, n_features,
+                        INTERPOLATIONS[interpolation], n, dx.data_ptr())
+    return dx
+
+
 class _GridEncodeFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc: "GridEncoding", table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         ctx.enc = enc
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(table, x)
         encode = hashgrid_encode if enc.use_kernel else hashgrid_encode_plain
         return encode(enc.levels, enc.interpolation, table, x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        (x,) = ctx.saved_tensors
+        """The table gradient (kernel E) where the table takes one, dx
+        (kernel K) where x does."""
+        table, x = ctx.saved_tensors
         enc = ctx.enc
-        backward = hashgrid_encode_bwd if enc.use_kernel else hashgrid_encode_bwd_plain
-        dtable = backward(enc.levels, enc.interpolation, x, g.contiguous(), enc.n_entries,
-                          enc.hashed_grad_corners)
-        return None, dtable, None
+        g = g.contiguous()
+        dtable = dx = None
+        if ctx.needs_input_grad[1]:
+            backward = hashgrid_encode_bwd if enc.use_kernel else hashgrid_encode_bwd_plain
+            dtable = backward(enc.levels, enc.interpolation, x, g, enc.n_entries,
+                              enc.hashed_grad_corners)
+        if ctx.needs_input_grad[2]:
+            encode_dx = hashgrid_encode_dx if enc.use_kernel else hashgrid_encode_dx_plain
+            dx = encode_dx(enc.levels, enc.interpolation, table, x, g).to(x.dtype)
+        return None, dtable, dx
 
 
 class GridEncoding(nn.Module):

@@ -1,5 +1,7 @@
-"""Elementwise losses of the NeRF step (port of the L2 and Huber parts of
-``instant_ngp_tpu/ops/losses.py``; reference nerf_device.cuh:75-143).
+"""Elementwise losses (port of the L2, Huber and MAPE parts of
+``instant_ngp_tpu/ops/losses.py``; reference nerf_device.cuh:75-143 and the
+tcnn losses the configs name): L2 and Huber for the NeRF and image steps,
+MAPE for the SDF step.
 
 Huber follows the reference's /5 convention (nerf_device.cuh:607-612):
 Huber is divided by 5 so its quadratic region matches L2 and a converged
@@ -27,13 +29,23 @@ def huber(target: torch.Tensor, prediction: torch.Tensor,
     return torch.where(ad > alpha, ad - 0.5 * alpha, 0.5 / alpha * d * d)
 
 
+def mape(target: torch.Tensor, prediction: torch.Tensor) -> torch.Tensor:
+    """|p − t| / (|p| + 1e-2), the denominator detached as in the JAX
+    package's ``stop_gradient`` (and the reference's analytic gradient)."""
+    d = prediction - target
+    denom = torch.abs(prediction.detach()) + 1e-2
+    return torch.abs(d) / denom
+
+
 def loss_fn(loss_type: LossType):
     """The elementwise loss of a type, Huber with the /5 scaling. The other
-    five loss types of the JAX package are not ported yet."""
+    four loss types of the JAX package are not ported yet."""
     if loss_type == LossType.HUBER:
         return lambda t, p: huber(t, p, HUBER_ALPHA) / 5.0
     if loss_type == LossType.L2:
         return l2
+    if loss_type == LossType.MAPE:
+        return mape
     raise NotImplementedError(f"loss {loss_type.value} is not ported yet")
 
 

@@ -1,7 +1,8 @@
-"""A minimal ``Testbed`` (port of the NeRF and image branches, the
+"""A minimal ``Testbed`` (port of the NeRF, image and SDF branches, the
 training tick and the snapshots of ``instant_ngp_tpu/testbed.py``): train a
-NeRF scene from disk or an in-memory dataset, fit an image, save a
-snapshot, and load one to render or to train on.
+NeRF scene from disk or an in-memory dataset, fit an image, fit a mesh's
+signed-distance field, save a snapshot, and load one to render or to train
+on.
 
     tb = Testbed("nerf")  # on the card; device="cpu" runs the plain versions
     tb.load_training_data("scene_dir")  # a transforms.json scene, configs/nerf/base.json
@@ -30,6 +31,14 @@ snapshot, and load one to render or to train on.
     mse = tb.compute_image_mse()
     tb.save_snapshot("image.ingp")  # loads back onto a Testbed holding the image
 
+    tb = Testbed("sdf")
+    tb.load_training_data("mesh.obj")  # .obj or .stl, configs/sdf/base.json
+    for _ in range(n):
+        tb.frame()  # one step on the batch producer's points
+    iou = tb.calculate_iou()
+    frame = tb.render(1920, 1080)  # sphere-traced, numpy (H, W, 4), linear
+    tb.save_snapshot("mesh.ingp", include_optimizer_state=True)  # loads back onto the mesh
+
 Snapshots are the JAX package's format, key for key: each package reads
 the other's.
 
@@ -54,6 +63,7 @@ from .io.nerf_loader import NerfDataset, load_nerf
 from .models import network as image_network
 from .models import nerf_network
 from .nerf.task import NerfTask
+from .sdf.task import SdfTask
 
 
 def mode_from_scene(path) -> TestbedMode:
@@ -153,18 +163,21 @@ class _ImageTrainingView:
         self._tb.task.linear_colors = bool(v)
 
 
+_PORTED_MODES = (TestbedMode.NERF, TestbedMode.IMAGE, TestbedMode.SDF)
+
+
 class Testbed:
-    """Modes "nerf" and "image" ("none" until ``load_training_data`` infers
-    the mode from the scene). Work runs on ``device``, the card unless the
-    caller asks for the CPU."""
+    """Modes "nerf", "image" and "sdf" ("none" until ``load_training_data``
+    infers the mode from the scene). Work runs on ``device``, the card
+    unless the caller asks for the CPU."""
 
     def __init__(self, mode: TestbedMode | str = "nerf", device="cuda"):
         mode = TestbedMode(mode.lower()) if isinstance(mode, str) else mode
-        if mode not in (TestbedMode.NONE, TestbedMode.NERF, TestbedMode.IMAGE):
+        if mode not in (TestbedMode.NONE, *_PORTED_MODES):
             raise NotImplementedError(f"testbed mode {mode.value!r} is not ported yet")
         self.mode = mode
         self.device = torch.device(device)
-        self.task: NerfTask | ImageTask | None = None
+        self.task: NerfTask | ImageTask | SdfTask | None = None
         self.nerf_dataset: NerfDataset | None = None
         self.network_config: dict = {}
         self.scene_path: str | None = None
@@ -178,6 +191,13 @@ class Testbed:
         self.loss_graph: list[float] = []
         self._loss_ema = LossEma()
         self.image = _ImageView(self)
+        # the SDF view: fov, the sun and the floor of its renders; the IoU
+        # every 16 frames when calculate_iou_online (testbed.py:855-948)
+        self.fov = 50.625
+        self.sun_dir = np.array([0.577, -0.577, 0.577], np.float32)
+        self.floor_enable = False
+        self.calculate_iou_online = False
+        self.sdf_iou: float | None = None
 
     def load_file(self, path) -> None:
         """A snapshot → ``load_snapshot``; anything else is training data
@@ -191,7 +211,7 @@ class Testbed:
         mode = mode_from_scene(path)
         if mode == TestbedMode.NONE:
             raise ValueError(f"cannot infer mode from scene path {path}")
-        if mode not in (TestbedMode.NERF, TestbedMode.IMAGE):
+        if mode not in _PORTED_MODES:
             raise NotImplementedError(f"loading {mode.value} training data is not ported yet")
         self.scene_path = str(path)
         self.mode = mode
@@ -211,9 +231,14 @@ class Testbed:
             self._build_task()
 
     def _build_task(self) -> None:
-        """A fresh task on the scene (testbed.py:1028-1058): an image, or a
-        NeRF scene whose first training camera becomes the view."""
-        if self.mode == TestbedMode.NERF:
+        """A fresh task on the scene (testbed.py:1028-1097): an image, a mesh,
+        or a NeRF scene whose first training camera becomes the view."""
+        if isinstance(self.task, SdfTask):
+            self.task.stop_producer()
+        if self.mode == TestbedMode.SDF:
+            self.task = SdfTask(self.scene_path, self.network_config, device=self.device,
+                                seed=self.seed)
+        elif self.mode == TestbedMode.NERF:
             self.nerf_dataset = load_nerf(self.scene_path)
             self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
                                  seed=self.seed, target_batch_size=self.training_batch_size)
@@ -233,7 +258,7 @@ class Testbed:
         if task is None:
             raise RuntimeError("load training data or a snapshot before saving one")
         nerf = self.mode == TestbedMode.NERF
-        model_io = nerf_network if nerf else image_network
+        model_io = nerf_network if nerf else image_network  # image and SDF: models/network
         kw = {}
         if nerf:
             ds = task.dataset
@@ -255,26 +280,31 @@ class Testbed:
         """Load a snapshot (testbed.py:2165-2233). NeRF: onto the loaded
         scene's task, so that training continues on its images; with no
         scene, onto a task built from the snapshot's dataset block (cameras
-        only, for rendering). Image: onto the loaded image's task. The loss
-        meter stays as it was, as the JAX package's does."""
+        only, for rendering). Image and SDF: onto the task of the loaded image
+        or mesh (the JAX package's generic branch). The loss meter stays as
+        it was, as the JAX package's does."""
         doc = snapshot_io.load_snapshot_file(path)
         snap = doc["snapshot"]
         mode = TestbedMode(snap["mode"])
-        if mode not in (TestbedMode.NERF, TestbedMode.IMAGE):
+        if mode not in _PORTED_MODES:
             raise NotImplementedError(f"snapshot mode {mode.value!r} is not ported yet")
         self.network_config = {k: v for k, v in doc.items() if k != "snapshot"}
         self.mode = mode
         nerf = mode == TestbedMode.NERF
-        task_type, model_io = (NerfTask, nerf_network) if nerf else (ImageTask, image_network)
+        task_type = {TestbedMode.NERF: NerfTask, TestbedMode.IMAGE: ImageTask,
+                     TestbedMode.SDF: SdfTask}[mode]
+        model_io = nerf_network if nerf else image_network
         if nerf and not isinstance(self.task, NerfTask):
             if "nerf" not in snap or "dataset" not in snap["nerf"]:
                 raise RuntimeError("snapshot lacks a dataset block and no scene is loaded")
             self.nerf_dataset = _empty_nerf_dataset_from_snapshot(snap)
             self.task = NerfTask(self.nerf_dataset, self.network_config, device=self.device)
+        if isinstance(self.task, SdfTask) and self.task.network_config != self.network_config:
+            self._build_task()  # the loaded mesh under the snapshot's network
         task = self.task
         if not isinstance(task, task_type):
-            raise RuntimeError("load the image before its snapshot: an image snapshot holds "
-                               "no image")
+            raise RuntimeError(f"load the {mode.value} scene before its snapshot: an image or "
+                               "SDF snapshot holds no image or mesh")
         params = snapshot_io.restore_params(snap, model_io.params_to_numpy(task.model))
         opt_state = None
         if "optimizer_state" in snap:
@@ -299,28 +329,60 @@ class Testbed:
     def render_tensor(self, *args, **kwargs) -> torch.Tensor:
         """NeRF: ``NerfTask.render``'s arguments and frame. Image:
         ``render(width, height, linear=True)`` → (H, W, 4) with alpha 1, in
-        linear colour unless ``linear`` is False (testbed.py:1245-1248). A
-        tensor on the task's device."""
+        linear colour unless ``linear`` is False (testbed.py:1245-1248). SDF:
+        ``render(width, height, linear=True, camera_matrix=None, fov=None)``,
+        the sphere trace from the Testbed's view, sun and floor
+        (testbed.py:1329-1350). A tensor on the task's device."""
         if self.task is None:
             raise RuntimeError("load a snapshot or training data before rendering")
         if self.mode == TestbedMode.IMAGE:
             return self._render_image(*args, **kwargs)
+        if self.mode == TestbedMode.SDF:
+            return self._render_sdf(*args, **kwargs)
         return self.task.render(*args, **kwargs)
 
-    def _render_image(self, width: int, height: int, linear: bool = True) -> torch.Tensor:
-        rgb = self.task.render(width, height)
-        frame = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-        produced_linear = bool(self.task.is_hdr)
+    def _render_sdf(self, width: int, height: int, linear: bool = True, camera_matrix=None,
+                    fov=None) -> torch.Tensor:
+        self.task.floor_enable = bool(self.floor_enable)
+        cam = self.camera_matrix if camera_matrix is None else camera_matrix
+        frame = self.task.render(width, height, cam, fov=fov or self.fov,
+                                 light_dir=tuple(np.asarray(self.sun_dir, np.float32)))
+        return self._to_space(frame, produced_linear=True, linear=linear)
+
+    @staticmethod
+    def _to_space(frame: torch.Tensor, produced_linear: bool, linear: bool) -> torch.Tensor:
+        """The frame's rgb in linear colour or sRGB, as asked (pyngp
+        render_to_cpu's contract)."""
         if produced_linear == linear:
             return frame
+        rgb = frame[..., :3]
         if produced_linear:
             rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
         else:
             rgb = srgb_to_linear(torch.clamp(rgb, 0.0, 1.0))
         return torch.cat([rgb, frame[..., 3:]], dim=-1)
 
+    def _render_image(self, width: int, height: int, linear: bool = True) -> torch.Tensor:
+        rgb = self.task.render(width, height)
+        frame = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+        return self._to_space(frame, bool(self.task.is_hdr), linear)
+
     def compute_image_mse(self, quantize_to_byte: bool = False) -> float:
         return self.task.compute_mse(quantize_to_byte)
+
+    def calculate_iou(self, n_samples: int = 128**3) -> float:
+        return self.task.calculate_iou(n_samples)
+
+    @property
+    def raw_aabb(self) -> tuple[np.ndarray, np.ndarray]:
+        """SDF: (min, max) of the mesh before its normalization into the unit
+        cube (world = raw·scale + offset inverted; testbed.py:1692-1700).
+        Other modes: the unit cube."""
+        if self.mode == TestbedMode.SDF and self.task is not None:
+            t = self.task
+            raw = (t.triangles.reshape(-1, 3) - t.mesh_offset) / t.mesh_scale
+            return raw.min(0), raw.max(0)
+        return np.zeros(3, np.float32), np.ones(3, np.float32)
 
     def frame(self) -> bool:
         """One tick: a training step while ``shall_train`` (reference
@@ -333,6 +395,9 @@ class Testbed:
             self.loss_graph.append(loss)
             if getattr(self.task, "training_aborted", False):
                 self.shall_train = False
+            if (self.calculate_iou_online and self.mode == TestbedMode.SDF
+                    and self.training_step % 16 == 0):
+                self.sdf_iou = float(self.task.calculate_iou(1 << 14))
         return True
 
     def train(self, batch_size=None) -> None:

@@ -70,7 +70,26 @@ microbenchmarks:
   the pixels, ≥ 40 dB over the rest), K against its plain version on that
   render's hit positions, the normals after normalization; a 1920x1080
   render timed; a snapshot with the optimizer state saved and loaded onto
-  the mesh (state bit for bit, its render as above).
+  the mesh (state bit for bit, its render as above);
+- configs: every shipped config but volume's (25) trains at full width
+  through its entry point: the image configs through ``Testbed("image")`` on
+  a 1024^2 ``make_image`` for 50 frames, the SDF configs through
+  ``Testbed("sdf")`` on the sdf phase's mesh (Takikawa's octree built on it)
+  for 80 frames, every NeRF config at the model level as
+  ``tests/test_configs_smoke.py`` drives it (20 steps of its loss and
+  optimizer on 2^17 seeded rows) and ``nerf/big.json`` also through
+  ``Testbed("nerf").frame()`` on the disk phase's scene for 50 frames; every
+  loss finite, the image and SDF losses falling; per config and MLP, kernels
+  B and F (their wide route, ``csrc/mlp_wide.cu``, past 64 wide, 8 matrices
+  or relu/none) at its first training step's input and cotangent: B bit for
+  bit F's recompute and within 1e-2 of its plain version's max |out|, F
+  against its plain version on the rows whose ReLU masks agree, each leaf
+  within 1e-2 of its own max |ref| (a check shown to refuse planted faults:
+  dX zeroed or negated, one dW off by 4 %), and their device times on copies
+  of their inputs read in turn (none left in L2 by the call before), beside
+  their bounds, one line per config; kernels A and E at D = 1 on
+  ``nerf/tensor.json``'s third slice against their plain versions. Beside the fox MLPs' checks, B and F's wide route on the same
+  inputs as the narrow route they take (B bit for bit), each route timed.
 
 Every kernel's entry in the JSON line has its error against its plain
 version, its time and the plain version's (back to back), its launches on
@@ -94,6 +113,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -210,7 +230,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3) -> dict:
+def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3,
+                 per_call: int | None = None) -> dict:
     """Device milliseconds per call of fn: the durations of the card's events
     of reps calls under torch.profiler, after one warm-up call, over reps.
     ``device_ms``: all of them; ``kernel_ms``: those of the kernels whose
@@ -219,7 +240,11 @@ def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3) -> dict:
     at all (the profiler drops one now and then) is taken again, up to
     ``attempts`` traces; then the reps calls are timed between two CUDA
     events instead, which cannot split the kernel from the rest: both
-    numbers are that span, and ``timed_by`` says so."""
+    numbers are that span, and ``timed_by`` says so. ``per_call``, where
+    given, is how many kernels named ``kernel`` a call launches; then a
+    trace that lost some events still counts: ``kernel_ms`` is per_call
+    times the mean of the kernel's events, ``device_ms`` the sum over event
+    names of each name's mean times its events a call (rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -231,6 +256,17 @@ def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3) -> dict:
             torch.cuda.synchronize()
         events = [(e.name, (e.time_range.end - e.time_range.start) / 1e3 / reps)
                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if per_call is not None:
+            by_name = {}
+            for name, ms in events:
+                by_name.setdefault(name, []).append(ms * reps)
+            own = [ms for name, v in by_name.items() if kernel in name for ms in v]
+            if own:
+                return {"device_ms": sum(statistics.fmean(v) * max(1, round(len(v) / reps))
+                                         for v in by_name.values()),
+                        "kernel_ms": statistics.fmean(own) * per_call,
+                        "events_per_call": len(events) / reps, "timed_by": "profiler"}
+            continue
         if events:
             return {"device_ms": sum(ms for _, ms in events),
                     "kernel_ms": sum(ms for name, ms in events if kernel in name),
@@ -245,6 +281,15 @@ def device_split(fn, kernel: str, reps: int = 20, attempts: int = 3) -> dict:
     print(f"torch.profiler caught no device event of {kernel} in {attempts} traces: "
           f"{ms:.4f} ms a call between CUDA events")
     return {"device_ms": ms, "kernel_ms": ms, "events_per_call": None, "timed_by": "cuda_events"}
+
+
+def cold_copies(*tensors) -> itertools.cycle:
+    """Copies of the tensors, enough to fill L2 twice over (at least 2, at
+    most COLD_MAX_COPIES), handed out in turn and the first made first: a
+    call timed on them reads its inputs from HBM, as a training step does,
+    and not from L2, where the call before left its own."""
+    n = min(COLD_MAX_COPIES, max(2, 1 + -(-2 * L2_BYTES // nbytes(*tensors))))
+    return itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(n)])
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -424,12 +469,14 @@ def kernel_checks(tb, device) -> list[dict]:
     both = [check_mlp(ws, inp, what) for what, ws, inp in
             (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in))]
     one = check_one_launch(rgb_ws, rgb_in)
+    wide = {what: wide_route_fwd(ws, inp, f"fox {what}") for what, ws, inp in
+            (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in))}
     record("fused_mlp", "instant_ngp_torch/csrc/mlp.cu",
            "instant_ngp_tpu/ops/pallas/mlp_kernel.py:53", max(v["max_abs_err"] for v in both),
            sum(v["ms"] for v in both), sum(v["plain_ms"] for v in both),
            bound(sum(v["bytes"] for v in both), sum(v["ops"] for v in both), "bfloat16"),
            extra=f" (32->64->16 plus 32->64->64->3; max |ref| {both[0]['scale']:.3f}, "
-                 f"{both[1]['scale']:.3f}; one call: {one})", one_launch=one)
+                 f"{both[1]['scale']:.3f}; one call: {one})", one_launch=one, wide_route=wide)
 
     # C: march the rays of view 0 at RES^2, K = 8, 64 iterations, fox grid
     margs, tmin, tmax = render_window_march(task, RES, *view0(tb, RES), device)
@@ -643,13 +690,17 @@ def train_kernel_checks(tb, task, device) -> tuple[list[dict], dict]:
         g = torch.randn((inp.shape[0], ws[-1].shape[1]), generator=gen, device=device)
         variants[what] = check_mlp_bwd(ws, inp, g, f"fox {what}")
     both = [variants["density"], variants["rgb"]]
+    gen_w = torch.Generator(device=device).manual_seed(SEED + 6)
+    wide = {what: wide_route_bwd(ws, inp, torch.randn((n, ws[-1].shape[1]), generator=gen_w,
+                                                      device=device), f"fox {what}")
+            for what, ws, inp in (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in))}
     record("fused_mlp_bwd", "instant_ngp_torch/csrc/mlp_bwd.cu",
            "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106",
            max(v["max_abs_err"] for v in variants.values()), sum(v["ms"] for v in both),
            sum(v["plain_ms"] for v in both),
            bound(sum(v["bytes"] for v in both), sum(v["ops"] for v in both), "bfloat16"),
            extra=f" ({n} rows, 32->64->16 plus 32->64->64->3: dX and every dW; all: {variants})",
-           variants=variants)
+           variants=variants, wide_route=wide)
 
     # C at the training march: rays of random pixels of the training views,
     # on the snapshot's (trained) occupancy grid
@@ -756,6 +807,66 @@ def check_mlp_bwd(ws, inp, g, what: str) -> dict:
             "plain_ms": time_ms(lambda: fused_mlp_bwd_plain(ws, inp, g)),
             **bound(n_bytes, mlp_bwd_ops(ws, inp.shape[0]), "bfloat16"),
             "bytes": n_bytes, "ops": mlp_bwd_ops(ws, inp.shape[0])}
+
+
+def route_times(call: dict, kernel: str) -> dict:
+    """Device ms of each route's call (``call``: route -> call, each on
+    ``cold_copies`` of its inputs), traced narrow, wide, wide, narrow: per
+    route the kernel's (``<route>_kernel_ms``) and the whole call's
+    (``<route>_call_ms``, with the wide route's packing and F's dW
+    products)."""
+    out = {f"{route}_{k}": [] for route in call for k in ("kernel_ms", "call_ms")}
+    for route in ("narrow", "wide", "wide", "narrow"):
+        v = device_split(call[route], kernel, per_call=1)
+        out[f"{route}_kernel_ms"].append(v["kernel_ms"])
+        out[f"{route}_call_ms"].append(v["device_ms"])
+    return out
+
+
+def wide_route_fwd(ws, inp, what: str) -> dict:
+    """Kernel B's wide route (``csrc/mlp_wide.cu``) on a narrow MLP's inputs
+    (relu/none), beside the narrow route (``csrc/mlp.cu``) the wrapper gives
+    it: the two outputs bit for bit (the same mma order), and the routes'
+    device times (``route_times``)."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
+    check(mk.is_narrow(dims, 1, 0, backward=False), f"B {what}: {dims} takes the wide route")
+    narrow, wide = (mk._launch_fwd(ws, inp, dims, 1, 0, route) for route in (True, False))
+    check(torch.equal(narrow, wide), f"B {what}: the wide route differs from the narrow one in "
+                                     f"{int((narrow != wide).any(dim=1).sum())} rows")
+    copies = cold_copies(inp)
+    call = {route: lambda on_narrow=route == "narrow": mk._launch_fwd(
+                ws, next(copies)[0], dims, 1, 0, on_narrow) for route in ("narrow", "wide")}
+    out = {"dims": dims, "rows": inp.shape[0], "bit_equal": True, **route_times(call, "mlp")}
+    print(f"kernel fused_mlp {what} ({dims}, {inp.shape[0]} rows), narrow / wide route: device "
+          f"{out['narrow_kernel_ms']} / {out['wide_kernel_ms']} ms (calls {out['narrow_call_ms']}"
+          f" / {out['wide_call_ms']}); outputs bit for bit")
+    return out
+
+
+def wide_route_bwd(ws, inp, g, what: str) -> dict:
+    """Kernel F's wide route on a narrow MLP's inputs and cotangent, beside
+    the narrow route: each leaf within TOL_MLP_BWD of the narrow route's max
+    |leaf| (``mlp_bwd_agrees``), and the routes' device times."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
+    check(mk.is_narrow(dims, 1, 0, backward=True), f"F {what}: {dims} takes the wide route")
+    (dx_n, dws_n), (dx_w, dws_w) = (mk._launch_bwd(ws, inp, g, dims, 1, 0, narrow=route)
+                                    for route in (True, False))
+    leaves = mlp_bwd_leaves([dx_w, *dws_w], [dx_n, *dws_n])
+    check(mlp_bwd_agrees(leaves), f"F {what}: the wide route is off the narrow one: {leaves}")
+    copies = cold_copies(inp, g)
+    call = {route: lambda on_narrow=route == "narrow": mk._launch_bwd(
+                ws, *next(copies), dims, 1, 0, narrow=on_narrow) for route in ("narrow", "wide")}
+    out = {"dims": dims, "rows": inp.shape[0], "max_rel_err": max(v["rel"] for v in leaves),
+           **route_times(call, "mlp")}
+    print(f"kernel fused_mlp_bwd {what} ({dims}, {inp.shape[0]} rows), narrow / wide route: "
+          f"device {out['narrow_kernel_ms']} / {out['wide_kernel_ms']} ms (calls "
+          f"{out['narrow_call_ms']} / {out['wide_call_ms']}); leaves within "
+          f"{out['max_rel_err']:.2e} of max |narrow|")
+    return out
 
 
 def check_one_launch(ws, inp) -> dict:
@@ -1377,7 +1488,7 @@ def disk_kernel_checks(task, device) -> dict:
     return out
 
 
-def disk_phase(device, card) -> tuple[dict, dict, dict]:
+def disk_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
     """A scene from disk through the entry points a user calls: generate it,
     ``load_training_data``, DISK_STEPS frames, ``save_snapshot`` with the
     optimizer state, then ``load_snapshot`` into a Testbed with no scene
@@ -1385,8 +1496,10 @@ def disk_phase(device, card) -> tuple[dict, dict, dict]:
     save equal to the first, DISK_MORE_STEPS more frames). Then the kernels
     against their plain versions at this path's shapes: the loaded render
     (whole frame, and C and D on its first window) and the trained task's
-    step (``disk_kernel_checks``). Returns the launches of the training run
-    and of the loaded render, and those checks by kernel name."""
+    step (``disk_kernel_checks``). The scene is generated into scene_dir,
+    where the configs phase trains nerf/big.json on it. Returns the launches
+    of the training run and of the loaded render, and those checks by kernel
+    name."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.io.nerf_loader import load_nerf
     from instant_ngp_torch.io.synthetic import generate_synthetic_dataset
@@ -1398,7 +1511,7 @@ def disk_phase(device, card) -> tuple[dict, dict, dict]:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         t0 = time.perf_counter()
-        scene, test_json = generate_synthetic_dataset(Path(tmp) / "scene", res=DISK_RES)
+        scene, test_json = generate_synthetic_dataset(scene_dir, res=DISK_RES)
         gen_s = time.perf_counter() - t0
         tb = Testbed("nerf", device=device)
         t0 = time.perf_counter()
@@ -1544,30 +1657,32 @@ def image_levels(res: int):
     return grid_encoding_from_config(cfg, 2, device="meta")
 
 
-def check_encode(levels, interpolation: str, table, x, what: str) -> dict:
-    """Kernel A against its plain version on (table, x): error, times, bound."""
+def check_encode(levels, interpolation: str, table, x, what: str, floor: float = 1.0) -> dict:
+    """Kernel A against its plain version on (table, x), within TOL_ENCODE
+    of max(floor, max |ref|): error, times, bound."""
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode, hashgrid_encode_plain
 
     args = (levels, interpolation, table, x)
     out, ref = hashgrid_encode(*args), hashgrid_encode_plain(*args)
     err, scale = max_err(out, ref)
-    check(err <= TOL_ENCODE * max(1.0, scale), f"A {what}: err {err} at max |ref| {scale}")
+    check(err <= TOL_ENCODE * max(floor, scale), f"A {what}: err {err} at max |ref| {scale}")
     rows, corners = grid_work(levels, interpolation, x)
     F = table.shape[1]
-    return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode(*args)),
+    return {"max_abs_err": err, "scale": scale, "ms": time_ms(lambda: hashgrid_encode(*args)),
             "plain_ms": time_ms(lambda: hashgrid_encode_plain(*args)),
             **bound(nbytes(x, out) + rows * F * 4, x.shape[0] * corners * 2 * F)}
 
 
 def check_encode_bwd(levels, interpolation: str, x, g, n_entries: int, corners: int,
-                     what: str) -> dict:
-    """Kernel E against its plain version: error, times, bound."""
+                     what: str, floor: float = 1.0) -> dict:
+    """Kernel E against its plain version, within TOL_ENCODE_BWD of
+    max(floor, max |ref|): error, times, bound."""
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode_bwd, hashgrid_encode_bwd_plain
 
     args = (levels, interpolation, x, g, n_entries, corners)
     err, scale = max_err(hashgrid_encode_bwd(*args), hashgrid_encode_bwd_plain(*args))
-    check(err <= TOL_ENCODE_BWD * max(1.0, scale), f"E {what}: err {err} at max |ref| {scale}")
-    return {"max_abs_err": err, "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
+    check(err <= TOL_ENCODE_BWD * max(floor, scale), f"E {what}: err {err} at max |ref| {scale}")
+    return {"max_abs_err": err, "scale": scale, "ms": time_ms(lambda: hashgrid_encode_bwd(*args)),
             "plain_ms": time_ms(lambda: hashgrid_encode_bwd_plain(*args)),
             **encode_bwd_bound(levels, interpolation, x, g, n_entries, corners)}
 
@@ -2366,6 +2481,446 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
     return launches, render_launches, checks, k_check
 
 
+CONFIGS_DIR = ROOT / "configs"
+CONFIG_IMAGE_RES = 1024
+CONFIG_IMAGE_FRAMES = 50
+CONFIG_SDF_FRAMES = 80  # MAPE on the wide configs rises for ~30 steps before it falls
+CONFIG_NERF_STEPS = 20
+CONFIG_NERF_ROWS = 1 << 17
+CONFIG_BIG_FRAMES = 50
+CONFIG_LOSS_WINDOW = 10
+CONFIG_REPS = 5  # calls a device-time trace of a config's B or F takes
+# B and F's device times in the configs phase and beside the narrow route
+# are taken on copies of their inputs read in turn (``cold_copies``), so that
+# each call's inputs come from HBM as in a training step, not from L2
+L2_BYTES = 50 << 20  # the H100's L2
+COLD_MAX_COPIES = 16
+# The one cut: nerf/densegrid.json's 8 dense levels from 16 at scale 2 end at
+# 2048^3; capped at 2^31 rows a level they hold 3,374,616,576 rows x 4 f32
+# (50.3 GiB), 201 GiB with Adam's moments and the EMA. Its finest level is
+# cut to 512^3 (scale 32^(1/7)): 8 levels x 4 features, the MLPs' widths, kept.
+CONFIG_CUTS = {"nerf/densegrid.json": {"per_level_scale": 32.0 ** (1.0 / 7.0)}}
+# B and F on a config's MLP: one route each, narrow or wide
+MLP_KERNELS = {"narrow": ("fused_mlp", "fused_mlp_bwd"),
+               "wide": ("fused_mlp_wide", "fused_mlp_bwd_wide")}
+
+
+def config_files() -> list[tuple[str, Path]]:
+    """(mode, path) of every shipped config but volume's."""
+    return [(mode, p) for mode in ("image", "sdf", "nerf")
+            for p in sorted((CONFIGS_DIR / mode).glob("*.json"))]
+
+
+class FirstStepInputs:
+    """Forward hooks that keep, from the first call with autograd on (a
+    training step's forward), each MLP's input x and, through a tensor hook
+    on its output, the cotangent g the step's backward gives it; and the
+    position encoding's input x."""
+
+    def __init__(self, mlps: dict, encoding):
+        self.mlps, self.seen = mlps, {}
+        self.handles = [mlp.register_forward_hook(functools.partial(self._hook, label))
+                        for label, mlp in mlps.items()]
+        self.handles.append(encoding.register_forward_hook(functools.partial(self._hook, "enc")))
+
+    def _hook(self, label, module, args, out):
+        if label in self.seen or not torch.is_grad_enabled():
+            return
+        if label == "enc":
+            self.seen[label] = {"x": args[0].detach().clone()}
+        elif out.requires_grad:
+            self.seen[label] = {"x": args[0].detach().clone()}
+            out.register_hook(lambda g: self.seen[label].setdefault("g", g.detach().clone()))
+
+    def remove(self) -> dict:
+        for h in self.handles:
+            h.remove()
+        check(all("g" in self.seen.get(k, {}) for k in self.mlps) and "enc" in self.seen,
+              f"a first training step fed no input or cotangent to {sorted(self.mlps)}")
+        return self.seen
+
+
+def mask_differs(ws, x, act: str, zs) -> torch.Tensor:
+    """(N,) bool: rows where a hidden ReLU mask (z > 0, z == 0) of kernel F's
+    recompute (zs) differs from the plain forward's; none where the hidden
+    activation is not ReLU."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_plain
+
+    differs = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    if act.lower() != "relu":
+        return differs
+    for i, zk in enumerate(zs[:-1]):
+        zp = fused_mlp_plain(ws[:i + 1], x, act, "none")
+        differs |= ((zk > 0) != (zp > 0)).any(dim=1) | ((zk == 0) != (zp == 0)).any(dim=1)
+    return differs
+
+
+def mlp_bwd_leaves(outs, refs) -> list[dict]:
+    """Kernel F's leaves (dX, then dW per layer) against the plain
+    version's: max |out - ref| (``err``), max |ref| (``scale``) and their
+    ratio (``rel``)."""
+    leaves = []
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        err, scale = max_err(o, r)
+        leaves.append({"leaf": "dX" if i == 0 else f"dW{i - 1}", "err": err, "scale": scale,
+                       "rel": err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))})
+    return leaves
+
+
+def mlp_bwd_agrees(leaves) -> bool:
+    """Every leaf within TOL_MLP_BWD of its own max |ref|, with no floor: a
+    training step's cotangent is about 1/N, so dX and dW lie orders of
+    magnitude below 1, and an absolute floor would pass any answer."""
+    return all(v["err"] <= TOL_MLP_BWD * v["scale"] for v in leaves)
+
+
+def planted_faults(dx, dws):
+    """(what, the leaves with one fault planted): dX zeroed, dX negated, and
+    each dW in turn off by 4·TOL_MLP_BWD of itself. ``mlp_bwd_agrees`` must
+    refuse every one."""
+    yield "dX zero", [torch.zeros_like(dx), *dws]
+    yield "dX negated", [-dx, *dws]
+    for j, dw in enumerate(dws):
+        yield (f"dW{j} scaled by {1 + 4 * TOL_MLP_BWD}",
+               [dx, *dws[:j], dw * (1 + 4 * TOL_MLP_BWD), *dws[j + 1:]])
+
+
+def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
+    """Kernels B and F on one MLP of a config at its first training step's
+    input and cotangent: B's forward bit for bit against F's recompute, every
+    layer's pre-activation; B within TOL_MLP of its plain version's max
+    |out|; F against its plain version on the rows whose ReLU masks agree
+    between F's recompute and the plain forward (``near_tie_rows`` counts
+    how many lie within one bf16 step of a tie; every row whose mask differs
+    must be one of them), each leaf within TOL_MLP_BWD of its own max |ref|
+    (``mlp_bwd_agrees``), and that check refusing every ``planted_faults``
+    of F's answer; the device time of each on ``cold_copies`` of its inputs
+    (a trace of CONFIG_REPS calls: ``kernel_ms`` of the kernel,
+    ``device_ms`` of all the call's device work), the plain versions' times
+    (back to back) and the bounds."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    ws = [w.detach() for w in mlp.weights]
+    act, out_act = mlp.activation, mlp.output_activation
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
+    codes = mk.ACTIVATIONS[act.lower()], mk.ACTIVATIONS[out_act.lower()]
+    routes = ["narrow" if mk.is_narrow(dims, *codes, backward=b) else "wide" for b in (False, True)]
+    zs = mk.mlp_recompute(ws, x, act, out_act)
+    for i, z in enumerate(zs):
+        zb = mk.fused_mlp(ws[:i + 1], x, act, "none")
+        check(torch.equal(zb, z), f"{what}: B and F's recompute differ at layer {i} in "
+                                  f"{int((zb != z).any(dim=1).sum())} rows")
+    out, ref = mk.fused_mlp(ws, x, act, out_act), mk.fused_mlp_plain(ws, x, act, out_act)
+    err_b, scale_b = max_err(out, ref)
+    check(err_b <= TOL_MLP * scale_b, f"B {what}: err {err_b} at max |ref| {scale_b}")
+    flipped = mask_differs(ws, x, act, zs)
+    near = near_tie_rows(ws, x) if act.lower() == "relu" else flipped
+    check(not bool((flipped & ~near).any()),
+          f"{what}: {int((flipped & ~near).sum())} rows whose ReLU mask differs lie past a tie")
+    keep = ~flipped
+    xk, gk = x[keep].contiguous(), g[keep].contiguous()
+    (dx, dws), (dx_p, dws_p) = (mk.fused_mlp_bwd(ws, xk, gk, act, out_act),
+                                mk.fused_mlp_bwd_plain(ws, xk, gk, act, out_act))
+    leaves = mlp_bwd_leaves([dx, *dws], [dx_p, *dws_p])
+    check(mlp_bwd_agrees(leaves), f"F {what}: a leaf past {TOL_MLP_BWD} of its max |ref|: {leaves}")
+    faults = 0
+    for fault, outs in planted_faults(dx, dws):
+        check(not mlp_bwd_agrees(mlp_bwd_leaves(outs, [dx_p, *dws_p])),
+              f"F {what}: the check passes a planted fault, {fault}")
+        faults += 1
+    n, n_w = x.shape[0], sum(w.numel() for w in ws)
+    xs, xgs = cold_copies(x), cold_copies(x, g)
+    b_dev = device_split(lambda: mk.fused_mlp(ws, *next(xs), act, out_act), "mlp",
+                         reps=CONFIG_REPS, per_call=1)
+    f_dev = device_split(lambda: mk.fused_mlp_bwd(ws, *next(xgs), act, out_act), "mlp",
+                         reps=CONFIG_REPS, per_call=1)
+    del xs, xgs
+    b_bound = bound(nbytes(x, out, *ws), 2 * n * n_w, "bfloat16")
+    # x, g and the weights read, dX and every dW written, f32
+    f_bound = bound(4 * (2 * x.numel() + g.numel() + 2 * n_w), mlp_bwd_ops(ws, n), "bfloat16")
+    return {"dims": dims, "activations": (act, out_act), "rows": n, "routes": routes,
+            "bit_equal_layers": len(zs), "b_err": err_b, "b_scale": scale_b,
+            "b_rel": err_b / scale_b, "f_err": max(v["err"] for v in leaves),
+            "f_rel": max(v["rel"] for v in leaves), "f_leaves": leaves,
+            "planted_faults_refused": faults,
+            "mask_differs_rows": int(flipped.sum()), "near_tie_rows": int(near.sum()),
+            "b_kernel_ms": b_dev["kernel_ms"], "b_device_ms": b_dev["device_ms"],
+            "f_kernel_ms": f_dev["kernel_ms"], "f_device_ms": f_dev["device_ms"],
+            "timed_by": (b_dev["timed_by"], f_dev["timed_by"]),
+            "events_per_call": (b_dev["events_per_call"], f_dev["events_per_call"]),
+            "b_plain_ms": time_ms(lambda: mk.fused_mlp_plain(ws, x, act, out_act),
+                                  reps=CONFIG_REPS, warmup=1),
+            "f_plain_ms": time_ms(lambda: mk.fused_mlp_bwd_plain(ws, x, g, act, out_act),
+                                  reps=CONFIG_REPS, warmup=1),
+            "b_bound_ms": b_bound["bound_ms"], "b_bound_by": b_bound["bound_by"],
+            "f_bound_ms": f_bound["bound_ms"], "f_bound_by": f_bound["bound_by"]}
+
+
+def grid_slice_checks(enc, x: torch.Tensor, density, seen: dict, what: str) -> dict:
+    """Kernels A and E at D = 1: nerf/tensor.json's third slice, a 1-D grid
+    over z, on the first training step's positions x; E on that slice's
+    cotangent, the density MLP's dX (kernel F) at the step's own input and
+    cotangent (``seen``, as ``FirstStepInputs`` keeps them). Each is held
+    within its tolerance of its plain version's max |ref| with no floor (the
+    values lie far below 1: E's near 1e-3). Returns {kernel name: {variant:
+    check}}."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    ws = [w.detach() for w in density.weights]
+    dx = mk.fused_mlp_bwd(ws, seen["x"], seen["g"], density.activation,
+                          density.output_activation)[0]
+    check(enc.begins is not None, f"{what}: the Composite has no explicit slices")
+    col = 0
+    for b, grid in zip(enc.begins, enc.nested):
+        if grid.n_dims_to_encode == 1:
+            break
+        col += grid.n_output_dims
+    check(grid.n_dims_to_encode == 1, f"{what}: no 1-D grid among the slices")
+    x1 = x[:, b:b + 1].contiguous()
+    g1 = dx[:, col:col + grid.n_output_dims].contiguous()
+    table = grid.table.detach()
+    out = {"hashgrid_encode_fwd": {what: check_encode(grid.levels, grid.interpolation, table, x1,
+                                                      what, floor=0.0)},
+           "hashgrid_encode_bwd": {what: check_encode_bwd(
+               grid.levels, grid.interpolation, x1, g1, grid.n_entries,
+               grid.hashed_grad_corners, what, floor=0.0)}}
+    for name, v in out.items():
+        print(f"kernel {name} at D = 1 ({what}, {x1.shape[0]} positions, {len(grid.levels)} "
+              f"levels): max_abs_err {v[what]['max_abs_err']:.3e} of max |ref| "
+              f"{v[what]['scale']:.3e}, kernel {v[what]['ms']:.4f} ms, plain "
+              f"{v[what]['plain_ms']:.3f} ms, bound {v[what]['bound_ms']:.4f} ms")
+    return out
+
+
+def nerf_model_run(cfg: dict, device) -> tuple:
+    """configs/nerf/*.json at the model level, as tests/test_configs_smoke.py
+    drives it: ``NerfNetwork.from_config``, fresh weights from SEED, and a
+    trainer of CONFIG_NERF_STEPS steps of the config's loss and optimizer on
+    CONFIG_NERF_ROWS seeded positions, directions and targets. Returns (the
+    model's MLPs by label, the trainer, which returns the losses)."""
+    from instant_ngp_torch.models.nerf_network import NerfNetwork
+    from instant_ngp_torch.ops.losses import loss_fn, loss_type_from_string
+    from instant_ngp_torch.ops.optimizers import Optimizer, OptimizerSpec
+
+    model = NerfNetwork.from_config(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model.init(gen)
+    pos, dirs, target = (torch.rand((CONFIG_NERF_ROWS, k), generator=gen, device=device)
+                         for k in (3, 3, 4))
+    lfn = loss_fn(loss_type_from_string(cfg.get("loss", {}).get("otype", "L2")))
+    opt = Optimizer(OptimizerSpec.from_config(cfg.get("optimizer", {})), model.matrix_mask())
+    params = model.param_list()
+    state = opt.init(params)
+
+    def train() -> list[float]:
+        losses = []
+        for _ in range(CONFIG_NERF_STEPS):
+            loss = torch.mean(lfn(target, model(pos, dirs)))
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                opt.update(list(grads), state, params)
+            losses.append(loss.detach())
+        return [float(v) for v in torch.stack(losses).cpu()]
+
+    return {"density": model.density_network, "rgb": model.rgb_network}, train, model.pos_encoding
+
+
+def encoding_times(enc, x: torch.Tensor) -> dict | None:
+    """Device ms of a position encoding that is no grid (plain torch; grids
+    are kernels A and E, timed by the other phases) on x, its input at a
+    training step: its forward, and for one with a table (Takikawa) the
+    forward and the table's gradient, also between CUDA events. None for a
+    grid or a Composite of grids."""
+    from instant_ngp_torch.ops.encodings import Composite
+    from instant_ngp_torch.ops.hashgrid import GridEncoding
+
+    if isinstance(enc, GridEncoding) or (
+            isinstance(enc, Composite) and all(isinstance(e, GridEncoding) for e in enc.nested)):
+        return None
+    rows = x.shape[0]
+    with torch.no_grad():
+        out = {"encoding": type(enc).__name__, "rows": rows,
+               "forward_ms": device_split(lambda: enc(x), "", reps=CONFIG_REPS)["device_ms"]}
+    tables = [p for p in enc.parameters()]
+    if tables:
+        g = torch.ones((rows, enc.n_output_dims), device=x.device)
+
+        def step():
+            return torch.autograd.grad(enc(x), tables, grad_outputs=g)
+
+        out["forward_backward_ms"] = device_split(step, "", reps=CONFIG_REPS)["device_ms"]
+        out["forward_backward_events_ms"] = time_ms(step, reps=CONFIG_REPS, warmup=1)
+    return out
+
+
+def testbed_run(mode: str, path: Path, data: Path, frames: int, device):
+    """The user's path: ``Testbed(mode)``, ``reload_network_from_file`` and
+    ``load_training_data``; the trainer runs ``frames`` frames. Returns (the
+    task's MLPs by label, the trainer, the Testbed)."""
+    from instant_ngp_torch.testbed import Testbed
+
+    tb = Testbed(mode, device=device)
+    tb.reload_network_from_file(path)
+    tb.load_training_data(data)
+    model = tb.task.model
+    mlps = ({"density": model.density_network, "rgb": model.rgb_network} if mode == "nerf"
+            else {"net": model.network})
+    enc = model.pos_encoding if mode == "nerf" else model.encoding
+
+    def train() -> list[float]:
+        for _ in range(frames):
+            tb.frame()
+        return list(tb.loss_graph[-frames:])
+
+    return mlps, train, tb, enc
+
+
+def configs_phase(device, card, scene: Path) -> tuple[dict, dict, dict]:
+    """Every shipped config but volume's trains at full width on the card
+    through its entry point: the image configs through Testbed("image") on
+    make_image(CONFIG_IMAGE_RES, SEED) for CONFIG_IMAGE_FRAMES frames, the SDF
+    configs through Testbed("sdf") on the sdf phase's mesh for
+    CONFIG_SDF_FRAMES frames, every NeRF config at the model level
+    (``nerf_model_run``) and nerf/big.json also through Testbed("nerf") on the
+    disk phase's scene for CONFIG_BIG_FRAMES frames. Each run is driven with
+    the launch counts set to 0 just before it and read just after; every loss
+    must be finite, and the image and SDF runs' last CONFIG_LOSS_WINDOW must
+    average below their first. Then, per config and MLP, kernels B and F at
+    the first step's input and cotangent (``config_mlp_checks``), one printed
+    line each; kernels A and E on nerf/tensor.json's 1-D slice
+    (``grid_slice_checks``). Returns (the launches summed over the runs, the
+    checks by run label, A and E's checks at D = 1)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.config import load_network_config
+    from instant_ngp_torch.geometry.procedural import bumpy_torus, write_obj
+    from instant_ngp_torch.io.image import save_image
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in cuda_lib.LAUNCHES}
+    results, slice_checks = {}, None
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        image = Path(tmp) / "image.bin"
+        save_image(image, make_image(CONFIG_IMAGE_RES, SEED))
+        v, f = bumpy_torus(*SDF_GRID, seed=SEED)
+        mesh = Path(tmp) / "torus.obj"
+        write_obj(mesh, v, f)
+        runs = [(f"{m}/{p.name}", m, p) for m, p in config_files()]
+        runs.append(("nerf/big.json frame()", "nerf_frames", CONFIGS_DIR / "nerf" / "big.json"))
+        for label, mode, path in runs:
+            t0 = time.perf_counter()
+            tb = None
+            if mode == "nerf":
+                cfg = load_network_config(path, mode="nerf")
+                cfg["encoding"] = {**cfg["encoding"], **CONFIG_CUTS.get(label, {})}
+                mlps, train, enc = nerf_model_run(cfg, device)
+            elif mode == "nerf_frames":
+                mlps, train, tb, enc = testbed_run("nerf", path, scene, CONFIG_BIG_FRAMES,
+                                                   device)
+            else:
+                frames = CONFIG_IMAGE_FRAMES if mode == "image" else CONFIG_SDF_FRAMES
+                mlps, train, tb, enc = testbed_run(mode, path, image if mode == "image" else mesh,
+                                                   frames, device)
+            setup_s = time.perf_counter() - t0
+            hooks = FirstStepInputs(mlps, enc)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            losses = train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            run_launches = dict(cuda_lib.LAUNCHES)
+            inputs = hooks.remove()
+            if tb is not None and mode == "sdf":
+                tb.task.stop_producer()
+            for k, n in run_launches.items():
+                launches[k] += n
+            check(all(np.isfinite(losses)), f"{label}: a loss is not finite: {losses}")
+            first = float(np.mean(losses[:CONFIG_LOSS_WINDOW]))
+            last = float(np.mean(losses[-CONFIG_LOSS_WINDOW:]))
+            if mode in ("image", "sdf"):
+                check(last < first, f"{label}: the loss rose from {first} to {last}")
+            mlp_checks = {}
+            for name, mlp in mlps.items():
+                v = config_mlp_checks(mlp, inputs[name]["x"], inputs[name]["g"], f"{label} {name}")
+                b_name, f_name = MLP_KERNELS[v["routes"][0]][0], MLP_KERNELS[v["routes"][1]][1]
+                check(run_launches[b_name] > 0 and run_launches[f_name] > 0,
+                      f"{label} {name}: {b_name} or {f_name} was not launched: {run_launches}")
+                mlp_checks[name] = v
+                rels = ", ".join(f"{u['leaf']} {u['rel']:.1e}" for u in v["f_leaves"])
+                print(f"config {label} {name}: widths {v['dims']}, {len(v['dims']) - 1} matrices, "
+                      f"{v['activations'][0]}/{v['activations'][1]}, routes B {v['routes'][0]} "
+                      f"F {v['routes'][1]}; {v['rows']} first-step rows: B {v['b_kernel_ms']:.4f}"
+                      f" ms (call {v['b_device_ms']:.4f}, plain {v['b_plain_ms']:.4f}, bound "
+                      f"{v['b_bound_ms']:.4f} {v['b_bound_by']}), F {v['f_kernel_ms']:.4f} ms "
+                      f"(call {v['f_device_ms']:.4f}, plain {v['f_plain_ms']:.4f}, bound "
+                      f"{v['f_bound_ms']:.4f} {v['f_bound_by']}); B = F's recompute bit for bit "
+                      f"on {v['bit_equal_layers']} layers, B err {v['b_err']:.3e} "
+                      f"({v['b_rel']:.2e} of max |ref|), F err {v['f_err']:.3e} (of max |ref| "
+                      f"at most {v['f_rel']:.2e}: {rels}; "
+                      f"{v['planted_faults_refused']} planted faults refused; "
+                      f"{v['mask_differs_rows']} rows with a differing ReLU mask left out; "
+                      f"{v['near_tie_rows']} near a tie)")
+            if label == "nerf/tensor.json":
+                slice_checks = grid_slice_checks(enc, inputs["enc"]["x"], mlps["density"],
+                                                 inputs["density"], label)
+            enc_ms = encoding_times(enc, inputs["enc"]["x"])
+            if enc_ms is not None:
+                print(f"config {label} encoding: {enc_ms}")
+            print(f"config {label}: loss {losses[0]:.6f} -> {losses[-1]:.6f} (mean of the first "
+                  f"{CONFIG_LOSS_WINDOW} {first:.6f}, last {last:.6f}) in {len(losses)} steps; "
+                  f"set-up {setup_s:.2f} s, training {train_s:.2f} s; launches "
+                  f"{ {k: n for k, n in run_launches.items() if n} }")
+            results[label] = {"mlps": mlp_checks, "encoding": enc_ms, "loss_first": losses[0],
+                              "loss_last": losses[-1], "steps": len(losses),
+                              "train_s": train_s, "launches": run_launches}
+            del mlps, train, tb, hooks, inputs, enc
+            torch.cuda.empty_cache()
+    from instant_ngp_torch.ops.encodings import TriangleWave
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    tri = encoding_times(TriangleWave(12, 3),
+                         torch.rand((CONFIG_NERF_ROWS, 3), generator=gen, device=device))
+    print(f"encoding TriangleWave, on no config's path: {tri}")
+    print(f"configs phase: {len(results)} runs in {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}; launches {launches}")
+    check(len(results) == 26, f"{len(results)} config runs for 25 configs and nerf/big's frames")
+    check(slice_checks is not None, "no run held A and E at D = 1")
+    check(all(launches[k] > 0 for k in (*MLP_KERNELS["narrow"], *MLP_KERNELS["wide"],
+                                        "hashgrid_encode_fwd", "hashgrid_encode_bwd")),
+          f"a kernel was not launched: {launches}")
+    return launches, results, slice_checks
+
+
+def config_records(results: dict) -> list[dict]:
+    """The JSON records of the wide route's B and F: the headline is the
+    widest config, image/oneblob.json (256 -> 128 x 8 -> 3, 2^18 rows); the
+    error, absolute and relative to max |ref| (F's: per leaf), is the largest
+    over every config that took the route; every config's MLP is a
+    variant."""
+    records = []
+    for i, (name, kernel) in enumerate((("fused_mlp_wide", "b"), ("fused_mlp_bwd_wide", "f"))):
+        variants = {f"{label} {m}": v for label, r in results.items()
+                    for m, v in r["mlps"].items() if v["routes"][i] == "wide"}
+        head = results["image/oneblob.json"]["mlps"]["net"]
+        records.append({
+            "name": name, "route": "cuda", "source": "instant_ngp_torch/csrc/mlp_wide.cu",
+            "replaces": ("instant_ngp_tpu/ops/pallas/mlp_kernel.py:53" if kernel == "b" else
+                         "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106"),
+            "max_abs_err": max(v[f"{kernel}_err"] for v in variants.values()),
+            "max_rel_err": max(v[f"{kernel}_rel"] for v in variants.values()),
+            "ms": head[f"{kernel}_kernel_ms"], "plain_ms": head[f"{kernel}_plain_ms"],
+            "bound_ms": head[f"{kernel}_bound_ms"], "bound_by": head[f"{kernel}_bound_by"],
+            "library_ms": None, "call_device_ms": head[f"{kernel}_device_ms"],
+            "path": "configs", "variants": variants})
+        print(f"kernel {name}: max_abs_err {records[-1]['max_abs_err']:.3e} (of max |ref| at most "
+              f"{records[-1]['max_rel_err']:.2e}) kernel "
+              f"{records[-1]['ms']:.4f} ms plain {records[-1]['plain_ms']:.4f} ms bound "
+              f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}) at image/oneblob.json;"
+              f" {len(variants)} MLPs of the configs took the route")
+    return records
+
+
+
 def gather_phase() -> dict:
     """``instant_ngp_torch.bench.gather`` at its case lists, few repetitions.
     Returns its launches."""
@@ -2436,8 +2991,12 @@ def main() -> None:
     train_results, march, train_launches, nerf_pair = train_phase(tb, device, card)
     results += train_results
 
-    # a scene from disk: train, save, load without and with the scene
-    disk_launches, disk_render_launches, disk_checks = disk_phase(device, card)
+    # a scene from disk: train, save, load without and with the scene; the
+    # configs phase trains nerf/big.json on it too
+    (ROOT / "build").mkdir(exist_ok=True)
+    scenes = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    scene = Path(scenes.name) / "scene"
+    disk_launches, disk_render_launches, disk_checks = disk_phase(device, card, scene)
     disk_pair = disk_checks.pop("fwd_bwd_pair")
     for r in results:  # the disk path's checks are variants of each record
         for variant, v in disk_checks.get(r["name"], {}).items():
@@ -2473,6 +3032,16 @@ def main() -> None:
         for variant, v in sdf_checks.get(r["name"], {}).items():
             r.setdefault("variants", {})[variant] = v
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    # every shipped config but volume's: the wide route of B and F
+    try:
+        config_launches, config_checks, slice_checks = configs_phase(device, card, scene)
+    finally:
+        scenes.cleanup()
+    for r in results:  # A and E at D = 1 are variants of their records
+        for variant, v in slice_checks.get(r["name"], {}).items():
+            r.setdefault("variants", {})[variant] = v
+            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    results += config_records(config_checks)
     record_kernel(results, "hashgrid_encode_dx", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
                   "instant_ngp_tpu/ops/hashgrid.py:333", k_check["max_abs_err"],
                   **headline(k_check),
@@ -2482,7 +3051,7 @@ def main() -> None:
     paths = {"render": render_launches, "train": train_launches, "disk": disk_launches,
              "disk_render": disk_render_launches, "image": image_launches,
              "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
-             "sdf_render": sdf_render_launches}
+             "sdf_render": sdf_render_launches, "configs": config_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

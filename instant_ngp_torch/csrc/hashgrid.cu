@@ -77,6 +77,9 @@ __device__ __forceinline__ uint32_t mod_size(uint32_t v, const Level& lv) {
 template <int D>
 __device__ __forceinline__ uint32_t corner_index(const Level& lv, const int g[D], int bits) {
     const uint32_t c0 = (uint32_t)(g[0] + (bits & 1));
+    if constexpr (D == 1) {
+        return mod_size(c0, lv);
+    } else {
     const uint32_t c1 = (uint32_t)(g[1] + ((bits >> 1) & 1));
     uint32_t idx;
     if constexpr (D == 3) {
@@ -87,6 +90,7 @@ __device__ __forceinline__ uint32_t corner_index(const Level& lv, const int g[D]
         idx = lv.hashed ? (c0 * 1u) ^ (c1 * 2654435761u) : c0 + c1 * lv.res;
     }
     return mod_size(idx, lv);
+    }
 }
 
 template <int F>
@@ -190,7 +194,7 @@ template <int F>
 constexpr int kRowPad = F >= 4 ? 4 : F;
 
 template <int D, int F>
-__global__ void __launch_bounds__(kThreads, D == 2 ? 8 : 4)
+__global__ void __launch_bounds__(kThreads, D <= 2 ? 8 : 4)
 hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ table, LevelTable lt,
                        int n_levels, int interp, long long n, float* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
@@ -292,6 +296,7 @@ extern "C" int ngp_hashgrid_encode_fwd(const void* x, const void* table, const v
     const float* tp = static_cast<const float*>(table);
     float* op = static_cast<float*>(out);
     switch (n_dims) {
+        case 1: return launch_encode<1>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
         case 2: return launch_encode<2>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
         case 3: return launch_encode<3>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
         default: return (int)cudaErrorInvalidValue;

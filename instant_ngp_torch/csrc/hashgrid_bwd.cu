@@ -70,6 +70,9 @@ template <int D>
 __device__ __forceinline__ uint32_t corner_index(bool hashed, uint32_t res, uint32_t size,
                                                  const int g[D], int bits) {
     const uint32_t c0 = (uint32_t)(g[0] + (bits & 1));
+    if constexpr (D == 1) {
+        return c0 % size;  // the first prime is 1: hashed or not, the index is c0
+    } else {
     const uint32_t c1 = (uint32_t)(g[1] + ((bits >> 1) & 1));
     uint32_t idx;
     if constexpr (D == 3) {
@@ -80,6 +83,7 @@ __device__ __forceinline__ uint32_t corner_index(bool hashed, uint32_t res, uint
         idx = hashed ? (c0 * 1u) ^ (c1 * 2654435761u) : c0 + c1 * res;
     }
     return idx % size;
+    }
 }
 
 // Sums v over the lanes of the warp whose row equals this lane's, into the
@@ -190,14 +194,14 @@ hashgrid_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, Le
     if (D == 3 && interp == kSimplex && hashed) {
         // runs at D = 3 only, where t[D - 1] is t[2]
         int amax = 0, amin = 0;
-        if (t[1] > t[amax]) amax = 1;
+        if (t[1 % D] > t[amax]) amax = 1;
         if (t[D - 1] > t[amax]) amax = 2;
-        if (t[1] < t[amin]) amin = 1;
+        if (t[1 % D] < t[amin]) amin = 1;
         if (t[D - 1] < t[amin]) amin = 2;
         if (amin == amax) amin = (amax + 1) % 3;
-        const float t_max = fmaxf(fmaxf(t[0], t[1]), t[D - 1]);
-        const float t_min = fminf(fminf(t[0], t[1]), t[D - 1]);
-        const float t_mid = ((t[0] + t[1]) + t[D - 1]) - t_max - t_min;
+        const float t_max = fmaxf(fmaxf(t[0], t[1 % D]), t[D - 1]);
+        const float t_min = fminf(fminf(t[0], t[1 % D]), t[D - 1]);
+        const float t_mid = ((t[0] + t[1 % D]) + t[D - 1]) - t_max - t_min;
         w[0] = 1.0f - t_max; w[1] = t_max - t_mid; w[2] = t_mid - t_min; w[3] = t_min;
         // corners 000, e_max, 1 - e_min, 111
         idx[0] = corner_index<D>(hashed, res, size, gr, 0);
@@ -423,6 +427,7 @@ extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void*
     const float* gp = static_cast<const float*>(g);
     float* dp = static_cast<float*>(dtable);
     switch (n_dims) {
+        case 1: return launch_bwd<1>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
         case 2: return launch_bwd<2>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
         case 3: return launch_bwd<3>(xp, gp, lv, n_levels, n_features, interp, n_draws, g_scale, n, dp, st);
         default: return (int)cudaErrorInvalidValue;

@@ -6,6 +6,15 @@
 // activation rounded back to bf16, an f32 output.
 // Plain version: instant_ngp_torch/ops/mlp_kernel.py::fused_mlp_plain.
 //
+// Limits: this is kernel B's narrow route, for every width <= 64, at most 8
+// matrices and relu or none as both activations (the NeRF, SDF and image
+// base configs). The wrapper (ops/mlp_kernel.py::fused_mlp) sends the rest of
+// the Pallas kernel's contract, widths up to 256, any depth, sigmoid and
+// exponential, to csrc/mlp_wide.cu, whose weights stream through shared
+// memory a chunk at a time instead of sitting there whole; the A fragments of
+// both routes are kept in registers and sized by the widest layer, which is
+// what caps this one at 64.
+//
 // What bounds it on an H100: the NeRF MLPs are tiny (32->64->16 and
 // 32->64->64->3, 3,072 and 6,336 multiply-adds a row) and their weights
 // (25 KB of f32 for the larger) fit shared memory many times over. On

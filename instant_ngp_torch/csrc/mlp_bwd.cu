@@ -5,6 +5,14 @@
 // _reference_forward) and of ops/mlp.py::MLP.__call__ (mlp.py:94-101).
 // Plain version: instant_ngp_torch/ops/mlp_kernel.py::fused_mlp_bwd_plain.
 //
+// Limits: this is kernel F's narrow route, for every width <= 64, at most 8
+// matrices, relu or none hidden and none output: its dW tiles' f32 sums stay
+// in registers for the whole persistent loop, and its premise below (every
+// inner cotangent is a bf16 value) holds only under relu/none. The wrapper
+// (ops/mlp_kernel.py::fused_mlp_bwd) sends the rest, widths up to 256, any
+// depth, sigmoid and exponential, to csrc/mlp_wide.cu, which keeps h_i and
+// dz_i in global memory and leaves dW to one f32 product a layer.
+//
 // Contract (JAX's vjp of MLP.__call__): the hidden activations are
 // recomputed from x and the weights, both bf16; every product takes the
 // f32 cotangent against a bf16 operand in f32, and each result (dh per

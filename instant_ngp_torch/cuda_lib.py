@@ -76,6 +76,13 @@ SIGNATURES = {
     # density_act, per_ray, dout, scratch (null where K <= 64)
     "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                         _P, _P, _P, _P],
+    # x (f32), w (host pointers), dims (host int[n_layers+1]), n_layers, act,
+    # out_act, n, scratch (fused_mlp_wide_scratch bytes), out: kernel B's wide route
+    "fused_mlp_wide": [_P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
+    # x, w, g, dims, n_layers, act, out_act, n, scratch, dx, h_i (f32, layer by
+    # layer), dz_i (f32, layer by layer), the recompute's record or null:
+    # kernel F's wide route
+    "fused_mlp_bwd_wide": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P],
     # idx, idx bytes (4 or 8), vals, m, F, vec (out and vals F-float
     # aligned), size, out (added into)
     "scatter_add_rows": [_P, _I, _P, _L, _I, _I, _L, _P, _P],
@@ -97,6 +104,9 @@ SIGNATURES = {
 QUERIES = {
     # R, K -> the f32 scratch composite_train needs
     "composite_train_scratch_floats": ([_I, _I], _L),
+    # dims (host int[n_layers+1]), n_layers -> the scratch bytes of the MLP's
+    # wide route (-1 past its widths)
+    "fused_mlp_wide_scratch": ([_P, _I], _L),
     # device, out (6 int32) -> cudaError: what kernel J's plan is sized by
     "gather_cols_limits": ([_I, _P], _I),
 }

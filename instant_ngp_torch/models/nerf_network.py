@@ -8,13 +8,15 @@
 
 Parameters move between the packages as numpy trees in the JAX layout:
 ``{"density_net": [W (in, out), …], "rgb_net": [...], "pos_enc": (table_l
-(size_l, F), …)}`` (``params_from_jax`` / ``params_to_numpy``); the whole
+(size_l, F), …)}`` (``params_from_jax`` / ``params_to_numpy``; a Composite
+position encoding's ``pos_enc`` is a list of its nested trees, and an
+encoding without parameters has none); the whole
 training state, with the optimizer moments, the parameter EMA, the
 occupancy grid and the error map, by ``train_state_from_jax`` /
 ``train_state_to_numpy``. In the port the parameters are one list,
-``param_list()``, in the packing order [density_net, rgb_net, pos_enc]
-(the direction encoding has none), and the per-level tables are one flat
-table.
+``param_list()``, in the packing order [density_net, rgb_net, pos_enc
+tables] (the direction encoding has none), and a grid's per-level tables are
+one flat table.
 """
 
 from __future__ import annotations
@@ -23,14 +25,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.encodings import Composite, encoding_from_config
-from ..ops.hashgrid import GridEncoding
+from ..ops.encodings import (Composite, encoding_flat, encoding_from_config, encoding_tables,
+                             encoding_tree, init_encoding, set_encoding_kernels)
 from ..ops.mlp import MLP, mlp_from_config
 from ..ops.optimizers import state_from_tree, state_to_tree
 
 
 class NerfNetwork(nn.Module):
-    def __init__(self, pos_encoding: GridEncoding, dir_encoding: nn.Module,
+    def __init__(self, pos_encoding: nn.Module, dir_encoding: nn.Module,
                  density_network: MLP, rgb_network: MLP):
         super().__init__()
         self.pos_encoding = pos_encoding
@@ -56,25 +58,26 @@ class NerfNetwork(nn.Module):
         """Fresh weights in place: He-uniform MLPs, tables in ±1e-4."""
         self.density_network.init(generator)
         self.rgb_network.init(generator)
-        self.pos_encoding.init(generator)
+        init_encoding(self.pos_encoding, generator)
 
     def param_list(self) -> list[nn.Parameter]:
         """The trainable parameters in packing order [density_net, rgb_net,
-        pos_enc]."""
+        pos_enc tables]."""
         return [*self.density_network.weights, *self.rgb_network.weights,
-                self.pos_encoding.table]
+                *encoding_tables(self.pos_encoding)]
 
     def matrix_mask(self) -> list[bool]:
         """True for the MLP matrices (l2_reg applies), False for tables."""
         n_matrices = len(self.density_network.weights) + len(self.rgb_network.weights)
-        return [True] * n_matrices + [False]
+        return [True] * n_matrices + [False] * len(encoding_tables(self.pos_encoding))
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route the encoding and both MLPs through their CUDA kernels
         (True, the default) or their plain versions (the reference a
         kernel render is checked against on the card)."""
-        for m in (self.pos_encoding, self.density_network, self.rgb_network):
-            m.use_kernel = flag
+        set_encoding_kernels(self.pos_encoding, flag)
+        self.density_network.use_kernel = flag
+        self.rgb_network.use_kernel = flag
 
     @staticmethod
     def from_config(config: dict, n_extra_dims: int = 0, device=None) -> "NerfNetwork":
@@ -84,8 +87,6 @@ class NerfNetwork(nn.Module):
             raise NotImplementedError("per-image latent dims are not ported yet")
         pos_enc = encoding_from_config(config.get("encoding", {"otype": "HashGrid"}), 3,
                                        device=device)
-        if not isinstance(pos_enc, GridEncoding):
-            raise NotImplementedError("only a grid position encoding is ported")
         dir_enc = encoding_from_config(
             config.get("dir_encoding", {"otype": "SphericalHarmonics", "degree": 4}), 3,
             device=device)
@@ -112,12 +113,14 @@ def tree_from_flat(model: NerfNetwork, flat) -> dict:
     snapshots store optimizer states in: density_net's matrices,
     pos_enc's per-level tables, rgb_net's matrices (keys sorted; dir_enc's
     None leaves dropped). ``param_list`` order is [density_net, rgb_net,
-    pos_enc], with the levels in one flat table."""
+    pos_enc tables], with a grid's levels in one flat table."""
     n_d = len(model.density_network.weights)
     n_r = len(model.rgb_network.weights)
     arrs = [t.detach().cpu().numpy() for t in flat]
-    tree = {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r],
-            "pos_enc": tuple(model.pos_encoding.unpack_params(arrs[n_d + n_r]))}
+    tree = {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r]}
+    pos = encoding_tree(model.pos_encoding, arrs[n_d + n_r:])
+    if pos is not None:
+        tree["pos_enc"] = pos
     if isinstance(model.dir_encoding, Composite):
         tree["dir_enc"] = [None] * len(model.dir_encoding.nested)
     return tree
@@ -136,14 +139,12 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
             if src.shape != tuple(dst.shape):
                 raise ValueError(f"{key}: matrix {src.shape} for layer {tuple(dst.shape)}")
             dst.copy_(torch.from_numpy(src))
-    tables = tree["pos_enc"]
-    levels = model.pos_encoding.levels
-    if len(tables) != len(levels):
-        raise ValueError(f"pos_enc: {len(tables)} tables for {len(levels)} levels")
-    for dst, src in zip(model.pos_encoding.unpack_params(), tables):
-        src = np.array(src, np.float32)  # a writable copy: JAX arrays are read-only
-        if src.shape != tuple(dst.shape):
-            raise ValueError(f"pos_enc: table {src.shape} for level {tuple(dst.shape)}")
+    tables = encoding_tables(model.pos_encoding)
+    flat = encoding_flat(model.pos_encoding, tree.get("pos_enc"))
+    if [a.shape for a in flat] != [tuple(t.shape) for t in tables]:
+        raise ValueError(f"pos_enc: tables {[a.shape for a in flat]} for "
+                         f"{[tuple(t.shape) for t in tables]}")
+    for dst, src in zip(tables, flat):
         dst.copy_(torch.from_numpy(src))
     dir_leaves = tree.get("dir_enc")
     if dir_leaves is not None and any(leaf is not None for leaf in dir_leaves):
@@ -156,7 +157,7 @@ def flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
     numpy arrays in ``param_list`` order."""
     flat = [np.asarray(w, np.float32) for w in tree["density_net"]]
     flat += [np.asarray(w, np.float32) for w in tree["rgb_net"]]
-    flat.append(np.concatenate([np.asarray(t, np.float32) for t in tree["pos_enc"]], axis=0))
+    flat += encoding_flat(model.pos_encoding, tree.get("pos_enc"))
     shapes = [tuple(p.shape) for p in model.param_list()]
     if [a.shape for a in flat] != shapes:
         raise ValueError(f"tree shapes {[a.shape for a in flat]} do not match the model {shapes}")
@@ -174,7 +175,7 @@ def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
     params_from_jax(model, get(jax_state, "params"))
     state.opt_state = state_from_tree(get(jax_state, "opt_state"),
                                       lambda tree: flat_from_tree(model, tree),
-                                      model.pos_encoding.table.device)
+                                      model.density_network.weights[0].device)
     grid = get(jax_state, "grid")
     state.grid.set_density(torch.from_numpy(np.array(get(grid, "density"), np.float32)),
                            float(np.asarray(get(grid, "mean_density"))),

@@ -5,9 +5,11 @@ tcnn's create_network factories, testbed.cu:4160-4412).
 Parameters move between the packages as numpy trees in the JAX layout
 ``{"net": [W (in, out), …], "enc": (table_l (size_l, F), …)}``
 (``params_from_jax`` / ``params_to_numpy``; ``train_state_from_jax`` adds
-Adam's moments and step). In the port they are one list, ``param_list()``,
-in the order [net…, enc], and a grid's per-level tables are one flat
-table.
+Adam's moments and step); ``enc`` is Takikawa's (n_entries, F) table for
+that encoding, a Composite's list of nested trees, and absent for an
+encoding without parameters. In the port they are one list,
+``param_list()``, in the order [net…, enc tables], and a grid's per-level
+tables are one flat table.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.encodings import encoding_from_config
-from ..ops.hashgrid import GridEncoding
+from ..ops.encodings import (encoding_flat, encoding_from_config, encoding_tables, encoding_tree,
+                             init_encoding, set_encoding_kernels)
 from ..ops.mlp import MLP, mlp_from_config
 from ..ops.losses import loss_fn, loss_type_from_string
 from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
@@ -40,24 +42,16 @@ class NetworkWithInputEncoding(nn.Module):
     def forward(self, x: torch.Tensor, max_level=None) -> torch.Tensor:
         """x (N, n_input_dims) → (N, n_output_dims) f32 (bf16 compute in
         the MLP, as the JAX package's default compute dtype)."""
-        if isinstance(self.encoding, GridEncoding):
-            feats = self.encoding(x, max_level=max_level)
-        else:
-            feats = self.encoding(x)
-        return self.network(feats)
+        return self.network(self.encoding(x, max_level=max_level))
 
     def init(self, generator: torch.Generator) -> None:
-        """Fresh weights in place: He-uniform MLP, grid tables in ±1e-4."""
+        """Fresh weights in place: He-uniform MLP, encoding tables in ±1e-4."""
         self.network.init(generator)
-        if isinstance(self.encoding, GridEncoding):
-            self.encoding.init(generator)
+        init_encoding(self.encoding, generator)
 
     def param_list(self) -> list[nn.Parameter]:
-        """The trainable parameters in the order [net…, enc]."""
-        params = list(self.network.weights)
-        if isinstance(self.encoding, GridEncoding):
-            params.append(self.encoding.table)
-        return params
+        """The trainable parameters in the order [net…, enc tables]."""
+        return [*self.network.weights, *encoding_tables(self.encoding)]
 
     def matrix_mask(self) -> list[bool]:
         """True for the MLP matrices (l2_reg applies), False for the table."""
@@ -68,8 +62,7 @@ class NetworkWithInputEncoding(nn.Module):
         """Route the grid encoding and the MLP through their CUDA kernels
         (True, the default) or their plain versions."""
         self.network.use_kernel = flag
-        if isinstance(self.encoding, GridEncoding):
-            self.encoding.use_kernel = flag
+        set_encoding_kernels(self.encoding, flag)
 
     @staticmethod
     def from_config(config: dict, n_input_dims: int, n_output_dims: int,
@@ -94,8 +87,9 @@ def tree_from_flat(model: NetworkWithInputEncoding, flat) -> dict:
     arrs = [t.detach().cpu().numpy() for t in flat]
     n = len(model.network.weights)
     tree = {"net": arrs[:n]}
-    if isinstance(model.encoding, GridEncoding):
-        tree["enc"] = tuple(model.encoding.unpack_params(arrs[n]))
+    enc = encoding_tree(model.encoding, arrs[n:])
+    if enc is not None:
+        tree["enc"] = enc
     return tree
 
 
@@ -103,8 +97,7 @@ def flat_from_tree(model: NetworkWithInputEncoding, tree: dict) -> list[np.ndarr
     """A JAX parameter-shaped tree (params, or an optimizer moment) as
     numpy arrays in ``param_list`` order."""
     flat = [np.array(w, np.float32) for w in tree["net"]]
-    if "enc" in tree:
-        flat.append(np.concatenate([np.asarray(t, np.float32) for t in tree["enc"]], axis=0))
+    flat += encoding_flat(model.encoding, tree.get("enc"))
     shapes = [tuple(p.shape) for p in model.param_list()]
     if [a.shape for a in flat] != shapes:
         raise ValueError(f"tree shapes {[a.shape for a in flat]} do not match the model {shapes}")
@@ -147,12 +140,19 @@ class NetworkTask:
     ``step_gradients(*batch) → (grads in param_list order, mean loss)``."""
 
     def _init_network(self, config: dict, n_input_dims: int, n_output_dims: int, seed: int,
-                      default_loss: str) -> None:
+                      default_loss: str, encoding=None) -> None:
         """The model (fresh weights from ``seed``), the loss, the optimizer and
         its state, the step count and the freeze toggles, from ``config``
-        (its grid already autoconfigured)."""
-        self.model = NetworkWithInputEncoding.from_config(config, n_input_dims, n_output_dims,
-                                                          device=self.device)
+        (its grid already autoconfigured). ``encoding``, where given, is the
+        model's encoding (one the config alone cannot build: Takikawa's
+        octree needs the mesh)."""
+        if encoding is None:
+            self.model = NetworkWithInputEncoding.from_config(config, n_input_dims, n_output_dims,
+                                                              device=self.device)
+        else:
+            self.model = NetworkWithInputEncoding(
+                encoding, mlp_from_config(config.get("network", {}), encoding.n_output_dims,
+                                          n_output_dims, device=self.device))
         self.loss = loss_fn(loss_type_from_string(config.get("loss", {}).get("otype",
                                                                              default_loss)))
         self.model.init(torch.Generator(device=self.device).manual_seed(seed))

@@ -307,8 +307,11 @@ def _level_arrays(levels):
 
 
 def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: int, name: str):
-    if n_dims not in (2, 3) or n_features not in (1, 2, 4, 8) or len(levels) > 32:
-        raise ValueError(f"kernel {name} takes D in (2,3), F in (1,2,4,8), ≤32 levels; got "
+    """Kernels A and E take D 1 to 3 (D = 1: a slice of a Composite, as
+    configs/nerf/tensor.json's third); K takes D 2 and 3."""
+    dims_ok = (1, 2, 3) if name in ("A", "E") else (2, 3)
+    if n_dims not in dims_ok or n_features not in (1, 2, 4, 8) or len(levels) > 32:
+        raise ValueError(f"kernel {name} takes D in {dims_ok}, F in (1,2,4,8), ≤32 levels; got "
                          f"D={n_dims}, F={n_features}, L={len(levels)}")
     if interpolation not in INTERPOLATIONS:
         raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")

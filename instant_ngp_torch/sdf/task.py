@@ -43,9 +43,11 @@ from torch.func import functional_call
 from ..common import fma
 from ..geometry.bvh import TriangleBvh
 from ..geometry.mesh_io import load_mesh, normalize_to_unit_cube
+from ..geometry.octree import TriangleOctree
 from ..models.factory import autoconfig_grid_encoding
 from ..models.network import NetworkTask
 from ..ops.raymarch import ray_intersect_aabb
+from ..ops.takikawa import TakikawaEncoding
 from ..render.brdf import BRDFParams, evaluate_shading
 
 CHUNK = 1 << 18  # points per inference pass of ``sdf``
@@ -98,11 +100,18 @@ class SdfTask(NetworkTask):
         self.network_config = config  # as given, before the grid's autoconfiguration
         config = dict(config)
         enc_cfg = config.get("encoding", {})
+        self.octree = None
+        encoding = None
         if str(enc_cfg.get("otype", "")).lower() == "takikawa":
-            raise NotImplementedError("the Takikawa (octree) encoding is not ported yet")
-        config["encoding"] = autoconfig_grid_encoding(enc_cfg, "sdf")
+            # the NGLOD feature octree over the normalized mesh (JAX task.py:90-104)
+            self.octree = TriangleOctree(self.triangles, depth=int(enc_cfg.get("n_levels", 7)))
+            encoding = TakikawaEncoding(
+                self.octree, n_features_per_level=int(enc_cfg.get("n_features_per_level", 4)),
+                start_level=int(enc_cfg.get("starting_level", 2)), device=self.device)
+        else:
+            config["encoding"] = autoconfig_grid_encoding(enc_cfg, "sdf")
         self.config = config
-        self._init_network(config, 3, 1, seed, "Mape")
+        self._init_network(config, 3, 1, seed, "Mape", encoding=encoding)
         self._rng = np.random.default_rng(seed)
         # the batch producer and what it did: batches made and seconds spent,
         # and the steps that took a fresh batch or reused the last

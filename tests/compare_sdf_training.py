@@ -4,6 +4,7 @@ several seeds, and print its IoU before and after training.
     JAX_PLATFORMS=cpu python tests/compare_sdf_training.py --package jax --seeds 1337 1 2
     python tests/compare_sdf_training.py --package port --device cuda --seeds 1337 1 2
     python tests/compare_sdf_training.py --package port --device cuda --frames --seeds 1 2
+    JAX_PLATFORMS=cpu python tests/compare_sdf_training.py --package both --seeds 1 --every 25
 
 The mesh is ``geometry/procedural.bumpy_torus`` at ``chip_smoke.SDF_GRID``
 (69,632 triangles) from ``chip_smoke.SEED``. For each seed (the task's
@@ -24,6 +25,15 @@ seed: the line gives the share whose |gradient| is at most
 ``chip_smoke.NORMAL_FLOOR`` and the median |gradient| and |field| there. Prints one
 JSON line a seed. The JAX package takes about 10 minutes a seed on 8 CPU
 cores.
+
+``--package both`` trains, on the CPU and on the same batches, three runs in
+lockstep: the JAX package from its initial parameters, the port from the
+same parameters, and the JAX package again from those parameters each moved
+by one f32 ulp in a random direction (the control: how fast a difference
+at the level of f32 rounding grows under this training). Every ``--every``
+steps it prints a line with each run's flat share and median |gradient|,
+and the relative L2 distance of the port's and the control's parameters
+(MLP and table apart) from the first run's.
 """
 
 import argparse
@@ -129,6 +139,67 @@ def run_port(tris, config, seed: int, steps: int, device: str, jax_init: bool) -
             **port_flat_share(task), "losses": losses}
 
 
+def _leaves(tree) -> dict:
+    return {"net": [np.asarray(w, np.float32) for w in tree["net"]],
+            "enc": [np.asarray(t, np.float32) for t in tree["enc"]]}
+
+
+def rel_distance(a: dict, b: dict) -> dict:
+    """||a - b|| / ||b|| over the MLP's matrices and over the table."""
+    return {k: float(np.sqrt(sum(np.sum((x - y).astype(np.float64) ** 2)
+                                 for x, y in zip(a[k], b[k])))
+                     / np.sqrt(sum(np.sum(y.astype(np.float64) ** 2) for y in b[k])))
+            for k in ("net", "enc")}
+
+
+def run_lockstep(tris, config, seed: int, steps: int, every: int) -> None:
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from instant_ngp_tpu.sdf.task import SdfTask as JaxSdfTask
+    from instant_ngp_torch.models.network import params_from_jax, params_to_numpy
+    from instant_ngp_torch.sdf.task import SdfTask
+
+    ref = JaxSdfTask(tris, config, seed=seed)
+    ctl = JaxSdfTask(tris, config, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    ctl.params = jax.tree.map(
+        lambda p: jnp.asarray(np.nextafter(np.asarray(p, np.float32), np.where(
+            rng.random(np.shape(p)) < 0.5, -np.inf, np.inf).astype(np.float32))), ref.params)
+    port = SdfTask(tris, config, device="cpu", seed=seed)
+    params_from_jax(port.model, jax.tree.map(np.asarray, ref.params))
+    pts0 = surface_points(ref)
+    grad_fn = jax.jit(jax.vmap(jax.grad(
+        lambda p, xi: ref.model(p, xi[None]).astype(jnp.float32)[0, 0], argnums=1),
+        in_axes=(None, 0)))
+
+    def jax_flat(task):
+        g = np.asarray(grad_fn(task.inference_params, jnp.asarray(pts0)))
+        return flat_share(g, task.sdf(pts0))
+
+    t0 = time.perf_counter()
+    for step in range(steps + 1):
+        if step % every == 0:
+            r = _leaves(jax.tree.map(np.asarray, ref.params))
+            line = {"seed": seed, "step": step, "jax": jax_flat(ref),
+                    "port": port_flat_share(port), "control": jax_flat(ctl),
+                    "port_distance": rel_distance(_leaves(params_to_numpy(port.model)), r),
+                    "control_distance": rel_distance(
+                        _leaves(jax.tree.map(np.asarray, ctl.params)), r),
+                    "seconds": time.perf_counter() - t0}
+            print(json.dumps(line), flush=True)
+        if step == steps:
+            break
+        pts, d = ref.generate_training_batch()
+        jp, jd = jnp.asarray(pts), jnp.asarray(d)
+        ref.params, ref.opt_state, _ = ref._jit_step(ref.params, ref.opt_state, jp, jd)
+        ctl.params, ctl.opt_state, _ = ctl._jit_step(ctl.params, ctl.opt_state, jp, jd)
+        port.train_step(torch.from_numpy(pts), torch.from_numpy(d))
+        port.training_step += 1
+    port.stop_producer()
+
+
 def run_port_frames(tris, config, seed: int, steps: int, device: str) -> dict:
     import tempfile
 
@@ -160,10 +231,12 @@ def run_port_frames(tris, config, seed: int, steps: int, device: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--package", choices=("jax", "port"), required=True)
+    ap.add_argument("--package", choices=("jax", "port", "both"), required=True)
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--seeds", type=int, nargs="+", default=[1337, 1, 2])
     ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--every", type=int, default=25,
+                    help="with --package both: steps between two lines")
     ap.add_argument("--jax-init", action="store_true",
                     help="the port from the JAX package's initial parameters for the seed")
     ap.add_argument("--frames", action="store_true",
@@ -175,6 +248,9 @@ def main() -> None:
     tris = mesh_triangles()
     for seed in args.seeds:
         t0 = time.perf_counter()
+        if args.package == "both":
+            run_lockstep(tris, config, seed, args.steps, args.every)
+            continue
         if args.package == "jax":
             r = run_jax(tris, config, seed, args.steps)
         elif args.frames:

@@ -323,11 +323,44 @@ def phase_build() -> None:
     path, seconds = cuda_lib.build()
     cuda_lib.load()
     print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}")
+    from instant_ngp_torch.ops.mlp_kernel import wgmma_rounding_probe
+
+    probe = wgmma_rounding_probe(torch.device("cuda"))
+    print(f"wgmma probe: a wgmma m64n128k16 chain over k = 256 and mma.sync m16n8k16 chains "
+          f"on the same bf16 operands give {'the same f32 bits' if probe['bit_equal'] else 'other bits'}"
+          f" ({probe['values_differ']} of 8192 values differ; each within "
+          f"{max(probe['wgmma_rel_err'], probe['mma_rel_err']):.2e} of max |f64 product|)")
+    check(probe["bit_equal"], f"wgmma does not round as mma.sync: {probe}: the routes' bit-for-bit "
+                              "checks do not hold")
+    counts = sass_counts(path, "HGMMA")
+    wide = {k: v for k, v in counts.items() if "mlp_wide_kernel" in k or "mlp_dw_kernel" in k}
+    print(f"HGMMA instructions in the SASS of the wide route's kernels: "
+          f"{ {k.split('mlp_')[-1][:40]: v for k, v in wide.items()} }")
+    check(len(wide) == 6 and all(v > 0 for v in wide.values()),
+          f"a wide kernel has no HGMMA instruction: {wide}")
     from instant_ngp_torch.geometry import bvh
 
     path, seconds = bvh.build()
     bvh.load()
     print(f"build of the host BVH (g++): {seconds:.1f} s -> {path.relative_to(ROOT)}")
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """{kernel (mangled name): instructions of ``opcode`` in its SASS} of the
+    built library, from ``cuobjdump -sass``."""
+    from instant_ngp_torch import cuda_lib
+
+    cuobjdump = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
 
 
 def bound(n_bytes: float, n_ops: float = 0.0, op_type: str = "float32") -> dict:
@@ -809,15 +842,15 @@ def check_mlp_bwd(ws, inp, g, what: str) -> dict:
             "bytes": n_bytes, "ops": mlp_bwd_ops(ws, inp.shape[0])}
 
 
-def route_times(call: dict, kernel: str) -> dict:
+def route_times(call: dict, kernels: dict) -> dict:
     """Device ms of each route's call (``call``: route -> call, each on
     ``cold_copies`` of its inputs), traced narrow, wide, wide, narrow: per
-    route the kernel's (``<route>_kernel_ms``) and the whole call's
-    (``<route>_call_ms``, with the wide route's packing and F's dW
-    products)."""
+    route the kernel's (``<route>_kernel_ms``, the kernel named
+    ``kernels[route]``) and the whole call's (``<route>_call_ms``, with the
+    wide route's packing and F's dW launch)."""
     out = {f"{route}_{k}": [] for route in call for k in ("kernel_ms", "call_ms")}
     for route in ("narrow", "wide", "wide", "narrow"):
-        v = device_split(call[route], kernel, per_call=1)
+        v = device_split(call[route], kernels[route], per_call=1)
         out[f"{route}_kernel_ms"].append(v["kernel_ms"])
         out[f"{route}_call_ms"].append(v["device_ms"])
     return out
@@ -838,7 +871,8 @@ def wide_route_fwd(ws, inp, what: str) -> dict:
     copies = cold_copies(inp)
     call = {route: lambda on_narrow=route == "narrow": mk._launch_fwd(
                 ws, next(copies)[0], dims, 1, 0, on_narrow) for route in ("narrow", "wide")}
-    out = {"dims": dims, "rows": inp.shape[0], "bit_equal": True, **route_times(call, "mlp")}
+    out = {"dims": dims, "rows": inp.shape[0], "bit_equal": True,
+           **route_times(call, {"narrow": "fused_mlp_kernel", "wide": "mlp_wide_kernel"})}
     print(f"kernel fused_mlp {what} ({dims}, {inp.shape[0]} rows), narrow / wide route: device "
           f"{out['narrow_kernel_ms']} / {out['wide_kernel_ms']} ms (calls {out['narrow_call_ms']}"
           f" / {out['wide_call_ms']}); outputs bit for bit")
@@ -861,7 +895,7 @@ def wide_route_bwd(ws, inp, g, what: str) -> dict:
     call = {route: lambda on_narrow=route == "narrow": mk._launch_bwd(
                 ws, *next(copies), dims, 1, 0, narrow=on_narrow) for route in ("narrow", "wide")}
     out = {"dims": dims, "rows": inp.shape[0], "max_rel_err": max(v["rel"] for v in leaves),
-           **route_times(call, "mlp")}
+           **route_times(call, {"narrow": "mlp_bwd_kernel", "wide": "mlp_wide_kernel"})}
     print(f"kernel fused_mlp_bwd {what} ({dims}, {inp.shape[0]} rows), narrow / wide route: "
           f"device {out['narrow_kernel_ms']} / {out['wide_kernel_ms']} ms (calls "
           f"{out['narrow_call_ms']} / {out['wide_call_ms']}); leaves within "
@@ -893,6 +927,82 @@ def check_one_launch(ws, inp) -> dict:
           f"one fused_mlp call ran the device kernels {kernels}")
     check(set(ops) <= {"aten::empty"}, f"one fused_mlp call ran the PyTorch ops {ops}")
     return {"device_kernels": kernels, "torch_ops": ops}
+
+
+WIDE_F_KERNELS = ("pack_layer", "mlp_wide_kernel", "mlp_dw_kernel", "dw_reduce")
+
+
+def check_wide_f_launches(ws, x, g, act: str, out_act: str) -> dict:
+    """One wide F call on the card under torch.profiler: its device kernels
+    are the port's (the packing, F's kernel, the dW kernel and its
+    reduction: no library product such as cuBLAS's), and it makes no
+    PyTorch matrix product."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd
+
+    fused_mlp_bwd(ws, x, g, act, out_act)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace with no device event at all is a dropped trace: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fused_mlp_bwd(ws, x, g, act, out_act)
+            torch.cuda.synchronize()
+        kernels = sorted({e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA})
+        if kernels:
+            break
+    ops = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith("aten::")})
+    foreign = [k for k in kernels if not any(n in k for n in WIDE_F_KERNELS)]
+    check(bool(kernels) and not foreign, f"a wide F call ran device kernels not the port's: {foreign}")
+    matmuls = [o for o in ops if o in ("aten::mm", "aten::matmul", "aten::bmm", "aten::addmm")]
+    check(not matmuls, f"a wide F call ran PyTorch matrix products: {matmuls}")
+    return {"device_kernels": [k[:60] for k in kernels], "torch_ops": ops}
+
+
+def dw_bound(hs, dzs, dims) -> dict:
+    """The dW kernel's least time: h_i and dz_i read once as the bf16 values
+    F wrote (dz_i as its terms where it has three), every dW written in f32;
+    two operations a product of each term's bf16 values."""
+    terms = [int(dz.ne(dz.to(torch.bfloat16).float()).any()) * 2 + 1 for dz in dzs]
+    n = hs[0].shape[0]
+    n_bytes = 2 * n * sum(h.shape[1] + dz.shape[1] * t for h, dz, t in zip(hs, dzs, terms)) + \
+        4 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    n_ops = 2 * n * sum(a * b * t for a, b, t in zip(dims[:-1], dims[1:], terms))
+    return {**bound(n_bytes, n_ops, "bfloat16"), "bytes": n_bytes, "ops": n_ops}
+
+
+def check_wide_dw(ws, x, g, act: str, out_act: str, what: str) -> dict:
+    """The wide F's dW kernel on the h_i and dz_i F's first launch wrote,
+    against ``mlp_dw_plain`` on the same values, every dW_i within
+    TOL_MLP_BWD of its own max |ref|, and equal to the dW ``fused_mlp_bwd``
+    returns (the same kernel, no atomics: the same bits); its device time
+    (both of its kernels), the plain version's, and ``torch.mm`` of the same
+    f32 products, one a layer (the library yardstick, which the port does
+    not call)."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    dims = (ws[0].shape[0], *[w.shape[1] for w in ws])
+    n = x.shape[0]
+    hs, dzs, bufs = mk.wide_intermediates(ws, x, g, act, out_act)
+    dws = mk.wide_dw(bufs, dims, act, n)
+    refs = [mk.mlp_dw_plain(h, dz) for h, dz in zip(hs, dzs)]
+    rels = []
+    for i, (o, r) in enumerate(zip(dws, refs)):
+        err, scale = max_err(o, r)
+        rels.append(err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+        check(err <= TOL_MLP_BWD * scale, f"dW {what}: layer {i} err {err} at max |ref| {scale}")
+    _, dws_call = mk.fused_mlp_bwd(ws, x, g, act, out_act)
+    check(all(torch.equal(a, b) for a, b in zip(dws, dws_call)),
+          f"dW {what}: the dW kernel's bits differ between two calls")
+    dev = device_split(lambda: mk.wide_dw(bufs, dims, act, n), "dw", reps=CONFIG_REPS)
+    lib = device_split(lambda: [torch.mm(h.T, dz) for h, dz in zip(hs, dzs)], "",
+                       reps=CONFIG_REPS)
+    return {"max_abs_err": max(float((o - r).abs().max()) for o, r in zip(dws, refs)),
+            "max_rel_err": max(rels), "ms": dev["device_ms"],
+            "plain_ms": time_ms(lambda: [mk.mlp_dw_plain(h, dz) for h, dz in zip(hs, dzs)],
+                                reps=CONFIG_REPS, warmup=1),
+            "library_ms": lib["device_ms"], **dw_bound(hs, dzs, dims)}
 
 
 def check_fwd_bwd_pair(ws, inp, what: str) -> dict:
@@ -2502,7 +2612,7 @@ COLD_MAX_COPIES = 16
 CONFIG_CUTS = {"nerf/densegrid.json": {"per_level_scale": 32.0 ** (1.0 / 7.0)}}
 # B and F on a config's MLP: one route each, narrow or wide
 MLP_KERNELS = {"narrow": ("fused_mlp", "fused_mlp_bwd"),
-               "wide": ("fused_mlp_wide", "fused_mlp_bwd_wide")}
+               "wide": ("fused_mlp_wide", "fused_mlp_bwd_wide", "fused_mlp_dw_wide")}
 
 
 def config_files() -> list[tuple[str, Path]]:
@@ -2632,12 +2742,21 @@ def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
     xs, xgs = cold_copies(x), cold_copies(x, g)
     b_dev = device_split(lambda: mk.fused_mlp(ws, *next(xs), act, out_act), "mlp",
                          reps=CONFIG_REPS, per_call=1)
-    f_dev = device_split(lambda: mk.fused_mlp_bwd(ws, *next(xgs), act, out_act), "mlp",
-                         reps=CONFIG_REPS, per_call=1)
+    f_dev = device_split(lambda: mk.fused_mlp_bwd(ws, *next(xgs), act, out_act),
+                         "mlp_wide_kernel" if routes[1] == "wide" else "mlp", reps=CONFIG_REPS,
+                         per_call=1)
     del xs, xgs
+    wide_f = {}
+    if routes[1] == "wide":
+        wide_f["dw"] = check_wide_dw(ws, xk, gk, act, out_act, what)
+        wide_f["launches"] = check_wide_f_launches(ws, xk, gk, act, out_act)
     b_bound = bound(nbytes(x, out, *ws), 2 * n * n_w, "bfloat16")
     # x, g and the weights read, dX and every dW written, f32
     f_bound = bound(4 * (2 * x.numel() + g.numel() + 2 * n_w), mlp_bwd_ops(ws, n), "bfloat16")
+    # the wide F's design floor: that, and its h_i and dz_i (bf16, dz_{L-1} as
+    # three terms) written once and read once by the dW kernel, over the HBM rate
+    inter = 2 * 2 * n * (sum(dims[:-1]) + sum(dims[1:-1]) + 3 * dims[-1])
+    f_floor_ms = (4 * (2 * x.numel() + g.numel() + 2 * n_w) + inter) / HBM_BYTES_PER_S * 1e3
     return {"dims": dims, "activations": (act, out_act), "rows": n, "routes": routes,
             "bit_equal_layers": len(zs), "b_err": err_b, "b_scale": scale_b,
             "b_rel": err_b / scale_b, "f_err": max(v["err"] for v in leaves),
@@ -2653,7 +2772,8 @@ def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
             "f_plain_ms": time_ms(lambda: mk.fused_mlp_bwd_plain(ws, x, g, act, out_act),
                                   reps=CONFIG_REPS, warmup=1),
             "b_bound_ms": b_bound["bound_ms"], "b_bound_by": b_bound["bound_by"],
-            "f_bound_ms": f_bound["bound_ms"], "f_bound_by": f_bound["bound_by"]}
+            "f_bound_ms": f_bound["bound_ms"], "f_bound_by": f_bound["bound_by"],
+            "f_floor_ms": f_floor_ms if routes[1] == "wide" else None, **wide_f}
 
 
 def grid_slice_checks(enc, x: torch.Tensor, density, seen: dict, what: str) -> dict:
@@ -2845,6 +2965,8 @@ def configs_phase(device, card, scene: Path) -> tuple[dict, dict, dict]:
                 b_name, f_name = MLP_KERNELS[v["routes"][0]][0], MLP_KERNELS[v["routes"][1]][1]
                 check(run_launches[b_name] > 0 and run_launches[f_name] > 0,
                       f"{label} {name}: {b_name} or {f_name} was not launched: {run_launches}")
+                check(v["routes"][1] != "wide" or run_launches["fused_mlp_dw_wide"] > 0,
+                      f"{label} {name}: the wide F's dW kernel was not launched: {run_launches}")
                 mlp_checks[name] = v
                 rels = ", ".join(f"{u['leaf']} {u['rel']:.1e}" for u in v["f_leaves"])
                 print(f"config {label} {name}: widths {v['dims']}, {len(v['dims']) - 1} matrices, "
@@ -2860,6 +2982,13 @@ def configs_phase(device, card, scene: Path) -> tuple[dict, dict, dict]:
                       f"{v['planted_faults_refused']} planted faults refused; "
                       f"{v['mask_differs_rows']} rows with a differing ReLU mask left out; "
                       f"{v['near_tie_rows']} near a tie)")
+                if "dw" in v:
+                    d = v["dw"]
+                    print(f"config {label} {name}: F's dW kernel {d['ms']:.4f} ms (plain "
+                          f"{d['plain_ms']:.4f}, torch.mm {d['library_ms']:.4f}, bound "
+                          f"{d['bound_ms']:.4f} {d['bound_by']}), within {d['max_rel_err']:.2e} of "
+                          f"mlp_dw_plain's max |ref|; F's design floor {v['f_floor_ms']:.4f} ms; "
+                          f"a wide F call's device kernels {v['launches']['device_kernels']}")
             if label == "nerf/tensor.json":
                 slice_checks = grid_slice_checks(enc, inputs["enc"]["x"], mlps["density"],
                                                  inputs["density"], label)
@@ -2917,6 +3046,25 @@ def config_records(results: dict) -> list[dict]:
               f"{records[-1]['ms']:.4f} ms plain {records[-1]['plain_ms']:.4f} ms bound "
               f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}) at image/oneblob.json;"
               f" {len(variants)} MLPs of the configs took the route")
+    records[-1]["source"] = "instant_ngp_torch/csrc/mlp_wide_bwd.cu"
+    records[-1]["floor_ms"] = head["f_floor_ms"]
+    # F's second launch, dW: its own record, the same configs as variants
+    variants = {f"{label} {m}": v["dw"] for label, r in results.items()
+                for m, v in r["mlps"].items() if "dw" in v}
+    head = results["image/oneblob.json"]["mlps"]["net"]["dw"]
+    records.append({
+        "name": "fused_mlp_dw_wide", "route": "cuda", "source": "instant_ngp_torch/csrc/mlp_wide_dw.cu",
+        "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106",
+        "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+        "max_rel_err": max(v["max_rel_err"] for v in variants.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"], "path": "configs",
+        "variants": variants})
+    print(f"kernel fused_mlp_dw_wide: max_abs_err {records[-1]['max_abs_err']:.3e} (of max |ref| at "
+          f"most {records[-1]['max_rel_err']:.2e}) kernel {head['ms']:.4f} ms plain "
+          f"{head['plain_ms']:.4f} ms torch.mm {head['library_ms']:.4f} ms bound "
+          f"{head['bound_ms']:.4f} ms ({head['bound_by']}) at image/oneblob.json; {len(variants)} "
+          f"MLPs of the configs took it")
     return records
 
 

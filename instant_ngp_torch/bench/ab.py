@@ -2,8 +2,9 @@
 scripts' ``--ab OLD_DIR``.
 
 In the order old, new, new, old it runs each tree's ``chip_smoke.py`` (its
-step and render times) and a bench script with ``--root`` set to that tree
-(its JSON line, summarised by the caller), and prints one JSON line per run.
+step and render times; left out where ``smoke`` is false) and a bench script
+with ``--root`` set to that tree and ``args`` (its JSON line, summarised by the
+caller), and prints one JSON line per run.
 With ``repeat`` it then runs ``python -m instant_ngp_torch.bench.nerf_repeat
 --runs repeat`` in each tree, again old, new, new, old, and prints the time of
 every 300-step run and, per tree, their quartiles. Every output is written
@@ -32,18 +33,20 @@ def _json_lines(stdout: str) -> list[dict]:
 
 
 def ab(old: Path, new: Path, logs: Path, script: Path, summarize: Callable[[dict], dict],
-       repeat: int = 0) -> None:
+       repeat: int = 0, smoke: bool = True, args: tuple = ()) -> None:
     order = (("old", old), ("new", new), ("new", new), ("old", old))
     logs.mkdir(parents=True, exist_ok=True)
     for i, (tag, root) in enumerate(order):
-        smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root, capture_output=True,
-                               text=True, timeout=1200)
-        (logs / f"{i}_{tag}_chip_smoke.log").write_text(smoke.stdout + smoke.stderr)
-        line = {"run": i, "tree": tag, "chip_smoke_rc": smoke.returncode}
-        for key, pattern in STEP_LINES.items():
-            m = re.search(pattern, smoke.stdout, re.M)
-            line[key] = [float(v) for v in m.groups()] if m else None
-        bench = subprocess.run([sys.executable, str(script), "--root", str(root)],
+        line = {"run": i, "tree": tag}
+        if smoke:
+            run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root, capture_output=True,
+                                 text=True, timeout=1200)
+            (logs / f"{i}_{tag}_chip_smoke.log").write_text(run.stdout + run.stderr)
+            line["chip_smoke_rc"] = run.returncode
+            for key, pattern in STEP_LINES.items():
+                m = re.search(pattern, run.stdout, re.M)
+                line[key] = [float(v) for v in m.groups()] if m else None
+        bench = subprocess.run([sys.executable, str(script), "--root", str(root), *args],
                                capture_output=True, text=True, timeout=900)
         (logs / f"{i}_{tag}_{script.stem}.log").write_text(bench.stdout + bench.stderr)
         lines = _json_lines(bench.stdout)

@@ -22,11 +22,23 @@ versions with ``chip_smoke.py``'s checks and tolerances (this checkout's
   image step's 2^18 rows of 32->64->64->3 and on 2^17 - 37 rows of
   32->64->64->3 (a ragged last tile); every input has a zero row.
 
+``--wide`` runs instead kernel F's wide route (csrc/mlp_wide_bwd.cu, then its
+dW launch, csrc/mlp_wide_dw.cu) at the widths and rows of every config MLP
+that takes it with a time in PERF.md (``WIDE_CASES``: image/oneblob and
+image/frequency at 2^18 rows, sdf/oneblob and sdf/frequency at 2^16, nerf/
+big's two MLPs, nerf/frequency's and nerf/none's density MLP at 2^17), relu/
+none, on random inputs from SEED: each leaf against the plain version on the
+rows whose ReLU masks agree, the device time of F's kernel (``kernel_ms``)
+and of the whole call (``device_ms``: the packing, F, the dW kernel and its
+reduction; in a tree before the dW kernel, the f32 dW products) on copies of
+the inputs read in turn.
+
 Weights, inputs and cotangents are random from SEED. ``--ab OLD_DIR``
 compares OLD_DIR with this checkout through ``bench/ab.py`` (old, new, new,
-old: each tree's ``chip_smoke.py`` and this script), writes the outputs
-under DIR (default build/bwd_ab/) and prints E's and F's times and the NeRF
-and image step times of each run. Without a card it raises.
+old: each tree's ``chip_smoke.py`` and this script; with ``--wide`` or
+``--no-smoke`` only this script), writes the outputs under DIR (default build/bwd_ab/) and prints E's
+and F's times and the NeRF and image step times of each run. Without a card
+it raises.
 
 ``--count`` runs on the CPU: for the image step's 2^18 stratified positions
 (seed-0 uniforms) on the 8192^2 grid, per level and in all, the row-adds of
@@ -47,6 +59,15 @@ SEED = 0
 N_FOX, N_IMAGE = 1 << 17, 1 << 18
 RAGGED = 37
 FOX_AABB_SCALE = 4
+# the wide route's config MLPs (relu/none): name -> (widths, rows)
+WIDE_CASES = {"image_oneblob": ((256,) + (128,) * 8 + (3,), 1 << 18),
+              "image_frequency": ((48,) + (128,) * 8 + (3,), 1 << 18),
+              "sdf_oneblob": ((192,) + (128,) * 8 + (1,), 1 << 16),
+              "sdf_frequency": ((72,) + (128,) * 8 + (1,), 1 << 16),
+              "nerf_big_density": ((32, 128, 128, 16), 1 << 17),
+              "nerf_big_rgb": ((32, 128, 128, 128, 3), 1 << 17),
+              "nerf_frequency_density": ((72,) + (128,) * 4 + (16,), 1 << 17),
+              "nerf_none_density": ((3,) + (128,) * 4 + (16,), 1 << 17)}
 
 
 def _chip_smoke():
@@ -119,6 +140,50 @@ def mlp_weights(dims, gen, device):
             for a, b in zip(dims[:-1], dims[1:])]
 
 
+def wide_inputs(dims, n: int, gen, device):
+    """Weights, an input in [0, 1) and a cotangent of a loss's size (1/N)."""
+    import torch
+
+    ws = mlp_weights(dims, gen, device)
+    x = torch.rand((n, dims[0]), generator=gen, device=device)
+    g = torch.randn((n, dims[-1]), generator=gen, device=device) / n
+    return ws, x, g
+
+
+def run_wide(root: Path) -> dict:
+    """F's wide route at ``WIDE_CASES``: see the module's docstring."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd, fused_mlp_bwd_plain, mlp_recompute
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this benchmark needs an NVIDIA GPU")
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, build_s = cuda_lib.build()
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0), "build_s": build_s, "F": {}}
+    for name, (dims, n) in WIDE_CASES.items():
+        ws, x, g = wide_inputs(dims, n, gen, device)
+        keep = ~cs.mask_differs(ws, x, "relu", mlp_recompute(ws, x))
+        xk, gk = x[keep].contiguous(), g[keep].contiguous()
+        dx, dws = fused_mlp_bwd(ws, xk, gk)
+        dx_p, dws_p = fused_mlp_bwd_plain(ws, xk, gk)
+        leaves = cs.mlp_bwd_leaves([dx, *dws], [dx_p, *dws_p])
+        cs.check(cs.mlp_bwd_agrees(leaves), f"F {name}: a leaf past its tolerance: {leaves}")
+        copies = cs.cold_copies(x, g)
+        dev = cs.device_split(lambda: fused_mlp_bwd(ws, *next(copies)), "mlp_wide_kernel",
+                              reps=10, per_call=1)
+        out["F"][name] = {"dims": dims, "rows": n, "max_rel_err": max(v["rel"] for v in leaves),
+                          "kernel_ms": dev["kernel_ms"], "device_ms": dev["device_ms"],
+                          "timed_by": dev["timed_by"]}
+        del copies
+    return out
+
+
 def run(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -172,7 +237,10 @@ def run(root: Path) -> dict:
 
 
 def summarize(res: dict) -> dict:
-    """One --ab line's entries: each case's back-to-back ms."""
+    """One --ab line's entries: each case's back-to-back ms; with --wide,
+    each case's [kernel_ms, device_ms]."""
+    if "E" not in res:
+        return {f"F:{case}": [v["kernel_ms"], v["device_ms"]] for case, v in res["F"].items()}
     return {f"{k}:{case}": v["ms"] for k in ("E", "F") for case, v in res[k].items()}
 
 
@@ -182,6 +250,9 @@ def main() -> None:
     ap.add_argument("--ab", type=Path, default=None, metavar="OLD_DIR")
     ap.add_argument("--logs", type=Path, default=HERE / "build" / "bwd_ab", metavar="DIR")
     ap.add_argument("--count", action="store_true")
+    ap.add_argument("--no-smoke", action="store_true",
+                    help="--ab without each tree's chip_smoke.py run")
+    ap.add_argument("--wide", action="store_true", help="F's wide route at WIDE_CASES only")
     args = ap.parse_args()
     if args.count:
         print(json.dumps(count()))
@@ -190,9 +261,10 @@ def main() -> None:
         sys.path.insert(0, str(HERE))
         from instant_ngp_torch.bench.ab import ab
 
-        ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize)
+        ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize,
+           smoke=not (args.wide or args.no_smoke), args=("--wide",) if args.wide else ())
         return
-    print(json.dumps(run(args.root.resolve())))
+    print(json.dumps((run_wide if args.wide else run)(args.root.resolve())))
 
 
 if __name__ == "__main__":

@@ -24,12 +24,21 @@ prints one JSON line. The shapes, on the fox snapshot's tables and MLPs:
 - ``image16384``: 2^18 random positions on the 16384^2 levels (the top two
   hashed): A; its MLP shape is ``image_step``'s.
 
+``--wide`` runs instead kernel B's wide route (csrc/mlp_wide.cu) at
+``bench/bwd_kernels.WIDE_CASES`` (every config MLP that takes it with a time
+in PERF.md, relu/none, random inputs from SEED): the error against the plain
+version relative to its max |out| (reported; chip_smoke.py gates B on the
+configs' own inputs), B against F's recompute bit for bit, and the device
+time of the kernel and of the call (with its packing) on copies of the input
+read in turn.
+
 Each case has its time back to back (``chip_smoke.time_ms``), its device
 time per call under torch.profiler (``device_ms``: every kernel of the call,
 ``kernel_ms``: the kernel's own), its bound and its error against the plain
 version. ``--ab OLD_DIR`` compares OLD_DIR with this checkout through
 ``bench/ab.py`` (old, new, new, old: each tree's ``chip_smoke.py`` and this
-script; with ``--repeat N`` then N ``nerf_repeat`` runs per tree and turn,
+script, only this script with ``--wide`` or ``--no-smoke``; with ``--repeat N`` then N
+``nerf_repeat`` runs per tree and turn,
 in the same order), writes the outputs under DIR (default build/fwd_ab/)
 and prints one JSON line per run. Without a card it raises.
 """
@@ -46,6 +55,14 @@ HERE = Path(__file__).resolve().parents[2]  # this checkout
 SEED = 0
 N_PROBES, N_RENDER, N_IMAGE = 1 << 18, 1 << 19, 1 << 18
 GRID_RES = 128  # the occupancy grid's cells per axis
+
+
+def _sibling(name: str):
+    """This checkout's bench module ``name``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(f"{name}_here", Path(__file__).with_name(f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _chip_smoke():
@@ -157,6 +174,39 @@ def image_cases(cs, gen, device) -> tuple[dict, dict]:
     return a, b
 
 
+def run_wide(root: Path) -> dict:
+    """B's wide route at ``WIDE_CASES``: see the module's docstring."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_plain, mlp_recompute
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this benchmark needs an NVIDIA GPU")
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, build_s = cuda_lib.build()
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0), "build_s": build_s, "B": {}}
+    bwd = _sibling("bwd_kernels")  # this checkout's cases, whichever tree is timed
+    for name, (dims, n) in bwd.WIDE_CASES.items():
+        ws, x, _ = bwd.wide_inputs(dims, n, gen, device)
+        err, scale = cs.max_err(fused_mlp(ws, x), fused_mlp_plain(ws, x))
+        zs = mlp_recompute(ws, x)
+        cs.check(all(torch.equal(fused_mlp(ws[:i + 1], x), z) for i, z in enumerate(zs)),
+                 f"B {name}: B and F's recompute differ")
+        copies = cs.cold_copies(x)
+        dev = cs.device_split(lambda: fused_mlp(ws, *next(copies)), "mlp_wide_kernel", reps=10,
+                              per_call=1)
+        out["B"][name] = {"dims": dims, "rows": n, "rel_err": err / scale,
+                          "kernel_ms": dev["kernel_ms"], "device_ms": dev["device_ms"],
+                          "timed_by": dev["timed_by"]}
+        del copies
+    return out
+
+
 def run(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -181,7 +231,10 @@ def run(root: Path) -> dict:
 
 
 def summarize(res: dict) -> dict:
-    """One --ab line's entries: per case [ms, device_ms, kernel_ms]."""
+    """One --ab line's entries: per case [ms, device_ms, kernel_ms]; with
+    --wide, per case [kernel_ms, device_ms]."""
+    if "A" not in res:
+        return {f"B:{case}": [v["kernel_ms"], v["device_ms"]] for case, v in res["B"].items()}
     return {f"{k}:{case}": [v["ms"], v["device_ms"], v["kernel_ms"]]
             for k in ("A", "B") for case, v in res[k].items()}
 
@@ -192,15 +245,18 @@ def main() -> None:
     ap.add_argument("--ab", type=Path, default=None, metavar="OLD_DIR")
     ap.add_argument("--logs", type=Path, default=HERE / "build" / "fwd_ab", metavar="DIR")
     ap.add_argument("--repeat", type=int, default=0, metavar="N")
+    ap.add_argument("--no-smoke", action="store_true",
+                    help="--ab without each tree's chip_smoke.py run")
+    ap.add_argument("--wide", action="store_true", help="B's wide route at WIDE_CASES only")
     args = ap.parse_args()
     if args.ab is not None:
         sys.path.insert(0, str(HERE))
         from instant_ngp_torch.bench.ab import ab
 
         ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize,
-           args.repeat)
+           args.repeat, smoke=not (args.wide or args.no_smoke), args=("--wide",) if args.wide else ())
         return
-    print(json.dumps(run(args.root.resolve())))
+    print(json.dumps((run_wide if args.wide else run)(args.root.resolve())))
 
 
 if __name__ == "__main__":

@@ -77,12 +77,16 @@ SIGNATURES = {
     "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
                         _P, _P, _P, _P],
     # x (f32), w (host pointers), dims (host int[n_layers+1]), n_layers, act,
-    # out_act, n, scratch (fused_mlp_wide_scratch bytes), out: kernel B's wide route
+    # out_act, n, scratch (fused_mlp_wide_sizes' bytes), out: kernel B's wide route
     "fused_mlp_wide": [_P, _P, _P, _I, _I, _I, _L, _P, _P, _P],
-    # x, w, g, dims, n_layers, act, out_act, n, scratch, dx, h_i (f32, layer by
-    # layer), dz_i (f32, layer by layer), the recompute's record or null:
-    # kernel F's wide route
-    "fused_mlp_bwd_wide": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P],
+    # x, w, g, dims, n_layers, act, out_act, n, scratch, dx, h buffer, dz
+    # buffer (bf16, fused_mlp_wide_sizes' values), per-thread scratch (f32) or
+    # null, the recompute's record or null: kernel F's wide route
+    "fused_mlp_bwd_wide": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    # h buffer, dz buffer (what fused_mlp_bwd_wide wrote), dims, n_layers, act,
+    # n, split_rows, scratch (its header), partials (f32), dw (f32, every
+    # layer in turn): the wide F's weight gradient
+    "fused_mlp_dw_wide": [_P, _P, _P, _I, _I, _L, _I, _P, _P, _P, _P],
     # idx, idx bytes (4 or 8), vals, m, F, vec (out and vals F-float
     # aligned), size, out (added into)
     "scatter_add_rows": [_P, _I, _P, _L, _I, _I, _L, _P, _P],
@@ -104,9 +108,12 @@ SIGNATURES = {
 QUERIES = {
     # R, K -> the f32 scratch composite_train needs
     "composite_train_scratch_floats": ([_I, _I], _L),
-    # dims (host int[n_layers+1]), n_layers -> the scratch bytes of the MLP's
-    # wide route (-1 past its widths)
-    "fused_mlp_wide_scratch": ([_P, _I], _L),
+    # dims (host int[n_layers+1]), n_layers, act, n, split_rows, out (host
+    # int64[6]) -> cudaError: the buffers of the MLP's wide route
+    "fused_mlp_wide_sizes": ([_P, _I, _I, _L, _I, _P], _I),
+    # x (64, 256) f32, w (256, 128) f32, scratch, zw, zm (64, 128) f32, stream
+    # -> cudaError: one product by a wgmma chain and by mma.sync chains
+    "mlp_wgmma_probe": ([_P, _P, _P, _P, _P, _P], _I),
     # device, out (6 int32) -> cudaError: what kernel J's plan is sized by
     "gather_cols_limits": ([_I, _P], _I),
 }

@@ -22,18 +22,20 @@ comes from the f32 pre-activation and is 0.5 where it is exactly 0 (the
 derivative of ``jnp.maximum`` at a tie); sigmoid's derivative is s·(1 − s)
 and the exponential's e^z, of the f32 values. ``fused_mlp_bwd`` launches
 kernel F on CUDA tensors (``csrc/mlp_bwd.cu`` within the narrow limits with
-a none output activation, else ``csrc/mlp_wide.cu``) and runs
+a none output activation, else ``csrc/mlp_wide_bwd.cu`` and its dW launch,
+``csrc/mlp_wide_dw.cu``) and runs
 ``fused_mlp_bwd_plain`` on CPU tensors. Kernel F runs every product of the
 dh chain on bf16 tensor cores: an inner cotangent under a relu/none hidden
 layer is a bf16 value, and an f32 one (g, or any under a sigmoid or
 exponential layer) enters as the three bf16 terms of ``split_bf16``. The
-narrow kernel also forms dW; the wide one keeps every h_i and dz_i in f32
-and the wrapper forms dW_i = h_iᵀ·dz_i with one f32 matrix product a layer,
-a product the JAX package too leaves to XLA (it raises unless
-``torch.get_float32_matmul_precision()`` is "highest", PyTorch's default:
-no TF32). Kernel F recomputes the forward with kernel B's products in kernel
-B's order; ``mlp_recompute`` returns that recompute's pre-activations, to
-hold the two kernels to the same network.
+narrow kernel also forms dW; the wide one writes every h_i and dz_i in bf16
+(dz_i as its three terms where it is an f32 value) and a second kernel forms
+dW_i = h_iᵀ·dz_i from them, split over ranges of ``DW_SPLIT_ROWS`` rows whose
+f32 partials are summed in order and rounded once (``mlp_dw_plain``): no
+library product, and no dependence on PyTorch's matmul precision. Kernel F
+recomputes the forward with kernel B's products in kernel B's order;
+``mlp_recompute`` returns that recompute's pre-activations, to hold the two
+kernels to the same network.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from .. import cuda_lib
 ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2, "logistic": 2, "exponential": 3}
 NARROW_WIDTH = 64  # widest layer of csrc/mlp.cu and csrc/mlp_bwd.cu (weights all in shared memory)
 NARROW_LAYERS = 8
-MAX_WIDTH = 256  # widest layer of csrc/mlp_wide.cu (its two register-resident A fragment sets)
+MAX_WIDTH = 256  # widest layer of csrc/mlp_wide.cu (its register-resident accumulators)
+DW_SPLIT_ROWS = 4096  # rows of one f32 partial of the wide F's dW (a multiple of 64)
 
 
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
@@ -130,6 +133,24 @@ def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Te
     return dx, dws
 
 
+def mlp_dw_plain(h: torch.Tensor, dz: torch.Tensor, split_rows: int = DW_SPLIT_ROWS) -> torch.Tensor:
+    """dW = hᵀ·dz (d_in, d_out) as the wide F's dW kernel forms it: h (N,
+    d_in) bf16-valued, dz (N, d_out) f32 as its three ``split_bf16`` terms;
+    one f32 partial per range of ``split_rows`` rows (the terms added in
+    turn), the partials summed in the order of the ranges, then rounded to
+    bf16. Within a range the f32 sums run in another order than the
+    kernel's."""
+    h, terms = h.float(), split_bf16(dz)
+    total = None
+    for r0 in range(0, max(h.shape[0], 1), split_rows):
+        hs = h[r0:r0 + split_rows].T
+        part = hs @ terms[0][r0:r0 + split_rows]
+        for t in terms[1:]:
+            part = part + hs @ t[r0:r0 + split_rows]
+        total = part if total is None else total + part
+    return _bf16(total)
+
+
 def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """g as three bf16 terms (hi, mid, lo), f32 tensors: hi = bf16(g), mid
     = bf16(g − hi), lo = g − hi − mid. f32 has 24 significant bits and bf16
@@ -178,59 +199,142 @@ def _w_ptrs(wf) -> ctypes.Array:
     return (ctypes.c_void_p * len(wf))(*[w.data_ptr() for w in wf])
 
 
-@functools.lru_cache(maxsize=None)
-def _wide_scratch_bytes(dims) -> int:
-    return int(cuda_lib.query("fused_mlp_wide_scratch", ctypes.addressof(_dims_c(dims)),
-                              len(dims) - 1))
+@functools.lru_cache(maxsize=256)
+def _wide_sizes(dims, act: int, n: int) -> tuple:
+    """(scratch bytes, h buffer and dz buffer values, per-thread scratch
+    values, dW partial values, splits) of a wide call: what the kernels
+    take for these widths, hidden activation and rows."""
+    out = (ctypes.c_longlong * 6)()
+    err = cuda_lib.query("fused_mlp_wide_sizes", ctypes.addressof(_dims_c(dims)), len(dims) - 1,
+                         act, n, DW_SPLIT_ROWS, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_wide_sizes failed for {dims}: cudaError {err}")
+    return tuple(int(v) for v in out)
 
 
-def _check_f32_matmul() -> None:
-    """The wide F's dW products need full f32 matmuls: raise where the
-    process lets cuBLAS round their inputs to TF32 or bf16."""
-    if torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError("kernel F's wide route forms dW with f32 matrix products: it needs "
-                           "torch.set_float32_matmul_precision('highest') (the default), got "
-                           f"{torch.get_float32_matmul_precision()!r}")
-
-
-def _launch_bwd(ws, x, g, dims, act: int, out_act: int, zf=None, narrow=None):
-    """One launch of kernel F: (dx, [dW per layer], the f32 sums rounded to
-    bf16); zf, where given, takes the recompute's pre-activations (n, d_1 +
-    .. + d_L), layer by layer. ``narrow``: the route, by default the one
-    ``is_narrow`` picks (the narrow route takes only what it picks)."""
+def _launch_wide_f(ws, x, g, dims, act: int, out_act: int, zf=None):
+    """The first launch of the wide F: (dx, the h buffer, the dz buffer,
+    the scratch that holds the widths and packed weights)."""
     wf = [_f32(w) for w in ws]
     xf, gf = _f32(x), _f32(g)
     cuda_lib.check_cuda(xf, gf, *wf, dtype=torch.float32)
-    n = x.shape[0]
-    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
-    zf_ptr = None if zf is None else zf.data_ptr()
+    n, dev = x.shape[0], x.device
+    sizes = _wide_sizes(dims, act, n)
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=dev)
+    scratch = torch.empty((sizes[0],), dtype=torch.uint8, device=dev)
+    hbuf = torch.empty((sizes[1],), dtype=torch.bfloat16, device=dev)
+    dzbuf = torch.empty((sizes[2],), dtype=torch.bfloat16, device=dev)
+    gscr = torch.empty((sizes[3],), dtype=torch.float32, device=dev) if sizes[3] else None
     w_ptrs = _w_ptrs(wf)
+    cuda_lib.launch("fused_mlp_bwd_wide", xf.data_ptr(), ctypes.addressof(w_ptrs), gf.data_ptr(),
+                    ctypes.addressof(_dims_c(dims)), len(ws), act, out_act, n, scratch.data_ptr(),
+                    dx.data_ptr(), hbuf.data_ptr(), dzbuf.data_ptr(),
+                    None if gscr is None else gscr.data_ptr(), None if zf is None else zf.data_ptr())
+    return dx, hbuf, dzbuf, scratch
+
+
+def _launch_wide_dw(hbuf, dzbuf, scratch, dims, act: int, n: int) -> list[torch.Tensor]:
+    """The dW launch of the wide F on its first launch's buffers: every
+    layer's dW (d_i, d_{i+1}), f32 tensors of bf16 values."""
+    sizes = _wide_sizes(dims, act, n)
+    partials = torch.empty((sizes[4],), dtype=torch.float32, device=hbuf.device)
+    shapes = list(zip(dims[:-1], dims[1:]))
+    dw_flat = torch.empty((sum(a * b for a, b in shapes),), dtype=torch.float32,
+                          device=hbuf.device)
+    cuda_lib.launch("fused_mlp_dw_wide", hbuf.data_ptr(), dzbuf.data_ptr(),
+                    ctypes.addressof(_dims_c(dims)), len(dims) - 1, act, n, DW_SPLIT_ROWS,
+                    scratch.data_ptr(), partials.data_ptr(), dw_flat.data_ptr())
+    return [d.view(a, b) for d, (a, b) in zip(torch.split(dw_flat, [a * b for a, b in shapes]),
+                                               shapes)]
+
+
+def untile(buf: torch.Tensor, n: int, tile_width: int, col: int, width: int) -> torch.Tensor:
+    """Columns [col, col + width) of an (n, tile_width) array the wide F
+    wrote in its dW operand layout, as an (n, width) f32 tensor: per 64-row
+    tile, element (r, c) at ((c // 8)·8 + r // 8)·64 + (r % 8)·8 + c % 8
+    (8 x 8 blocks of 128 bytes, transposed core matrices), tiles in turn."""
+    n_t = -(-n // 64)
+    w8 = -(-width // 8)
+    t = buf[:n_t * 64 * tile_width].view(n_t, 64 * tile_width)[:, 64 * col:64 * (col + 8 * w8)]
+    t = t.reshape(n_t, w8, 8, 8, 8)  # (tile, c // 8, r // 8, r % 8, c % 8)
+    t = t.permute(0, 2, 3, 1, 4).reshape(n_t * 64, w8 * 8)
+    return t[:n, :width].float()
+
+
+def wide_layout(dims, act: str) -> list[dict]:
+    """Per layer, where the wide F puts h_i and dz_i in its buffers (a
+    mirror of csrc/mlp_wide.cuh's layer_records): h_i at column ``hcol`` of
+    an h tile ``hw`` columns wide; dz_i's ``terms`` planes, ``nz`` columns
+    each, from column ``zcol`` of a dz tile ``zw`` wide."""
+    def wgn(v):
+        return max(16, 1 << (v - 1).bit_length())
+
+    code = _activation_code(act)
+    out, hcol, zcol = [], 0, 0
+    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+        terms = 3 if i == len(dims) - 2 or code in (2, 3) else 1
+        out.append({"hcol": hcol, "zcol": zcol, "nz": wgn(d_out), "terms": terms})
+        hcol += -(-d_in // 64) * 64
+        zcol += wgn(d_out) * terms
+    for v in out:
+        v["hw"], v["zw"] = hcol, zcol
+    return out
+
+
+def wide_intermediates(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
+                       activation: str = "relu", output_activation: str = "none"):
+    """The wide F's first launch on CUDA tensors and what the dW kernel
+    reads from it: ([h_i (N, d_i)], [dz_i (N, d_{i+1}), f32: the sum of its
+    bf16 terms], (hbuf, dzbuf, scratch)); for holding the dW kernel against
+    ``mlp_dw_plain`` on the same values."""
+    act, out_act = _activation_code(activation), _activation_code(output_activation)
+    dims = _kernel_dims(ws, x)
+    n = x.shape[0]
+    _, hbuf, dzbuf, scratch = _launch_wide_f(ws, x, g, dims, act, out_act)
+    hs, dzs = [], []
+    for v, d_in, d_out in zip(wide_layout(dims, activation), dims[:-1], dims[1:]):
+        hs.append(untile(hbuf, n, v["hw"], v["hcol"], d_in))
+        planes = [untile(dzbuf, n, v["zw"], v["zcol"] + q * v["nz"], d_out)
+                  for q in range(v["terms"])]
+        dzs.append(functools.reduce(torch.add, planes))
+    return hs, dzs, (hbuf, dzbuf, scratch)
+
+
+def wide_dw(bufs, dims, activation: str, n: int) -> list[torch.Tensor]:
+    """The dW kernel on ``wide_intermediates``' buffers."""
+    return _launch_wide_dw(*bufs, dims, _activation_code(activation), n)
+
+
+def _launch_bwd(ws, x, g, dims, act: int, out_act: int, zf=None, narrow=None):
+    """One call of kernel F: (dx, [dW per layer], the f32 sums rounded to
+    bf16); zf, where given, takes the recompute's pre-activations (n, d_1 +
+    .. + d_L), layer by layer (the wide route then forms no dW). ``narrow``:
+    the route, by default the one ``is_narrow`` picks (the narrow route
+    takes only what it picks)."""
+    n = x.shape[0]
     if narrow is None:
         narrow = is_narrow(dims, act, out_act, backward=True)
     if narrow:
+        wf = [_f32(w) for w in ws]
+        xf, gf = _f32(x), _f32(g)
+        cuda_lib.check_cuda(xf, gf, *wf, dtype=torch.float32)
+        dx = torch.empty((n, dims[0]), dtype=torch.float32, device=x.device)
+        w_ptrs = _w_ptrs(wf)
         dw_flat = torch.zeros((sum(w.numel() for w in ws),), dtype=torch.float32, device=x.device)
         if n > 0:
             cuda_lib.launch("fused_mlp_bwd", xf.data_ptr(), ctypes.addressof(w_ptrs),
                             gf.data_ptr(), ctypes.addressof(_dims_c(dims)), len(ws), act, n,
-                            dx.data_ptr(), dw_flat.data_ptr(), zf_ptr)
+                            dx.data_ptr(), dw_flat.data_ptr(),
+                            None if zf is None else zf.data_ptr())
         return dx, [d.reshape(w.shape)
                     for d, w in zip(torch.split(_bf16(dw_flat), [w.numel() for w in ws]), ws)]
-    _check_f32_matmul()
-    hbuf = torch.empty((n * sum(dims[:-1]),), dtype=torch.float32, device=x.device)
-    dzbuf = torch.empty((n * sum(dims[1:]),), dtype=torch.float32, device=x.device)
-    if n > 0:
-        scratch = torch.empty((_wide_scratch_bytes(dims),), dtype=torch.uint8, device=x.device)
-        cuda_lib.launch("fused_mlp_bwd_wide", xf.data_ptr(), ctypes.addressof(w_ptrs),
-                        gf.data_ptr(), ctypes.addressof(_dims_c(dims)), len(ws), act, out_act, n,
-                        scratch.data_ptr(), dx.data_ptr(), hbuf.data_ptr(), dzbuf.data_ptr(),
-                        zf_ptr)
-    dws, h0, z0 = [], 0, 0
-    for d_in, d_out in zip(dims[:-1], dims[1:]):
-        h = hbuf[h0 * n:(h0 + d_in) * n].view(n, d_in)
-        dz = dzbuf[z0 * n:(z0 + d_out) * n].view(n, d_out)
-        dws.append(_bf16(h.T @ dz))
-        h0, z0 = h0 + d_in, z0 + d_out
-    return dx, dws
+    if n == 0:
+        return (torch.empty((0, dims[0]), dtype=torch.float32, device=x.device),
+                [torch.zeros(tuple(w.shape), dtype=torch.float32, device=x.device) for w in ws])
+    dx, hbuf, dzbuf, scratch = _launch_wide_f(ws, x, g, dims, act, out_act, zf)
+    if zf is not None:
+        return dx, None
+    return dx, _launch_wide_dw(hbuf, dzbuf, scratch, dims, act, n)
 
 
 def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
@@ -307,8 +411,37 @@ def _launch_fwd(ws, x, dims, act: int, out_act: int, narrow: bool) -> torch.Tens
         cuda_lib.launch("fused_mlp", xf.data_ptr(), ctypes.addressof(w_ptrs),
                         ctypes.addressof(_dims_c(dims)), len(ws), act, out_act, n, out.data_ptr())
     else:
-        scratch = torch.empty((_wide_scratch_bytes(dims),), dtype=torch.uint8, device=x.device)
+        scratch = torch.empty((_wide_sizes(dims, act, n)[0],), dtype=torch.uint8, device=x.device)
         cuda_lib.launch("fused_mlp_wide", xf.data_ptr(), ctypes.addressof(w_ptrs),
                         ctypes.addressof(_dims_c(dims)), len(ws), act, out_act, n,
                         scratch.data_ptr(), out.data_ptr())
     return out
+
+
+def wgmma_rounding_probe(device) -> dict:
+    """Whether a wgmma m64n128k16 chain over k = 256 (csrc/mlp_wide.cu's
+    products) rounds exactly like kernel B's mma.sync m16n8k16 chains (k
+    blocks ascending from zero) on the same bf16 operands: x (64, 256) and W
+    (256, 128) with exponents spread over 2^±6, seeded. Returns the rows and
+    values that differ and each product's largest error against the plain
+    product in float64."""
+    gen = torch.Generator(device="cpu").manual_seed(12)
+
+    def vals(*shape):
+        e = torch.randint(-6, 7, shape, generator=gen).float()
+        return _bf16(torch.randn(shape, generator=gen) * 2.0 ** e).to(device)
+
+    x, w = vals(64, 256), vals(256, 128)
+    zw = torch.empty((64, 128), dtype=torch.float32, device=device)
+    zm = torch.empty_like(zw)
+    scratch = torch.empty((_wide_sizes((256, 128), 1, 64)[0],), dtype=torch.uint8, device=device)
+    err = cuda_lib.query("mlp_wgmma_probe", x.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+                         zw.data_ptr(), zm.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the wgmma probe failed to launch: cudaError {err}")
+    torch.cuda.synchronize()
+    ref = x.double() @ w.double()
+    scale = float(ref.abs().max())
+    return {"bit_equal": bool(torch.equal(zw, zm)), "values_differ": int((zw != zm).sum()),
+            "wgmma_rel_err": float((zw.double() - ref).abs().max()) / scale,
+            "mma_rel_err": float((zm.double() - ref).abs().max()) / scale}

@@ -148,15 +148,16 @@ def mocked_card(monkeypatch):
     calls = []
     monkeypatch.setattr(cuda_lib, "check_cuda", lambda *t, dtype=None: None)
     monkeypatch.setattr(cuda_lib, "launch", lambda name, *args: calls.append((name, args)))
-    monkeypatch.setattr(cuda_lib, "query", lambda name, *args: 4096)
+    monkeypatch.setattr(cuda_lib, "query", lambda name, *args: 0)  # cudaSuccess, sizes 0
     yield calls
-    mk._wide_scratch_bytes.cache_clear()
+    mk._wide_sizes.cache_clear()
 
 
 @pytest.mark.parametrize("dims,act,out_act,fwd,bwd", ROUTES)
 def test_card_tensors_reach_a_kernel(mocked_card, dims, act, out_act, fwd, bwd):
     """B, F and F's recompute each launch their route's kernel once, with
-    the activations' codes; no plain version runs off the CPU."""
+    the activations' codes, and the wide F then its dW kernel (the
+    recompute forms no dW); no plain version runs off the CPU."""
     meta = torch.device("meta")
     ws = [torch.zeros(a, b, device=meta) for a, b in zip(dims[:-1], dims[1:])]
     x = torch.zeros((300, dims[0]), device=meta)
@@ -169,7 +170,8 @@ def test_card_tensors_reach_a_kernel(mocked_card, dims, act, out_act, fwd, bwd):
     assert tuple(out.shape) == (300, dims[-1]) and tuple(dx.shape) == (300, dims[0])
     assert [tuple(d.shape) for d in dws] == [(a, b) for a, b in zip(dims[:-1], dims[1:])]
     assert [tuple(z.shape) for z in zs] == [(300, d) for d in dims[1:]]
-    assert [name for name, _ in mocked_card] == [fwd, bwd, bwd]
+    dw = ["fused_mlp_dw_wide"] if bwd == "fused_mlp_bwd_wide" else []
+    assert [name for name, _ in mocked_card] == [fwd, bwd, *dw, bwd]
     codes = (mk.ACTIVATIONS[act], mk.ACTIVATIONS[out_act])
     n_layers = len(dims) - 1
     fwd_args = mocked_card[0][1]
@@ -193,27 +195,29 @@ def test_a_layer_past_256_raises(mocked_card, dims):
 
 @pytest.mark.parametrize("precision", ["high", "medium"])
 def test_wide_backward_needs_full_f32_matmuls(mocked_card, precision):
-    """The wide F forms dW with f32 matrix products: under a process-wide
-    TF32 (or bf16) matmul setting it raises, and changes no setting itself;
-    the narrow route, which forms dW in its kernel, runs."""
+    """The wide F no longer needs full f32 matmuls: its dW is a kernel of
+    its own (csrc/mlp_wide_dw.cu), so under a process-wide TF32 (or bf16)
+    matmul setting it runs, makes no matrix product in PyTorch and changes
+    no setting itself; both routes launch only their kernels."""
     meta = torch.device("meta")
     wide, narrow = SHAPES["frequency"], (32, 64, 64, 3)
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision(precision)
     try:
-        for dims in (wide, narrow):
-            ws = [torch.zeros(a, b, device=meta) for a, b in zip(dims[:-1], dims[1:])]
-            x = torch.zeros((64, dims[0]), device=meta)
-            g = torch.zeros((64, dims[-1]), device=meta)
-            if dims == wide:
-                with pytest.raises(RuntimeError, match="highest"):
-                    mk.fused_mlp_bwd(ws, x, g)
-            else:
-                mk.fused_mlp_bwd(ws, x, g)
-            assert torch.get_float32_matmul_precision() == precision
+        with mock.patch.object(torch.Tensor, "__matmul__", side_effect=AssertionError), \
+                mock.patch.object(torch, "mm", side_effect=AssertionError), \
+                mock.patch.object(torch, "matmul", side_effect=AssertionError):
+            for dims in (wide, narrow):
+                ws = [torch.zeros(a, b, device=meta) for a, b in zip(dims[:-1], dims[1:])]
+                x = torch.zeros((64, dims[0]), device=meta)
+                g = torch.zeros((64, dims[-1]), device=meta)
+                _, dws = mk.fused_mlp_bwd(ws, x, g)
+                assert [tuple(d.shape) for d in dws] == [tuple(w.shape) for w in ws]
+                assert torch.get_float32_matmul_precision() == precision
     finally:
         torch.set_float32_matmul_precision(before)
-    assert [name for name, _ in mocked_card] == ["fused_mlp_bwd"]
+    assert [name for name, _ in mocked_card] == ["fused_mlp_bwd_wide", "fused_mlp_dw_wide",
+                                                 "fused_mlp_bwd"]
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))

@@ -71,6 +71,24 @@ microbenchmarks:
   render's hit positions, the normals after normalization; a 1920x1080
   render timed; a snapshot with the optimizer state saved and loaded onto
   the mesh (state bit for bit, its render as above);
+- volume: ``procedural_fog_volume(128)`` written as ``.nvdb`` with
+  ``tests/nvdb_fixture.py``'s writer (the repository holds no NanoVDB file),
+  loaded by ``Testbed("volume").load_training_data`` with
+  ``configs/volume/base.json`` at full width and trained 300 frames, each on
+  a fresh batch traced by kernel L, checked to go through kernels A, B, E, F
+  and L and none of C, D, G, H and K, to keep every loss finite, and to lower
+  the density MSE to at most the JAX package's worst over 3 seeds times
+  their spread (``MAX_VOLUME_MSE``) by at least the JAX package's least fall
+  over the spread of its falls (``MIN_VOLUME_GAIN``); L against its plain
+  version on one step's draws (every path's vertices bit for bit, its bound
+  from the draws, grid and bitgrid sectors the paths read), one step's gradients
+  within 1e-2 a leaf, A, B, E and F against theirs at its shapes on the fresh
+  and the trained model; a 256^2 learned render (A and B) against the plain
+  render (≥ 40 dB) and a ground-truth render (M) against its plain version on
+  the same draws (each pixel bit for bit), M also on that frame's rays with
+  its own draws; the 256^2 and 1920x1080 frames timed; a snapshot with the
+  optimizer state saved and loaded onto the grid (state bit for bit, its
+  render against the saved task's);
 - configs: every shipped config but volume's (25) trains at full width
   through its entry point: the image configs through ``Testbed("image")`` on
   a 1024^2 ``make_image`` for 50 frames, the SDF configs through
@@ -913,7 +931,8 @@ def check_one_launch(ws, inp) -> dict:
 
     fused_mlp(ws, inp)
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace with no device event at all is a dropped trace: take it again
+    # a trace with no device event at all is a dropped trace: take it again
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fused_mlp(ws, inp)
             torch.cuda.synchronize()
@@ -943,7 +962,9 @@ def check_wide_f_launches(ws, x, g, act: str, out_act: str) -> dict:
 
     fused_mlp_bwd(ws, x, g, act, out_act)
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace with no device event at all is a dropped trace: take it again
+    # a trace with no device event at all is a dropped trace: take it again (in
+    # one run of the whole script three traces in a row were dropped here)
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fused_mlp_bwd(ws, x, g, act, out_act)
             torch.cuda.synchronize()
@@ -1368,7 +1389,9 @@ KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "f
                 "bilinear_read": "bilinear_read_kernel",
                 "gather_cols_sum": "gather_cols_sum_",
                 "gather_cols_transpose": "gather_cols_transpose",
-                "hashgrid_encode_dx": "hashgrid_dx_kernel"}
+                "hashgrid_encode_dx": "hashgrid_dx_kernel",
+                "volume_generate_batch": "volume_generate_batch_kernel",
+                "volume_trace_gt": "volume_trace_gt_kernel"}
 
 
 def profile_frames(trainer) -> tuple[float, float, list, dict]:
@@ -1551,8 +1574,9 @@ def disk_kernel_checks(task, device) -> dict:
     shapes: the trained scene's grid and tables, linear interpolation, its
     K and march iterations, its last ray count. The step's gradients and G
     and H on a step's own inputs (``step_check``); C on a step's march
-    arguments; A, B, E and F on that step's packed samples. Returns
-    {kernel name: {variant: check}}."""
+    arguments; A, B, E and F on that step's packed samples, F with the rows
+    near a ReLU tie left out (``check_mlp_bwd_trained``). Returns {kernel
+    name: {variant: check}}."""
     from instant_ngp_torch.nerf import train as nerf_train
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp
@@ -1587,8 +1611,9 @@ def disk_kernel_checks(task, device) -> dict:
         for what, ws, inp in (("density", density_ws, feats), ("rgb", rgb_ws, rgb_in)):
             out["fused_mlp"][f"disk_step_{what}"] = check_mlp(ws, inp, f"disk step {what}")
             g = torch.randn((inp.shape[0], ws[-1].shape[1]), generator=gen, device=device)
-            out["fused_mlp_bwd"][f"disk_step_{what}"] = check_mlp_bwd(ws, inp, g,
-                                                                      f"disk step {what}")
+            # a trained MLP: the rows within a bf16 step of a ReLU tie left out
+            out["fused_mlp_bwd"][f"disk_step_{what}"] = check_mlp_bwd_trained(
+                ws, inp, g, f"disk step {what}")
     errs = {k: max(v["max_abs_err"] for v in vs.values())
             for k, vs in out.items() if k != "fwd_bwd_pair"}
     print(f"disk kernels vs plain at the step's shapes ({batch.o.shape[0]} rays, K "
@@ -2267,6 +2292,51 @@ SDF_RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "fused_mlp_bwd", "hash
 NERF_ONLY_KERNELS = ("march_rays", "composite_window", "composite_train", "scatter_add_rows")
 
 
+def frame_ms(fn) -> tuple[float, torch.Tensor]:
+    """(host milliseconds of one call after a warm-up call, synchronized;
+    its result)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def snapshot_round_trip(tb, mode: str, data: Path, snap: Path, render) -> dict:
+    """``save_snapshot`` with the optimizer state, ``load_snapshot`` onto a
+    fresh Testbed over the same data, and the loaded state held bit for bit
+    against the saved one (parameters in fp16). ``render(testbed)`` gives a
+    frame: the loaded Testbed's, and the saved one's with its parameters
+    rounded to fp16 as the file holds them, the frame the loaded state must
+    give. Returns the loaded Testbed, both frames and the times."""
+    from instant_ngp_torch.testbed import Testbed
+
+    t0 = time.perf_counter()
+    tb.save_snapshot(snap, include_optimizer_state=True)
+    save_s = time.perf_counter() - t0
+    onto = Testbed(mode, device=tb.device)
+    onto.camera_matrix = tb.camera_matrix
+    onto.load_training_data(data)
+    t0 = time.perf_counter()
+    onto.load_snapshot(snap)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    state_bits_equal(tb.task, onto.task)
+    loaded = render(onto)
+    params = tb.task.model.param_list()
+    kept = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p in params:
+            p.copy_(p.to(torch.float16).to(torch.float32))
+    ref16 = render(tb)
+    with torch.no_grad():
+        for p, k in zip(params, kept):
+            p.copy_(k)
+    return {"onto": onto, "loaded": loaded, "ref16": ref16, "save_s": save_s, "load_s": load_s,
+            "bytes": snap.stat().st_size}
+
+
 def sdf_frame_parity(frame: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, float]:
     """(share of pixels whose hit masks differ, share decided apart: masks,
     or a channel more than SDF_FLIP apart; PSNR over the rest)."""
@@ -2308,23 +2378,20 @@ def check_encode_dx(levels, table, x, g, what: str) -> dict:
             **bound(nbytes(x, g, out) + rows * F * 4, ops)}
 
 
-def sdf_model_checks(task, pts, target, what: str, trained: bool) -> dict:
-    """Kernels A, B, E and F against their plain versions at the SDF step's
-    shapes (2^16 positions, 14 levels × 2 features, D 3, linear, 1 corner;
-    MLP 28→64→64→1), on one batch: A on its positions, B and F on their
-    encodings with the MAPE loss's cotangent, E on F's dX. F on a trained
-    MLP leaves out the rows near a ReLU tie (``check_mlp_bwd_trained``).
-    Returns {kernel name: {variant: check}}."""
+def model_kernel_checks(task, pts, cotangent, what: str, trained: bool) -> dict:
+    """Kernels A, B, E and F against their plain versions at a task's step
+    shapes, on one batch: A on its positions, B and F on their encodings
+    with the loss's cotangent (``cotangent(out)``), E on F's dX. F on a
+    trained MLP leaves out the rows near a ReLU tie
+    (``check_mlp_bwd_trained``). Returns {kernel name: {variant: check}}."""
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp, fused_mlp_bwd
 
     enc, ws = task.model.encoding, [w.detach() for w in task.model.network.weights]
     table = enc.table.detach()
     feats = hashgrid_encode(enc.levels, enc.interpolation, table, pts)
-    pred = fused_mlp(ws, feats)[:, 0]
-    # d mean(MAPE) / d pred, the denominator detached
-    g_out = (torch.sign(pred - target) / (torch.abs(pred) + 1e-2) / pts.shape[0])[:, None]
-    g_enc = fused_mlp_bwd(ws, feats, g_out.contiguous())[0]
+    g_out = cotangent(fused_mlp(ws, feats)).contiguous()
+    g_enc = fused_mlp_bwd(ws, feats, g_out)[0]
     out = {"hashgrid_encode_fwd": {what: check_encode(enc.levels, enc.interpolation, table, pts,
                                                       what)},
            "fused_mlp": {what: check_mlp(ws, feats, what)},
@@ -2332,30 +2399,51 @@ def sdf_model_checks(task, pts, target, what: str, trained: bool) -> dict:
                enc.levels, enc.interpolation, pts, g_enc, enc.n_entries,
                enc.hashed_grad_corners, what)}}
     check_f = check_mlp_bwd_trained if trained else check_mlp_bwd
-    out["fused_mlp_bwd"] = {what: check_f(ws, feats, g_out.contiguous(), what)}
+    out["fused_mlp_bwd"] = {what: check_f(ws, feats, g_out, what)}
     for name, v in out.items():
-        print(f"kernel {name} at the SDF shapes ({what}): max_abs_err "
+        print(f"kernel {name} at the {what} step's shapes: max_abs_err "
               f"{v[what]['max_abs_err']:.3e} kernel {v[what]['ms']:.3f} ms plain "
               f"{v[what]['plain_ms']:.3f} ms bound {v[what]['bound_ms']:.4f} ms")
     return out
 
 
-def sdf_step_gradients_check(task, pts, target) -> None:
+def sdf_model_checks(task, pts, target, what: str, trained: bool) -> dict:
+    """``model_kernel_checks`` at the SDF step's shapes (2^16 positions, 14
+    levels × 2 features, D 3, linear, 1 corner; MLP 28→64→64→1) with the
+    MAPE loss's cotangent, d mean(MAPE) / d pred, the denominator detached."""
+    def cotangent(out):
+        pred = out[:, 0]
+        return (torch.sign(pred - target) / (torch.abs(pred) + 1e-2) / pts.shape[0])[:, None]
+
+    return model_kernel_checks(task, pts, cotangent, what, trained)
+
+
+def volume_model_checks(task, pts, tgt, valid, what: str, trained: bool) -> dict:
+    """``model_kernel_checks`` at the volume step's shapes (2^17 positions,
+    16 levels × 2 features, D 3, linear; MLP 32→64→64→4) with the masked L2
+    loss's cotangent, 2 (pred − tgt) · valid / (4 · max(Σ valid, 1))."""
+    v = valid.to(torch.float32)[:, None]
+    return model_kernel_checks(
+        task, pts, lambda out: 2.0 * (out - tgt) * v / (4.0 * torch.clamp(v.sum(), min=1.0)),
+        what, trained)
+
+
+def task_step_gradients_check(task, *batch, what: str = "sdf") -> None:
     """One step's gradients and loss, kernels against plain versions, from
-    the same state and batch."""
+    the same state and batch (an SDF or a volume task's)."""
     runs = {}
     for use_kernels in (True, False):
         task.set_use_kernels(use_kernels)
-        runs[use_kernels] = task.step_gradients(pts, target)
+        runs[use_kernels] = task.step_gradients(*batch)
     task.set_use_kernels(True)
     (grads, loss), (grads_p, loss_p) = runs[True], runs[False]
     errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
             for a, b in zip(grads, grads_p)]
-    print(f"sdf train step kernels vs plain, {pts.shape[0]} points: grad ||k - p|| / ||p|| per "
-          f"leaf {[f'{e:.2e}' for e in errs]}, loss {float(loss):.6f} vs {float(loss_p):.6f}")
-    check(all(e <= TOL_STEP_GRAD for e in errs), f"sdf step gradients differ: {errs}")
+    print(f"{what} train step kernels vs plain, {batch[0].shape[0]} points: grad ||k - p|| / ||p|| "
+          f"per leaf {[f'{e:.2e}' for e in errs]}, loss {float(loss):.6f} vs {float(loss_p):.6f}")
+    check(all(e <= TOL_STEP_GRAD for e in errs), f"{what} step gradients differ: {errs}")
     check(abs(float(loss) - float(loss_p)) <= TOL_STEP_LOSS * abs(float(loss_p)),
-          f"sdf step loss differs: {float(loss)} vs {float(loss_p)}")
+          f"{what} step loss differs: {float(loss)} vs {float(loss_p)}")
 
 
 def sdf_normals_check(task, hits) -> dict:
@@ -2496,7 +2584,7 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
         check(iou_after >= MIN_SDF_IOU, f"sdf IoU {iou_after} below {MIN_SDF_IOU}")
 
         batch = task.to_device(task.generate_training_batch())
-        sdf_step_gradients_check(task, *batch)
+        task_step_gradients_check(task, *batch)
         for name, v in sdf_model_checks(task, *batch, "sdf_trained", trained=True).items():
             checks[name].update(v)
 
@@ -2541,54 +2629,345 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
         k_check["normals"] = sdf_normals_check(task, hits)
 
         w, h = SDF_FRAME_WH
-        tb.render_tensor(w, h)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        big = tb.render_tensor(w, h)
-        torch.cuda.synchronize()
-        big_ms = (time.perf_counter() - t0) * 1e3
+        big_ms, big = frame_ms(lambda: tb.render_tensor(w, h))
         check(tuple(big.shape) == (h, w, 4) and bool(torch.isfinite(big).all()), "the SDF frame")
         print(f"sdf render {w}x{h} (sun, soft shadows, analytic normals): {big_ms:.3f} ms on "
               f"{card}; hits {float(big[..., 3].mean()):.4f}")
 
-        snap = Path(tmp) / "torus.ingp"
-        t0 = time.perf_counter()
-        tb.save_snapshot(snap, include_optimizer_state=True)
-        save_s = time.perf_counter() - t0
-        onto = Testbed("sdf", device=device)
-        onto.camera_matrix = tb.camera_matrix
-        onto.load_training_data(path)
-        t0 = time.perf_counter()
-        onto.load_snapshot(snap)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        state_bits_equal(task, onto.task)
-        loaded = onto.render_tensor(SDF_RES, SDF_RES)
-        # the file holds the parameters in fp16: the saved task rendered with
-        # them rounded so is the render the loaded state must give
-        params = task.model.param_list()
-        kept = [p.detach().clone() for p in params]
-        with torch.no_grad():
-            for p in params:
-                p.copy_(p.to(torch.float16).to(torch.float32))
-        ref16 = tb.render_tensor(SDF_RES, SDF_RES)
-        with torch.no_grad():
-            for p, k in zip(params, kept):
-                p.copy_(k)
+        rt = snapshot_round_trip(tb, "sdf", path, Path(tmp) / "torus.ingp",
+                                 lambda t: t.render_tensor(SDF_RES, SDF_RES))
+        loaded, ref16 = rt["loaded"], rt["ref16"]
         _, apart, db = sdf_frame_parity(loaded, ref16)
         _, apart32, db32 = sdf_frame_parity(loaded, frame)
-        print(f"sdf snapshot: {snap.stat().st_size} bytes, saved in {save_s:.3f} s, loaded onto "
-              f"the mesh in {load_s:.3f} s; parameters (fp16) and optimizer state bit for bit; "
+        print(f"sdf snapshot: {rt['bytes']} bytes, saved in {rt['save_s']:.3f} s, loaded onto "
+              f"the mesh in {rt['load_s']:.3f} s; parameters (fp16) and optimizer state bit for bit; "
               f"its render against the saved task's with fp16 parameters: {apart:.5f} of the "
               f"pixels decided apart, PSNR {db:.2f} dB over the rest (all pixels "
               f"{psnr(loaded, ref16):.2f} dB); against the saved task's own (f32 parameters): "
               f"{apart32:.5f} apart, {db32:.2f} dB")
         check(apart <= MAX_SDF_MASK_DIFF and db >= MIN_LOADED_PSNR_DB,
               f"the loaded SDF render: {apart} decided apart, PSNR {db}")
-        for t in (tb, onto):
+        for t in (tb, rt["onto"]):
             t.task.stop_producer()
     print(f"sdf phase: {time.perf_counter() - t_phase:.1f} s")
     return launches, render_launches, checks, k_check
+
+
+VOLUME_CONFIG = ROOT / "configs" / "volume" / "base.json"
+VOLUME_RES = 128  # procedural_fog_volume's grid: 128^3
+VOLUME_STEPS = 300
+VOLUME_MSE_SAMPLES = 1 << 18  # compute_density_mse's default
+# the JAX package's compute_density_mse before and after 300 steps on this
+# grid with configs/volume/base.json at full width and the task's
+# 2^17-vertex batch, seeds 1337 / 1 / 2, on the CPU:
+#   JAX_PLATFORMS=cpu python tests/compare_volume_training.py --package jax --seeds 1337 1 2
+JAX_VOLUME_MSE_BEFORE = (0.10692566633224487, 0.10692349821329117, 0.1069207414984703)
+JAX_VOLUME_MSE = (0.09697291254997253, 0.09557631611824036, 0.09254146367311478)
+JAX_VOLUME_GAIN = tuple(b - a for b, a in zip(JAX_VOLUME_MSE_BEFORE, JAX_VOLUME_MSE))
+
+
+def seed_spread(values) -> float:
+    """1 + (max - min) / min of the JAX package's seeds: the margin a run of
+    the port gets, as one more draw of that spread (the packages draw their
+    weights and batches from different generators)."""
+    return 1.0 + (max(values) - min(values)) / min(values)
+
+
+# the gates: the MSE after at most the JAX package's worst times its seeds'
+# spread (1.0479), and its fall from before at least the JAX package's least
+# fall (0.00995) over its seeds' spread of falls (1.4448), 0.00689, so a run
+# that trains but recovers well under the JAX package's gain is refused; the
+# port's own 3 seeds on the card read 0.0926-0.0949 after
+MAX_VOLUME_MSE = max(JAX_VOLUME_MSE) * seed_spread(JAX_VOLUME_MSE)
+MIN_VOLUME_GAIN = min(JAX_VOLUME_GAIN) / seed_spread(JAX_VOLUME_GAIN)
+VOLUME_RENDER_RES = 256  # the kernel-vs-plain renders and the snapshot's
+VOLUME_FRAME_WH = (1920, 1080)
+# Kernels L and M run the plain versions' arithmetic in the same order (no
+# FMA contraction, accurate logf, sqrtf and division; PyTorch's CUDA ops
+# compute each of them alike), so every path, ray and ground-truth pixel must
+# agree bit for bit, as every run on the card has read.
+# Their operations, counted from csrc/volume.cu for each kind of
+# path-iteration a tracking.ReadCensus counts, and once a path ("path": the
+# first spawn and the last envmap for L, the box entry and the envmap for M);
+# each f32 add, multiply, divide, compare, min or max, floor, sqrt and log is
+# one, index arithmetic is not counted: the least work of the bound
+VOLUME_L_OPS = {"path": 107, "live": 22, "event": 22, "scatter": 24, "died": 29, "respawn": 78}
+VOLUME_M_OPS = {"path": 69, "live": 21, "event": 16, "scatter": 16}
+VOLUME_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
+                  "volume_generate_batch")
+VOLUME_RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp")
+
+
+def load_nvdb_writer():
+    """``tests/nvdb_fixture.py``'s writer, imported by path: the package has
+    no .nvdb writer, and the repository no .nvdb file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("nvdb_fixture",
+                                                  ROOT / "tests" / "nvdb_fixture.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.write_nvdb
+
+
+def volume_camera() -> np.ndarray:
+    """``bench.py::bench_volume``'s view: from -z at the box's centre."""
+    return np.concatenate([np.eye(3, dtype=np.float32),
+                           np.array([[0.5], [0.5], [-1.3]], np.float32)], 1)
+
+
+def seeded_render(tb, *args, **kwargs) -> torch.Tensor:
+    """A Testbed render with its task's generator reseeded first: two renders
+    of one state draw the same numbers."""
+    tb.task.generator.manual_seed(SEED)
+    frame = tb.render_tensor(*args, **kwargs)
+    torch.cuda.synchronize()
+    return frame
+
+
+def census_bound(census, n_paths: int, ops: dict, *tensors) -> dict:
+    """A path tracer's bound from what its plain version's census counted:
+    the sectors it touched of the draws, the grid and the bitgrid, plus the
+    tensors read or written whole, against ``ops`` of each kind counted."""
+    read, counts = census.bytes_read(), census.counts
+    n_bytes = sum(read.values()) + nbytes(*tensors)
+    n_ops = n_paths * ops["path"] + sum(c * ops[k] for k, c in counts.items())
+    return {**bound(n_bytes, n_ops), "bytes": n_bytes, "ops": n_ops, "bytes_read": read,
+            "counts": counts}
+
+
+def census_text(v: dict, all_draws) -> str:
+    read = v["bytes_read"]
+    return (f"bound {v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} bytes, {v['ops']} "
+            f"operations; sectors read of the draws {read['draws']} of {nbytes(all_draws)} bytes, "
+            f"of the grid {read.get('grid', 0)}, of the bitgrid {read.get('bitgrid', 0)}; "
+            f"path-iterations {v['counts']})")
+
+
+def check_generate_batch(task, draws) -> dict:
+    """Kernel L against its plain version on one step's draws: every path's
+    4 vertices (positions, targets, valid flags) bit for bit, the error,
+    both times and L's device time, and its bound (the sectors of the draws,
+    grid and bitgrid that the paths read, as the plain version's census
+    counts them, the first spawn's draws, the batch written once)."""
+    from instant_ngp_torch.volume import tracking
+
+    out = tracking.generate_batch(task, draws)
+    census = tracking.ReadCensus()
+    ref = tracking.generate_batch_plain(task, draws, census)
+    n = draws.n_paths
+    equal = torch.ones(n, dtype=torch.bool, device=draws.first.device)
+    for a, b in zip(out, ref):
+        equal &= (a == b).reshape(n, -1).all(-1)
+    share = float(equal.float().mean())
+    err = max(max_err(out[0], ref[0])[0], max_err(out[1], ref[1])[0])
+    valid_share = float(out[2].float().mean())
+    check(share == 1.0, f"L: {share} of the paths bit for bit")
+    split = device_split(lambda: tracking.generate_batch(task, draws), "volume_generate_batch",
+                         reps=10, per_call=1)
+    v = {"max_abs_err": err, "bit_equal_paths": share, "paths": n, "valid_share": valid_share,
+         "ms": time_ms(lambda: tracking.generate_batch(task, draws)),
+         "plain_ms": time_ms(lambda: tracking.generate_batch_plain(task, draws), reps=2,
+                             warmup=1),
+         "device_ms": split["kernel_ms"], "timed_by": split["timed_by"],
+         **census_bound(census, n, VOLUME_L_OPS, draws.first, *out)}
+    print(f"kernel volume_generate_batch ({n} paths x {draws.per_iter.shape[0]} iterations): "
+          f"{share:.6f} of the paths bit for bit, max_abs_err {err:.3e}; {valid_share:.4f} of the "
+          f"vertices valid; device {v['device_ms']:.4f} ms ({v['timed_by']}); "
+          f"{census_text(v, draws.per_iter)}")
+    return v
+
+
+def check_trace_gt(task, o, d, draws) -> dict:
+    """Kernel M against its plain version on one frame's rays and draws:
+    every ray's rgb and alpha bit for bit, the error, times, M's device
+    time, and its bound (the sectors of the draws, grid and bitgrid that the
+    rays read, as the plain version's census counts them, the rays read and
+    rgb and alpha written once)."""
+    from instant_ngp_torch.volume import tracking
+
+    out = tracking.trace_gt(task, o, d, draws)
+    census = tracking.ReadCensus()
+    ref = tracking.trace_gt_plain(task, o, d, draws, census)
+    equal = (out[0] == ref[0]).all(-1) & (out[1] == ref[1])
+    share = float(equal.float().mean())
+    err = max(max_err(out[0], ref[0])[0], max_err(out[1], ref[1])[0])
+    check(share == 1.0, f"M: {share} of the rays bit for bit")
+    split = device_split(lambda: tracking.trace_gt(task, o, d, draws), "volume_trace_gt",
+                         per_call=1)
+    v = {"max_abs_err": err, "bit_equal_rays": share, "rays": o.shape[0],
+         "alpha_mean": float(out[1].mean()),
+         "ms": time_ms(lambda: tracking.trace_gt(task, o, d, draws)),
+         "plain_ms": time_ms(lambda: tracking.trace_gt_plain(task, o, d, draws), reps=2,
+                             warmup=1),
+         "device_ms": split["kernel_ms"], "timed_by": split["timed_by"],
+         **census_bound(census, o.shape[0], VOLUME_M_OPS, o, d, *out)}
+    print(f"kernel volume_trace_gt ({o.shape[0]} rays x {draws.shape[0]} iterations): "
+          f"{share:.6f} of the rays bit for bit, max_abs_err {err:.3e}; alpha mean "
+          f"{v['alpha_mean']:.4f}; device {v['device_ms']:.4f} ms ({v['timed_by']}); "
+          f"{census_text(v, draws)}")
+    return v
+
+
+def volume_phase(device, card) -> tuple[dict, dict, dict, dict, dict, dict]:
+    """The volume path through the entry points a user calls: a procedural
+    cloud written as .nvdb, ``Testbed("volume").load_training_data`` with
+    configs/volume/base.json, VOLUME_STEPS frames (each on a fresh batch
+    traced by kernel L), the density MSE before and after; then L against its
+    plain version on one step's draws, one step's gradients kernels against
+    plain, A, B, E and F against their plain versions at this path's shapes
+    on the fresh and the trained model, a VOLUME_RENDER_RES^2 learned render
+    (kernels A and B) and
+    ground-truth render (kernel M) each against its plain version on the
+    same draws, 1920x1080 frames timed, and a snapshot round trip. Returns
+    (the launches of the training run, of the learned render, of the
+    ground-truth render, the checks of A, B, E and F by kernel name, L's
+    check, M's check)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.io.nanovdb import procedural_fog_volume
+    from instant_ngp_torch.render.camera import pinhole_rays
+    from instant_ngp_torch.testbed import Testbed
+    from instant_ngp_torch.volume import tracking
+
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        grid = procedural_fog_volume(VOLUME_RES)
+        path = load_nvdb_writer()(Path(tmp) / "fog.nvdb", grid)
+        print(f"volume grid: procedural_fog_volume({VOLUME_RES}), written as .nvdb "
+              f"({path.stat().st_size} bytes) in {time.perf_counter() - t0:.2f} s")
+        tb = Testbed("volume", device=device)
+        tb.reload_network_from_file(VOLUME_CONFIG)
+        t0 = time.perf_counter()
+        tb.load_training_data(path)
+        torch.cuda.synchronize()
+        task = tb.task
+        enc = task.model.encoding
+        print(f"volume load_training_data: {time.perf_counter() - t0:.3f} s; majorant "
+              f"{task.global_majorant:.4f}, {float(task.bitgrid.float().mean()):.4f} of the "
+              f"bitgrid occupied; {enc.n_levels} levels x {enc.n_features_per_level} features, "
+              f"{enc.n_entries} table rows ({sum(lv.hashed for lv in enc.levels)} hashed), MLP "
+              f"{[tuple(w.shape) for w in task.model.network.weights]}, batch {task.batch_size}")
+        mse_before = task.compute_density_mse(VOLUME_MSE_SAMPLES)
+        gen = torch.Generator(device=device).manual_seed(SEED + 13)
+        n_paths = task.batch_size // tracking.MAX_TRAIN_VERTICES
+        checks = volume_model_checks(task, *task.generate_batch(tracking.draw_batch(gen, n_paths)),
+                                     "volume_fresh", trained=False)
+
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        step_ms = []
+        for _ in range(VOLUME_STEPS - PROFILED_STEPS):
+            t0 = time.perf_counter()
+            tb.frame()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        wall_ms, busy_ms, top, step_kernels = profile_frames(tb)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        losses = tb.loss_graph
+        print(f"volume launches: {launches}")
+        print(f"volume {len(losses)} steps: median {statistics.median(step_ms):.3f} ms/step (min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}) on {card}; loss first "
+              f"{LOSS_WINDOW} {np.mean(losses[:LOSS_WINDOW]):.6f}, last {LOSS_WINDOW} "
+              f"{np.mean(losses[-LOSS_WINDOW:]):.6f}")
+        print(f"volume profiled {PROFILED_STEPS} steps: wall {wall_ms:.3f} ms, "
+              f"{busy_text(wall_ms, busy_ms)}; device ms per step by port kernel: "
+              f"{step_kernels}; top device items (ms): {top}")
+        check(len(losses) == VOLUME_STEPS and all(np.isfinite(losses)),
+              "a volume loss is not finite")
+        check(all(launches[k] > 0 for k in VOLUME_KERNELS), f"a kernel was not launched: {launches}")
+        check(all(launches[k] == 0 for k in (*NERF_ONLY_KERNELS, "hashgrid_encode_dx")),
+              f"the volume step launched a kernel it does not run: {launches}")
+        mse_after = task.compute_density_mse(VOLUME_MSE_SAMPLES)
+        print(f"volume density MSE ({VOLUME_MSE_SAMPLES} points): {mse_before:.6f} -> "
+              f"{mse_after:.6f}, a fall of {mse_before - mse_after:.6f} (the JAX package's after "
+              f"{VOLUME_STEPS} steps: {JAX_VOLUME_MSE}, falls {JAX_VOLUME_GAIN}; gates: after at "
+              f"most {MAX_VOLUME_MSE:.6f}, a fall of at least {MIN_VOLUME_GAIN:.6f})")
+        check(mse_before - mse_after >= MIN_VOLUME_GAIN and mse_after <= MAX_VOLUME_MSE,
+              f"volume density MSE {mse_before} -> {mse_after}, gates {MAX_VOLUME_MSE} and a fall "
+              f"of {MIN_VOLUME_GAIN}")
+
+        # L against its plain version; one step, and A, B, E and F, kernels
+        # against plain on the trained model
+        draws = tracking.draw_batch(gen, n_paths)
+        l_check = check_generate_batch(task, draws)
+        l_check["device_ms_per_step"] = step_kernels["volume_generate_batch"]
+        l_check["step_ms"] = statistics.median(step_ms)
+        batch = task.generate_batch(draws)
+        del draws
+        task_step_gradients_check(task, *batch, what="volume")
+        for name, v in volume_model_checks(task, *batch, "volume_trained", trained=True).items():
+            checks[name].update(v)
+        del batch
+
+        # the renders: learned through A and B, ground truth through M, each
+        # against the plain versions on the same draws
+        tb.camera_matrix = volume_camera()
+        res = VOLUME_RENDER_RES
+        cuda_lib.reset_launches()
+        frame = seeded_render(tb, res, res)
+        render_launches = dict(cuda_lib.LAUNCHES)
+        cuda_lib.reset_launches()
+        gt = seeded_render(tb, res, res, ground_truth=True)
+        gt_launches = dict(cuda_lib.LAUNCHES)
+        print(f"volume render launches: learned {render_launches}, ground truth {gt_launches}")
+        check(all(render_launches[k] > 0 for k in VOLUME_RENDER_KERNELS)
+              and render_launches["volume_trace_gt"] == 0,
+              f"the learned render's launches: {render_launches}")
+        check(gt_launches["volume_trace_gt"] > 0
+              and sum(gt_launches.values()) == gt_launches["volume_trace_gt"],
+              f"the ground-truth render's launches: {gt_launches}")
+        for f in (frame, gt):
+            check(tuple(f.shape) == (res, res, 4) and bool(torch.isfinite(f).all()),
+                  "a volume frame")
+        task.set_use_kernels(False)
+        frame_plain = seeded_render(tb, res, res)
+        gt_plain = seeded_render(tb, res, res, ground_truth=True)
+        task.set_use_kernels(True)
+        db = psnr(frame, frame_plain)
+        gt_equal = float((gt == gt_plain).all(-1).float().mean())
+        opacity = float(frame[..., 3].mean())
+        print(f"volume render {res}x{res} learned, kernels vs plain: PSNR {db:.2f} dB, "
+              f"{float((frame == frame_plain).all(-1).float().mean()):.6f} of the pixels bit for "
+              f"bit, opacity {opacity:.4f}; ground truth (M) vs plain: {gt_equal:.6f} of the "
+              f"pixels bit for bit, alpha mean {float(gt[..., 3].mean()):.4f}")
+        check(db >= MIN_PSNR_DB, f"volume learned render kernel vs plain PSNR {db}")
+        check(gt_equal == 1.0, f"volume ground truth: {gt_equal} of pixels equal")
+        check(opacity > 0.01, f"the learned volume frame's opacity {opacity}")
+        render_mse = float(torch.mean((frame[..., :3] - gt[..., :3]) ** 2))
+        o, d = pinhole_rays(res, res, tb.camera_matrix, tb.fov, device)
+        m_check = check_trace_gt(task, o, d.to(torch.float32),
+                                 tracking.draw_gt(gen, o.shape[0]))
+        w, h = VOLUME_FRAME_WH
+        times = {}
+        for key, wh, kw in (("learned_ms", (res, res), {}),
+                            ("ground_truth_ms", (res, res), {"ground_truth": True}),
+                            ("learned_big_ms", (w, h), {}),
+                            ("ground_truth_big_ms", (w, h), {"ground_truth": True})):
+            times[key], f = frame_ms(lambda: tb.render_tensor(*wh, **kw))
+            check(tuple(f.shape) == (wh[1], wh[0], 4) and bool(torch.isfinite(f).all()),
+                  f"the volume frame of {key}")
+        print(f"volume frames on {card}: {res}x{res} learned {times['learned_ms']:.3f} ms, ground "
+              f"truth {times['ground_truth_ms']:.3f} ms; {w}x{h} learned "
+              f"{times['learned_big_ms']:.3f} ms, ground truth {times['ground_truth_big_ms']:.3f} "
+              f"ms; learned vs ground truth {res}x{res} render MSE {render_mse:.6f} (reported, "
+              f"bench.py::bench_volume's figure)")
+        m_check.update(times, render_mse=render_mse)
+
+        rt = snapshot_round_trip(tb, "volume", path, Path(tmp) / "fog.ingp",
+                                 lambda t: seeded_render(t, res, res))
+        loaded, ref16 = rt["loaded"], rt["ref16"]
+        db = psnr(loaded, ref16)
+        print(f"volume snapshot: {rt['bytes']} bytes, saved in {rt['save_s']:.3f} s, loaded onto "
+              f"the grid in {rt['load_s']:.3f} s; parameters (fp16) and optimizer state bit for bit; "
+              f"its render against the saved task's with fp16 parameters: PSNR {db:.2f} dB, "
+              f"{'bit for bit' if torch.equal(loaded, ref16) else 'not bit for bit'}; against "
+              f"the saved task's own (f32 parameters) {psnr(loaded, frame):.2f} dB")
+        check(db >= MIN_LOADED_PSNR_DB, f"the loaded volume render: PSNR {db}")
+    print(f"volume phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, render_launches, gt_launches, checks, l_check, m_check
 
 
 CONFIGS_DIR = ROOT / "configs"
@@ -3180,6 +3559,13 @@ def main() -> None:
         for variant, v in sdf_checks.get(r["name"], {}).items():
             r.setdefault("variants", {})[variant] = v
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
+    # the volume path: kernels L and M, and A, B, E and F at its shapes
+    (volume_launches, volume_render_launches, volume_gt_launches, volume_checks, l_check,
+     m_check) = volume_phase(device, card)
+    for r in results:
+        for variant, v in volume_checks.get(r["name"], {}).items():
+            r.setdefault("variants", {})[variant] = v
+            r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     # every shipped config but volume's: the wide route of B and F
     try:
         config_launches, config_checks, slice_checks = configs_phase(device, card, scene)
@@ -3195,11 +3581,26 @@ def main() -> None:
                   **headline(k_check),
                   extra=f" ({k_check['equal_rows']} of {k_check['rows']} rows bit for bit)",
                   path="sdf_render", variants={"sdf_render_hits": k_check})
+    record_kernel(results, "volume_generate_batch", "instant_ngp_torch/csrc/volume.cu",
+                  "instant_ngp_tpu/volume/task.py:160", l_check["max_abs_err"], **headline(l_check),
+                  extra=f" ({l_check['bit_equal_paths']:.6f} of the paths bit for bit; device "
+                        f"{l_check['device_ms_per_step']:.4f} ms a step)",
+                  path="volume", device_ms=l_check["device_ms"],
+                  device_ms_per_step=l_check["device_ms_per_step"],
+                  variants={"volume_step": l_check})
+    record_kernel(results, "volume_trace_gt", "instant_ngp_torch/csrc/volume.cu",
+                  "instant_ngp_tpu/volume/task.py:365", m_check["max_abs_err"], **headline(m_check),
+                  extra=f" ({m_check['bit_equal_rays']:.6f} of the rays bit for bit; device "
+                        f"{m_check['device_ms']:.4f} ms at {VOLUME_RENDER_RES}^2)",
+                  path="volume_gt", device_ms=m_check["device_ms"],
+                  variants={f"volume_render_{VOLUME_RENDER_RES}": m_check})
 
     paths = {"render": render_launches, "train": train_launches, "disk": disk_launches,
              "disk_render": disk_render_launches, "image": image_launches,
              "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
-             "sdf_render": sdf_render_launches, "configs": config_launches}
+             "sdf_render": sdf_render_launches, "volume": volume_launches,
+             "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
+             "configs": config_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

@@ -8,8 +8,9 @@ standard library only; it never imports jax, msgpack or ``instant_ngp_tpu``.
 This package covers NeRF snapshot rendering (``testbed.Testbed("nerf")``,
 ``load_snapshot``, ``render``), NeRF training through ``Testbed.frame()``,
 the neural-image primitive (``Testbed("image")``, ``load_training_data``,
-``frame``, ``render``, ``compute_image_mse``) and the gather
-microbenchmarks (``python -m instant_ngp_torch.bench.gather``). The hot ops
+``frame``, ``render``, ``compute_image_mse``), the SDF and volume primitives
+(``Testbed("sdf")``, ``Testbed("volume")``) and the gather microbenchmarks
+(``python -m instant_ngp_torch.bench.gather``). The hot ops
 are CUDA kernels in ``csrc/``; each wrapper runs its plain PyTorch version
 for CPU tensors and its kernel for CUDA tensors.
 """

@@ -102,6 +102,13 @@ SIGNATURES = {
     # past the int32 wrap, dtype, stride, cols, rows, splits, vec (elements a
     # staging load), out
     "gather_cols_sum": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # first spawn's draws (6, n), per-iteration draws (n_iters, 14, n), grid
+    # (f32), bitgrid (uint8 128^3), constants (host float[25]), grid
+    # resolution (host int[3]), n, n_iters, pts, tgt, valid: kernel L
+    "volume_generate_batch": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # o, d (R, 3), draws (n_iters, 5, R), grid, bitgrid, constants (host
+    # float[25]), grid resolution (host int[3]), R, n_iters, rgb, alpha: kernel M
+    "volume_trace_gt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 # (argtypes, restype) of the library's functions that launch nothing

@@ -1,9 +1,13 @@
 """Camera models: uv → camera-space rays (port of the perspective and
 OpenCV lenses of ``instant_ngp_tpu/render/camera.py``; reference
-common_device.cuh). The other lens modes come with a later slice."""
+common_device.cuh), and the pinhole rays of the SDF and volume renders. The
+other lens modes come with a later slice."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..common import LensMode
@@ -44,3 +48,23 @@ def uv_to_ray_cam(uv: torch.Tensor, resolution, focal_length, principal_point,
     elif lens_mode != LensMode.PERSPECTIVE and lens_mode != LensMode.OPENCV:
         raise NotImplementedError(f"lens mode {lens_mode.value} is not ported yet")
     return torch.stack([u, v, torch.ones_like(u)], -1), zeros3
+
+
+def pinhole_rays(width: int, height: int, camera_matrix, fov: float,
+                 device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pinhole rays of pixel centres on ``device``, formed as the JAX
+    package's SDF and volume renders form them in numpy: (origins (n, 3)
+    f32, unit directions (n, 3) f64; the renders round them to f32).
+    ``camera_matrix`` (3, 4): columns right, down, forward, origin; ``fov``
+    the vertical field of view in degrees."""
+    f64 = torch.float64
+    cam = torch.as_tensor(np.asarray(camera_matrix, np.float32), device=device)
+    fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=f64, device=device),
+                            torch.arange(width, dtype=f64, device=device), indexing="ij")
+    u = ((xs + 0.5) / width - 0.5) * width / fl
+    v = ((ys + 0.5) / height - 0.5) * height / fl
+    rot = cam[:, :3].to(f64)
+    d = u[..., None] * rot[:, 0] + v[..., None] * rot[:, 1] + rot[:, 2]
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).reshape(-1, 3)
+    return cam[:, 3].expand(d.shape).contiguous(), d

@@ -30,7 +30,6 @@ network's rows are independent.
 
 from __future__ import annotations
 
-import math
 import queue
 import threading
 import time
@@ -49,6 +48,7 @@ from ..models.network import NetworkTask
 from ..ops.raymarch import ray_intersect_aabb
 from ..ops.takikawa import TakikawaEncoding
 from ..render.brdf import BRDFParams, evaluate_shading
+from ..render.camera import pinhole_rays
 
 CHUNK = 1 << 18  # points per inference pass of ``sdf``
 IOU_SEED = 4242
@@ -274,31 +274,13 @@ class SdfTask(NetworkTask):
         return float(inter) / max(float(union), 1.0)
 
     # --- rendering ---
-    def camera_rays(self, width: int, height: int, camera_matrix,
-                    fov: float) -> tuple[torch.Tensor, torch.Tensor]:
-        """Pinhole rays of pixel centres on the device, formed as the JAX
-        package forms them in numpy: (origins (n, 3) f32, unit directions
-        (n, 3) f64; its field render rounds them to f32)."""
-        f64 = torch.float64
-        cam = torch.as_tensor(np.asarray(camera_matrix, np.float32), device=self.device)
-        fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
-        ys, xs = torch.meshgrid(torch.arange(height, dtype=f64, device=self.device),
-                                torch.arange(width, dtype=f64, device=self.device),
-                                indexing="ij")
-        u = ((xs + 0.5) / width - 0.5) * width / fl
-        v = ((ys + 0.5) / height - 0.5) * height / fl
-        rot = cam[:, :3].to(f64)
-        d = u[..., None] * rot[:, 0] + v[..., None] * rot[:, 1] + rot[:, 2]
-        d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).reshape(-1, 3)
-        return cam[:, 3].expand(d.shape).contiguous(), d
-
     @torch.no_grad()
     def render(self, width: int, height: int, camera_matrix, fov: float = 50.0,
                n_trace_steps: int = 96, light_dir=(0.4, -0.7, 0.6),
                ground_truth: bool = False) -> torch.Tensor:
         """Sphere-trace the learned SDF → shaded (H, W, 4) f32 on the device
         (linear rgb, alpha 1 where a ray hit)."""
-        o, d = self.camera_rays(width, height, camera_matrix, fov)
+        o, d = pinhole_rays(width, height, camera_matrix, fov, self.device)
         if ground_truth:
             o_np, d_np = o.cpu().numpy(), d.cpu().numpy()
             if self.groundtruth_mode == "spheretracedmesh":
@@ -399,7 +381,7 @@ class SdfTask(NetworkTask):
                       n_trace_steps: int = 96) -> torch.Tensor:
         """The surface positions of ``render``'s frame of the learned field,
         (n, 3) f32 on the device: those whose normals it takes."""
-        o, d = self.camera_rays(width, height, camera_matrix, fov)
+        o, d = pinhole_rays(width, height, camera_matrix, fov, self.device)
         _, pos, hit = self._surface(self.inference_params(), o, d.to(torch.float32),
                                     n_trace_steps)
         return pos[hit].contiguous()

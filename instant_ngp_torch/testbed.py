@@ -1,8 +1,8 @@
-"""A minimal ``Testbed`` (port of the NeRF, image and SDF branches, the
-training tick and the snapshots of ``instant_ngp_tpu/testbed.py``): train a
-NeRF scene from disk or an in-memory dataset, fit an image, fit a mesh's
-signed-distance field, save a snapshot, and load one to render or to train
-on.
+"""A minimal ``Testbed`` (port of the NeRF, image, SDF and volume branches,
+the training tick and the snapshots of ``instant_ngp_tpu/testbed.py``): train
+a NeRF scene from disk or an in-memory dataset, fit an image, fit a mesh's
+signed-distance field, fit a density grid's neural volume, save a snapshot,
+and load one to render or to train on.
 
     tb = Testbed("nerf")  # on the card; device="cpu" runs the plain versions
     tb.load_training_data("scene_dir")  # a transforms.json scene, configs/nerf/base.json
@@ -39,6 +39,15 @@ on.
     frame = tb.render(1920, 1080)  # sphere-traced, numpy (H, W, 4), linear
     tb.save_snapshot("mesh.ingp", include_optimizer_state=True)  # loads back onto the mesh
 
+    tb = Testbed("volume")
+    tb.load_training_data("cloud.nvdb")  # a NanoVDB float grid, configs/volume/base.json
+    for _ in range(n):
+        tb.frame()  # one step on a fresh delta-tracked batch
+    mse = tb.task.compute_density_mse()
+    frame = tb.render(1920, 1080)  # the learned field, numpy (H, W, 4), linear
+    gt = tb.render(1920, 1080, ground_truth=True)  # a path trace of the grid
+    tb.save_snapshot("cloud.ingp", include_optimizer_state=True)  # loads back onto the grid
+
 Snapshots are the JAX package's format, key for key: each package reads
 the other's.
 
@@ -64,6 +73,7 @@ from .models import network as image_network
 from .models import nerf_network
 from .nerf.task import NerfTask
 from .sdf.task import SdfTask
+from .volume.task import VolumeTask
 
 
 def mode_from_scene(path) -> TestbedMode:
@@ -163,13 +173,13 @@ class _ImageTrainingView:
         self._tb.task.linear_colors = bool(v)
 
 
-_PORTED_MODES = (TestbedMode.NERF, TestbedMode.IMAGE, TestbedMode.SDF)
+_PORTED_MODES = (TestbedMode.NERF, TestbedMode.IMAGE, TestbedMode.SDF, TestbedMode.VOLUME)
 
 
 class Testbed:
-    """Modes "nerf", "image" and "sdf" ("none" until ``load_training_data``
-    infers the mode from the scene). Work runs on ``device``, the card
-    unless the caller asks for the CPU."""
+    """Modes "nerf", "image", "sdf" and "volume" ("none" until
+    ``load_training_data`` infers the mode from the scene). Work runs on
+    ``device``, the card unless the caller asks for the CPU."""
 
     def __init__(self, mode: TestbedMode | str = "nerf", device="cuda"):
         mode = TestbedMode(mode.lower()) if isinstance(mode, str) else mode
@@ -177,7 +187,7 @@ class Testbed:
             raise NotImplementedError(f"testbed mode {mode.value!r} is not ported yet")
         self.mode = mode
         self.device = torch.device(device)
-        self.task: NerfTask | ImageTask | SdfTask | None = None
+        self.task: NerfTask | ImageTask | SdfTask | VolumeTask | None = None
         self.nerf_dataset: NerfDataset | None = None
         self.network_config: dict = {}
         self.scene_path: str | None = None
@@ -191,7 +201,7 @@ class Testbed:
         self.loss_graph: list[float] = []
         self._loss_ema = LossEma()
         self.image = _ImageView(self)
-        # the SDF view: fov, the sun and the floor of its renders; the IoU
+        # the SDF and volume view: fov (and the SDF's sun and floor); the IoU
         # every 16 frames when calculate_iou_online (testbed.py:855-948)
         self.fov = 50.625
         self.sun_dir = np.array([0.577, -0.577, 0.577], np.float32)
@@ -231,13 +241,17 @@ class Testbed:
             self._build_task()
 
     def _build_task(self) -> None:
-        """A fresh task on the scene (testbed.py:1028-1097): an image, a mesh,
-        or a NeRF scene whose first training camera becomes the view."""
+        """A fresh task on the scene (testbed.py:1028-1101): an image, a mesh,
+        a density grid (its own batch size, 2^17, as the JAX package's), or a
+        NeRF scene whose first training camera becomes the view."""
         if isinstance(self.task, SdfTask):
             self.task.stop_producer()
         if self.mode == TestbedMode.SDF:
             self.task = SdfTask(self.scene_path, self.network_config, device=self.device,
                                 seed=self.seed)
+        elif self.mode == TestbedMode.VOLUME:
+            self.task = VolumeTask(self.scene_path, self.network_config, device=self.device,
+                                   seed=self.seed)
         elif self.mode == TestbedMode.NERF:
             self.nerf_dataset = load_nerf(self.scene_path)
             self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
@@ -280,9 +294,9 @@ class Testbed:
         """Load a snapshot (testbed.py:2165-2233). NeRF: onto the loaded
         scene's task, so that training continues on its images; with no
         scene, onto a task built from the snapshot's dataset block (cameras
-        only, for rendering). Image and SDF: onto the task of the loaded image
-        or mesh (the JAX package's generic branch). The loss meter stays as
-        it was, as the JAX package's does."""
+        only, for rendering). Image, SDF and volume: onto the task of the
+        loaded image, mesh or grid (the JAX package's generic branch). The
+        loss meter stays as it was, as the JAX package's does."""
         doc = snapshot_io.load_snapshot_file(path)
         snap = doc["snapshot"]
         mode = TestbedMode(snap["mode"])
@@ -292,19 +306,20 @@ class Testbed:
         self.mode = mode
         nerf = mode == TestbedMode.NERF
         task_type = {TestbedMode.NERF: NerfTask, TestbedMode.IMAGE: ImageTask,
-                     TestbedMode.SDF: SdfTask}[mode]
+                     TestbedMode.SDF: SdfTask, TestbedMode.VOLUME: VolumeTask}[mode]
         model_io = nerf_network if nerf else image_network
         if nerf and not isinstance(self.task, NerfTask):
             if "nerf" not in snap or "dataset" not in snap["nerf"]:
                 raise RuntimeError("snapshot lacks a dataset block and no scene is loaded")
             self.nerf_dataset = _empty_nerf_dataset_from_snapshot(snap)
             self.task = NerfTask(self.nerf_dataset, self.network_config, device=self.device)
-        if isinstance(self.task, SdfTask) and self.task.network_config != self.network_config:
-            self._build_task()  # the loaded mesh under the snapshot's network
+        if (isinstance(self.task, (SdfTask, VolumeTask))
+                and self.task.network_config != self.network_config):
+            self._build_task()  # the loaded mesh or grid under the snapshot's network
         task = self.task
         if not isinstance(task, task_type):
-            raise RuntimeError(f"load the {mode.value} scene before its snapshot: an image or "
-                               "SDF snapshot holds no image or mesh")
+            raise RuntimeError(f"load the {mode.value} scene before its snapshot: an image, SDF "
+                               "or volume snapshot holds no image, mesh or grid")
         params = snapshot_io.restore_params(snap, model_io.params_to_numpy(task.model))
         opt_state = None
         if "optimizer_state" in snap:
@@ -332,13 +347,18 @@ class Testbed:
         linear colour unless ``linear`` is False (testbed.py:1245-1248). SDF:
         ``render(width, height, linear=True, camera_matrix=None, fov=None)``,
         the sphere trace from the Testbed's view, sun and floor
-        (testbed.py:1329-1350). A tensor on the task's device."""
+        (testbed.py:1329-1350). Volume: the same arguments and
+        ``ground_truth=False``, the learned field's transmittance tracking
+        from the Testbed's view, or with ground_truth a path trace of the grid
+        (testbed.py:1329-1345). A tensor on the task's device."""
         if self.task is None:
             raise RuntimeError("load a snapshot or training data before rendering")
         if self.mode == TestbedMode.IMAGE:
             return self._render_image(*args, **kwargs)
         if self.mode == TestbedMode.SDF:
             return self._render_sdf(*args, **kwargs)
+        if self.mode == TestbedMode.VOLUME:
+            return self._render_volume(*args, **kwargs)
         return self.task.render(*args, **kwargs)
 
     def _render_sdf(self, width: int, height: int, linear: bool = True, camera_matrix=None,
@@ -347,6 +367,13 @@ class Testbed:
         cam = self.camera_matrix if camera_matrix is None else camera_matrix
         frame = self.task.render(width, height, cam, fov=fov or self.fov,
                                  light_dir=tuple(np.asarray(self.sun_dir, np.float32)))
+        return self._to_space(frame, produced_linear=True, linear=linear)
+
+    def _render_volume(self, width: int, height: int, linear: bool = True, camera_matrix=None,
+                       fov=None, ground_truth: bool = False) -> torch.Tensor:
+        cam = self.camera_matrix if camera_matrix is None else camera_matrix
+        frame = self.task.render(width, height, cam, fov=fov or self.fov,
+                                 ground_truth=ground_truth)
         return self._to_space(frame, produced_linear=True, linear=linear)
 
     @staticmethod

@@ -81,12 +81,15 @@ microbenchmarks:
   their spread (``MAX_VOLUME_MSE``) by at least the JAX package's least fall
   over the spread of its falls (``MIN_VOLUME_GAIN``); L against its plain
   version on one step's draws (every path's vertices bit for bit, its bound
-  from the draws, grid and bitgrid sectors the paths read), one step's gradients
+  from the draws, grid and bitgrid sectors the paths read, its device time
+  back to back, warm from the generator's fill and cold), one step's gradients
   within 1e-2 a leaf, A, B, E and F against theirs at its shapes on the fresh
   and the trained model; a 256^2 learned render (A and B) against the plain
   render (≥ 40 dB) and a ground-truth render (M) against its plain version on
   the same draws (each pixel bit for bit), M also on that frame's rays with
-  its own draws; the 256^2 and 1920x1080 frames timed; a snapshot with the
+  its own draws; L and M at sizes that are multiples neither of 4 nor of a
+  block (a partial last block, draw rows not 16-byte aligned), bit for bit;
+  the 256^2 and 1920x1080 frames timed; a snapshot with the
   optimizer state saved and loaded onto the grid (state bit for bit, its
   render against the saved task's);
 - configs: every shipped config but volume's (25) trains at full width
@@ -1394,12 +1397,14 @@ KERNEL_NAMES = {"hashgrid_encode_fwd": "hashgrid_encode_kernel", "fused_mlp": "f
                 "volume_trace_gt": "volume_trace_gt_kernel"}
 
 
-def profile_frames(trainer) -> tuple[float, float, list, dict]:
+def profile_frames(trainer, events_seen: dict | None = None) -> tuple[float, float, list, dict]:
     """(wall ms, device busy ms, top device items (name, ms), device ms per
     frame of each port kernel by launcher) of PROFILED_STEPS training frames
     under torch.profiler; busy is the union of the device events'
     intervals, None where the profiler dropped the trace (no device event
-    at all: ``busy_text`` says "not measured")."""
+    at all: ``busy_text`` says "not measured"). ``events_seen``, where given,
+    gets each launcher's number of device events in the trace: a frame's ms
+    counts only the launches the trace caught."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1421,6 +1426,9 @@ def profile_frames(trainer) -> tuple[float, float, list, dict]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     kernels = {launcher: sum(ms for name, ms in by_name.items() if sub in name) / PROFILED_STEPS
                for launcher, sub in KERNEL_NAMES.items()}
+    if events_seen is not None:
+        events_seen.update({launcher: sum(sub in e.name for e in events)
+                            for launcher, sub in KERNEL_NAMES.items()})
     return (wall_ms, busy_us / 1e3 if events else None, [(name[:80], ms) for name, ms in top],
             kernels)
 
@@ -2682,6 +2690,7 @@ MAX_VOLUME_MSE = max(JAX_VOLUME_MSE) * seed_spread(JAX_VOLUME_MSE)
 MIN_VOLUME_GAIN = min(JAX_VOLUME_GAIN) / seed_spread(JAX_VOLUME_GAIN)
 VOLUME_RENDER_RES = 256  # the kernel-vs-plain renders and the snapshot's
 VOLUME_FRAME_WH = (1920, 1080)
+VOLUME_RAGGED = 3  # paths and rays short of a multiple of 4 and of a block
 # Kernels L and M run the plain versions' arithmetic in the same order (no
 # FMA contraction, accurate logf, sqrtf and division; PyTorch's CUDA ops
 # compute each of them alike), so every path, ray and ground-truth pixel must
@@ -2693,6 +2702,9 @@ VOLUME_FRAME_WH = (1920, 1080)
 # one, index arithmetic is not counted: the least work of the bound
 VOLUME_L_OPS = {"path": 107, "live": 22, "event": 22, "scatter": 24, "died": 29, "respawn": 78}
 VOLUME_M_OPS = {"path": 69, "live": 21, "event": 16, "scatter": 16}
+# what L's and M's records say of their second design (csrc/volume.cu)
+VOLUME_DESIGN = ("draws staged a stage ahead in each thread's shared-memory ring, look-ahead "
+                 "windows with predicated bitgrid and grid reads")
 VOLUME_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
                   "volume_generate_batch")
 VOLUME_RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp")
@@ -2744,12 +2756,16 @@ def census_text(v: dict, all_draws) -> str:
             f"path-iterations {v['counts']})")
 
 
-def check_generate_batch(task, draws) -> dict:
+def check_generate_batch(task, draws, gen=None) -> dict:
     """Kernel L against its plain version on one step's draws: every path's
     4 vertices (positions, targets, valid flags) bit for bit, the error,
-    both times and L's device time, and its bound (the sectors of the draws,
-    grid and bitgrid that the paths read, as the plain version's census
-    counts them, the first spawn's draws, the batch written once)."""
+    both times and L's device time back to back on these draws, and its
+    bound (the sectors of the draws, grid and bitgrid that the paths read,
+    as the plain version's census counts them, the first spawn's draws, the
+    batch written once). With ``gen``, also L's device time warm, on draws
+    the generator has just made (as a training step calls it), and cold, on
+    these draws after another draw buffer has been read (none of them in
+    L2)."""
     from instant_ngp_torch.volume import tracking
 
     out = tracking.generate_batch(task, draws)
@@ -2759,10 +2775,10 @@ def check_generate_batch(task, draws) -> dict:
     equal = torch.ones(n, dtype=torch.bool, device=draws.first.device)
     for a, b in zip(out, ref):
         equal &= (a == b).reshape(n, -1).all(-1)
-    share = float(equal.float().mean())
+    share = int(equal.sum()) / n  # counted exactly: a mean's 1 / n rounds
     err = max(max_err(out[0], ref[0])[0], max_err(out[1], ref[1])[0])
     valid_share = float(out[2].float().mean())
-    check(share == 1.0, f"L: {share} of the paths bit for bit")
+    check(bool(equal.all()), f"L: {share} of the paths bit for bit")
     split = device_split(lambda: tracking.generate_batch(task, draws), "volume_generate_batch",
                          reps=10, per_call=1)
     v = {"max_abs_err": err, "bit_equal_paths": share, "paths": n, "valid_share": valid_share,
@@ -2771,10 +2787,49 @@ def check_generate_batch(task, draws) -> dict:
                              warmup=1),
          "device_ms": split["kernel_ms"], "timed_by": split["timed_by"],
          **census_bound(census, n, VOLUME_L_OPS, draws.first, *out)}
+    when = ""
+    if gen is not None:
+        other = tracking.draw_batch(gen, n)
+        for key, fn in (("warm", lambda: tracking.generate_batch(
+                            task, tracking.draw_batch(gen, n))),
+                        ("cold", lambda: (other.per_iter.sum(),
+                                          tracking.generate_batch(task, draws)))):
+            v[f"device_ms_{key}"] = device_split(fn, "volume_generate_batch", reps=10,
+                                                 per_call=1)["kernel_ms"]
+        del other
+        when = f", warm from a fill {v['device_ms_warm']:.4f}, cold {v['device_ms_cold']:.4f}"
     print(f"kernel volume_generate_batch ({n} paths x {draws.per_iter.shape[0]} iterations): "
           f"{share:.6f} of the paths bit for bit, max_abs_err {err:.3e}; {valid_share:.4f} of the "
-          f"vertices valid; device {v['device_ms']:.4f} ms ({v['timed_by']}); "
+          f"vertices valid; device {v['device_ms']:.4f} ms back to back ({v['timed_by']}){when}; "
           f"{census_text(v, draws.per_iter)}")
+    return v
+
+
+def check_ragged(task, gen, o, d) -> dict:
+    """Kernels L and M at sizes that are multiples neither of 4 nor of a
+    block (VOLUME_RAGGED paths, and rays, short of 2^15 and 2^16): a partial
+    last block, and draw rows that are not 16-byte aligned. Every path and
+    ray bit for bit against the plain versions, and their device times."""
+    from instant_ngp_torch.volume import tracking
+
+    n = task.batch_size // tracking.MAX_TRAIN_VERTICES - VOLUME_RAGGED
+    draws = tracking.draw_batch(gen, n)
+    out = tracking.generate_batch(task, draws)
+    ref = tracking.generate_batch_plain(task, draws)
+    l_equal = all(torch.equal(a, b) for a, b in zip(out, ref))
+    r = o.shape[0] - VOLUME_RAGGED
+    o, d, gt = o[:r].contiguous(), d[:r].contiguous(), tracking.draw_gt(gen, r)
+    m_equal = all(torch.equal(a, b) for a, b in zip(tracking.trace_gt(task, o, d, gt),
+                                                    tracking.trace_gt_plain(task, o, d, gt)))
+    v = {"paths": n, "rays": r, "l_bit_equal": l_equal, "m_bit_equal": m_equal,
+         "l_device_ms": device_split(lambda: tracking.generate_batch(task, draws),
+                                     "volume_generate_batch", reps=10, per_call=1)["kernel_ms"],
+         "m_device_ms": device_split(lambda: tracking.trace_gt(task, o, d, gt), "volume_trace_gt",
+                                     reps=10, per_call=1)["kernel_ms"]}
+    print(f"kernels L and M at ragged sizes ({n} paths, {r} rays): L "
+          f"{'bit for bit' if l_equal else 'NOT bit for bit'}, device {v['l_device_ms']:.4f} ms; M "
+          f"{'bit for bit' if m_equal else 'NOT bit for bit'}, device {v['m_device_ms']:.4f} ms")
+    check(l_equal and m_equal, f"L or M at ragged sizes: {v}")
     return v
 
 
@@ -2790,9 +2845,9 @@ def check_trace_gt(task, o, d, draws) -> dict:
     census = tracking.ReadCensus()
     ref = tracking.trace_gt_plain(task, o, d, draws, census)
     equal = (out[0] == ref[0]).all(-1) & (out[1] == ref[1])
-    share = float(equal.float().mean())
+    share = int(equal.sum()) / o.shape[0]  # counted exactly: a mean's 1 / n rounds
     err = max(max_err(out[0], ref[0])[0], max_err(out[1], ref[1])[0])
-    check(share == 1.0, f"M: {share} of the rays bit for bit")
+    check(bool(equal.all()), f"M: {share} of the rays bit for bit")
     split = device_split(lambda: tracking.trace_gt(task, o, d, draws), "volume_trace_gt",
                          per_call=1)
     v = {"max_abs_err": err, "bit_equal_rays": share, "rays": o.shape[0],
@@ -2863,7 +2918,8 @@ def volume_phase(device, card) -> tuple[dict, dict, dict, dict, dict, dict]:
             t0 = time.perf_counter()
             tb.frame()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        wall_ms, busy_ms, top, step_kernels = profile_frames(tb)
+        seen = {}
+        wall_ms, busy_ms, top, step_kernels = profile_frames(tb, seen)
         torch.cuda.synchronize()
         launches = dict(cuda_lib.LAUNCHES)
         losses = tb.loss_graph
@@ -2892,9 +2948,17 @@ def volume_phase(device, card) -> tuple[dict, dict, dict, dict, dict, dict]:
         # L against its plain version; one step, and A, B, E and F, kernels
         # against plain on the trained model
         draws = tracking.draw_batch(gen, n_paths)
-        l_check = check_generate_batch(task, draws)
+        l_check = check_generate_batch(task, draws, gen)
         l_check["device_ms_per_step"] = step_kernels["volume_generate_batch"]
+        l_check["profiled_events"] = seen["volume_generate_batch"]
+        l_check["device_ms_per_event"] = (step_kernels["volume_generate_batch"] * PROFILED_STEPS
+                                          / max(seen["volume_generate_batch"], 1))
         l_check["step_ms"] = statistics.median(step_ms)
+        print(f"L device ms: a step of the profiled frames {l_check['device_ms_per_step']:.4f} "
+              f"({l_check['profiled_events']} of its {PROFILED_STEPS} launches in the trace, "
+              f"{l_check['device_ms_per_event']:.4f} each), warm from a fill "
+              f"{l_check['device_ms_warm']:.4f}, cold {l_check['device_ms_cold']:.4f}, back to "
+              f"back on one step's draws {l_check['device_ms']:.4f}")
         batch = task.generate_batch(draws)
         del draws
         task_step_gradients_check(task, *batch, what="volume")
@@ -2940,6 +3004,7 @@ def volume_phase(device, card) -> tuple[dict, dict, dict, dict, dict, dict]:
         o, d = pinhole_rays(res, res, tb.camera_matrix, tb.fov, device)
         m_check = check_trace_gt(task, o, d.to(torch.float32),
                                  tracking.draw_gt(gen, o.shape[0]))
+        l_check["ragged"] = m_check["ragged"] = check_ragged(task, gen, o, d.to(torch.float32))
         w, h = VOLUME_FRAME_WH
         times = {}
         for key, wh, kw in (("learned_ms", (res, res), {}),
@@ -3587,12 +3652,14 @@ def main() -> None:
                         f"{l_check['device_ms_per_step']:.4f} ms a step)",
                   path="volume", device_ms=l_check["device_ms"],
                   device_ms_per_step=l_check["device_ms_per_step"],
+                  device_ms_warm=l_check["device_ms_warm"],
+                  device_ms_cold=l_check["device_ms_cold"], redesigned=VOLUME_DESIGN,
                   variants={"volume_step": l_check})
     record_kernel(results, "volume_trace_gt", "instant_ngp_torch/csrc/volume.cu",
                   "instant_ngp_tpu/volume/task.py:365", m_check["max_abs_err"], **headline(m_check),
                   extra=f" ({m_check['bit_equal_rays']:.6f} of the rays bit for bit; device "
                         f"{m_check['device_ms']:.4f} ms at {VOLUME_RENDER_RES}^2)",
-                  path="volume_gt", device_ms=m_check["device_ms"],
+                  path="volume_gt", device_ms=m_check["device_ms"], redesigned=VOLUME_DESIGN,
                   variants={f"volume_render_{VOLUME_RENDER_RES}": m_check})
 
     paths = {"render": render_launches, "train": train_launches, "disk": disk_launches,

@@ -7,7 +7,9 @@ Plain versions follow ``instant_ngp_tpu/volume/task.py``'s
 line: all paths in lockstep, one iteration of elementwise ops at a time.
 The kernels (``csrc/volume.cu``) run one thread a path with the same
 arithmetic in the same order, and stop a path once nothing of it can change
-any more, so each path's result is the same.
+any more, so each path's result is the same. They compute a window of an
+iteration's successors along the current direction ahead of walking it;
+``tests/test_torch_volume_design.py`` mirrors that walk.
 
 The random numbers are arguments (``BatchDraws``, and the (n_iters, 5, R)
 draws of ``trace_gt``), so that a test can hand in the JAX package's own.
@@ -97,7 +99,7 @@ class ReadCensus:
 
     def __init__(self):
         self.touched: dict[str, torch.Tensor] = {}
-        self._counts: dict[str, torch.Tensor] = {}
+        self._per_path: dict[str, torch.Tensor] = {}
 
     def read(self, name: str, t: torch.Tensor, flat: torch.Tensor) -> None:
         """Marks the elements of t at the flat indices as read."""
@@ -115,11 +117,17 @@ class ReadCensus:
         self.read("draws", draws, (r[:, None] * draws.shape[2] + p[None, :]).reshape(-1))
 
     def count(self, name: str, mask: torch.Tensor) -> None:
-        self._counts[name] = self._counts.get(name, 0) + mask.sum()
+        m = mask.to(torch.int32)
+        self._per_path[name] = self._per_path[name] + m if name in self._per_path else m
 
     @property
     def counts(self) -> dict[str, int]:
-        return {k: int(v) for k, v in self._counts.items()}
+        return {k: int(v.sum()) for k, v in self._per_path.items()}
+
+    def per_path(self, name: str) -> torch.Tensor:
+        """(n,) int32: each path's path-iterations of this kind; ``live``
+        is a prefix of the loop, so it is the iterations a path is live."""
+        return self._per_path[name]
 
     def bytes_read(self) -> dict[str, int]:
         """The bytes of the touched sectors of each input."""
@@ -273,8 +281,8 @@ def _params_c(task):
 
 def generate_batch(task, draws: BatchDraws):
     """A training batch (see ``generate_batch_plain``): the plain version for
-    CPU tensors, kernel L for CUDA tensors (one thread a path, all
-    iterations in registers, one launch)."""
+    CPU tensors, kernel L for CUDA tensors (one launch: a thread a path,
+    the draws each iteration reads staged ahead, a look-ahead window)."""
     if draws.first.device.type == "cpu":
         return generate_batch_plain(task, draws)
     first, it = draws.first.contiguous(), draws.per_iter.contiguous()
@@ -342,7 +350,8 @@ def trace_gt_plain(task, o: torch.Tensor, d: torch.Tensor, draws: torch.Tensor,
 
 def trace_gt(task, o: torch.Tensor, d: torch.Tensor, draws: torch.Tensor):
     """The ground-truth trace (see ``trace_gt_plain``): the plain version for
-    CPU tensors, kernel M for CUDA tensors (one thread a ray)."""
+    CPU tensors, kernel M for CUDA tensors (one launch: a thread a ray, as
+    kernel L)."""
     if o.device.type == "cpu":
         return trace_gt_plain(task, o, d, draws)
     o, d, draws = o.contiguous(), d.contiguous(), draws.contiguous()

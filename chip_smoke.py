@@ -2294,7 +2294,17 @@ SDF_FLIP = 0.05
 # CPU test), save at most MAX_SDF_MASK_DIFF of them near a ReLU tie
 MIN_NORMAL_COSINE = 0.9999
 NORMAL_FLOOR = 1e-3
-TOL_DX = 1e-6  # K against its plain version, of max |dx|: the same order, so bit for bit
+# K runs its plain version's arithmetic in the same order (per level g·f over
+# f, the corners in order, col · scale; the levels summed from 0.0 in order),
+# so every row must agree bit for bit, at the render's hits and on every
+# branch of its contract on random inputs (DX_CONTRACT_*)
+DX_CONTRACT_DIMS = (2, 3)
+DX_CONTRACT_FEATURES = (1, 2, 4, 8)
+DX_CONTRACT_INTERPOLATIONS = ("linear", "simplex", "nearest")
+DX_CONTRACT_N = (0, 1, 31, 33, 4099)  # none, one, short of a block, past one, ragged
+# what K's record says of its second design (csrc/hashgrid_bwd.cu)
+DX_DESIGN = ("a block of 32 samples, warps over the levels, each level's term written to a "
+             "shared tile and summed per sample in level order")
 SDF_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd")
 SDF_RENDER_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "fused_mlp_bwd", "hashgrid_encode_dx")
 NERF_ONLY_KERNELS = ("march_rays", "composite_window", "composite_train", "scatter_add_rows")
@@ -2364,26 +2374,110 @@ def sdf_camera() -> np.ndarray:
     return np.stack([right, np.cross(fwd, right), fwd, eye], 1).astype(np.float32)
 
 
-def check_encode_dx(levels, table, x, g, what: str) -> dict:
-    """Kernel K against its plain version: error, times, bound (x, g, the
-    distinct corner rows and dx moved once; per position and level, C·2F
-    flops of dots and D·C·4 of the products)."""
+def bit_equal_rows(out: torch.Tensor, ref: torch.Tensor) -> int:
+    """Rows of out whose every element has ref's bits."""
+    if out.numel() == 0:
+        return out.shape[0]
+    return int((out.view(torch.int32) == ref.view(torch.int32)).all(dim=1).sum())
+
+
+def check_encode_dx(levels, interpolation: str, table, x, g, what: str) -> dict:
+    """Kernel K against its plain version, every row bit for bit: error,
+    times back to back and on the device (torch.profiler, the same inputs
+    call after call; the mean of the kernel's events, which a trace late in
+    a long process can drop), bound (x, g, the distinct corner rows and dx moved
+    once; per position and level, C·2F flops of dots and D·C·4 of the
+    products)."""
     from instant_ngp_torch.ops.hashgrid import hashgrid_encode_dx, hashgrid_encode_dx_plain
 
-    args = (levels, "linear", table, x, g)
+    args = (levels, interpolation, table, x, g)
     out, ref = hashgrid_encode_dx(*args), hashgrid_encode_dx_plain(*args)
     err, scale = max_err(out, ref)
-    equal = int((out == ref).all(dim=1).sum())
-    check(err <= TOL_DX * scale, f"K {what}: err {err} at max |ref| {scale}")
-    rows, corners = grid_work(levels, "linear", x)
+    equal = bit_equal_rows(out, ref)
+    check(equal == x.shape[0], f"K {what}: {x.shape[0] - equal} of {x.shape[0]} rows differ "
+                               f"from the plain version (err {err} at max |ref| {scale})")
+    rows, corners = grid_work(levels, interpolation, x)
     F, D = table.shape[1], x.shape[1]
     ops = x.shape[0] * corners * (2 * F + 4 * D)
+    dev = device_split(lambda: hashgrid_encode_dx(*args), "hashgrid_dx_kernel", per_call=1)
     print(f"kernel hashgrid_encode_dx on {what} ({x.shape[0]} positions): {equal} rows bit for "
-          f"bit, max_abs_err {err:.3e} at max |dx| {scale:.3e}")
+          f"bit, max_abs_err {err:.3e} at max |dx| {scale:.3e}; device {dev['device_ms']:.4f} ms "
+          f"(kernel {dev['kernel_ms']:.4f}, {dev['timed_by']})")
     return {"max_abs_err": err, "equal_rows": equal, "rows": x.shape[0],
             "ms": time_ms(lambda: hashgrid_encode_dx(*args)),
             "plain_ms": time_ms(lambda: hashgrid_encode_dx_plain(*args)),
+            "device_ms": dev["device_ms"], "kernel_ms": dev["kernel_ms"],
+            "events_per_call": dev["events_per_call"], "timed_by": dev["timed_by"],
             **bound(nbytes(x, g, out) + rows * F * 4, ops)}
+
+
+def check_dx_on_hits(task, hits, what: str) -> dict:
+    """``check_encode_dx`` on an SDF frame's hit positions with the
+    cotangent the render's normals give K (kernel F's dX of a ones output
+    gradient through the task's MLP)."""
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd
+
+    enc = task.model.encoding
+    ws = [w.detach() for w in task.model.network.weights]
+    table = enc.table.detach()
+    feats = hashgrid_encode(enc.levels, enc.interpolation, table, hits)
+    g_enc = fused_mlp_bwd(ws, feats, torch.ones((hits.shape[0], 1), device=hits.device))[0]
+    return check_encode_dx(enc.levels, enc.interpolation, table, hits, g_enc, what)
+
+
+def dx_contract_positions(gen, levels, n: int, n_dims: int, device) -> torch.Tensor:
+    """n positions in [0, 1]^D: random, with a quarter on cell corners of the
+    levels and, in 3-D, a quarter on the simplex ranks' ties."""
+    x = torch.rand((n, n_dims), generator=gen, device=device)
+    q = n // 4
+    if q:
+        lv = levels[int(torch.randint(0, len(levels), (), generator=gen, device=device))]
+        k = torch.randint(0, lv.resolution, (q, n_dims), generator=gen, device=device)
+        x[:q] = ((k.float() - 0.5) / float(np.float32(lv.scale))).clamp(0.0, 1.0)
+        if n_dims == 3:
+            x[q:2 * q, 1] = x[q:2 * q, 0]
+            x[q:q + q // 2, 2] = x[q:q + q // 2, 0]
+    return x.contiguous()
+
+
+@torch.no_grad()
+def check_dx_contract(device) -> dict:
+    """Kernel K bit for bit against its plain version on random inputs at
+    every branch of its contract: D 2 and 3, F 1, 2, 4 and 8, linear,
+    simplex and nearest, n from 0 to a ragged 4,099; 14 levels (dense and
+    hashed) or, at F 8, 32 (the largest tile and the most registers).
+    Returns the count of cases, rows and launches, and the worst error (0)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops.hashgrid import (grid_levels, hashgrid_encode_dx,
+                                                hashgrid_encode_dx_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    cases, rows, launched = {}, 0, cuda_lib.LAUNCHES["hashgrid_encode_dx"]
+    for n_dims in DX_CONTRACT_DIMS:
+        for n_features in DX_CONTRACT_FEATURES:
+            n_levels = 32 if n_features == 8 else 14
+            levels = grid_levels(n_dims, n_levels, 14, 4, 1.3)
+            n_entries = levels[-1].offset + levels[-1].size
+            table = torch.rand((n_entries, n_features), generator=gen, device=device) * 2 - 1
+            for interp in DX_CONTRACT_INTERPOLATIONS:
+                for n in DX_CONTRACT_N:
+                    x = dx_contract_positions(gen, levels, n, n_dims, device)
+                    g = torch.randn((n, n_levels * n_features), generator=gen, device=device)
+                    out = hashgrid_encode_dx(levels, interp, table, x, g)
+                    ref = hashgrid_encode_dx_plain(levels, interp, table, x, g)
+                    equal = bit_equal_rows(out, ref)
+                    name = f"D{n_dims}_F{n_features}_L{n_levels}_{interp}_n{n}"
+                    check(tuple(out.shape) == (n, n_dims) and equal == n,
+                          f"K {name}: {n - equal} of {n} rows differ from the plain version")
+                    cases[name] = equal
+                    rows += n
+    launched = cuda_lib.LAUNCHES["hashgrid_encode_dx"] - launched
+    filled = sum(1 for name in cases if not name.endswith("_n0"))
+    check(launched == filled, f"K's contract: {launched} launches for {filled} cases with rows")
+    print(f"kernel hashgrid_encode_dx on its contract: {len(cases)} cases, {rows} rows, every "
+          f"row bit for bit, {launched} launches")
+    return {"cases": len(cases), "rows": rows, "launches": launched, "max_abs_err": 0.0}
 
 
 def model_kernel_checks(task, pts, cotangent, what: str, trained: bool) -> dict:
@@ -2519,9 +2613,10 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
     the IoU before and after, then renders (SDF_RES^2 kernels against plain,
     1920x1080 timed) and a snapshot round trip. Kernels A, B, E and F are
     held against their plain versions at this path's shapes on a fresh and
-    on the trained model, K on the render's hit positions. Returns (the
-    launches of the training run, those of the render, the checks by kernel
-    name, K's check)."""
+    on the trained model; K, once a frame, bit for bit on the 256^2 and the
+    1920x1080 renders' hit positions and on random inputs over its contract
+    (``check_dx_contract``). Returns (the launches of the training run,
+    those of the render, the checks by kernel name, K's checks by case)."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.geometry.procedural import bumpy_torus, write_obj
     from instant_ngp_torch.testbed import Testbed
@@ -2606,6 +2701,8 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
         print(f"sdf render launches: {render_launches}")
         check(all(render_launches[k] > 0 for k in SDF_RENDER_KERNELS),
               f"a kernel was not launched: {render_launches}")
+        check(render_launches["hashgrid_encode_dx"] == 1,
+              f"K launched {render_launches['hashgrid_encode_dx']} times in one SDF frame")
         check(all(render_launches[k] == 0 for k in (*NERF_ONLY_KERNELS, "hashgrid_encode_bwd")),
               f"the SDF render launched a kernel it does not run: {render_launches}")
         check(tuple(frame.shape) == (SDF_RES, SDF_RES, 4) and bool(torch.isfinite(frame).all()),
@@ -2625,22 +2722,24 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
               f"sdf render kernel vs plain: {apart} decided apart, PSNR {db}")
 
         # K on the render's hit positions, with the cotangent F's dX gives it
-        from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd
-        from instant_ngp_torch.ops.hashgrid import hashgrid_encode
-
         hits = task.hit_positions(SDF_RES, SDF_RES, tb.camera_matrix, tb.fov)
-        ws = [w.detach() for w in task.model.network.weights]
-        table = enc.table.detach()
-        feats = hashgrid_encode(enc.levels, enc.interpolation, table, hits)
-        g_enc = fused_mlp_bwd(ws, feats, torch.ones((hits.shape[0], 1), device=device))[0]
-        k_check = check_encode_dx(enc.levels, table, hits, g_enc, f"the {SDF_RES}^2 render's hits")
-        k_check["normals"] = sdf_normals_check(task, hits)
+        k_checks = {"sdf_render_hits": check_dx_on_hits(task, hits,
+                                                        f"the {SDF_RES}^2 render's hits")}
+        k_checks["sdf_render_hits"]["normals"] = sdf_normals_check(task, hits)
 
         w, h = SDF_FRAME_WH
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
         big_ms, big = frame_ms(lambda: tb.render_tensor(w, h))
+        big_k = cuda_lib.LAUNCHES["hashgrid_encode_dx"]
         check(tuple(big.shape) == (h, w, 4) and bool(torch.isfinite(big).all()), "the SDF frame")
+        check(big_k == 2, f"K launched {big_k} times in two {w}x{h} SDF frames")
         print(f"sdf render {w}x{h} (sun, soft shadows, analytic normals): {big_ms:.3f} ms on "
-              f"{card}; hits {float(big[..., 3].mean()):.4f}")
+              f"{card}; hits {float(big[..., 3].mean()):.4f}; K launched once a frame")
+        hits = task.hit_positions(w, h, tb.camera_matrix, tb.fov)
+        k_checks[f"sdf_frame_hits_{w}x{h}"] = check_dx_on_hits(task, hits,
+                                                               f"the {w}x{h} render's hits")
+        k_checks["contract"] = check_dx_contract(device)
 
         rt = snapshot_round_trip(tb, "sdf", path, Path(tmp) / "torus.ingp",
                                  lambda t: t.render_tensor(SDF_RES, SDF_RES))
@@ -2658,7 +2757,7 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
         for t in (tb, rt["onto"]):
             t.task.stop_producer()
     print(f"sdf phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, render_launches, checks, k_check
+    return launches, render_launches, checks, k_checks
 
 
 VOLUME_CONFIG = ROOT / "configs" / "volume" / "base.json"
@@ -3619,7 +3718,7 @@ def main() -> None:
     bench_launches = gather_phase()
 
     # the SDF path: its shapes of A, B, E and F are variants of their records
-    sdf_launches, sdf_render_launches, sdf_checks, k_check = sdf_phase(device, card)
+    sdf_launches, sdf_render_launches, sdf_checks, k_checks = sdf_phase(device, card)
     for r in results:
         for variant, v in sdf_checks.get(r["name"], {}).items():
             r.setdefault("variants", {})[variant] = v
@@ -3641,11 +3740,18 @@ def main() -> None:
             r.setdefault("variants", {})[variant] = v
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     results += config_records(config_checks)
+    w, h = SDF_FRAME_WH
+    k_check, k_big = k_checks["sdf_render_hits"], k_checks[f"sdf_frame_hits_{w}x{h}"]
     record_kernel(results, "hashgrid_encode_dx", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
-                  "instant_ngp_tpu/ops/hashgrid.py:333", k_check["max_abs_err"],
-                  **headline(k_check),
-                  extra=f" ({k_check['equal_rows']} of {k_check['rows']} rows bit for bit)",
-                  path="sdf_render", variants={"sdf_render_hits": k_check})
+                  "instant_ngp_tpu/ops/hashgrid.py:333",
+                  max(v["max_abs_err"] for v in k_checks.values()), **headline(k_check),
+                  extra=f" ({k_check['equal_rows']} of {k_check['rows']} rows bit for bit; device "
+                        f"{k_check['device_ms']:.4f} ms; {w}x{h} hits: {k_big['rows']} rows bit "
+                        f"for bit, {k_big['ms']:.4f} ms, device {k_big['device_ms']:.4f} ms, "
+                        f"bound {k_big['bound_ms']:.4f} ms; "
+                        f"{k_checks['contract']['cases']} contract cases bit for bit)",
+                  path="sdf_render", device_ms=k_check["device_ms"], redesigned=DX_DESIGN,
+                  variants=k_checks)
     record_kernel(results, "volume_generate_batch", "instant_ngp_torch/csrc/volume.cu",
                   "instant_ngp_tpu/volume/task.py:160", l_check["max_abs_err"], **headline(l_check),
                   extra=f" ({l_check['bit_equal_paths']:.6f} of the paths bit for bit; device "

@@ -1,9 +1,10 @@
-"""Kernels E (hash-grid table gradients) and F (fused MLP backward) of one
-source tree, at the shapes of their paths, timed back to back; and an
-old/new comparison of two trees.
+"""Kernels E (hash-grid table gradients), F (fused MLP backward) and K (the
+hash grid's d/dx) of one source tree, at the shapes of their paths, timed
+back to back; and an old/new comparison of two trees.
 
     python instant_ngp_torch/bench/bwd_kernels.py [--root DIR]
-    python instant_ngp_torch/bench/bwd_kernels.py --ab OLD_DIR [--logs DIR]
+    python instant_ngp_torch/bench/bwd_kernels.py --dx [--root DIR]
+    python instant_ngp_torch/bench/bwd_kernels.py --ab OLD_DIR [--dx] [--logs DIR]
     python instant_ngp_torch/bench/bwd_kernels.py --count
 
 ``--root DIR`` (default: this checkout) imports ``instant_ngp_torch`` from
@@ -33,12 +34,25 @@ and of the whole call (``device_ms``: the packing, F, the dW kernel and its
 reduction; in a tree before the dW kernel, the f32 dW products) on copies of
 the inputs read in turn.
 
+``--dx`` runs instead kernel K (csrc/hashgrid_bwd.cu) on the surface points
+of an SDF frame: the BVH ray cast of ``geometry/procedural.bumpy_torus``
+(256 x 136, seed 0, normalized as ``SdfTask`` loads it) from
+``chip_smoke.sdf_camera()`` at the Testbed's fov, the hits in pixel order,
+at 256^2 and 1920x1080 (``DX_SHAPES``), with configs/sdf/base.json's grid
+(14 levels x 2, 2^18 rows a hashed level) and a table and cotangent random
+from SEED, so that two trees see the same inputs without training. Each
+shape: K bit for bit against its plain version on every row, back to back
+ms, device and kernel ms from torch.profiler warm (the same inputs call
+after call) and cold (copies that fill L2 twice over, in turn), each after
+~30 ms of matrix products (``working_clock``), the plain version's ms and
+the byte bound.
+
 Weights, inputs and cotangents are random from SEED. ``--ab OLD_DIR``
 compares OLD_DIR with this checkout through ``bench/ab.py`` (old, new, new,
-old: each tree's ``chip_smoke.py`` and this script; with ``--wide`` or
-``--no-smoke`` only this script), writes the outputs under DIR (default build/bwd_ab/) and prints E's
-and F's times and the NeRF and image step times of each run. Without a card
-it raises.
+old: each tree's ``chip_smoke.py`` and this script; with ``--wide``, ``--dx``
+or ``--no-smoke`` only this script), writes the outputs under DIR (default
+build/bwd_ab/) and prints each case's times (and, with the smoke runs, the
+NeRF and image step times) of each run. Without a card it raises.
 
 ``--count`` runs on the CPU: for the image step's 2^18 stratified positions
 (seed-0 uniforms) on the 8192^2 grid, per level and in all, the row-adds of
@@ -59,6 +73,9 @@ SEED = 0
 N_FOX, N_IMAGE = 1 << 17, 1 << 18
 RAGGED = 37
 FOX_AABB_SCALE = 4
+DX_SHAPES = {"hits256": (256, 256), "hits1920x1080": (1920, 1080)}
+DX_MESH = (256, 136)  # bumpy_torus's grid: 69,632 triangles
+SDF_FOV = 50.625  # the Testbed's vertical field of view
 # the wide route's config MLPs (relu/none): name -> (widths, rows)
 WIDE_CASES = {"image_oneblob": ((256,) + (128,) * 8 + (3,), 1 << 18),
               "image_frequency": ((48,) + (128,) * 8 + (3,), 1 << 18),
@@ -184,6 +201,91 @@ def run_wide(root: Path) -> dict:
     return out
 
 
+def sdf_encoding():
+    """configs/sdf/base.json's grid as ``SdfTask`` autoconfigures it."""
+    from instant_ngp_torch.models.factory import autoconfig_grid_encoding
+    from instant_ngp_torch.ops.hashgrid import grid_encoding_from_config
+
+    cfg = json.loads((HERE / "configs" / "sdf" / "base.json").read_text())["encoding"]
+    return grid_encoding_from_config(autoconfig_grid_encoding(cfg, "sdf"), 3, device="meta")
+
+
+def mesh_hits(width: int, height: int, device):
+    """The surface points of the BVH ray cast of the SDF phase's mesh from
+    its camera, (n, 3) f32 on device in pixel order."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_torch.geometry.bvh import TriangleBvh
+    from instant_ngp_torch.geometry.mesh_io import normalize_to_unit_cube
+    from instant_ngp_torch.geometry.procedural import bumpy_torus
+    from instant_ngp_torch.render.camera import pinhole_rays
+
+    v, f = bumpy_torus(*DX_MESH, seed=SEED)
+    tris, _, _ = normalize_to_unit_cube(v[f])
+    o, d = pinhole_rays(width, height, _chip_smoke().sdf_camera(), SDF_FOV, "cpu")
+    o, d = o.numpy(), d.to(torch.float32).numpy()
+    t, _ = TriangleBvh(tris).raytrace(o, d)
+    hit = np.isfinite(t)
+    pos = (o[hit] + t[hit, None] * d[hit]).astype(np.float32)
+    return torch.from_numpy(pos).to(device).contiguous()
+
+
+def dx_inputs(width: int, height: int, device) -> tuple:
+    """(levels, table, x, g) of ``--dx`` at one frame size."""
+    import torch
+
+    enc = sdf_encoding()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = torch.rand((enc.n_entries, enc.n_features_per_level), generator=gen,
+                       device=device) * 2.0 - 1.0
+    x = mesh_hits(width, height, device)
+    g = torch.randn((x.shape[0], enc.n_output_dims), generator=gen, device=device)
+    return enc.levels, table, x, g
+
+
+def working_clock(device) -> None:
+    """~30 ms of f32 matrix products on the card, ahead of a timing, so that
+    it runs at its working clock and not at the one it idles at."""
+    import torch
+
+    a = torch.ones((4096, 4096), device=device)
+    for _ in range(10):
+        a @ a
+
+
+def run_dx(root: Path) -> dict:
+    """K at ``DX_SHAPES``: see the module's docstring."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode_dx
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this benchmark needs an NVIDIA GPU")
+    cs = _chip_smoke()
+    _, build_s = cuda_lib.build()
+    device = torch.device("cuda")
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0), "build_s": build_s, "K": {}}
+    with torch.no_grad():
+        for name, (w, h) in DX_SHAPES.items():
+            levels, table, x, g = dx_inputs(w, h, device)
+            working_clock(device)
+            v = cs.check_encode_dx(levels, "linear", table, x, g, f"{name} (BVH hits)")
+            copies = cs.cold_copies(table, x, g)
+            working_clock(device)
+            cold = cs.device_split(
+                lambda: hashgrid_encode_dx(levels, "linear", *next(copies)), "hashgrid_dx_kernel",
+                per_call=1)
+            del copies
+            out["K"][name] = {**{k: v[k] for k in ("rows", "equal_rows", "ms", "plain_ms",
+                                                   "bound_ms", "device_ms", "kernel_ms")},
+                              "device_ms_cold": cold["device_ms"],
+                              "kernel_ms_cold": cold["kernel_ms"], "timed_by": v["timed_by"]}
+    return out
+
+
 def run(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -238,7 +340,11 @@ def run(root: Path) -> dict:
 
 def summarize(res: dict) -> dict:
     """One --ab line's entries: each case's back-to-back ms; with --wide,
-    each case's [kernel_ms, device_ms]."""
+    each case's [kernel_ms, device_ms]; with --dx, each case's [ms,
+    kernel_ms, kernel_ms_cold, device_ms, device_ms_cold]."""
+    if "K" in res:
+        return {f"K:{case}": [v[k] for k in ("ms", "kernel_ms", "kernel_ms_cold", "device_ms",
+                                             "device_ms_cold")] for case, v in res["K"].items()}
     if "E" not in res:
         return {f"F:{case}": [v["kernel_ms"], v["device_ms"]] for case, v in res["F"].items()}
     return {f"{k}:{case}": v["ms"] for k in ("E", "F") for case, v in res[k].items()}
@@ -253,6 +359,7 @@ def main() -> None:
     ap.add_argument("--no-smoke", action="store_true",
                     help="--ab without each tree's chip_smoke.py run")
     ap.add_argument("--wide", action="store_true", help="F's wide route at WIDE_CASES only")
+    ap.add_argument("--dx", action="store_true", help="kernel K at DX_SHAPES only")
     args = ap.parse_args()
     if args.count:
         print(json.dumps(count()))
@@ -261,10 +368,12 @@ def main() -> None:
         sys.path.insert(0, str(HERE))
         from instant_ngp_torch.bench.ab import ab
 
+        mode = ("--wide",) if args.wide else ("--dx",) if args.dx else ()
         ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize,
-           smoke=not (args.wide or args.no_smoke), args=("--wide",) if args.wide else ())
+           smoke=not (mode or args.no_smoke), args=mode)
         return
-    print(json.dumps((run_wide if args.wide else run)(args.root.resolve())))
+    runner = run_wide if args.wide else run_dx if args.dx else run
+    print(json.dumps(runner(args.root.resolve())))
 
 
 if __name__ == "__main__":

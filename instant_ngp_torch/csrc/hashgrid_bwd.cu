@@ -275,132 +275,279 @@ int launch_bwd(const float* xp, const float* gp, const LevelTable& lv, int n_lev
 //             axis d holds the largest, smallest or middle fraction) · scale
 //   nearest: nothing (dt/dx = 0).
 // Plain version: instant_ngp_torch/ops/hashgrid.py::hashgrid_encode_dx_plain.
-// It runs where the SDF render takes its analytic normals, on the hit
-// positions of a frame.
+// It runs where the SDF render takes its analytic normals, once a frame on
+// the frame's hit positions (22K at 256^2, ~400K at 1920x1080).
 //
 // What bounds it on an H100: each (sample, level) reads 2^D (or 4) random
-// corner rows of F floats, as kernel A does, and a few dozen flops; it is
-// bound by its dependent gathers, and its byte bound counts x, g, the
-// distinct rows read and dx written.
+// corner rows of F floats, as kernel A does, and a few dozen flops. Its byte
+// bound counts x, g and dx once and the distinct rows read (at the SDF
+// config's 14 x 2 levels, 136 bytes a sample plus the rows). What holds it
+// from that bound is the row gathers: 8-byte rows at random in a 22 MB table
+// that L2 holds, each a 32-byte sector, behind a chain of round trips.
 //
-// Design: a thread a sample walks the levels in order from level 0, so dx
-// accumulates in the JAX package's order without a reduction; the corners
-// go c = 0 … 2^D−1, each gf_c an f-ordered dot, and the product over d' in
-// increasing d'. Corner indices, weights and the simplex rank masks are
-// computed as kernel E computes them (ties: the first index is the max, the
-// first the min, and amin = (amax + 1) % 3 where they coincide). The forward
-// keeps no residuals, so the corner rows are gathered again; the tables do
-// not change between forward and backward. With -fmad=false K equals its
-// plain version bit for bit.
+// Design (kernel A's structure):
+// - A block takes kDxTile = 32 consecutive samples and every level. Warps
+//   take the levels in turn (ceil(L / ceil(L / kDxWarps)) warps, so that
+//   each takes as many levels as the busiest: 7 warps of 2 levels at 14);
+//   a lane is a sample. A lane reads its x (12 contiguous bytes a lane) and
+//   its level's g (F floats, a vector load) straight from device memory,
+//   computes its corners and weights as kernel A does (the % by A's exact
+//   multiply-shift), issues all of the level's corner-row loads (F = 2 one
+//   float2, F = 4 one float4, F = 8 two) before the first dot product, and
+//   writes its level's col · scale (D floats) into a shared (L, 32, D)
+//   tile. The levels of a sample so run in parallel, not one after another.
+// - The level's kind (hashed or dense, a power-of-two size or not) is a
+//   template argument behind a warp-uniform branch. As a run-time value the
+//   compiler predicated both kinds' index arithmetic and issued it on every
+//   level: K is bound by the instructions it issues more than by its bytes.
+// - After one __syncthreads, thread e of the block's 32·D outputs sums its
+//   column of the tile in level order, acc = acc + c_l from 0.0f: the plain
+//   version's order, so with -fmad=false K equals it bit for bit. The (32, D)
+//   dx tile goes out with coalesced stores.
+// - The tile is at most 12 KB (L = 32, D = 3); __launch_bounds__ caps the
+//   registers at 64 so that an SM holds kDxMinBlocks = 4 blocks of 8 warps.
+// Measured and not kept (bench/dx_variants.py; PERF.md has the times): x
+// and g staged in shared memory first with 16-byte loads (a round trip and
+// a barrier before any corner load), x alone staged, 16 lanes a sample with
+// a shuffle sum, a warp a level at up to 16 warps, the two x-neighbour
+// corner rows of a cell read as one 16-byte pair where aligned, two levels
+// of a warp at once, registers capped for 6 or 8 blocks an SM, the level's
+// kind at run time.
+// Corner indices, weights and the simplex rank masks are computed as kernel
+// E computes them (ties: the first index is the max, the first the min, and
+// amin = (amax + 1) % 3 where they coincide). The forward keeps no
+// residuals, so the corner rows are gathered again; the tables do not change
+// between forward and backward.
 
-template <int D, int F>
-__global__ void __launch_bounds__(kThreads)
-hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ table,
-                   const float* __restrict__ g, LevelTable lv, int n_levels, int interp,
-                   long long n, float* __restrict__ dx) {
-    constexpr int kC = 1 << D;
-    const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (s >= n) return;
-    float xs[D], acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        xs[d] = x[s * D + d];
-        acc[d] = 0.0f;
+constexpr int kDxTile = 32;      // samples a block, one a lane
+constexpr int kDxWarps = 8;      // the most warps a block has
+constexpr int kDxMinBlocks = 4;  // blocks an SM holds, at most 64 registers a thread
+
+struct DxTable {
+    float scale[kMaxLevels];
+    uint32_t res[kMaxLevels];
+    uint32_t size[kMaxLevels];
+    uint32_t offset[kMaxLevels];
+    uint32_t magic[kMaxLevels];  // 0: size is a power of two and % size is a mask
+    uint32_t shift[kMaxLevels];
+    int hashed[kMaxLevels];
+};
+
+// one level's constants; the level is warp-uniform
+struct DxLevel {
+    float scale;
+    uint32_t res, size, magic, shift;
+    bool hashed;
+    const float* tab;
+};
+
+// the terms' tile of a block
+__host__ __device__ inline size_t dx_smem_bytes(int n_dims, int n_levels) {
+    return sizeof(float) * (size_t)n_levels * kDxTile * n_dims;
+}
+
+// v % size without a division (kernel A's mod_size): a mask where the size
+// is a power of two (kPow2: magic is 0)
+template <bool kPow2>
+__device__ __forceinline__ uint32_t dx_mod(uint32_t v, const DxLevel& lv) {
+    if constexpr (kPow2) return v & (lv.size - 1u);
+    const uint32_t t = __umulhi(v, lv.magic);
+    const uint32_t q = (t + ((v - t) >> 1)) >> lv.shift;
+    return v - q * lv.size;
+}
+
+// corner of the cell at grid g offset by bit d of `bits` along axis d, on a
+// hashed or dense level
+template <int D, bool kHashed, bool kPow2>
+__device__ __forceinline__ uint32_t dx_corner(const DxLevel& lv, const int g[D], int bits) {
+    const uint32_t c0 = (uint32_t)(g[0] + (bits & 1));
+    const uint32_t c1 = (uint32_t)(g[1] + ((bits >> 1) & 1));
+    uint32_t idx;
+    if constexpr (D == 3) {
+        const uint32_t c2 = (uint32_t)(g[2] + ((bits >> 2) & 1));
+        idx = kHashed ? c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)
+                      : c0 + c1 * lv.res + c2 * (lv.res * lv.res);
+    } else {
+        idx = kHashed ? c0 ^ (c1 * 2654435761u) : c0 + c1 * lv.res;
     }
-    const float* __restrict__ gs = g + s * ((long long)n_levels * F);
-    if (interp != kNearest) {
-        for (int l = 0; l < n_levels; ++l) {
-            const float scale = lv.scale[l];
-            const uint32_t res = lv.res[l], size = lv.size[l];
-            const bool hashed = lv.hashed[l] != 0;
-            const float* __restrict__ tab = table + (size_t)lv.offset[l] * F;
-            float gl[F];
+    return dx_mod<kPow2>(idx, lv);
+}
+
+// a load through the read-only cache (device memory) or a plain one (shared)
+template <bool kGlobal, typename T>
+__device__ __forceinline__ T dx_ld(const T* p) {
+    if constexpr (kGlobal) return __ldg(p);
+    else return *p;
+}
+
+// F floats at p, aligned to min(F, 4) floats, as one or two vector loads
+template <int F, bool kGlobal>
+__device__ __forceinline__ void dx_load(const float* __restrict__ p, float (&v)[F]) {
+    if constexpr (F == 1) {
+        v[0] = dx_ld<kGlobal>(p);
+    } else if constexpr (F == 2) {
+        const float2 q = dx_ld<kGlobal>(reinterpret_cast<const float2*>(p));
+        v[0] = q.x; v[1] = q.y;
+    } else {
 #pragma unroll
-            for (int f = 0; f < F; ++f) gl[f] = gs[l * F + f];
-            float t[D];
-            int gr[D];
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                const float p = fmaf(xs[d], scale, 0.5f);
-                const float fl = floorf(p);
-                t[d] = p - fl;
-                gr[d] = (int)fl;
-            }
-            if (D == 3 && interp == kSimplex && hashed) {
-                int amax = 0, amin = 0;
-                if (t[1] > t[amax]) amax = 1;
-                if (t[D - 1] > t[amax]) amax = 2;
-                if (t[1] < t[amin]) amin = 1;
-                if (t[D - 1] < t[amin]) amin = 2;
-                if (amin == amax) amin = (amax + 1) % 3;
-                const int bits[4] = {0, 1 << amax, 7 ^ (1 << amin), 7};
-                float gf[4];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const uint32_t idx = corner_index<D>(hashed, res, size, gr, bits[c]);
-                    const float* row = tab + (size_t)idx * F;
-                    float v = gl[0] * __ldg(row);
-#pragma unroll
-                    for (int f = 1; f < F; ++f) v = v + gl[f] * __ldg(row + f);
-                    gf[c] = v;
-                }
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    const float dt = d == amax ? gf[1] - gf[0] : d == amin ? gf[3] - gf[2]
-                                                                           : gf[2] - gf[1];
-                    acc[d] = acc[d] + dt * scale;
-                }
-                continue;
-            }
-            float gf[kC];
-#pragma unroll
-            for (int c = 0; c < kC; ++c) {
-                const float* row = tab + (size_t)corner_index<D>(hashed, res, size, gr, c) * F;
-                float v = gl[0] * __ldg(row);
-#pragma unroll
-                for (int f = 1; f < F; ++f) v = v + gl[f] * __ldg(row + f);
-                gf[c] = v;
-            }
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                float col = 0.0f;
-#pragma unroll
-                for (int c = 0; c < kC; ++c) {
-                    float prod = 1.0f;
-                    bool first = true;
-#pragma unroll
-                    for (int e = 0; e < D; ++e) {
-                        if (e == d) continue;
-                        const float a = ((c >> e) & 1) ? t[e] : 1.0f - t[e];
-                        prod = first ? a : prod * a;
-                        first = false;
-                    }
-                    const float term = gf[c] * (((c >> d) & 1) ? prod : -prod);
-                    col = c == 0 ? term : col + term;
-                }
-                acc[d] = acc[d] + col * scale;
-            }
+        for (int h = 0; h < F; h += 4) {
+            const float4 q = dx_ld<kGlobal>(reinterpret_cast<const float4*>(p + h));
+            v[h] = q.x; v[h + 1] = q.y; v[h + 2] = q.z; v[h + 3] = q.w;
         }
     }
+}
+
+// g · f over f in order
+template <int F>
+__device__ __forceinline__ float dx_dot(const float (&g)[F], const float (&f)[F]) {
+    float v = g[0] * f[0];
 #pragma unroll
-    for (int d = 0; d < D; ++d) dx[s * D + d] = acc[d];
+    for (int k = 1; k < F; ++k) v = v + g[k] * f[k];
+    return v;
+}
+
+// one level's term col · scale (D floats) of one sample; the level's kind
+// (hashed or dense, a power-of-two size or not) is a template argument, so
+// that a warp runs only its level's index arithmetic
+template <int D, int F, bool kHashed, bool kPow2>
+__device__ __forceinline__ void dx_level(const DxLevel& lv, bool simplex, const float (&pos)[D],
+                                         const float (&gl)[F], float (&out)[D]) {
+    constexpr int kC = 1 << D;
+    float t[D];
+    int gr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        const float p = fmaf(pos[d], lv.scale, 0.5f);
+        const float fl = floorf(p);
+        t[d] = p - fl;
+        gr[d] = (int)fl;
+    }
+    if constexpr (D == 3 && kHashed) {
+        if (simplex) {
+            int amax = 0, amin = 0;
+            if (t[1] > t[amax]) amax = 1;
+            if (t[2] > t[amax]) amax = 2;
+            if (t[1] < t[amin]) amin = 1;
+            if (t[2] < t[amin]) amin = 2;
+            if (amin == amax) amin = (amax + 1) % 3;
+            const int bits[4] = {0, 1 << amax, 7 ^ (1 << amin), 7};
+            float rows[4][F];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                dx_load<F, true>(lv.tab + (size_t)dx_corner<D, kHashed, kPow2>(lv, gr, bits[c]) * F,
+                                 rows[c]);
+            float gf[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) gf[c] = dx_dot<F>(gl, rows[c]);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float dt = d == amax ? gf[1] - gf[0] : d == amin ? gf[3] - gf[2]
+                                                                       : gf[2] - gf[1];
+                out[d] = dt * lv.scale;
+            }
+            return;
+        }
+    }
+    float rows[kC][F];
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+        dx_load<F, true>(lv.tab + (size_t)dx_corner<D, kHashed, kPow2>(lv, gr, c) * F, rows[c]);
+    float gf[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) gf[c] = dx_dot<F>(gl, rows[c]);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        float col = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+            float prod = 1.0f;
+            bool first = true;
+#pragma unroll
+            for (int e = 0; e < D; ++e) {
+                if (e == d) continue;
+                const float a = ((c >> e) & 1) ? t[e] : 1.0f - t[e];
+                prod = first ? a : prod * a;
+                first = false;
+            }
+            const float term = gf[c] * (((c >> d) & 1) ? prod : -prod);
+            col = c == 0 ? term : col + term;
+        }
+        out[d] = col * lv.scale;
+    }
+}
+
+template <int D, int F>
+__global__ void __launch_bounds__(kDxWarps * 32, kDxMinBlocks)
+hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ table,
+                   const float* __restrict__ g, DxTable lt, int n_levels, int interp,
+                   long long n, float* __restrict__ dx) {
+    extern __shared__ float cs[];  // (L, 32, D) each level's col · scale
+    const long long s0 = (long long)blockIdx.x * kDxTile;
+    const int rows = (int)(n - s0 < kDxTile ? n - s0 : kDxTile);
+    float* __restrict__ out = dx + s0 * D;
+    if (interp == kNearest) {  // dt/dx = 0 on every level
+        for (int e = threadIdx.x; e < rows * D; e += blockDim.x) out[e] = 0.0f;
+        return;
+    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    if (lane < rows) {
+        const long long s = s0 + lane;
+        float pos[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) pos[d] = __ldg(x + s * D + d);
+        const float* __restrict__ gs = g + s * ((long long)n_levels * F);
+        for (int l = warp; l < n_levels; l += warps) {
+            const DxLevel lv = {lt.scale[l], lt.res[l], lt.size[l], lt.magic[l], lt.shift[l],
+                                lt.hashed[l] != 0, table + (size_t)lt.offset[l] * F};
+            float gl[F];
+            dx_load<F, true>(gs + l * F, gl);
+            float c[D];
+            const bool simplex = interp == kSimplex, pow2 = lv.magic == 0;
+            if (lv.hashed) {  // the level's kind is warp-uniform: a branch, not predication
+                if (pow2) dx_level<D, F, true, true>(lv, simplex, pos, gl, c);
+                else dx_level<D, F, true, false>(lv, simplex, pos, gl, c);
+            } else {
+                if (pow2) dx_level<D, F, false, true>(lv, simplex, pos, gl, c);
+                else dx_level<D, F, false, false>(lv, simplex, pos, gl, c);
+            }
+#pragma unroll
+            for (int d = 0; d < D; ++d) cs[(l * kDxTile + lane) * D + d] = c[d];
+        }
+    }
+    __syncthreads();
+
+    // the plain version's order: from 0.0f, level 0 first
+    for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
+        float acc = 0.0f;
+        for (int l = 0; l < n_levels; ++l) acc = acc + cs[l * kDxTile * D + e];
+        out[e] = acc;
+    }
+}
+
+template <int D, int F>
+int launch_dx_f(const float* xp, const float* tp, const float* gp, const DxTable& lt,
+                int n_levels, int interp, long long n, float* dxp, cudaStream_t st) {
+    const size_t smem = dx_smem_bytes(D, n_levels);  // at most 12 KB
+    const long long blocks = (n + kDxTile - 1) / kDxTile;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int per_warp = (n_levels + kDxWarps - 1) / kDxWarps;  // levels the busiest warp takes
+    const int warps = (n_levels + per_warp - 1) / per_warp;
+    hashgrid_dx_kernel<D, F><<<(unsigned)blocks, 32 * warps, smem, st>>>(xp, tp, gp, lt, n_levels,
+                                                                         interp, n, dxp);
+    return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dx(const float* xp, const float* tp, const float* gp, const LevelTable& lv,
+int launch_dx(const float* xp, const float* tp, const float* gp, const DxTable& lt,
               int n_levels, int n_features, int interp, long long n, float* dxp,
               cudaStream_t st) {
-    const long long blocks_ll = (n + kThreads - 1) / kThreads;
-    if (blocks_ll > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)blocks_ll;
     switch (n_features) {
-        case 1: hashgrid_dx_kernel<D, 1><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
-        case 2: hashgrid_dx_kernel<D, 2><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
-        case 4: hashgrid_dx_kernel<D, 4><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
-        case 8: hashgrid_dx_kernel<D, 8><<<blocks, kThreads, 0, st>>>(xp, tp, gp, lv, n_levels, interp, n, dxp); break;
+        case 1: return launch_dx_f<D, 1>(xp, tp, gp, lt, n_levels, interp, n, dxp, st);
+        case 2: return launch_dx_f<D, 2>(xp, tp, gp, lt, n_levels, interp, n, dxp, st);
+        case 4: return launch_dx_f<D, 4>(xp, tp, gp, lt, n_levels, interp, n, dxp, st);
+        case 8: return launch_dx_f<D, 8>(xp, tp, gp, lt, n_levels, interp, n, dxp, st);
         default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -434,21 +581,26 @@ extern "C" int ngp_hashgrid_encode_bwd(const void* x, const void* g, const void*
     }
 }
 
-// Kernel K's launcher: x (n, D), the flat table (rows, F), g (n, L·F), the
-// level arrays (host), dx (n, D) out.
+// Kernel K's launcher: x (n, D), the flat table (rows, F) and g (n, L·F),
+// both aligned to min(F, 4) floats, the level arrays (host; magic and shift
+// as kernel A's), dx (n, D) out. n = 0 launches nothing.
 extern "C" int ngp_hashgrid_encode_dx(const void* x, const void* table, const void* g,
                                       const void* scale, const void* res, const void* size,
-                                      const void* offset, const void* hashed, int n_dims,
-                                      int n_levels, int n_features, int interp, long long n,
-                                      void* dx, void* stream) {
-    if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
-    LevelTable lv{};  // K reads no draw offsets
+                                      const void* offset, const void* hashed, const void* magic,
+                                      const void* shift, int n_dims, int n_levels,
+                                      int n_features, int interp, long long n, void* dx,
+                                      void* stream) {
+    if (n_levels < 1 || n_levels > kMaxLevels || n < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaSuccess;
+    DxTable lt;
     for (int l = 0; l < n_levels; ++l) {
-        lv.scale[l] = static_cast<const float*>(scale)[l];
-        lv.res[l] = (uint32_t) static_cast<const int*>(res)[l];
-        lv.size[l] = (uint32_t) static_cast<const int*>(size)[l];
-        lv.offset[l] = (uint32_t) static_cast<const int*>(offset)[l];
-        lv.hashed[l] = static_cast<const int*>(hashed)[l];
+        lt.scale[l] = static_cast<const float*>(scale)[l];
+        lt.res[l] = (uint32_t) static_cast<const int*>(res)[l];
+        lt.size[l] = (uint32_t) static_cast<const int*>(size)[l];
+        lt.offset[l] = (uint32_t) static_cast<const int*>(offset)[l];
+        lt.hashed[l] = static_cast<const int*>(hashed)[l];
+        lt.magic[l] = static_cast<const uint32_t*>(magic)[l];
+        lt.shift[l] = static_cast<const uint32_t*>(shift)[l];
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* xp = static_cast<const float*>(x);
@@ -456,8 +608,8 @@ extern "C" int ngp_hashgrid_encode_dx(const void* x, const void* table, const vo
     const float* gp = static_cast<const float*>(g);
     float* dxp = static_cast<float*>(dx);
     switch (n_dims) {
-        case 2: return launch_dx<2>(xp, tp, gp, lv, n_levels, n_features, interp, n, dxp, st);
-        case 3: return launch_dx<3>(xp, tp, gp, lv, n_levels, n_features, interp, n, dxp, st);
+        case 2: return launch_dx<2>(xp, tp, gp, lt, n_levels, n_features, interp, n, dxp, st);
+        case 3: return launch_dx<3>(xp, tp, gp, lt, n_levels, n_features, interp, n, dxp, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

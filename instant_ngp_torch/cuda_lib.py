@@ -64,9 +64,9 @@ SIGNATURES = {
     # float[L*8]), g_scale, n, dtable
     "hashgrid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _L, _P,
                             _P],
-    # x, table, g, level scale/res/size/offset/hashed (host arrays), n_dims,
-    # n_levels, n_features, interpolation, n, dx
-    "hashgrid_encode_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    # x, table, g, level scale/res/size/offset/hashed/magic/shift (host
+    # arrays), n_dims, n_levels, n_features, interpolation, n, dx
+    "hashgrid_encode_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
     # x (f32), w (host pointers, one f32 (in, out) layer each), g (f32), dims
     # (host int[n_layers+1]), n_layers, act, n, dx, dw (f32, zeroed), the
     # recompute's record (f32) or null

@@ -306,6 +306,14 @@ def _level_arrays(levels):
             (ctypes.c_int * L)(*[int(lv.hashed) for lv in levels]))
 
 
+@functools.lru_cache(maxsize=None)
+def _dx_array_addresses(levels) -> tuple[int, ...]:
+    """The addresses of kernel K's host level arrays (kernel A's seven), one
+    cache lookup a launch: hashing a grid's levels is most of the wrapper's
+    host time."""
+    return tuple(map(ctypes.addressof, (*_level_arrays(levels), *_magic_arrays(levels))))
+
+
 def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: int, name: str):
     """Kernels A and E take D 1 to 3 (D = 1: a slice of a Composite, as
     configs/nerf/tensor.json's third); K takes D 2 and 3."""
@@ -348,8 +356,9 @@ def _draw_offsets(n_levels: int, k: int) -> ctypes.Array:
 
 
 def row_alignment(n_features: int) -> int:
-    """Bytes to which kernel E's gradient rows must be aligned: a row of F
-    floats is one float2 (F = 2) or one or two float4 (F = 4, 8) atomic."""
+    """Bytes to which kernel E's gradient rows and kernel K's table and
+    cotangent rows must be aligned: a row of F floats is one float2 (F = 2)
+    or one or two float4 (F = 4, 8) atomic or load."""
     return 4 * min(n_features, 4)
 
 
@@ -388,8 +397,10 @@ def hashgrid_encode_bwd(levels, interpolation: str, x: torch.Tensor, g: torch.Te
 def hashgrid_encode_dx(levels, interpolation: str, table: torch.Tensor, x: torch.Tensor,
                        g: torch.Tensor) -> torch.Tensor:
     """See ``hashgrid_encode_dx_plain``. CPU tensors run the plain version;
-    CUDA tensors launch kernel K (a thread a sample, walking the levels in
-    order)."""
+    CUDA tensors launch kernel K (a block per 32 samples; warps take the
+    levels in turn, a lane a sample, and each sample's level terms are
+    summed in level order). A g whose rows are not aligned for K's vector
+    loads is copied first."""
     if x.device.type == "cpu":
         return hashgrid_encode_dx_plain(levels, interpolation, table, x, g)
     cuda_lib.check_cuda(x, table, g, dtype=torch.float32)
@@ -399,10 +410,15 @@ def hashgrid_encode_dx(levels, interpolation: str, table: torch.Tensor, x: torch
     _check_kernel_shapes(levels, interpolation, n_dims, n_features, "K")
     if g.shape != (n, L * n_features):
         raise ValueError(f"cotangent {tuple(g.shape)} for {n} samples and {L} levels")
+    if table.data_ptr() % row_alignment(n_features):
+        raise ValueError(f"kernel K's vector loads need table rows aligned to "
+                         f"{row_alignment(n_features)} bytes")
+    if g.data_ptr() % row_alignment(n_features):
+        g = g.clone()
     dx = torch.empty((n, n_dims), dtype=torch.float32, device=x.device)
     if n > 0:
         cuda_lib.launch("hashgrid_encode_dx", x.data_ptr(), table.data_ptr(), g.data_ptr(),
-                        *map(ctypes.addressof, _level_arrays(levels)), n_dims, L, n_features,
+                        *_dx_array_addresses(levels), n_dims, L, n_features,
                         INTERPOLATIONS[interpolation], n, dx.data_ptr())
     return dx
 

@@ -35,6 +35,20 @@ microbenchmarks:
   Testbed with no scene (its render through kernels A-D within 40 dB of the
   saved task's) and into one holding the scene (the optimizer state and
   grid bit for bit, a second save equal to the first, 20 more frames);
+- run: ``python -m instant_ngp_torch.run`` on the disk phase's scene in child
+  processes (the module run as ``__main__``, its kernels' launches printed
+  after it): untrained, then 300 steps of ``configs/nerf/base.json`` with a
+  snapshot, the test split's evaluation at spp 8 (PSNR/SSIM/ꟻLIP), a
+  1920x1080 screenshot and 2 video frames at spp 2 along a camera path that
+  ``CameraPath`` wrote through training views 0, 6 and 12; checked to exit 0,
+  to go through kernels A-H, to keep every printed loss finite, to raise the
+  test PSNR by the disk phase's gate and to write 1920x1080 images; the
+  snapshot loaded into a fresh Testbed scores test view 0 within 0.01 dB of
+  the entry point's own evaluation of the snapshot; then the pyngp surface on
+  fox (``ngp.Testbed()``, ``set_camera_to_training_view(0)``): a 256^2 spp 4
+  sRGB ``render`` through kernels A-D against the plain versions (≥ 40 dB),
+  spp 1 on a transparent background bit for bit ``task.render`` of the view,
+  and 1920x1080 frames timed at spp 1 and 8;
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
   entry at the edges of its clamps on a non-square texture and kernel J at
@@ -631,7 +645,7 @@ def view0(tb, res: int):
 def psnr_vs_plain(tb, frame: torch.Tensor, res: int, xf, kw) -> float:
     """PSNR of a kernel frame against the same render through the plain versions."""
     tb.task.set_use_kernels(False)
-    frame_plain = tb.render_tensor(res, res, xf, **kw)
+    frame_plain = tb.task.render(res, res, xf, **kw)
     tb.task.set_use_kernels(True)
     return psnr(frame, frame_plain)
 
@@ -666,9 +680,9 @@ def render_training_set(tb):
     crop = task.render_aabb_min, task.render_aabb_max
     task.render_aabb_min, task.render_aabb_max = task.aabb_min, task.aabb_max
     for i in range(ds.n_images):
-        frame = tb.render_tensor(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
-                                 principal_point=tuple(ds.principal_points[i]),
-                                 background=(0, 0, 0, 0))
+        frame = task.render(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
+                            principal_point=tuple(ds.principal_points[i]),
+                            background=(0, 0, 0, 0))
         alpha = frame[..., 3:4].clamp(0.0, 1.0)
         straight = torch.where(alpha > 0, frame[..., :3] / alpha.clamp(min=1e-6), 0.0)
         rgba = torch.cat([straight.clamp(0.0, 1.0), alpha], dim=-1)
@@ -1729,7 +1743,7 @@ def disk_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
         ref = task.render(w, h, test.xforms_start[0], **view)
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
-        frame = bare.render_tensor(w, h, test.xforms_start[0], **view)
+        frame = bare.task.render(w, h, test.xforms_start[0], **view)
         torch.cuda.synchronize()
         render_launches = dict(cuda_lib.LAUNCHES)
         check(all(render_launches[k] > 0 for k in RENDER_KERNELS),
@@ -1780,6 +1794,214 @@ def disk_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
     checks["march_rays"]["disk_render_window"] = window
     checks["composite_window"] = {"disk_render_window": composite}
     return launches, render_launches, checks
+
+
+RUN_STEPS = 300  # the entry point's --n_steps on the disk phase's scene
+RUN_FRAME_WH = (1920, 1080)  # its screenshot and video frames
+RUN_PATH_VIEWS = (0, 6, 12)  # the video's camera path: these training views
+RUN_VIDEO = ("0.2", "10", "2")  # --video_n_seconds, --video_fps, --video_spp: 2 frames at spp 2
+RUN_RELOAD_DB = 0.01  # a reloaded snapshot's test view 0 against the PSNR an eval printed
+RUN_FOX_RES = 256
+RUN_FOX_SPP = 4
+RUN_FOX_TIMED_SPP = (1, 8)  # fox frames timed at RUN_FRAME_WH
+RUN_KERNELS = TRAIN_KERNELS + ("composite_window",)  # training, then the renders
+# python -m instant_ngp_torch.run in a child process, which prints the
+# kernels' launch counts of its whole run after the entry point's own lines
+RUN_CHILD = ("import json, runpy, sys\n"
+             "from instant_ngp_torch import cuda_lib\n"
+             "sys.argv = ['instant_ngp_torch.run', *sys.argv[1:]]\n"
+             "runpy.run_module('instant_ngp_torch.run', run_name='__main__', alter_sys=True)\n"
+             "print('launches ' + json.dumps(cuda_lib.LAUNCHES))\n")
+
+
+def run_entry(args: list[str], what: str) -> tuple[list[str], dict, float]:
+    """``python -m instant_ngp_torch.run`` with ``args`` in a child process from
+    the repository root (the module run as ``__main__``, as ``-m`` runs it).
+    Prints its lines; fails unless it exits 0. Returns its lines, the
+    launches of its run and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_CHILD, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"run ({what}): {line}")
+    check(proc.returncode == 0, f"the {what} run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    launches = json.loads(lines[-1][len("launches "):])
+    return lines[:-1], launches, wall
+
+
+def run_summary(lines: list[str]) -> dict:
+    """The printed numbers of a run: losses, steps/s, per-view and mean
+    PSNR/SSIM/ꟻLIP."""
+    import re
+
+    views = [tuple(float(v) for v in m.groups()) for m in (
+        re.search(r"view \d+: psnr=(\S+) ssim=(\S+) flip=(\S+)", line) for line in lines) if m]
+    mean = next(m for m in (re.match(r"PSNR=(\S+) \[.*\] SSIM=(\S+) FLIP=(\S+)", line)
+                            for line in lines) if m)
+    losses = [float(m.group(1)) for m in (re.search(r"loss=(\S+)", line) for line in lines) if m]
+    rates = [float(m.group(1)) for m in (re.search(r"\((\S+) steps/s\)", line) for line in lines)
+             if m]
+    return {"views": views, "psnr": float(mean.group(1)), "ssim": float(mean.group(2)),
+            "flip": float(mean.group(3)), "losses": losses, "steps_per_s": rates}
+
+
+def run_reload_psnr(snapshot: Path, test_json: Path, device) -> float:
+    """A fresh Testbed loads the snapshot (no scene); its spp 8 render of
+    test view 0 on black, scored by ``metrics.mse_to_psnr`` against the
+    view's image premultiplied in linear colour, as the run scores it."""
+    from instant_ngp_torch.io.nerf_loader import load_nerf
+    from instant_ngp_torch.metrics import mse_to_psnr
+    from instant_ngp_torch.testbed import Testbed, premultiplied_srgb
+
+    tb = Testbed(device=device)
+    tb.load_snapshot(snapshot)
+    tb.task.min_transmittance = 1e-4
+    test = load_nerf(test_json)
+    w, h = test.resolution
+    frame = tb.task.render(w, h, test.xforms_start[0], focal_length=tuple(test.focal_lengths[0]),
+                           principal_point=tuple(test.principal_points[0]), spp=8,
+                           background=(0, 0, 0, 0))
+    gt = premultiplied_srgb(test.images[0].astype(np.float32) / 255.0)
+    pred = torch.clamp(frame[..., :3], 0, 1).cpu().numpy()
+    return mse_to_psnr(float(np.mean((pred - gt) ** 2)))
+
+
+def run_fox(device, card) -> tuple[dict, dict]:
+    """The pyngp surface on the fox snapshot: ``ngp.Testbed()``,
+    ``load_snapshot``, ``set_camera_to_training_view(0)``; a 256^2 spp 4 sRGB
+    render through the kernels against the same call through the plain
+    versions; spp 1 on a transparent background bit for bit ``task.render``
+    of the view; 1920x1080 frames timed at spp 1 and 8. Returns the spp 4
+    render's launches and the numbers."""
+    import instant_ngp_torch.pyngp as ngp
+    from instant_ngp_torch import cuda_lib
+
+    tb = ngp.Testbed()
+    tb.load_snapshot(SNAPSHOT)
+    tb.set_camera_to_training_view(0)
+    res = RUN_FOX_RES
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    frame = tb.render(res, res, spp=RUN_FOX_SPP, linear=False)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    check(all(launches[k] > 0 for k in RENDER_KERNELS), f"a kernel was not launched: {launches}")
+    check(frame.shape == (res, res, 4) and bool(np.isfinite(frame).all()),
+          f"pyngp render {frame.shape}, finite {bool(np.isfinite(frame).all())}")
+    tb.task.set_use_kernels(False)
+    plain = tb.render(res, res, spp=RUN_FOX_SPP, linear=False)
+    tb.task.set_use_kernels(True)
+    db = psnr(torch.from_numpy(frame), torch.from_numpy(plain))
+    print(f"run fox: pyngp render {res}x{res} spp {RUN_FOX_SPP} sRGB kernel vs plain: PSNR "
+          f"{db:.2f} dB; launches {launches}")
+    check(db >= MIN_PSNR_DB, f"pyngp spp {RUN_FOX_SPP} render kernel vs plain PSNR {db}")
+    tb.background_color = np.zeros(4, np.float32)
+    one = tb.render(res, res, spp=1, linear=False)
+    ds = tb.nerf_dataset
+    s = res / ds.resolution[tb.fov_axis]
+    ref = tb.task.render(res, res, ds.xforms_start[0], focal_length=tuple(ds.focal_lengths[0] * s),
+                         principal_point=tuple(ds.principal_points[0]), background=(0, 0, 0, 0))
+    ref = tb._to_space(ref, tb.task.rgb_activation == ngp.NerfActivation.EXPONENTIAL, False)
+    equal = np.array_equal(one, ref.cpu().numpy())
+    print(f"run fox: pyngp render spp 1 on (0, 0, 0, 0) equals task.render of view 0 bit for "
+          f"bit: {equal}")
+    check(equal, "the pyngp spp 1 render differs from task.render")
+    tb.background_color = np.ones(4, np.float32)
+    w, h = RUN_FRAME_WH
+    tb.render_tensor(w, h)  # a first 1080p frame: the allocator's blocks
+    times = {}
+    for spp in RUN_FOX_TIMED_SPP:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb.render_tensor(w, h, spp=spp)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        times[spp] = {"ms": sec * 1e3, "mrays_per_s": w * h * spp / sec / 1e6}
+        print(f"run fox: pyngp render {w}x{h} spp {spp}: {sec * 1e3:.1f} ms, "
+              f"{w * h * spp / sec / 1e6:.3f} Mrays/s on {card}")
+    return launches, {"fox_psnr_vs_plain_db": db, "fox_frames": times}
+
+
+def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
+    """The run entry point on the disk phase's scene at full width
+    (configs/nerf/base.json, the entry point's default): untrained (--n_steps
+    0) and trained (RUN_STEPS steps with a snapshot, the test split's
+    evaluation at spp 8, a 1920x1080 screenshot and a 2-frame video along a
+    camera path the port's CameraPath wrote through training views 0, 6 and
+    12), each a child process; every loss finite, the test PSNR up by the disk
+    phase's gate, the images 1920x1080; the snapshot loaded into a fresh
+    Testbed scores test view 0 within RUN_RELOAD_DB of what the entry point
+    prints for the snapshot (a third run, --load_snapshot); then the pyngp
+    surface on fox (``run_fox``). Returns the trained run's launches, the fox
+    render's and the numbers."""
+    from instant_ngp_torch.io.nerf_loader import load_nerf
+    from instant_ngp_torch.io.png import read_png
+    from instant_ngp_torch.render.camera_path import CameraPath
+
+    test_json = scene_dir / "transforms_test.json"
+    ds = load_nerf(scene_dir)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = Path(tmp)
+        path = CameraPath()
+        for i in RUN_PATH_VIEWS:
+            path.add_camera(ds.xforms_start[i], fov=50.0)
+        path.save(out / "path.json")
+        untrained, untrained_launches, untrained_s = run_entry(
+            ["--scene", str(scene_dir), "--n_steps", "0", "--test_transforms", str(test_json)],
+            "untrained")
+        before = run_summary(untrained)
+        # an untrained model's grid holds no occupied cell: its renders march
+        # and composite, and no sample reaches the encoding or the MLPs
+        check(all(untrained_launches[k] > 0 for k in ("march_rays", "composite_window")),
+              f"a render kernel was not launched: {untrained_launches}")
+        snapshot = out / "run.ingp"
+        w, h = RUN_FRAME_WH
+        lines, launches, wall = run_entry(
+            ["--scene", str(scene_dir), "--n_steps", str(RUN_STEPS), "--save_snapshot",
+             str(snapshot), "--test_transforms", str(test_json), "--screenshot_transforms",
+             str(test_json), "--screenshot_frames", "0", "--screenshot_dir", str(out / "shots"),
+             "--width", str(w), "--height", str(h), "--video_camera_path",
+             str(out / "path.json"), "--video_n_seconds", RUN_VIDEO[0], "--video_fps",
+             RUN_VIDEO[1], "--video_spp", RUN_VIDEO[2], "--video_output", str(out / "video")],
+            "trained")
+        after = run_summary(lines)
+        check(all(launches[k] > 0 for k in RUN_KERNELS), f"a kernel was not launched: {launches}")
+        check(len(after["losses"]) >= RUN_STEPS // 100 and all(np.isfinite(after["losses"])),
+              f"the trained run's losses {after['losses']}")
+        gain = after["psnr"] - before["psnr"]
+        print(f"run: test PSNR {before['psnr']:.2f} -> {after['psnr']:.2f} dB (+{gain:.2f}), SSIM "
+              f"{before['ssim']:.3f} -> {after['ssim']:.3f}, FLIP {before['flip']:.4f} -> "
+              f"{after['flip']:.4f} at spp 8; {RUN_STEPS} steps, steps/s as printed "
+              f"{after['steps_per_s']}; the trained run {wall:.1f} s, the untrained {untrained_s:.1f} "
+              f"s of wall time on {card}")
+        check(gain >= MIN_DISK_GAIN_DB["test"],
+              f"the run's test PSNR rose by {gain:.2f} dB, under {MIN_DISK_GAIN_DB['test']}")
+        images = [out / "shots" / "0000.png", out / "video" / "00000.png",
+                  out / "video" / "00001.png"]
+        shapes = [read_png(p).shape[:2] if p.exists() else None for p in images]
+        check(shapes == [(h, w)] * 3, f"the screenshot and video frames' sizes {shapes}")
+        check(not (out / "video" / "00002.png").exists(), "the video has more than 2 frames")
+        # the snapshot holds the raw parameters (no optimizer state, as
+        # scripts/run.py saves it), the trained run scored their EMA: the
+        # reload is held to the entry point's evaluation of the snapshot
+        reloaded, _, reload_s = run_entry(
+            ["--load_snapshot", str(snapshot), "--n_steps", "0", "--test_transforms",
+             str(test_json)], "snapshot")
+        reload_db = run_reload_psnr(snapshot, test_json, device)
+        printed = run_summary(reloaded)["views"][0][0]
+        print(f"run: the snapshot ({snapshot.stat().st_size} bytes) loaded into a fresh Testbed: "
+              f"test view 0 at spp 8 {reload_db:.4f} dB; the entry point's evaluation of the "
+              f"snapshot printed {printed:.2f} dB ({reload_s:.1f} s); the trained run printed "
+              f"{after['views'][0][0]:.2f} dB for its parameter EMA")
+        check(abs(reload_db - printed) <= RUN_RELOAD_DB,
+              f"the reloaded snapshot's test view 0 scores {reload_db:.4f} dB, the entry point "
+              f"printed {printed:.2f}")
+    fox_launches, fox = run_fox(device, card)
+    numbers = {"untrained": before, "trained": after, "trained_wall_s": wall,
+               "untrained_wall_s": untrained_s, "reload_view0_db": reload_db, **fox}
+    return launches, fox_launches, numbers
 
 
 IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
@@ -3647,7 +3869,7 @@ def main() -> None:
     tiny = Testbed("nerf", device=device)
     tiny.load_snapshot(TINY_SNAPSHOT)
     xf, kw = view0(tiny, TINY_RES)
-    frame = tiny.render_tensor(TINY_RES, TINY_RES, xf, **kw)
+    frame = tiny.task.render(TINY_RES, TINY_RES, xf, **kw)
     db = psnr_vs_plain(tiny, frame, TINY_RES, xf, kw)
     print(f"tiny fixture {TINY_RES}x{TINY_RES} kernel vs plain: PSNR {db:.2f} dB")
     check(db >= MIN_PSNR_DB, f"tiny fixture kernel vs plain PSNR {db}")
@@ -3656,7 +3878,7 @@ def main() -> None:
     xf, kw = view0(tb, RES)
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
-    frame = tb.render_tensor(RES, RES, xf, **kw)
+    frame = tb.task.render(RES, RES, xf, **kw)
     torch.cuda.synchronize()
     render_launches = dict(cuda_lib.LAUNCHES)
     print(f"render launches: {render_launches}")
@@ -3672,7 +3894,7 @@ def main() -> None:
     check(db >= MIN_PSNR_DB, f"kernel vs plain PSNR {db}")
 
     t0 = time.perf_counter()
-    tb.render_tensor(RES, RES, xf, **kw)
+    tb.task.render(RES, RES, xf, **kw)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
     print(f"render {RES}x{RES}: {frame_s * 1e3:.2f} ms, {RES * RES / frame_s / 1e6:.3f} Mrays/s "
@@ -3688,6 +3910,8 @@ def main() -> None:
     scenes = tempfile.TemporaryDirectory(dir=ROOT / "build")
     scene = Path(scenes.name) / "scene"
     disk_launches, disk_render_launches, disk_checks = disk_phase(device, card, scene)
+    # the run entry point on that scene, then the pyngp surface on fox
+    run_launches, run_fox_launches, _ = run_phase(device, card, scene)
     disk_pair = disk_checks.pop("fwd_bwd_pair")
     for r in results:  # the disk path's checks are variants of each record
         for variant, v in disk_checks.get(r["name"], {}).items():
@@ -3773,7 +3997,7 @@ def main() -> None:
              "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
              "sdf_render": sdf_render_launches, "volume": volume_launches,
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
-             "configs": config_launches}
+             "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

@@ -1,8 +1,9 @@
 """Constants, enums, activations and small math helpers.
 
-Port of ``instant_ngp_tpu/common.py`` (the parts the NeRF renderer and
-training step and the image primitive read). The marching constants
-follow the reference's nerf_device.cuh.
+Port of ``instant_ngp_tpu/common.py``: the marching constants (the
+reference's nerf_device.cuh), the enums the Testbed and pyngp surface name
+(same members and values as the JAX package's), ``Lens``, ``BoundingBox``
+and the colour and activation helpers, in torch.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import enum
 import math
 
+import numpy as np
 import torch
 
 # --- NeRF marching constants ---
@@ -63,6 +65,10 @@ class NerfActivation(enum.Enum):
     RELU = "relu"
     LOGISTIC = "logistic"
     EXPONENTIAL = "exponential"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    ReLU = "relu"
+    Logistic = "logistic"
+    Exponential = "exponential"
 
 
 # activation codes the composite kernels (D, G) take
@@ -88,6 +94,213 @@ class LensMode(enum.Enum):
     LATLONG = "latlong"
     EQUIRECTANGULAR = "equirectangular"
     ORTHOGRAPHIC = "orthographic"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Perspective = "perspective"
+    OpenCV = "opencv"
+    OpenCVFisheye = "opencv_fisheye"
+    FTheta = "ftheta"
+    LatLong = "latlong"
+    Equirectangular = "equirectangular"
+    Orthographic = "orthographic"
+
+
+class ColorSpace(enum.Enum):
+    LINEAR = "linear"
+    SRGB = "srgb"
+    # pybind11 member casing of the reference (python_api.cu) — alias
+    Linear = "linear"
+
+
+class RenderMode(enum.Enum):
+    AO = "ao"
+    SHADE = "shade"
+    NORMALS = "normals"
+    POSITIONS = "positions"
+    DEPTH = "depth"
+    DISTORTION = "distortion"
+    COST = "cost"
+    SLICE = "slice"
+    ENCODING_VIS = "encoding_vis"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Shade = "shade"
+    Normals = "normals"
+    Positions = "positions"
+    Depth = "depth"
+    Distortion = "distortion"
+    Cost = "cost"
+    Slice = "slice"
+    EncodingVis = "encoding_vis"
+
+
+class GroundTruthRenderMode(enum.Enum):
+    SHADE = "shade"
+    DEPTH = "depth"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Shade = "shade"
+    Depth = "depth"
+
+
+class MeshSdfMode(enum.Enum):
+    WATERTIGHT = "watertight"
+    RAYSTAB = "raystab"
+    PATH_ESCAPE = "path_escape"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Watertight = "watertight"
+    Raystab = "raystab"
+    PathEscape = "path_escape"
+    # exact sign from angle-weighted pseudonormals (the default; the
+    # reference's PathEscape needs OptiX)
+    PSEUDONORMAL = "pseudonormal"
+
+
+class TonemapCurve(enum.Enum):
+    IDENTITY = "identity"
+    ACES = "aces"
+    HABLE = "hable"
+    REINHARD = "reinhard"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Identity = "identity"
+    Hable = "hable"
+    Reinhard = "reinhard"
+
+
+class SDFGroundTruthMode(enum.Enum):
+    """Reference ESDFGroundTruthMode (python_api.cu:364-366)."""
+
+    RAYTRACED_MESH = "raytracedmesh"
+    SPHERETRACED_MESH = "spheretracedmesh"
+
+
+class EditingKernel(enum.Enum):
+    """Reference EEditingKernel (the camera-path keyframe brush,
+    camera_path.cu:80-115)."""
+
+    NONE = "none"
+    GAUSSIAN = "gaussian"
+    QUARTIC = "quartic"
+    HAT = "hat"
+    BOX = "box"
+
+
+class TrainMode(enum.Enum):
+    NERF = "nerf"
+    RFL = "rfl"
+    RFL_RELAX = "rflrelax"
+    # pybind11 member casing of the reference (python_api.cu) — aliases
+    Nerf = "nerf"
+    Rfl = "rfl"
+    RflRelax = "rflrelax"
+
+
+class Lens:
+    """pyngp ngp.Lens (python_api.cu:428-433): a lens mode and its parameter
+    vector. The mode takes a LensMode or its string value."""
+
+    def __init__(self, mode="perspective", params=None):
+        self.mode = LensMode(getattr(mode, "value", mode))
+        self.params = np.zeros(7, np.float32)
+        if params is not None:
+            p = np.asarray(params, np.float32).reshape(-1)
+            self.params[: len(p)] = p
+
+    def __repr__(self):
+        return f"Lens(mode={self.mode.value}, params={self.params.tolist()})"
+
+
+class BoundingBox:
+    """An axis-aligned box with pyngp's ngp.BoundingBox surface (semantics
+    of the reference's bounding_box.cuh:40-140), on the host."""
+
+    def __init__(self, min=None, max=None):  # noqa: A002
+        if min is None:  # empty, ready for enlarge()
+            self.min = np.full(3, np.inf, np.float32)
+            self.max = np.full(3, -np.inf, np.float32)
+        else:
+            self.min = np.asarray(min, np.float32).reshape(3).copy()
+            self.max = np.asarray(max, np.float32).reshape(3).copy()
+
+    def __repr__(self):
+        return f"BoundingBox(min={self.min.tolist()}, max={self.max.tolist()})"
+
+    def is_empty(self) -> bool:
+        return bool((self.max < self.min).any())
+
+    @property
+    def center(self):
+        return 0.5 * (self.min + self.max)
+
+    def diag(self):
+        return self.max - self.min
+
+    def enlarge(self, other) -> None:
+        """Grow to cover a point (3,) or another BoundingBox."""
+        if isinstance(other, BoundingBox):
+            self.min = np.minimum(self.min, other.min)
+            self.max = np.maximum(self.max, other.max)
+        else:
+            p = np.asarray(other, np.float32).reshape(3)
+            self.min = np.minimum(self.min, p)
+            self.max = np.maximum(self.max, p)
+
+    def inflate(self, amount: float) -> None:
+        self.min = self.min - amount
+        self.max = self.max + amount
+
+    def contains(self, p) -> bool:
+        p = np.asarray(p, np.float32).reshape(3)
+        return bool(((p >= self.min) & (p <= self.max)).all())
+
+    def intersection(self, other: "BoundingBox") -> "BoundingBox":
+        return BoundingBox(np.maximum(self.min, other.min), np.minimum(self.max, other.max))
+
+    def intersects(self, other: "BoundingBox") -> bool:
+        return not self.intersection(other).is_empty()
+
+    def relative_pos(self, p):
+        p = np.asarray(p, np.float32).reshape(3)
+        return (p - self.min) / np.maximum(self.diag(), 1e-12)
+
+    def ray_intersect(self, pos, dir):  # noqa: A002
+        """Slab-method ray/box interval (bounding_box.cuh:105-125): (tmin,
+        tmax); no hit ⇔ tmin > tmax. Zero direction components follow IEEE
+        inf semantics as the CUDA original."""
+        pos = np.asarray(pos, np.float32).reshape(3)
+        dir = np.asarray(dir, np.float32).reshape(3)  # noqa: A001
+        zero = dir == 0.0
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1 = (self.min - pos) / dir
+            t2 = (self.max - pos) / dir
+        lo = np.minimum(t1, t2)
+        hi = np.maximum(t1, t2)
+        # axis-parallel rays: inside the slab → unbounded, else no hit
+        inside = (pos >= self.min) & (pos <= self.max)
+        lo = np.where(zero, np.where(inside, -np.inf, np.inf), lo)
+        hi = np.where(zero, np.where(inside, np.inf, -np.inf), hi)
+        return float(lo.max()), float(hi.min())
+
+    def signed_distance(self, p) -> float:
+        """Negative inside, positive outside (bounding_box.cuh:127-131)."""
+        p = np.asarray(p, np.float32).reshape(3)
+        q = np.abs(p - self.center) - 0.5 * self.diag()
+        return float(np.linalg.norm(np.maximum(q, 0.0)) + min(float(q.max()), 0.0))
+
+    def distance(self, p) -> float:
+        return float(self.distance_sq(p) ** 0.5)
+
+    def distance_sq(self, p) -> float:
+        p = np.asarray(p, np.float32).reshape(3)
+        d = np.maximum(np.maximum(self.min - p, p - self.max), 0.0)
+        return float((d * d).sum())
+
+    def get_vertices(self):
+        """The 8 corners (bounding_box.cuh get_vertices order)."""
+        lo, hi = self.min, self.max
+        return np.asarray([
+            [lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]],
+            [lo[0], hi[1], lo[2]], [hi[0], hi[1], lo[2]],
+            [lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
+            [lo[0], hi[1], hi[2]], [hi[0], hi[1], hi[2]],
+        ], np.float32)
 
 
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:

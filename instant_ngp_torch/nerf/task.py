@@ -202,6 +202,10 @@ class NerfTask:
         self.exact_corners_after: int | None = 256  # stochastic table gradients before
         self.training_aborted = False
         self.training_step = 0
+        # pyngp's freeze toggles: a frozen part takes no update while Adam's
+        # moments advance (task.py:1082-1092)
+        self.shall_train_encoding = True
+        self.shall_train_network = True
         # the last step's device stats, kept across train() calls: they size
         # the next grid update's ray count (see nerf/train.train)
         self.last_stats: dict | None = None
@@ -213,6 +217,10 @@ class NerfTask:
         self.opt = Optimizer(OptimizerSpec.from_config(self.config.get("optimizer", {})),
                              self.model.matrix_mask())
         self.use_error_map = use_error_map
+        # the reference's two toggles (testbed.h:810-811): the image pick and
+        # the pixel pick, each error-proportional on its own
+        self.sample_image_proportional_to_error = use_error_map
+        self.sample_focal_plane_proportional_to_error = use_error_map
         self.error_map_res = nerf_train.error_map_res(n_rays_per_batch, dataset.n_images,
                                                       dataset.resolution)
         # the optimizer state is made at the first training step
@@ -258,6 +266,26 @@ class NerfTask:
         if self._images is None:
             self._images = torch.as_tensor(self.dataset.images, device=self.device)
         return self._images
+
+    def set_training_image(self, frame_idx: int, img) -> None:
+        """Replace one training image at run time (pyngp
+        ``nerf.training.set_image``, task.py:1337-1359): float (H, W, 4) in
+        the dataset's training colour space, stored as the loader stores it
+        (uint8 sRGB, or float16 for an HDR scene)."""
+        ds = self.dataset
+        if not 0 <= int(frame_idx) < ds.n_images:
+            raise IndexError(f"invalid frame index {frame_idx}")
+        img = np.asarray(img, np.float32)
+        expect = (ds.resolution[1], ds.resolution[0], 4)
+        if img.shape != expect:
+            raise ValueError(f"image should be {expect}, got {img.shape}")
+        if ds.is_hdr:
+            stored = img.astype(np.float16)
+        else:
+            stored = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        ds.images[frame_idx] = stored
+        if self._images is not None:
+            self._images[int(frame_idx)] = torch.from_numpy(stored).to(self.device)
 
     @property
     def skipmip(self) -> torch.Tensor:
@@ -456,12 +484,20 @@ class NerfTask:
     def render(self, width: int, height: int, camera_matrix, focal_length=None,
                principal_point=(0.5, 0.5), fov: float = 50.0, spp: int = 1,
                background=(0.0, 0.0, 0.0, 0.0), to_srgb: bool = False,
-               render_mode: str = "shade") -> torch.Tensor:
-        """Render a frame → (H, W, 4) f32 RGBA tensor on the task's device.
-        Pixel centers, the dataset's lens. Shade mode, spp 1 and no depth
-        of field are what this slice ports."""
-        if render_mode != "shade" or spp != 1:
-            raise NotImplementedError("only shade mode at spp 1 is ported yet")
+               render_mode: str = "shade", uv_warp_fn=None, return_depth: bool = False):
+        """Render a frame → (H, W, 4) f32 RGBA tensor on the task's device
+        (task.py:2128-2342), through the dataset's lens. ``spp`` samples a
+        pixel: sample 0 at the pixel centre, sample s ≥ 1 offset by
+        (halton(s, 2), halton(s, 3)); ``uv_warp_fn`` maps each sample's (n,
+        2) numpy uv before ray generation (foveation). rgb and alpha (and
+        depth) are summed over the samples in sample order on the device,
+        scaled by 1/spp, and only then is ``background`` blended in. With
+        ``return_depth``: (frame, (H, W) expected termination depth). Shade
+        mode only; the other render modes and depth of field wait for
+        ROADMAP Queue 1 item 2."""
+        if render_mode != "shade":
+            raise NotImplementedError(f"render mode {render_mode!r} waits for ROADMAP Queue 1 "
+                                      "item 2 (the rest of NeRF)")
         if focal_length is None:
             fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
             focal_length = (fl, fl)
@@ -469,22 +505,48 @@ class NerfTask:
         ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
         xs = xs.reshape(-1).astype(np.float32)
         ys = ys.reshape(-1).astype(np.float32)
-        uv = torch.from_numpy(np.stack([(xs + 0.5) / width, (ys + 0.5) / height], -1)
-                              .astype(np.float32)).to(self.device)
+        n = xs.shape[0]
         wh = self._t([width, height])
         fl, pp = self._t(focal_length), self._t(principal_point)
-        rgbs, alphas = [], []
-        for i in range(0, uv.shape[0], RENDER_CHUNK):
-            o, d, tmin, tmax = self._prep_rays(uv[i:i + RENDER_CHUNK], wh, fl, pp, xform)
-            rgb, alpha, _, _ = self._render_rays(o, d, tminmax=(tmin, tmax))
-            rgbs.append(rgb)
-            alphas.append(alpha)
-        rgb, alpha = torch.cat(rgbs), torch.cat(alphas)
+        rgb_acc = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+        alpha_acc = torch.zeros((n,), dtype=torch.float32, device=self.device)
+        depth_acc = torch.zeros((n,), dtype=torch.float32, device=self.device)
+        for s in range(max(spp, 1)):
+            off = (0.5, 0.5) if s == 0 else (halton(s, 2), halton(s, 3))
+            uv = np.stack([(xs + off[0]) / width, (ys + off[1]) / height], -1).astype(np.float32)
+            if uv_warp_fn is not None:
+                uv = np.asarray(uv_warp_fn(uv), np.float32)
+            uv = torch.from_numpy(uv).to(self.device)
+            rgbs, alphas, depths = [], [], []
+            for i in range(0, n, RENDER_CHUNK):
+                o, d, tmin, tmax = self._prep_rays(uv[i:i + RENDER_CHUNK], wh, fl, pp, xform)
+                rgb, alpha, depth, _ = self._render_rays(o, d, tminmax=(tmin, tmax))
+                rgbs.append(rgb)
+                alphas.append(alpha)
+                depths.append(depth)
+            rgb_acc += torch.cat(rgbs)
+            alpha_acc += torch.cat(alphas)
+            depth_acc += torch.cat(depths)
+        inv = 1.0 / max(spp, 1)
+        rgb, alpha = rgb_acc * inv, alpha_acc * inv
         bg = self._t(background)
         rgb = rgb + (1.0 - alpha)[:, None] * bg[None, :3] * (bg[3] if len(bg) > 3 else 1.0)
         if to_srgb:
             rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
-        return torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
+        frame = torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
+        if return_depth:
+            return frame, (depth_acc * inv).reshape(height, width)
+        return frame
+
+
+def halton(i: int, b: int) -> float:
+    """The i-th element of the base-b Halton sequence (task.py:2201-2207)."""
+    f, r = 1.0, 0.0
+    while i > 0:
+        f /= b
+        r += f * (i % b)
+        i //= b
+    return r
 
 
 def _aabb_entry(o, d, aabb_min, aabb_max):

@@ -99,17 +99,23 @@ def _bin(cdf: torch.Tensor, idx: torch.Tensor):
 def sample_pixels(task, u_img: torch.Tensor, uv_u: torch.Tensor, use_cdf: bool):
     """(image, uv, pdf) from uniforms (task.py:763-840). Without the error
     CDF: a uniform image and uv. With it: the image from the smoothed image
-    CDF and the pixel half uniformly, half from the per-image 2-D CDF
-    (reference sample_cdf_2d / pdf_2d, nerf_device.cuh:497-553); inverse
-    CDFs are compare-counts."""
+    CDF (if ``sample_image_proportional_to_error``) and the pixel half
+    uniformly, half from the per-image 2-D CDF (if
+    ``sample_focal_plane_proportional_to_error``; reference sample_cdf_2d /
+    pdf_2d, nerf_device.cuh:497-553); inverse CDFs are compare-counts."""
     n_img = task.dataset.n_images
     R = u_img.shape[0]
-    if not (task.use_error_map and use_cdf):
-        img = torch.clamp((u_img * n_img).to(torch.int64), 0, n_img - 1)
-        return img, uv_u, torch.ones((R,), dtype=torch.float32, device=uv_u.device)
+    img_on = task.use_error_map and use_cdf and task.sample_image_proportional_to_error
+    uv_on = task.use_error_map and use_cdf and task.sample_focal_plane_proportional_to_error
+    ones = torch.ones((R,), dtype=torch.float32, device=uv_u.device)
+    if img_on:
+        img = torch.clamp(torch.sum(task.cdf_img[None, :] < u_img[:, None], dim=1), 0, n_img - 1)
+        pdf_img = task.pmf_img[img] * n_img
+    else:
+        img, pdf_img = torch.clamp((u_img * n_img).to(torch.int64), 0, n_img - 1), ones
+    if not uv_on:
+        return img, uv_u, pdf_img
     eh, ew = task.error_map_res
-    img = torch.clamp(torch.sum(task.cdf_img[None, :] < u_img[:, None], dim=1), 0, n_img - 1)
-    pdf_img = task.pmf_img[img] * n_img
     ux, uy = uv_u[:, 0], uv_u[:, 1]
     use_uniform = ux < 0.5
     ux_c = (ux - 0.5) * 2.0
@@ -395,7 +401,15 @@ def train_step(task, draws: StepDraws) -> dict:
     """One training step in place. Returns device scalars ``loss`` (mean
     per-ray loss) and ``measured_samples`` (valid samples marched)."""
     grads, per_ray, batch = step_gradients(task, draws)
-    task.opt.update(grads, task.optimizer_state(), task.model.param_list())
+    params = task.model.param_list()
+    n_net = len(task.model.density_network.weights) + len(task.model.rgb_network.weights)
+    frozen = ((params[:n_net] if not task.shall_train_network else [])
+              + (params[n_net:] if not task.shall_train_encoding else []))
+    kept = [p.detach().clone() for p in frozen]
+    task.opt.update(grads, task.optimizer_state(), params)
+    with torch.no_grad():
+        for p, k in zip(frozen, kept):
+            p.copy_(k)
     if task.use_error_map:
         deposit_error(task, draws.img_idx, batch.uv, per_ray, draws.pdf)
     return {"loss": torch.mean(per_ray), "measured_samples": torch.sum(batch.n_valid)}

@@ -122,6 +122,10 @@ class SdfTask(NetworkTask):
         self.producer_seconds = 0.0
         self.fresh_batches = 0
         self.reused_batches = 0
+        # a fixed (points, distances) set in the unit cube that replaces the
+        # producer (``override_training_data``), and the next batch's start
+        self.override: tuple[np.ndarray, np.ndarray] | None = None
+        self._override_idx = 0
         self._iou_truth: dict = {}
 
     def set_use_kernels(self, flag: bool) -> None:
@@ -218,10 +222,39 @@ class SdfTask(NetworkTask):
         pts, d = batch
         return torch.from_numpy(pts).to(self.device), torch.from_numpy(d).to(self.device)
 
+    def override_training_data(self, points: np.ndarray, distances: np.ndarray) -> None:
+        """Train on a fixed (points, distances) set instead of the producer's
+        batches (pyngp ``override_sdf_training_data``, task.py:231-260). The
+        points are in the mesh's raw frame and map into the unit cube as the
+        mesh does (raw·scale + offset), the distances by the same scale; the
+        producer stops."""
+        pts = np.asarray(points, np.float32)
+        d = np.asarray(distances, np.float32).reshape(-1)
+        if pts.ndim != 2 or pts.shape[1] != 3 or pts.shape[0] != d.shape[0]:
+            raise ValueError(f"invalid points<->distances data: {pts.shape} vs {d.shape}")
+        self.stop_producer()
+        self.override = (pts * self.mesh_scale + self.mesh_offset, d * self.mesh_scale)
+        self._override_idx = 0
+
+    def _next_override_batch(self) -> tuple[np.ndarray, np.ndarray]:
+        """The next ``batch_size`` rows of the fixed set, wrapping around."""
+        pts, d = self.override
+        idx = (self._override_idx + np.arange(self.batch_size)) % len(d)
+        self._override_idx = int((self._override_idx + self.batch_size) % len(d))
+        return pts[idx], d[idx]
+
     def train(self, n_steps: int = 1) -> float:
         """n steps on the producer's batches. The first waits for a fresh
         batch; a later step whose fresh batch is not ready reuses the last
-        (task.py:262-295). Returns the last step's loss (the one host read)."""
+        (task.py:262-295). With a fixed set (``override_training_data``),
+        each step takes its next rows. Returns the last step's loss (the one
+        host read)."""
+        if self.override is not None:
+            loss = None
+            for _ in range(n_steps):
+                loss = self.train_step(*self.to_device(self._next_override_batch()))
+                self.training_step += 1
+            return float(loss) if loss is not None else 0.0
         q = self._batch_producer()
         loss = None
         last = None

@@ -1,20 +1,24 @@
-"""A minimal ``Testbed`` (port of the NeRF, image, SDF and volume branches,
-the training tick and the snapshots of ``instant_ngp_tpu/testbed.py``): train
-a NeRF scene from disk or an in-memory dataset, fit an image, fit a mesh's
-signed-distance field, fit a density grid's neural volume, save a snapshot,
-and load one to render or to train on.
+"""The ``Testbed`` and its pyngp surface (port of ``instant_ngp_tpu/testbed.py``):
+train a NeRF scene from disk or an in-memory dataset, fit an image, fit a
+mesh's signed-distance field, fit a density grid's neural volume, render
+them through pyngp's ``render``, evaluate, save a snapshot, and load one to
+render or to train on.
 
-    tb = Testbed("nerf")  # on the card; device="cpu" runs the plain versions
+    tb = Testbed()  # on the card; device="cpu" runs the plain versions
     tb.load_training_data("scene_dir")  # a transforms.json scene, configs/nerf/base.json
     for _ in range(n):
         tb.frame()  # one training step; tb.loss is its EMA
     tb.save_snapshot("scene.ingp", include_optimizer_state=True)
 
-    tb = Testbed("nerf")
+    tb = Testbed()
     tb.load_snapshot("scene.ingp")  # no scene: cameras from the snapshot, render only
-    frame = tb.render(256, 256, camera_matrix, focal_length=..., ...)  # numpy (H, W, 4)
+    tb.set_camera_to_training_view(0)
+    frame = tb.render(1920, 1080, spp=8, linear=False)  # numpy (H, W, 4), sRGB
+    tb.screenshot("shot.png", 1920, 1080, spp=4)
+    tb.load_camera_path("path.json")
+    frame = tb.render(1920, 1080, start_t=0.5, end_t=0.55)  # a frame of the path
 
-    tb = Testbed("nerf")
+    tb = Testbed()
     tb.load_training_data("scene_dir")
     tb.load_snapshot("scene.ingp")  # onto the scene: training continues
 
@@ -51,29 +55,73 @@ and load one to render or to train on.
 Snapshots are the JAX package's format, key for key: each package reads
 the other's.
 
-``render`` returns the frame on the host, as pyngp's ``render_to_cpu`` and
-the JAX package's ``Testbed.render`` do; ``render_tensor`` returns the same
-frame as a tensor on the task's device, for code that keeps working on it.
+``render`` takes pyngp's ``render_to_cpu`` arguments (width, height, spp,
+linear, start_t, end_t, fps, shutter_fraction, camera_matrix, fov) and
+returns the frame on the host; ``render_tensor`` returns the same frame as a
+tensor on the task's device. A NeRF frame's camera is the Testbed's view:
+``camera_matrix`` with ``fov`` and ``screen_center``, or a training view's
+intrinsics after ``set_camera_to_training_view``; its background is
+``background_color``, white by default, and its colour linear unless
+``linear`` is False. ``NerfTask.render`` takes a camera and intrinsics of
+its own and returns the task's colour on transparent black.
+
+What waits for a later slice raises ``NotImplementedError`` naming its item
+of ROADMAP Queue 1 (``NOT_PORTED_ITEMS``): methods when called, knobs when
+set to anything but their default.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import math
+import threading
+import time
+import warnings
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from pathlib import Path
-
 from . import snapshot as snapshot_io
-from .common import RandomMode, TestbedMode, linear_to_srgb, srgb_to_linear
+from .common import (
+    BoundingBox,
+    ColorSpace,
+    GroundTruthRenderMode,
+    Lens,
+    LossType,
+    MeshSdfMode,
+    NerfActivation,
+    RandomMode,
+    RenderMode,
+    TestbedMode,
+    TonemapCurve,
+    TrainMode,
+    linear_to_srgb,
+    srgb_to_linear,
+)
 from .config import default_config, load_network_config
 from .image_fit.task import ImageTask
-from .io.image import load_image
+from .io.image import load_image, save_image
 from .io.nerf_loader import NerfDataset, load_nerf
 from .models import network as image_network
 from .models import nerf_network
 from .nerf.task import NerfTask
+from .ops.encodings import encoding_tables
+from .ops.losses import loss_type_from_string
+from .render.camera_path import CameraPath
+from .render.camera_predictor import CameraPredictionMode, MatLogCameraPredictor
 from .sdf.task import SdfTask
 from .volume.task import VolumeTask
+
+# ROADMAP Queue 1's items that parts of the surface wait for
+NOT_PORTED_ITEMS = {2: "the rest of NeRF", 3: "the baked and slab renders",
+                    4: "sharding and the viewer"}
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} waits for ROADMAP Queue 1 item {item} "
+                               f"({NOT_PORTED_ITEMS[item]})")
 
 
 def mode_from_scene(path) -> TestbedMode:
@@ -120,10 +168,15 @@ def _empty_nerf_dataset_from_snapshot(snap: dict) -> NerfDataset:
     )
 
 
-class LossEma:
-    """EMA meter of the training loss (reference common_host.h:83-129)."""
+def _home_camera() -> np.ndarray:
+    return np.concatenate(
+        [np.eye(3, dtype=np.float32), np.array([[0.5], [0.5], [-1.5]], np.float32)], axis=1)
 
-    def __init__(self, half_life: float = 10.0):
+
+class Ema:
+    """EMA meter (reference common_host.h:83-129)."""
+
+    def __init__(self, half_life: float = 50.0):
         self.alpha = 0.5 ** (1.0 / half_life)
         self.value = 0.0
         self.n = 0
@@ -131,6 +184,429 @@ class LossEma:
     def update(self, v: float) -> None:
         self.value = self.alpha * self.value + (1 - self.alpha) * v if self.n else v
         self.n += 1
+
+    def val(self) -> float:
+        return self.value
+
+
+def _knob(name: str, default, item: int = 2):
+    """A pyngp knob that waits for a Queue 1 item: it reads its default and
+    refuses any other value."""
+
+    def get(self):
+        return default
+
+    def set(self, v):
+        if v != default:
+            raise not_ported(f"{name} = {v!r}", item)
+
+    return property(get, set, doc=f"pyngp's {name}; only {default!r} until Queue 1 item {item}.")
+
+
+def _method(name: str, item: int = 2):
+    """A pyngp method that waits for a Queue 1 item."""
+
+    def method(self, *args, **kwargs):
+        raise not_ported(name, item)
+
+    method.__name__ = name
+    return method
+
+
+class _ImageMetadata:
+    """Per-image view of dataset metadata (pyngp's
+    TrainingImageMetadata binding; python_api.cu:755-765)."""
+
+    def __init__(self, ds: NerfDataset, i: int):
+        if ds.per_image_resolution is not None:
+            self.resolution = tuple(int(v) for v in ds.per_image_resolution[i])
+        else:
+            self.resolution = tuple(int(v) for v in ds.resolution)
+        self.focal_length = tuple(float(v) for v in ds.focal_lengths[i])
+        self.principal_point = tuple(float(v) for v in ds.principal_points[i])
+        self.rolling_shutter = tuple(float(v) for v in np.asarray(ds.rolling_shutter[i]).reshape(4))
+        self.lens = Lens(ds.lens_mode, ds.lens_params)
+        self.camera_distortion = self.lens  # pyngp's older name (python_api.cu:757-758)
+        self.light_dir = (1e4, 1e4, 1e4)  # the reference's default (unset)
+
+
+class _DatasetView:
+    """pyngp testbed.nerf.training.dataset (python_api.cu:880-930)."""
+
+    def __init__(self, tb: "Testbed"):
+        self._tb = tb
+
+    @property
+    def _ds(self) -> NerfDataset:
+        return self._tb.nerf_dataset
+
+    @property
+    def n_images(self) -> int:
+        return int(self._ds.n_images)
+
+    @property
+    def metadata(self):
+        return [_ImageMetadata(self._ds, i) for i in range(self._ds.n_images)]
+
+    @property
+    def transforms(self):
+        return np.asarray(self._ds.xforms_start, np.float32)
+
+    @property
+    def render_aabb(self) -> BoundingBox:
+        if self._ds.render_aabb is None:
+            return BoundingBox(np.zeros(3), np.ones(3))
+        return BoundingBox(self._ds.render_aabb[0], self._ds.render_aabb[1])
+
+    @property
+    def up(self):
+        return np.asarray(self._ds.up, np.float32)
+
+    @property
+    def offset(self):
+        return np.asarray(self._ds.offset, np.float32)
+
+    @property
+    def scale(self) -> float:
+        return float(self._ds.scale)
+
+    @property
+    def aabb_scale(self) -> int:
+        return int(self._ds.aabb_scale)
+
+    @property
+    def from_mitsuba(self) -> bool:
+        return bool(self._ds.from_mitsuba)
+
+    @property
+    def is_hdr(self) -> bool:
+        return bool(self._ds.is_hdr)
+
+    @property
+    def envmap_resolution(self):
+        return (0, 0)  # the port's loader refuses an envmap
+
+    @property
+    def render_aabb_to_local(self):
+        m = self._ds.render_aabb_to_local
+        return np.eye(3, dtype=np.float32) if m is None else np.asarray(m, np.float32)
+
+    @property
+    def paths(self):
+        return list(self._ds.paths)
+
+
+class _NerfTrainingView:
+    """pyngp testbed.nerf.training.* (python_api.cu Testbed::Nerf::Training).
+    Settings made before a scene is loaded are queued and applied when its
+    task is built. Camera, exposure, focal, distortion and latent
+    optimization, the RFL modes, depth supervision and the sharpness error
+    wait for Queue 1 item 2."""
+
+    def __init__(self, tb: "Testbed"):
+        self._tb = tb
+
+    @property
+    def dataset(self) -> _DatasetView:
+        return _DatasetView(self._tb)
+
+    def _task(self) -> NerfTask | None:
+        task = self._tb.task
+        return task if isinstance(task, NerfTask) else None
+
+    def _get(self, attr: str, pending: str, default):
+        task = self._task()
+        return getattr(task, attr) if task is not None else self._tb._nerf_pending.get(
+            pending, default)
+
+    def _set(self, attr: str, pending: str, v) -> None:
+        task = self._task()
+        if task is not None:
+            setattr(task, attr, v)
+        else:
+            self._tb._nerf_pending[pending] = v
+
+    near_distance = property(lambda s: s._get("training_near_distance", "near_distance", 0.1),
+                             lambda s, v: s._set("training_near_distance", "near_distance",
+                                                 float(v)))
+    random_bg_color = property(lambda s: s._get("random_bg_color", "random_bg_color", True),
+                               lambda s, v: s._set("random_bg_color", "random_bg_color", bool(v)))
+    density_grid_decay = property(
+        lambda s: s._get("density_grid_decay", "density_grid_decay", 0.95),
+        lambda s, v: s._set("density_grid_decay", "density_grid_decay", float(v)))
+    sample_image_proportional_to_error = property(
+        lambda s: s._get("sample_image_proportional_to_error",
+                         "sample_image_proportional_to_error", True),
+        lambda s, v: s._set("sample_image_proportional_to_error",
+                            "sample_image_proportional_to_error", bool(v)))
+    sample_focal_plane_proportional_to_error = property(
+        lambda s: s._get("sample_focal_plane_proportional_to_error",
+                         "sample_focal_plane_proportional_to_error", True),
+        lambda s, v: s._set("sample_focal_plane_proportional_to_error",
+                            "sample_focal_plane_proportional_to_error", bool(v)))
+
+    @property
+    def train_mode(self) -> TrainMode:
+        return TrainMode.NERF
+
+    @train_mode.setter
+    def train_mode(self, v) -> None:
+        if TrainMode(getattr(v, "value", v)) != TrainMode.NERF:
+            raise not_ported(f"train_mode {TrainMode(getattr(v, 'value', v)).value}", 2)
+
+    @property
+    def n_images_for_training(self) -> int:
+        return self.dataset.n_images
+
+    @property
+    def loss_type(self) -> LossType:
+        """pyngp nerf.training.loss_type (python_api.cu:785): Huber or L2."""
+        task = self._task()
+        if task is None:
+            return loss_type_from_string(self._tb._nerf_pending.get("loss_type", "huber"))
+        return task.loss_type
+
+    @loss_type.setter
+    def loss_type(self, v) -> None:
+        loss = loss_type_from_string(str(getattr(v, "name", v)))
+        if loss not in (LossType.HUBER, LossType.L2):
+            raise not_ported(f"the NeRF loss {loss.value}", 2)
+        self._set("loss_type", "loss_type", loss if self._task() is not None else loss.value)
+
+    @property
+    def linear_colors(self) -> bool:
+        """pyngp nerf.training.linear_colors (python_api.cu:784): HDR scenes
+        train in linear colour, LDR ones in sRGB (read-only, chosen by the
+        dataset, testbed_nerf.cu:2354)."""
+        ds = self._tb.nerf_dataset
+        return bool(ds.is_hdr) if ds is not None else False
+
+    def get_camera_extrinsics(self, frame_idx: int) -> np.ndarray:
+        """3×4 camera-to-world of a training view in the source (nerf)
+        convention (testbed_nerf.cu:2287-2292); identity out of range."""
+        task = self._task()
+        if task is None:
+            raise RuntimeError("load a NeRF scene first")
+        ds = task.dataset
+        i = int(frame_idx)
+        if not 0 <= i < ds.n_images:
+            return np.eye(3, 4, dtype=np.float32)
+        return ds.ngp_matrix_to_nerf(np.asarray(ds.xforms_start[i], np.float32))
+
+    def set_image(self, frame_idx: int, img, depth_img=None, depth_scale: float = 1.0) -> None:
+        """pyngp testbed.nerf.training.set_image (python_api.cu:45-72): replace
+        a training image, float (H, W, 4) in the dataset's training colour
+        space, at run time (task.py:1337-1367). Depth waits for item 2."""
+        task = self._task()
+        if task is None:
+            raise RuntimeError("load a NeRF scene before set_image")
+        if depth_img is not None:
+            raise not_ported("depth supervision (set_image's depth_img)", 2)
+        task.set_training_image(frame_idx, img)
+
+    def reset_camera_extrinsics(self) -> None:
+        """pyngp reset_camera_extrinsics (testbed_nerf.cu:2215-2227): zero the
+        trained pose and exposure offsets (a snapshot's, here)."""
+        task = self._task()
+        if task is not None:
+            for k in ("rot", "pos", "exposure"):
+                task.cam_offsets[k] = np.zeros_like(task.cam_offsets[k])
+
+    def get_extra_dims(self, view: int) -> np.ndarray:
+        """pyngp get_extra_dims (python_api.cu:810-813): the port's scenes have
+        no latent codes, so an empty vector, as the JAX package gives one."""
+        if self._task() is None:
+            raise RuntimeError("load a NeRF scene first")
+        return np.zeros((0,), np.float32)
+
+    optimize_extrinsics = _knob("optimize_extrinsics", False)
+    optimize_exposure = _knob("optimize_exposure", False)
+    optimize_focal_length = _knob("optimize_focal_length", False)
+    optimize_distortion = _knob("optimize_distortion", False)
+    optimize_extra_dims = _knob("optimize_extra_dims", False)
+    optimize_per_image_latents = _knob("optimize_per_image_latents", False)
+    n_steps_between_cam_updates = _knob("n_steps_between_cam_updates", 16)
+    extrinsic_learning_rate = _knob("extrinsic_learning_rate", 1e-3)
+    extrinsic_l2_reg = _knob("extrinsic_l2_reg", 1e-4)
+    intrinsic_l2_reg = _knob("intrinsic_l2_reg", 1e-4)
+    exposure_l2_reg = _knob("exposure_l2_reg", 0.0)
+    include_sharpness_in_error = _knob("include_sharpness_in_error", False)
+    depth_supervision_lambda = _knob("depth_supervision_lambda", 0.0)
+    depth_loss_type = _knob("depth_loss_type", "L1")
+    set_camera_intrinsics = _method("set_camera_intrinsics")
+    set_camera_extrinsics = _method("set_camera_extrinsics")
+    set_camera_extrinsics_rolling_shutter = _method("set_camera_extrinsics_rolling_shutter")
+
+
+class _NerfView:
+    """pyngp testbed.nerf.* (python_api.cu:520-620). The latent-code members
+    wait for Queue 1 item 2."""
+
+    def __init__(self, tb: "Testbed"):
+        self._tb = tb
+        self.training = _NerfTrainingView(tb)
+        self.sharpen = 0.0  # the 3×3 unsharp mask of a render (render_buffer.cu)
+        # G-buffer modes shade the raw surface value (python_api.cu:723);
+        # kept for the surface, the port renders shade mode only
+        self.render_gbuffer_hard_edges = False
+
+    def _task(self) -> NerfTask:
+        task = self._tb.task
+        if not isinstance(task, NerfTask):
+            raise RuntimeError("load a NeRF scene first")
+        return task
+
+    @property
+    def render_min_transmittance(self) -> float:
+        return self._tb.nerf_min_transmittance
+
+    @render_min_transmittance.setter
+    def render_min_transmittance(self, v) -> None:
+        self._tb.nerf_min_transmittance = float(v)
+
+    @property
+    def rgb_activation(self):
+        task = self._tb.task
+        return task.rgb_activation if isinstance(task, NerfTask) else None
+
+    @rgb_activation.setter
+    def rgb_activation(self, v) -> None:
+        self._task().rgb_activation = NerfActivation(getattr(v, "value", v))
+
+    @property
+    def density_activation(self):
+        task = self._tb.task
+        return task.density_activation if isinstance(task, NerfTask) else None
+
+    @density_activation.setter
+    def density_activation(self, v) -> None:
+        self._task().density_activation = NerfActivation(getattr(v, "value", v))
+
+    @property
+    def cone_angle_constant(self) -> float:
+        task = self._tb.task
+        if isinstance(task, NerfTask):
+            return task.march_cfg.cone_angle
+        return self._tb._nerf_pending.get("cone_angle_constant", 1.0 / 256.0)
+
+    @cone_angle_constant.setter
+    def cone_angle_constant(self, v) -> None:
+        task = self._tb.task
+        if isinstance(task, NerfTask):
+            _set_cone_angle(task, float(v))
+        else:
+            self._tb._nerf_pending["cone_angle_constant"] = float(v)
+
+    def find_closest_training_view(self, pose=None) -> int:
+        """pyngp find_closest_training_view (testbed_nerf.cu:3710-3723): the
+        training view nearest the current (or given) camera by position
+        distance + 0.25 × z-axis distance. The port trains no camera
+        offsets, so the views are the dataset's."""
+        xf = np.asarray(self._task().dataset.xforms_start, np.float32)
+        pose = np.asarray(self._tb.camera_matrix if pose is None else pose, np.float32)
+        score = (np.linalg.norm(xf[:, :, 3] - pose[:, 3], axis=-1)
+                 + 0.25 * np.linalg.norm(xf[:, :, 2] - pose[:, 2], axis=-1))
+        return int(np.argmin(score))
+
+    def get_rendering_extra_dims(self) -> np.ndarray:
+        return np.zeros((0,), np.float32)  # no latent codes, as the JAX package's without any
+
+    rendering_extra_dims_from_training_view = _knob("rendering_extra_dims_from_training_view", 0)
+
+    def set_rendering_extra_dims_from_training_view(self, i: int) -> None:
+        self.rendering_extra_dims_from_training_view = int(i)
+
+    set_rendering_extra_dims = _method("set_rendering_extra_dims")
+
+
+def _set_cone_angle(task: NerfTask, cone_angle: float) -> None:
+    task.cone_angle = cone_angle
+    task.march_cfg = dataclasses.replace(task.march_cfg, cone_angle=cone_angle)
+
+
+class _SdfTrainingView:
+    """pyngp testbed.sdf.training (python_api.cu:869-871)."""
+
+    def __init__(self, tb: "Testbed"):
+        object.__setattr__(self, "_tb", tb)
+
+    @property
+    def generate_sdf_data_online(self) -> bool:
+        task = self._tb.task
+        return isinstance(task, SdfTask) and task.override is None
+
+    @property
+    def surface_offset_scale(self) -> float:
+        task = self._tb.task
+        return task.surface_offset_scale if isinstance(task, SdfTask) else 1.0
+
+    @surface_offset_scale.setter
+    def surface_offset_scale(self, v) -> None:
+        self._tb.task.surface_offset_scale = float(v)
+
+
+class _SdfView:
+    """pyngp testbed.sdf.* (python_api.cu:855-867). The names of ``_FWD``
+    forward to the SdfTask's knobs; reads before a mesh is loaded give the
+    reference's defaults."""
+
+    _FWD = ("analytic_normals", "shadow_sharpness", "fd_normals_epsilon", "zero_offset", "brdf",
+            "floor_enable", "sun_color", "groundtruth_mode")
+    _DEFAULTS = {"analytic_normals": True, "shadow_sharpness": 16.0, "fd_normals_epsilon": 1e-3,
+                 "zero_offset": 0.0, "brdf": None, "floor_enable": False,
+                 "sun_color": (1.0, 1.0, 1.0), "groundtruth_mode": "raytracedmesh"}
+
+    def __init__(self, tb: "Testbed"):
+        object.__setattr__(self, "_tb", tb)
+        object.__setattr__(self, "training", _SdfTrainingView(tb))
+
+    def _task(self) -> SdfTask | None:
+        return self._tb.task if self._tb.mode == TestbedMode.SDF else None
+
+    def __getattr__(self, name):
+        if name in self._FWD:
+            task = self._task()
+            return getattr(task, name) if task else self._DEFAULTS[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if name in self._FWD:
+            task = self._task()
+            if task is None:
+                raise RuntimeError(f"load an SDF scene before setting {name}")
+            setattr(task, name, value)
+        else:
+            object.__setattr__(self, name, value)
+
+    def __dir__(self):
+        return [*super().__dir__(), *self._FWD]
+
+    @property
+    def mesh_sdf_mode(self) -> MeshSdfMode:
+        task = self._task()
+        return MeshSdfMode(task.sdf_mode if task else "pseudonormal")
+
+    @mesh_sdf_mode.setter
+    def mesh_sdf_mode(self, v) -> None:
+        self._task().sdf_mode = MeshSdfMode(getattr(v, "value", v)).value
+
+    @property
+    def mesh_scale(self) -> float:
+        task = self._task()
+        return float(task.mesh_scale) if task else 1.0
+
+    @property
+    def use_triangle_octree(self) -> bool:
+        task = self._task()
+        return bool(task is not None and task.octree is not None)
+
+    @property
+    def calculate_iou_online(self) -> bool:
+        return self._tb.calculate_iou_online
+
+    @calculate_iou_online.setter
+    def calculate_iou_online(self, v) -> None:
+        self._tb.calculate_iou_online = bool(v)
 
 
 class _ImageView:
@@ -173,15 +649,48 @@ class _ImageTrainingView:
         self._tb.task.linear_colors = bool(v)
 
 
+def _unsharp(frame: torch.Tensor, amount: float) -> torch.Tensor:
+    """3×3 unsharp mask on the rgb channels, edges replicated (the
+    reference's ``sharpen`` in the tonemap stage, render_buffer.cu)."""
+    rgb = frame[..., :3]
+    h, w = rgb.shape[:2]
+    ys = torch.clamp(torch.arange(-1, h + 1, device=frame.device), 0, h - 1)
+    xs = torch.clamp(torch.arange(-1, w + 1, device=frame.device), 0, w - 1)
+    pad = rgb[ys][:, xs]
+    blur = (pad[:-2, :-2] + pad[:-2, 1:-1] + pad[:-2, 2:] + pad[1:-1, :-2] + pad[1:-1, 1:-1]
+            + pad[1:-1, 2:] + pad[2:, :-2] + pad[2:, 1:-1] + pad[2:, 2:]) / 9.0
+    return torch.cat([rgb + amount * (rgb - blur), frame[..., 3:]], dim=-1)
+
+
+def premultiplied_srgb(img: np.ndarray) -> np.ndarray:
+    """An LDR image's straight-alpha sRGB (H, W, 4) in [0, 1] → its rgb
+    premultiplied by alpha in linear colour and back in sRGB: the ground
+    truth of a render on black (``scripts/run.py``'s evaluation and the
+    JAX package's ``render_gt_view``)."""
+    rgb = torch.from_numpy(np.ascontiguousarray(img[..., :3], np.float32))
+    alpha = torch.from_numpy(np.ascontiguousarray(img[..., 3:4], np.float32))
+    return linear_to_srgb(srgb_to_linear(rgb) * alpha).numpy()
+
+
+def _resample_nearest(frame: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Nearest-pixel resample of an (h, w, C) image to (height, width, C)."""
+    h, w = frame.shape[:2]
+    ys = np.clip((np.arange(height) + 0.5) * h / height, 0, h - 1).astype(int)
+    xs = np.clip((np.arange(width) + 0.5) * w / width, 0, w - 1).astype(int)
+    return frame[ys][:, xs]
+
+
 _PORTED_MODES = (TestbedMode.NERF, TestbedMode.IMAGE, TestbedMode.SDF, TestbedMode.VOLUME)
 
 
 class Testbed:
     """Modes "nerf", "image", "sdf" and "volume" ("none" until
-    ``load_training_data`` infers the mode from the scene). Work runs on
-    ``device``, the card unless the caller asks for the CPU."""
+    ``load_training_data`` or ``load_snapshot`` sets the mode). Work runs on
+    ``device``, the card unless the caller asks for the CPU. The fields are
+    pyngp's (python_api.cu:439-870), with the JAX package's defaults
+    (testbed.py:842-968)."""
 
-    def __init__(self, mode: TestbedMode | str = "nerf", device="cuda"):
+    def __init__(self, mode: TestbedMode | str = TestbedMode.NONE, device="cuda"):
         mode = TestbedMode(mode.lower()) if isinstance(mode, str) else mode
         if mode not in (TestbedMode.NONE, *_PORTED_MODES):
             raise NotImplementedError(f"testbed mode {mode.value!r} is not ported yet")
@@ -190,25 +699,118 @@ class Testbed:
         self.task: NerfTask | ImageTask | SdfTask | VolumeTask | None = None
         self.nerf_dataset: NerfDataset | None = None
         self.network_config: dict = {}
+        self.network_config_path: Path | None = None
         self.scene_path: str | None = None
-        self.seed = 1337
-        self.training_batch_size = 1 << 18
-        self.training_step = 0
-        self.shall_train = True
-        # the view a snapshot records: a scene's first training camera
-        self.camera_matrix = np.concatenate(
-            [np.eye(3, dtype=np.float32), np.array([[0.5], [0.5], [-1.5]], np.float32)], axis=1)
-        self.loss_graph: list[float] = []
-        self._loss_ema = LossEma()
-        self.image = _ImageView(self)
-        # the SDF and volume view: fov (and the SDF's sun and floor); the IoU
-        # every 16 frames when calculate_iou_online (testbed.py:855-948)
-        self.fov = 50.625
-        self.sun_dir = np.array([0.577, -0.577, 0.577], np.float32)
-        self.floor_enable = False
-        self.calculate_iou_online = False
-        self.sdf_iou: float | None = None
 
+        self.shall_train = True
+        self.training_step = 0
+        self.training_batch_size = 1 << 18
+        self.background_color = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
+        self.fov = 50.625
+        self.seed = 1337
+        self.nerf_min_transmittance = 1e-4
+        self.snap_to_pixel_centers = True
+        self.dynamic_res = False
+        self.dynamic_res_target_fps = 20.0
+        self.camera_matrix = _home_camera()  # a scene's first training camera once loaded
+        self.scale = 1.5
+        self.loss_graph: list[float] = []
+        self.render_ground_truth = False
+        self.color_space = ColorSpace.SRGB
+        self.tonemap_curve = TonemapCurve.IDENTITY  # SDF and volume renders
+        self.exposure = 0.0
+        self.fov_axis = 1
+        self.camera_smoothing = False
+        self.render_with_lens_distortion = True
+        self.render_quality = "exact"  # "fast", "baked" and "slab" wait for items 2 and 3
+        self.render_mode = RenderMode.SHADE  # shade only until item 2
+        self.slice_plane_z = 0.0
+        self.screen_center = (0.5, 0.5)  # the principal point of a free camera
+        self.fixed_res_factor = 8  # render factor 8 / this when dynamic_res is off
+        self.render_transparency_as_checkerboard = False
+        self.bounding_radius = 1.0
+        self.jit_fusion = True  # pyngp's NVRTC toggle; the kernels here are built ahead
+        self.is_rendering = True
+        self.calculate_iou_online = False  # SDF: the IoU every 16 frames into sdf_iou
+        self.sdf_iou: float | None = None
+        self.camera_path = CameraPath()
+        self.record_camera_path = False
+        self.camera_prediction_mode = CameraPredictionMode.NONE
+        self._cam_predictor: MatLogCameraPredictor | None = None
+        self._cam_predictor_mode = None
+        self.parallax_shift = np.zeros(3, np.float32)
+        self.visualized_dimension = 0
+        self.visualized_layer = 0
+        self.groundtruth_render_mode = GroundTruthRenderMode.SHADE
+        self.visualize_unit_cube = False
+        self.visualize_cameras = False
+        self.zoom = 1.0
+        self.up_dir = np.array([0.0, 1.0, 0.0], np.float32)
+        self.sun_dir = np.array([0.577, -0.577, 0.577], np.float32)  # the SDF light
+        self.floor_enable = False
+        self.display_gui = True
+        self.root_dir = str(Path(__file__).resolve().parents[1])
+        self._last_frame: np.ndarray | None = None
+        self._smoothed_cam: np.ndarray | None = None
+        self._last_frame_t: float | None = None
+        self._fov_x: float | None = None
+        self._accum_buffer = None
+        self._dyn_res = None
+        self._spp_warned = False
+        self._nerf_pending: dict = {}
+        self._pend_train_enc: bool | None = None
+        self._pend_train_net: bool | None = None
+        self.nerf = _NerfView(self)
+        self.sdf = _SdfView(self)
+        self.image = _ImageView(self)
+        self._view_index: int | None = None
+
+        # timing meters (reference testbed.h:1023-1027)
+        self.training_prep_ms = Ema()
+        self.training_ms = Ema()
+        self.render_ms = Ema()
+        self.frame_ms = Ema()
+        self._loss_ema = Ema(half_life=10.0)
+
+        # callables posted from other threads, run at the start of the next
+        # frame() on the thread that calls it (reference m_task_queue,
+        # testbed.h:735, drained in frame, testbed.cu:3969-3973)
+        self._task_queue: collections.deque = collections.deque()
+        self._task_queue_lock = threading.Lock()
+
+    # --- knobs of later slices ---
+    autofocus = _knob("autofocus", False)
+    autofocus_target = _knob("autofocus_target", 1.0)
+    aperture_size = _knob("aperture_size", 0.0)
+    dof = _knob("dof", 0.0)
+    max_level_rand_training = _knob("max_level_rand_training", False)
+    compute_marching_cubes_mesh = _method("compute_marching_cubes_mesh")
+    compute_and_save_marching_cubes_mesh = _method("compute_and_save_marching_cubes_mesh")
+    compute_and_save_png_slices = _method("compute_and_save_png_slices")
+    init_window = _method("init_window", 4)
+    init_vr = _method("init_vr", 4)
+    destroy_window = _method("destroy_window", 4)
+
+    def post_task(self, fn) -> threading.Event:
+        """Queue a callable for the start of the next ``frame()`` on the
+        thread that calls it. Returns an Event set once it has run."""
+        done = threading.Event()
+        with self._task_queue_lock:
+            self._task_queue.append((fn, done))
+        return done
+
+    def _drain_task_queue(self) -> None:
+        while True:
+            with self._task_queue_lock:
+                if not self._task_queue:
+                    return
+                fn, done = self._task_queue.popleft()
+            try:
+                fn()
+            finally:
+                done.set()
+
+    # --- loading ---
     def load_file(self, path) -> None:
         """A snapshot → ``load_snapshot``; anything else is training data
         (reference load_file, testbed.cu:353-411)."""
@@ -221,8 +823,6 @@ class Testbed:
         mode = mode_from_scene(path)
         if mode == TestbedMode.NONE:
             raise ValueError(f"cannot infer mode from scene path {path}")
-        if mode not in _PORTED_MODES:
-            raise NotImplementedError(f"loading {mode.value} training data is not ported yet")
         self.scene_path = str(path)
         self.mode = mode
         if not self.network_config:
@@ -230,6 +830,7 @@ class Testbed:
         self._build_task()
 
     def reload_network_from_file(self, config_path) -> None:
+        self.network_config_path = Path(config_path)
         mode = self.mode.value if self.mode != TestbedMode.NONE else None
         self.network_config = load_network_config(config_path, mode=mode)
         if self.scene_path:
@@ -241,9 +842,10 @@ class Testbed:
             self._build_task()
 
     def _build_task(self) -> None:
-        """A fresh task on the scene (testbed.py:1028-1101): an image, a mesh,
+        """A fresh task on the scene (testbed.py:1026-1113): an image, a mesh,
         a density grid (its own batch size, 2^17, as the JAX package's), or a
-        NeRF scene whose first training camera becomes the view."""
+        NeRF scene whose first training camera becomes the view and which
+        takes the knobs set on ``nerf.training`` before it loaded."""
         if isinstance(self.task, SdfTask):
             self.task.stop_producer()
         if self.mode == TestbedMode.SDF:
@@ -257,12 +859,650 @@ class Testbed:
             self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
                                  seed=self.seed, target_batch_size=self.training_batch_size)
             self.camera_matrix = self.nerf_dataset.xforms_start[0].copy()
+            pend = self._nerf_pending
+            for key, attr in (("near_distance", "training_near_distance"),
+                              ("random_bg_color", "random_bg_color"),
+                              ("density_grid_decay", "density_grid_decay"),
+                              ("sample_image_proportional_to_error",
+                               "sample_image_proportional_to_error"),
+                              ("sample_focal_plane_proportional_to_error",
+                               "sample_focal_plane_proportional_to_error")):
+                if key in pend:
+                    setattr(self.task, attr, pend[key])
+            if "cone_angle_constant" in pend:
+                _set_cone_angle(self.task, pend["cone_angle_constant"])
+            if "loss_type" in pend:
+                self.task.loss_type = loss_type_from_string(pend["loss_type"])
         else:
             img, is_hdr = load_image(self.scene_path)
             self.task = ImageTask(img, is_hdr, self.network_config, device=self.device,
                                   seed=self.seed, batch_size=self.training_batch_size)
+        if self._pend_train_enc is not None:
+            self.task.shall_train_encoding = self._pend_train_enc
+        if self._pend_train_net is not None:
+            self.task.shall_train_network = self._pend_train_net
         self.training_step = 0
 
+    # --- the heartbeat ---
+    def frame(self) -> bool:
+        """One tick (reference frame → train_and_render, testbed.cu:
+        3908-4034): the posted callables, a training step while
+        ``shall_train`` (a step that marched no sample stops training), the
+        IoU every 16 SDF frames if asked, the camera predictor's pose feed,
+        and the camera path's recording or playback."""
+        t0 = time.perf_counter()
+        self._drain_task_queue()
+        if self.shall_train and self.task is not None:
+            t_train = time.perf_counter()
+            loss = self.task.train(1)
+            self.training_ms.update((time.perf_counter() - t_train) * 1000.0)
+            self.training_step = self.task.training_step
+            self._loss_ema.update(loss)
+            self.loss_graph.append(loss)
+            if getattr(self.task, "training_aborted", False):
+                self.shall_train = False
+            if (self.calculate_iou_online and self.mode == TestbedMode.SDF
+                    and self.training_step % 16 == 0):
+                self.sdf_iou = float(self.task.calculate_iou(1 << 14))
+        mode = self.camera_prediction_mode
+        if mode == CameraPredictionMode.NONE:
+            self._cam_predictor = None
+        else:
+            if self._cam_predictor is None or self._cam_predictor_mode != mode:
+                self._cam_predictor = MatLogCameraPredictor(is_quadratic="quadratic" in mode.value,
+                                                            is_se3="se3" in mode.value)
+                self._cam_predictor_mode = mode
+            self._cam_predictor.sample_camera(self.camera_matrix,
+                                              max(self.frame_ms.val(), 1.0) / 1000.0)
+        cp = self.camera_path
+        # wall time since the previous tick
+        now = time.perf_counter()
+        dt = min(now - (self._last_frame_t if self._last_frame_t is not None else now), 1.0)
+        self._last_frame_t = now
+        if self.record_camera_path:
+            cp.add_camera(self.camera_matrix, fov=self.fov,
+                          timestamp=(len(cp.keyframes) + 1) / 30.0)
+            cp.duration_seconds = cp.keyframes[-1].timestamp
+        elif cp.update_cam_from_path and not cp.empty():
+            cp.play_time += cp.auto_play_speed * dt
+            cp.play_time = cp.play_time % 1.0 if cp.loop else min(cp.play_time, 1.0)
+            kf = cp.eval_camera_path(cp.play_time)
+            self.camera_matrix = np.asarray(kf.to_matrix(), np.float32)
+            self.fov = float(kf.fov)
+            self._view_index = None
+        self.frame_ms.update((time.perf_counter() - t0) * 1000.0)
+        return True
+
+    def train(self, batch_size=None) -> None:
+        self.frame()
+
+    @property
+    def loss(self) -> float:
+        return self._loss_ema.value
+
+    # --- rendering (pyngp render_to_cpu, python_api.cu:100-170) ---
+    def render(self, width: int, height: int, spp: int = 1, linear: bool = True,
+               start_t: float = -1.0, end_t: float = -1.0, fps: float = 30.0,
+               shutter_fraction: float = 0.5, camera_matrix=None, fov=None,
+               **kwargs) -> np.ndarray:
+        """The frame of ``render_tensor`` as a numpy (H, W, 4) f32 array."""
+        return self.render_tensor(width, height, spp, linear, start_t, end_t, fps,
+                                  shutter_fraction, camera_matrix, fov, **kwargs).cpu().numpy()
+
+    def render_tensor(self, width: int, height: int, spp: int = 1, linear: bool = True,
+                      start_t: float = -1.0, end_t: float = -1.0, fps: float = 30.0,
+                      shutter_fraction: float = 0.5, camera_matrix=None, fov=None,
+                      ground_truth: bool = False) -> torch.Tensor:
+        """A frame (H, W, 4) f32 on the task's device (testbed.py:1196-1395).
+        ``start_t`` ≥ 0 with a loaded camera path first moves the view to the
+        path at start_t + (end_t − start_t)·shutter_fraction. NeRF: the
+        task's render at ``spp`` from the view (a training view's intrinsics,
+        its focal length scaled by (width, height)[fov_axis] /
+        resolution[fov_axis], else ``fov`` and ``screen_center``; ``zoom``) on
+        ``background_color``, or the training image of the view with
+        ``render_ground_truth``; the unsharp mask of ``nerf.sharpen``. Image:
+        the fit, alpha 1. SDF: the sphere trace from the view with
+        ``sun_dir`` and ``floor_enable``; volume: the learned field, or with
+        ``ground_truth`` a path trace of the grid; both tonemapped by
+        ``tonemap_curve`` (spp has no effect on them). Then, in that order:
+        the colour space (linear, or sRGB if ``linear`` is False),
+        ``exposure``, the overlays, the checkerboard behind transparency."""
+        t0 = time.perf_counter()
+        if self.task is None:
+            raise RuntimeError("load a snapshot or training data before rendering")
+        if ground_truth and self.mode != TestbedMode.VOLUME:
+            raise ValueError("ground_truth traces a volume's grid; a NeRF view's image is "
+                             "render_ground_truth")
+        if start_t >= 0.0 and not self.camera_path.empty():
+            kf = self.camera_path.eval(start_t + max(end_t - start_t, 0.0) * shutter_fraction)
+            target = np.asarray(kf.to_matrix(), np.float32)
+            if self.camera_smoothing and self._smoothed_cam is not None:
+                target = 0.8 * self._smoothed_cam + 0.2 * target
+            self._smoothed_cam = target
+            self.camera_matrix = target
+            if kf.fov:
+                self.fov = float(kf.fov)
+            self._view_index = None
+        cam = self.camera_matrix if camera_matrix is None else camera_matrix
+        if self.mode == TestbedMode.IMAGE:
+            rgb = self.task.render(width, height)
+            frame = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+            frame = self._to_space(frame, bool(self.task.is_hdr), linear)
+        elif self.mode == TestbedMode.NERF:
+            if self.render_ground_truth:
+                # the training image of the view, returned as it is (testbed.py:1250-1258)
+                gt = torch.from_numpy(self.render_gt_view(width, height, self._view_index or 0))
+                frame = self._to_space(gt.to(self.task.device), bool(self.nerf_dataset.is_hdr),
+                                       linear)
+                self.render_ms.update((time.perf_counter() - t0) * 1000.0)
+                return frame
+            frame = self._render_nerf(width, height, spp, linear, cam, fov)
+        elif self.mode in (TestbedMode.SDF, TestbedMode.VOLUME):
+            if spp != 1 and not self._spp_warned:
+                warnings.warn("spp > 1 has no effect on SDF and volume renders (their traces are "
+                              "deterministic at pixel centres)")
+                self._spp_warned = True
+            if self.mode == TestbedMode.SDF:
+                self.task.floor_enable = bool(self.floor_enable)
+                frame = self.task.render(width, height, cam, fov=fov or self.fov,
+                                         light_dir=tuple(np.asarray(self.sun_dir, np.float32)))
+            else:
+                frame = self.task.render(width, height, cam, fov=fov or self.fov,
+                                         ground_truth=ground_truth)
+            if self.tonemap_curve != TonemapCurve.IDENTITY:
+                from .render.buffer import tonemap
+
+                frame = torch.cat([tonemap(frame[..., :3], self.tonemap_curve), frame[..., 3:]],
+                                  dim=-1)
+            frame = self._to_space(frame, True, linear)
+        else:
+            raise ValueError(self.mode)
+        if self.exposure:
+            scale = 2.0 ** self.exposure
+            rgb = frame[..., :3]
+            if linear:
+                rgb = rgb * scale
+            else:
+                rgb = linear_to_srgb(torch.clamp(srgb_to_linear(torch.clamp(rgb, 0, 1)) * scale,
+                                                 0, 1))
+            frame = torch.cat([rgb, frame[..., 3:]], dim=-1)
+        if self.visualize_unit_cube or self.visualize_cameras:
+            frame = self._draw_overlays(frame.clone(), height, cam, fov)
+        if self.render_transparency_as_checkerboard:
+            # the premultiplied colour over a grey checkerboard of 8-pixel squares
+            h, w = frame.shape[:2]
+            ys, xs = np.mgrid[0:h, 0:w]
+            checker = torch.from_numpy(np.where(((xs // 8) + (ys // 8)) % 2 == 0, 0.55, 0.4))
+            a = torch.clamp(frame[..., 3:4], 0.0, 1.0)
+            rgb = frame[..., :3].double() + checker.to(frame.device)[..., None] * (1 - a).double()
+            frame = torch.cat([rgb.to(torch.float32), frame[..., 3:]], dim=-1)
+        self.render_ms.update((time.perf_counter() - t0) * 1000.0)
+        self._last_frame = frame
+        return frame
+
+    def _view_intrinsics(self, width: int, height: int) -> dict:
+        """A training view's focal length (scaled by (width, height)[fov_axis]
+        / resolution[fov_axis]) and principal point after
+        ``set_camera_to_training_view``, else ``screen_center``."""
+        if self._view_index is None:
+            return {"principal_point": tuple(self.screen_center)}
+        ds, i = self.nerf_dataset, self._view_index
+        s = (width, height)[self.fov_axis] / ds.resolution[self.fov_axis]
+        return {"focal_length": tuple(ds.focal_lengths[i] * s),
+                "principal_point": tuple(ds.principal_points[i])}
+
+    def _render_nerf(self, width, height, spp, linear, cam, fov) -> torch.Tensor:
+        task = self.task
+        if self.render_quality != "exact":
+            raise not_ported(f"render_quality {self.render_quality!r}",
+                             3 if self.render_quality in ("baked", "slab") else 2)
+        task.min_transmittance = self.nerf_min_transmittance
+        bg = (0.0, 0.0, 0.0, 0.0) if self.render_transparency_as_checkerboard else tuple(
+            self.background_color)
+        kw = self._view_intrinsics(width, height)
+        fov_eff = fov or self.fov
+        if self.zoom != 1.0:  # m_zoom scales the focal length
+            if "focal_length" in kw:
+                kw["focal_length"] = tuple(f * self.zoom for f in kw["focal_length"])
+            else:
+                fov_eff = 2.0 * math.degrees(math.atan(
+                    math.tan(math.radians(fov_eff) * 0.5) / self.zoom))
+        mode = self.render_mode.value if isinstance(self.render_mode, RenderMode) else str(
+            self.render_mode)
+        frame = task.render(width, height, cam, fov=fov_eff, spp=spp, background=bg,
+                            render_mode=mode.replace("_", ""), **kw)
+        # LDR scenes train and render in sRGB, HDR in linear (testbed_nerf.cu:2354)
+        frame = self._to_space(frame, task.rgb_activation == NerfActivation.EXPONENTIAL, linear)
+        if self.nerf.sharpen:
+            frame = _unsharp(frame, self.nerf.sharpen)
+        return frame
+
+    def _draw_overlays(self, frame: torch.Tensor, height: int, cam, fov) -> torch.Tensor:
+        """The unit cube (NeRF: the render box) and the training cameras'
+        frusta (testbed.cu draw_visualizations, :2126-2254)."""
+        from .render.overlays import draw_cameras, draw_wire_box
+
+        fl = 0.5 * height / math.tan(0.5 * math.radians(fov or self.fov))
+        if self.visualize_unit_cube:
+            lo, hi = np.zeros(3), np.ones(3)
+            if self.mode == TestbedMode.NERF:
+                lo = np.asarray(self.task.render_aabb_min)
+                hi = np.asarray(self.task.render_aabb_max)
+            draw_wire_box(frame, lo, hi, cam, fl, tuple(self.screen_center))
+        if self.visualize_cameras and self.mode == TestbedMode.NERF:
+            draw_cameras(frame, self.nerf_dataset.xforms_start, cam, fl, tuple(self.screen_center))
+        return frame
+
+    @staticmethod
+    def _to_space(frame: torch.Tensor, produced_linear: bool, linear: bool) -> torch.Tensor:
+        """The frame's rgb in linear colour or sRGB, as asked (pyngp
+        render_to_cpu's contract)."""
+        if produced_linear == linear:
+            return frame
+        rgb = frame[..., :3]
+        if produced_linear:
+            rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
+        else:
+            rgb = srgb_to_linear(torch.clamp(rgb, 0.0, 1.0))
+        return torch.cat([rgb, frame[..., 3:]], dim=-1)
+
+    def view(self, linear: bool = True, view: int = 0) -> np.ndarray:
+        """pyngp view (python_api.cu:471-475): the last rendered frame (one
+        view), in sRGB if ``linear`` is False; a 64² render if none."""
+        if self._last_frame is None:
+            return self.render(64, 64, linear=linear)
+        frame = self._last_frame
+        if not linear:
+            frame = torch.cat([linear_to_srgb(torch.clamp(frame[..., :3], min=0.0)),
+                               frame[..., 3:]], dim=-1)
+        return frame.cpu().numpy()
+
+    def screenshot(self, path, width: int = 1920, height: int = 1080, spp: int = 1) -> np.ndarray:
+        """Render (linear, as ``render``'s default) and save the rgb."""
+        frame = self.render(width, height, spp=spp)
+        save_image(path, frame[..., :3])
+        return frame
+
+    def render_with_depth(self, width: int = 1920, height: int = 1080, spp: int = 1,
+                          linear: bool = True, start_t: float = -1.0, end_t: float = -1.0,
+                          fps: float = 30.0, shutter_fraction: float = 1.0):
+        """pyngp render_with_depth (python_api.cu:521-529): (rgba (H, W, 4),
+        depth (H, W)). NeRF's depth is the expected termination distance;
+        the other primitives have no depth buffer and give zeros."""
+        if self.mode == TestbedMode.NERF and self.task is not None:
+            frame, depth = self.task.render(
+                width, height, self.camera_matrix, fov=self.fov, spp=spp,
+                background=tuple(self.background_color), return_depth=True,
+                **self._view_intrinsics(width, height))
+            produced_linear = self.task.rgb_activation == NerfActivation.EXPONENTIAL
+            frame = self._to_space(frame, produced_linear, linear)
+            return frame.cpu().numpy(), depth.cpu().numpy()
+        frame = self.render(width, height, spp=spp, linear=linear, start_t=start_t, end_t=end_t,
+                            fps=fps, shutter_fraction=shutter_fraction)
+        return frame, np.zeros((height, width), np.float32)
+
+    def render_gt_view(self, width: int, height: int, view_idx: int) -> np.ndarray:
+        """The training image of a view, resampled to (H, W, 4) by nearest
+        pixel in the model's colour space, its alpha premultiplied in linear
+        colour for an LDR scene (testbed.cu:5074-5143). ``render_ground_truth``
+        routes ``render`` through this."""
+        ds = self.nerf_dataset
+        if (self.groundtruth_render_mode == GroundTruthRenderMode.DEPTH
+                and ds.depths is not None):
+            dep = (ds.depths[view_idx] / max(float(ds.depths.max()), 1e-6)).astype(np.float32)
+            frame = np.stack([dep, dep, dep, np.ones_like(dep)], -1)
+            return _resample_nearest(frame, width, height)
+        img = ds.images[view_idx].astype(np.float32)
+        if not ds.is_hdr:
+            img = img / 255.0
+            rgb = premultiplied_srgb(img)
+        else:
+            rgb = img[..., :3]
+        return _resample_nearest(np.concatenate([rgb, img[..., 3:4]], -1), width, height)
+
+    def render_error_overlay(self, width: int, height: int, view_idx: int,
+                             scale: float = 4.0) -> np.ndarray:
+        """|render − ground truth| of a training view as a red-to-blue heat
+        map (the reference's error overlay)."""
+        ds = self.nerf_dataset
+        gt = self.render_gt_view(width, height, view_idx)
+        frame = self.task.render(
+            width, height, ds.xforms_start[view_idx],
+            focal_length=tuple(ds.focal_lengths[view_idx] * np.array([width, height])
+                               / ds.resolution),
+            principal_point=tuple(ds.principal_points[view_idx]),
+            background=(0, 0, 0, 0)).cpu().numpy()
+        err = np.abs(frame[..., :3] - gt[..., :3]).mean(-1, keepdims=True)
+        heat = np.clip(err * scale, 0.0, 1.0)
+        return np.concatenate([heat, np.zeros_like(heat), 1.0 - heat, np.ones_like(heat)],
+                              -1).astype(np.float32)
+
+    def render_progressive(self, width: int, height: int, spp: int = 8, **kw) -> np.ndarray:
+        """``spp`` renders accumulated in a RenderBuffer (the reference's
+        progressive accumulation, render_buffer.h:173-317), in linear colour."""
+        from .render.buffer import RenderBuffer
+
+        buf = RenderBuffer(width, height)
+        self._accum_buffer = buf  # reset_accumulation() clears it
+        for _ in range(spp):
+            buf.accumulate(self.render(width, height, **kw))
+        return buf.tonemapped(color_space=ColorSpace.LINEAR)
+
+    def render_with_dynamic_res(self, width: int, height: int, **kw) -> np.ndarray:
+        """Render at the dynamic-resolution factor (or 8 / fixed_res_factor
+        when ``dynamic_res`` is off) and upsample by repeating pixels
+        (testbed.cu:3299-3395)."""
+        if self._dyn_res is None:
+            from .render.buffer import DynamicResolution
+
+            self._dyn_res = DynamicResolution(self.dynamic_res_target_fps)
+        if self.dynamic_res:
+            factor = self._dyn_res.factor
+        else:
+            factor = min(1.0, 8.0 / max(float(self.fixed_res_factor), 1.0))
+        rw, rh = max(16, int(width * factor)), max(16, int(height * factor))
+        t0 = time.perf_counter()
+        frame = self.render(rw, rh, **kw)
+        self._dyn_res.update((time.perf_counter() - t0) * 1000.0)
+        if (rw, rh) != (width, height):
+            reps_y, reps_x = int(np.ceil(height / rh)), int(np.ceil(width / rw))
+            frame = np.repeat(np.repeat(frame, reps_y, 0), reps_x, 1)[:height, :width]
+        return frame
+
+    def reset_accumulation(self, due_to_camera_movement: bool = False,
+                           immediate_redraw: bool = True) -> None:
+        """pyngp reset_accumulation (python_api.cu:537-543): clear the
+        progressive accumulation; a camera movement also restarts the
+        smoothed camera."""
+        if self._accum_buffer is not None:
+            self._accum_buffer.reset()
+        if due_to_camera_movement:
+            self._smoothed_cam = None
+
+    def load_camera_path(self, path) -> CameraPath:
+        """A camera path JSON (the reference's format; either package's)."""
+        self.camera_path = CameraPath.load(path)
+        return self.camera_path
+
+    # --- the camera ---
+    def set_camera_to_training_view(self, i: int) -> None:
+        self.camera_matrix = self.nerf_dataset.xforms_start[i].copy()
+        self._view_index = i  # render() uses this view's intrinsics
+
+    def first_training_view(self) -> None:
+        self.set_camera_to_training_view(0)
+
+    def last_training_view(self) -> None:
+        self.set_camera_to_training_view(self.nerf_dataset.n_images - 1)
+
+    def previous_training_view(self) -> None:
+        i = self._view_index if self._view_index is not None else 0
+        self.set_camera_to_training_view(max(i - 1, 0))
+
+    def next_training_view(self) -> None:
+        i = self._view_index if self._view_index is not None else -1
+        self.set_camera_to_training_view(min(i + 1, self.nerf_dataset.n_images - 1))
+
+    def set_nerf_camera_matrix(self, m) -> None:
+        """The view from a NeRF-convention matrix; a free camera again."""
+        self.camera_matrix = self.nerf_dataset.nerf_matrix_to_ngp(np.asarray(m))
+        self._view_index = None
+
+    def look_at(self, target) -> None:
+        t = np.asarray(target, np.float32)
+        eye = self.camera_matrix[:, 3]
+        fwd = t - eye
+        n = np.linalg.norm(fwd)
+        if n < 1e-9:
+            return
+        fwd = fwd / n
+        right = np.cross(fwd, np.array([0.0, 1.0, 0.0], np.float32))
+        right /= max(np.linalg.norm(right), 1e-9)
+        up = np.cross(right, fwd)
+        self.camera_matrix = np.stack([right, -up, fwd, eye], axis=1)
+
+    def view_dir(self) -> np.ndarray:
+        return self.camera_matrix[:, 2].copy()
+
+    @property
+    def default_camera(self) -> np.ndarray:
+        """The home view ``reset_camera`` restores."""
+        return _home_camera()
+
+    def reset_camera(self) -> None:
+        self.camera_matrix = _home_camera()
+        self.fov = 50.625
+        self.screen_center = (0.5, 0.5)
+
+    def view_camera(self, view: int = 0) -> np.ndarray:
+        return np.array(self.camera_matrix, copy=True)
+
+    def predict_view_camera(self, delta_t: float, view: int = 0) -> np.ndarray:
+        """The pose ``delta_t`` seconds ahead (needs camera_prediction_mode
+        other than NONE and a few frame() ticks); else the current one."""
+        if self._cam_predictor is None:
+            return self.view_camera(view)
+        return np.asarray(self._cam_predictor.predict_camera(delta_t), np.float32)
+
+    @property
+    def fov_xy(self) -> np.ndarray:
+        """Per-axis field of view in degrees; both follow ``fov`` unless set."""
+        return np.asarray([self._fov_x if self._fov_x is not None else self.fov, self.fov],
+                          np.float32)
+
+    @fov_xy.setter
+    def fov_xy(self, v) -> None:
+        v = np.asarray(v, np.float32).reshape(2)
+        self._fov_x = float(v[0])
+        self.fov = float(v[self.fov_axis])
+
+    @property
+    def relative_focal_length(self) -> np.ndarray:
+        """focal length / resolution[fov_axis] (testbed.cu:491-492)."""
+        rel = 0.5 / math.tan(0.5 * math.radians(self.fov))
+        rel_x = 0.5 / math.tan(0.5 * math.radians(self._fov_x)) if self._fov_x is not None else rel
+        return np.asarray([rel_x, rel], np.float32)
+
+    @relative_focal_length.setter
+    def relative_focal_length(self, v) -> None:
+        v = np.asarray(v, np.float32).reshape(2)
+        self._fov_x = math.degrees(2 * math.atan(0.5 / max(v[0], 1e-9)))
+        self.fov = math.degrees(2 * math.atan(0.5 / max(v[self.fov_axis], 1e-9)))
+
+    @property
+    def render_groundtruth(self) -> bool:
+        return self.render_ground_truth
+
+    @render_groundtruth.setter
+    def render_groundtruth(self, v) -> None:
+        self.render_ground_truth = bool(v)
+
+    @property
+    def loop_animation(self) -> bool:
+        return self.camera_path.loop
+
+    @loop_animation.setter
+    def loop_animation(self, v) -> None:
+        self.camera_path.loop = bool(v)
+
+    @property
+    def render_lens(self) -> Lens:
+        """The lens of free-camera renders: the dataset's."""
+        ds = self.nerf_dataset
+        return Lens() if ds is None else Lens(ds.lens_mode, ds.lens_params)
+
+    @render_lens.setter
+    def render_lens(self, lens: Lens) -> None:
+        ds = self.nerf_dataset
+        if ds is None:
+            raise RuntimeError("load a NeRF scene first")
+        ds.lens_mode = getattr(lens.mode, "value", lens.mode)
+        ds.lens_params = np.asarray(lens.params, np.float32)
+        if isinstance(self.task, NerfTask):
+            self.task.lens_params = self.task._t(ds.lens_params)
+
+    # --- the scene's boxes ---
+    @property
+    def aabb(self) -> BoundingBox:
+        if self.mode == TestbedMode.NERF and self.task is not None:
+            return BoundingBox(self.task.aabb_min, self.task.aabb_max)
+        return BoundingBox(np.zeros(3), np.ones(3))
+
+    @property
+    def raw_aabb(self) -> BoundingBox:
+        """SDF: the mesh's bounds before its normalization into the unit cube
+        (world = raw·scale + offset inverted; testbed.py:1690-1701)."""
+        if self.mode == TestbedMode.SDF and self.task is not None:
+            t = self.task
+            raw = (t.triangles.reshape(-1, 3) - t.mesh_offset) / t.mesh_scale
+            return BoundingBox(raw.min(0), raw.max(0))
+        return self.aabb
+
+    @property
+    def render_aabb(self) -> np.ndarray:
+        return np.stack([self.task.render_aabb_min, self.task.render_aabb_max])
+
+    @render_aabb.setter
+    def render_aabb(self, v) -> None:
+        v = np.asarray(v, np.float32)
+        self.task.render_aabb_min, self.task.render_aabb_max = v[0], v[1]
+
+    @property
+    def crop_box(self) -> BoundingBox:
+        """The render box as a BoundingBox (axis-aligned boxes only until
+        item 2)."""
+        if not isinstance(self.task, NerfTask):
+            return BoundingBox(np.zeros(3), np.ones(3))
+        return BoundingBox(self.task.render_aabb_min, self.task.render_aabb_max)
+
+    @crop_box.setter
+    def crop_box(self, box: BoundingBox) -> None:
+        self.render_aabb = np.stack([np.asarray(box.min), np.asarray(box.max)])
+
+    def set_crop_box(self, corners) -> None:
+        self.render_aabb = np.asarray(corners, np.float32)
+
+    def crop_box_corners(self) -> np.ndarray:
+        return self.render_aabb
+
+    @property
+    def render_aabb_to_local(self) -> np.ndarray:
+        """The rotation into the render box's frame: the identity (rotated
+        boxes wait for item 2)."""
+        return np.eye(3, dtype=np.float32)
+
+    @render_aabb_to_local.setter
+    def render_aabb_to_local(self, m) -> None:
+        if not np.allclose(np.asarray(m, np.float32).reshape(3, 3), np.eye(3)):
+            raise not_ported("a rotated render crop box", 2)
+
+    @property
+    def render_near_distance(self) -> float:
+        return float(getattr(self.task, "render_near_distance", 0.0))
+
+    @render_near_distance.setter
+    def render_near_distance(self, v) -> None:
+        self.task.render_near_distance = float(v)
+
+    @property
+    def rendering_min_transmittance(self) -> float:
+        return self.nerf_min_transmittance
+
+    @rendering_min_transmittance.setter
+    def rendering_min_transmittance(self, v) -> None:
+        self.nerf_min_transmittance = float(v)
+
+    # --- the model and the scene ---
+    def _param_split(self) -> tuple[list, list]:
+        """(all parameters, the input encoding's)."""
+        model = self.task.model
+        params = model.param_list()
+        if isinstance(self.task, NerfTask):
+            return params, encoding_tables(model.pos_encoding)
+        return params, params[len(model.network.weights):]
+
+    def n_params(self) -> int:
+        return int(sum(p.numel() for p in self._param_split()[0]))
+
+    def n_encoding_params(self) -> int:
+        return int(sum(p.numel() for p in self._param_split()[1]))
+
+    @property
+    def shall_train_encoding(self) -> bool:
+        """pyngp's toggle: freeze the input encoding while the MLPs train."""
+        if self.task is not None:
+            return self.task.shall_train_encoding
+        return self._pend_train_enc if self._pend_train_enc is not None else True
+
+    @shall_train_encoding.setter
+    def shall_train_encoding(self, v) -> None:
+        if self.task is None:
+            self._pend_train_enc = bool(v)
+        else:
+            self.task.shall_train_encoding = bool(v)
+
+    @property
+    def shall_train_network(self) -> bool:
+        if self.task is not None:
+            return self.task.shall_train_network
+        return self._pend_train_net if self._pend_train_net is not None else True
+
+    @shall_train_network.setter
+    def shall_train_network(self, v) -> None:
+        if self.task is None:
+            self._pend_train_net = bool(v)
+        else:
+            self.task.shall_train_network = bool(v)
+
+    def override_sdf_training_data(self, points, distances) -> None:
+        """pyngp override_sdf_training_data (python_api.cu:74-112): train the
+        SDF on a fixed (points, distances) set in the mesh's raw frame."""
+        if self.mode != TestbedMode.SDF or self.task is None:
+            raise RuntimeError("override_sdf_training_data requires a loaded SDF scene")
+        self.task.override_training_data(points, distances)
+
+    def create_empty_nerf_dataset(self, n_images: int, aabb_scale: int = 1,
+                                  is_hdr: bool = False) -> NerfDataset:
+        """pyngp create_empty_nerf_dataset (nerf_loader.cu:153-173): n images
+        of 64², identity cameras, black frames, for ``set_image``."""
+        n, w, h = int(n_images), 64, 64
+        xforms = np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))
+        ds = NerfDataset(
+            images=np.zeros((n, h, w, 4), np.float16 if is_hdr else np.uint8),
+            is_hdr=bool(is_hdr), xforms_start=xforms, xforms_end=xforms.copy(),
+            focal_lengths=np.full((n, 2), 0.5 * w, np.float32),
+            principal_points=np.full((n, 2), 0.5, np.float32),
+            rolling_shutter=np.zeros((n, 4), np.float32), resolution=(w, h),
+            aabb_scale=int(aabb_scale), scale=0.33,
+            offset=np.array([0.5, 0.5, 0.5], np.float32))
+        self.mode = TestbedMode.NERF
+        self.nerf_dataset = ds
+        if not self.network_config:
+            self.network_config = default_config("nerf")
+        self.task = NerfTask(ds, self.network_config, self.device, seed=self.seed)
+        return ds
+
+    def clear_training_data(self) -> None:
+        if isinstance(self.task, SdfTask):
+            self.task.stop_producer()
+        self.task = None
+        self.scene_path = None
+
+    def reset(self) -> None:
+        """A fresh network on the loaded scene (reference Testbed::reset)."""
+        if self.scene_path:
+            self._build_task()
+        self.training_step = 0
+
+    def free_temporary_memory(self) -> None:
+        """Hand the allocator's cached blocks back to the card."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def want_repl(self) -> bool:
+        return False
+
+    # --- snapshots ---
     def save_snapshot(self, path, include_optimizer_state: bool = False) -> None:
         """Write the task's snapshot (testbed.py:2079-2128): the config, the
         parameters in fp16, the step, the loss and the view; for NeRF also
@@ -336,100 +1576,10 @@ class Testbed:
             task.load_state(params, opt_state, step)
         self.training_step = task.training_step
 
-    def render(self, *args, **kwargs) -> np.ndarray:
-        """The frame of ``render_tensor`` as a numpy (H, W, 4) f32 array
-        (pyngp render_to_cpu; the JAX package's testbed.py:1196-1248)."""
-        return self.render_tensor(*args, **kwargs).cpu().numpy()
-
-    def render_tensor(self, *args, **kwargs) -> torch.Tensor:
-        """NeRF: ``NerfTask.render``'s arguments and frame. Image:
-        ``render(width, height, linear=True)`` → (H, W, 4) with alpha 1, in
-        linear colour unless ``linear`` is False (testbed.py:1245-1248). SDF:
-        ``render(width, height, linear=True, camera_matrix=None, fov=None)``,
-        the sphere trace from the Testbed's view, sun and floor
-        (testbed.py:1329-1350). Volume: the same arguments and
-        ``ground_truth=False``, the learned field's transmittance tracking
-        from the Testbed's view, or with ground_truth a path trace of the grid
-        (testbed.py:1329-1345). A tensor on the task's device."""
-        if self.task is None:
-            raise RuntimeError("load a snapshot or training data before rendering")
-        if self.mode == TestbedMode.IMAGE:
-            return self._render_image(*args, **kwargs)
-        if self.mode == TestbedMode.SDF:
-            return self._render_sdf(*args, **kwargs)
-        if self.mode == TestbedMode.VOLUME:
-            return self._render_volume(*args, **kwargs)
-        return self.task.render(*args, **kwargs)
-
-    def _render_sdf(self, width: int, height: int, linear: bool = True, camera_matrix=None,
-                    fov=None) -> torch.Tensor:
-        self.task.floor_enable = bool(self.floor_enable)
-        cam = self.camera_matrix if camera_matrix is None else camera_matrix
-        frame = self.task.render(width, height, cam, fov=fov or self.fov,
-                                 light_dir=tuple(np.asarray(self.sun_dir, np.float32)))
-        return self._to_space(frame, produced_linear=True, linear=linear)
-
-    def _render_volume(self, width: int, height: int, linear: bool = True, camera_matrix=None,
-                       fov=None, ground_truth: bool = False) -> torch.Tensor:
-        cam = self.camera_matrix if camera_matrix is None else camera_matrix
-        frame = self.task.render(width, height, cam, fov=fov or self.fov,
-                                 ground_truth=ground_truth)
-        return self._to_space(frame, produced_linear=True, linear=linear)
-
-    @staticmethod
-    def _to_space(frame: torch.Tensor, produced_linear: bool, linear: bool) -> torch.Tensor:
-        """The frame's rgb in linear colour or sRGB, as asked (pyngp
-        render_to_cpu's contract)."""
-        if produced_linear == linear:
-            return frame
-        rgb = frame[..., :3]
-        if produced_linear:
-            rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
-        else:
-            rgb = srgb_to_linear(torch.clamp(rgb, 0.0, 1.0))
-        return torch.cat([rgb, frame[..., 3:]], dim=-1)
-
-    def _render_image(self, width: int, height: int, linear: bool = True) -> torch.Tensor:
-        rgb = self.task.render(width, height)
-        frame = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-        return self._to_space(frame, bool(self.task.is_hdr), linear)
-
+    # --- metrics ---
     def compute_image_mse(self, quantize_to_byte: bool = False) -> float:
         return self.task.compute_mse(quantize_to_byte)
 
     def calculate_iou(self, n_samples: int = 128**3) -> float:
         return self.task.calculate_iou(n_samples)
 
-    @property
-    def raw_aabb(self) -> tuple[np.ndarray, np.ndarray]:
-        """SDF: (min, max) of the mesh before its normalization into the unit
-        cube (world = raw·scale + offset inverted; testbed.py:1692-1700).
-        Other modes: the unit cube."""
-        if self.mode == TestbedMode.SDF and self.task is not None:
-            t = self.task
-            raw = (t.triangles.reshape(-1, 3) - t.mesh_offset) / t.mesh_scale
-            return raw.min(0), raw.max(0)
-        return np.zeros(3, np.float32), np.ones(3, np.float32)
-
-    def frame(self) -> bool:
-        """One tick: a training step while ``shall_train`` (reference
-        frame → train_and_render, testbed.cu:3908-4034). A step that
-        marched no sample stops training."""
-        if self.shall_train and self.task is not None:
-            loss = self.task.train(1)
-            self.training_step = self.task.training_step
-            self._loss_ema.update(loss)
-            self.loss_graph.append(loss)
-            if getattr(self.task, "training_aborted", False):
-                self.shall_train = False
-            if (self.calculate_iou_online and self.mode == TestbedMode.SDF
-                    and self.training_step % 16 == 0):
-                self.sdf_iou = float(self.task.calculate_iou(1 << 14))
-        return True
-
-    def train(self, batch_size=None) -> None:
-        self.frame()
-
-    @property
-    def loss(self) -> float:
-        return self._loss_ema.value

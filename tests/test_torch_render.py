@@ -69,7 +69,7 @@ def _view0_frames(name, res=32):
     xf = np.asarray(ds.xforms_start[0], np.float32)
     kw = dict(focal_length=(ds.focal_lengths[0, 0] * res / w, ds.focal_lengths[0, 1] * res / h),
               principal_point=tuple(ds.principal_points[0]), background=(0, 0, 0, 0))
-    frame = ours.render(res, res, xf, **kw)
+    frame = ours.task.render(res, res, xf, **kw).numpy()
     ref = np.asarray(theirs.task.render(res, res, xf, **kw))
     return ours.task, xf, kw, frame, ref
 

@@ -186,7 +186,8 @@ def test_testbed_sdf_surface(mesh_file):
         tb.load_file(path)
         assert tb.mode == common.TestbedMode.SDF and isinstance(tb.task, SdfTask)
         assert tb.task.batch_size == 1 << 16  # the JAX package's Testbed passes none
-        lo, hi = tb.raw_aabb
+        box = tb.raw_aabb
+        lo, hi = box.min, box.max
         np.testing.assert_allclose(lo, raw.reshape(-1, 3).min(0), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(hi, raw.reshape(-1, 3).max(0), rtol=1e-5, atol=1e-5)
         iou0 = tb.calculate_iou(1 << 14)

@@ -161,7 +161,7 @@ def test_port_runtime_imports_neither_jax_nor_msgpack():
         "from instant_ngp_torch.io.synthetic import generate_synthetic_dataset\n"
         "t = tb.Testbed('nerf', device='cpu')\n"
         f"t.load_snapshot({str(FIXTURES['tiny'])!r})\n"
-        "assert t.render(4, 4, t.nerf_dataset.xforms_start[0]).shape == (4, 4, 4)\n"
+        "assert t.task.render(4, 4, t.nerf_dataset.xforms_start[0]).shape == (4, 4, 4)\n"
         "d = tempfile.mkdtemp()\n"
         "scene, _ = generate_synthetic_dataset(d + '/s', res=16, n_train=2, n_test=1, n_steps=8)\n"
         "s = tb.Testbed('nerf', device='cpu')\n"

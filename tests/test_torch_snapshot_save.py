@@ -179,7 +179,8 @@ def _render_pair(port_tb, jax_tb):
     w, h = ds.resolution
     kw = dict(focal_length=(ds.focal_lengths[0, 0] * RES / w, ds.focal_lengths[0, 1] * RES / h),
               principal_point=tuple(ds.principal_points[0]), background=(0, 0, 0, 0))
-    return port_tb.render(RES, RES, xf, **kw), np.asarray(jax_tb.task.render(RES, RES, xf, **kw))
+    return (port_tb.task.render(RES, RES, xf, **kw).numpy(),
+            np.asarray(jax_tb.task.render(RES, RES, xf, **kw)))
 
 
 @pytest.mark.parametrize("with_opt", [False, True])

@@ -48,7 +48,22 @@ microbenchmarks:
   fox (``ngp.Testbed()``, ``set_camera_to_training_view(0)``): a 256^2 spp 4
   sRGB ``render`` through kernels A-D against the plain versions (≥ 40 dB),
   spp 1 on a transparent background bit for bit ``task.render`` of the view,
-  and 1920x1080 frames timed at spp 1 and 8;
+  and 1920x1080 frames timed at spp 1 and 8; the trained run also writes
+  ``--save_mesh`` (a PLY at 256^3, optimised 25 steps through F's dX and
+  K), read back;
+- views: what a trained NeRF is used for, on fox at 256^2 through the
+  Testbed: every render mode (shade, depth, positions, normals, ao, cost,
+  encodingvis, distortion, slice), the Testbed's slice render, depth of
+  field at spp 4, a rotated crop box, each lens (OpenCV, fisheye, F-theta,
+  lat-long, equirectangular, orthographic) and the ``fast`` render, each
+  against the same render through the plain versions (≥ 40 dB); then
+  ``compute_marching_cubes_mesh`` at 256^3 with its stages timed, the same
+  extraction with the field through the plain versions (counts within
+  0.5 %, a mean Chamfer distance within 0.05 voxel), ``optimise_mesh`` 25
+  steps and a PLY written and read back; checked to go through kernels A-D,
+  A's stochastic-corner mode, F and K; then A's stochastic mode at 2^19 fox
+  positions and K and F's dX at the normals' hits against their plain
+  versions (A and K bit for bit);
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
   entry at the edges of its clamps on a non-square texture and kernel J at
@@ -84,7 +99,9 @@ microbenchmarks:
   the pixels, ≥ 40 dB over the rest), K against its plain version on that
   render's hit positions, the normals after normalization; a 1920x1080
   render timed; a snapshot with the optimizer state saved and loaded onto
-  the mesh (state bit for bit, its render as above);
+  the mesh (state bit for bit, its render as above) the trained field through
+  ``compute_marching_cubes_mesh`` at 128^3 (written as OBJ and read back)
+  and ``compute_and_save_png_slices``;
 - volume: ``procedural_fog_volume(128)`` written as ``.nvdb`` with
   ``tests/nvdb_fixture.py``'s writer (the repository holds no NanoVDB file),
   loaded by ``Testbed("volume").load_training_data`` with
@@ -1936,6 +1953,7 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
     prints for the snapshot (a third run, --load_snapshot); then the pyngp
     surface on fox (``run_fox``). Returns the trained run's launches, the fox
     render's and the numbers."""
+    from instant_ngp_torch.geometry.mesh_io import read_ply
     from instant_ngp_torch.io.nerf_loader import load_nerf
     from instant_ngp_torch.io.png import read_png
     from instant_ngp_torch.render.camera_path import CameraPath
@@ -1964,10 +1982,20 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
              str(test_json), "--screenshot_frames", "0", "--screenshot_dir", str(out / "shots"),
              "--width", str(w), "--height", str(h), "--video_camera_path",
              str(out / "path.json"), "--video_n_seconds", RUN_VIDEO[0], "--video_fps",
-             RUN_VIDEO[1], "--video_spp", RUN_VIDEO[2], "--video_output", str(out / "video")],
+             RUN_VIDEO[1], "--video_spp", RUN_VIDEO[2], "--video_output", str(out / "video"),
+             "--save_mesh", str(out / "mesh.ply"), "--optimize_mesh_steps", str(MESH_OPT_STEPS)],
             "trained")
         after = run_summary(lines)
-        check(all(launches[k] > 0 for k in RUN_KERNELS), f"a kernel was not launched: {launches}")
+        check(all(launches[k] > 0 for k in RUN_KERNELS + ("hashgrid_encode_dx",)),
+              f"a kernel was not launched: {launches}")
+        saved = [ln for ln in lines if ln.startswith("saved mesh ")]
+        check(len(saved) == 1, f"the trained run printed no mesh line: {saved}")
+        mv, mf, mc = read_ply(out / "mesh.ply")
+        check(len(mv) > 0 and np.isfinite(mv).all() and int(mf.min()) >= 0
+              and int(mf.max()) < len(mv) and mc is not None,
+              f"the run's mesh: {len(mv)} vertices, {len(mf)} faces")
+        print(f"run: --save_mesh wrote {(out / 'mesh.ply').stat().st_size} bytes, read back: "
+              f"{len(mv)} vertices, {len(mf)} faces ({saved[0]})")
         check(len(after["losses"]) >= RUN_STEPS // 100 and all(np.isfinite(after["losses"])),
               f"the trained run's losses {after['losses']}")
         gain = after["psnr"] - before["psnr"]
@@ -2002,6 +2030,320 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
     numbers = {"untrained": before, "trained": after, "trained_wall_s": wall,
                "untrained_wall_s": untrained_s, "reload_view0_db": reload_db, **fox}
     return launches, fox_launches, numbers
+
+
+VIEWS_RES = 256  # every render of the views phase: fox's view 0 at 256^2
+VIEWS_DOF = 0.02  # the thin lens's aperture; focused at the crop box's centre
+VIEWS_DOF_SPP = 4
+VIEWS_CROP_TURN = 0.4  # radians about y of the rotated crop box
+# the lenses fox's dataset is set to in turn, with parameters that keep every
+# pixel of a 256^2 frame valid (F-theta: (p0..p4, w, h) at the frame's size)
+VIEWS_LENSES = {"opencv": [0.05, -0.01, 0.002, -0.001],
+                "opencv_fisheye": [0.03, -0.004, 0.001, 0.0],
+                "ftheta": [0.0, 0.0025, 1e-6, 0.0, 0.0, 256.0, 256.0],
+                "latlong": [], "equirectangular": [], "orthographic": []}
+MESH_RES = 256
+MESH_OPT_STEPS = 25
+MESH_PLAIN_COUNT_SHARE = 0.005  # vertex and face counts, field through the kernels vs plain
+MESH_CHAMFER_VOXELS = 0.05  # symmetric mean Chamfer distance kernels vs plain, in voxels
+MESH_CHAMFER_SAMPLES = 8192
+SDF_MESH_RES = 128  # the SDF phase's mesh (written as OBJ) and PNG slices
+VIEWS_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "composite_window",
+                 "hashgrid_encode_fwd_stochastic", "fused_mlp_bwd", "hashgrid_encode_dx")
+
+
+def stochastic_work(levels, interpolation: str, table, x) -> tuple[int, int]:
+    """(distinct table rows the stochastic-corner encode of x reads, its
+    operations): one chosen row a hashed level, every corner of a dense one;
+    2C + 1 flops a hashed level (running sum, compares, the threshold), 2CF a
+    dense one."""
+    from instant_ngp_torch.ops.hashgrid import (_level_corners, _position_uniform,
+                                                stochastic_offset)
+
+    rows, ops = 0, 0
+    u = _position_uniform(x)
+    F = table.shape[1]
+    for l, lv in enumerate(levels):
+        idx, w = _level_corners(lv, interpolation, x)
+        C = idx.shape[0]
+        if lv.hashed and C > 1:
+            cdf = torch.cumsum(w, 0)
+            u_l = torch.remainder(u + stochastic_offset(l), 1.0)
+            sel = torch.clamp(torch.sum(cdf < (u_l * cdf[-1])[None], 0), 0, C - 1)
+            idx = torch.gather(idx, 0, sel[None])
+            ops += x.shape[0] * (2 * C + 1)
+        else:
+            ops += x.shape[0] * 2 * C * F
+        rows += int(torch.unique(idx).numel())
+    return rows, ops
+
+
+def check_encode_stochastic(levels, interpolation: str, table, x, what: str) -> dict:
+    """Kernel A's stochastic-corner mode against its plain version, every row
+    bit for bit: error, times, bound."""
+    from instant_ngp_torch.ops.hashgrid import (hashgrid_encode_stochastic,
+                                                hashgrid_encode_stochastic_plain)
+
+    args = (levels, interpolation, table, x)
+    out, ref = hashgrid_encode_stochastic(*args), hashgrid_encode_stochastic_plain(*args)
+    err, scale = max_err(out, ref)
+    equal = bit_equal_rows(out, ref)
+    check(equal == x.shape[0], f"A stochastic {what}: {x.shape[0] - equal} of {x.shape[0]} rows "
+                               f"differ (err {err} at max |ref| {scale})")
+    rows, ops = stochastic_work(levels, interpolation, table, x)
+    dev = device_split(lambda: hashgrid_encode_stochastic(*args), "hashgrid_encode_kernel",
+                       per_call=1)
+    return {"max_abs_err": err, "equal_rows": equal, "rows": x.shape[0],
+            "ms": time_ms(lambda: hashgrid_encode_stochastic(*args)),
+            "plain_ms": time_ms(lambda: hashgrid_encode_stochastic_plain(*args)),
+            "device_ms": dev["device_ms"], "kernel_ms": dev["kernel_ms"],
+            "timed_by": dev["timed_by"], "table_rows_read": rows,
+            **bound(nbytes(x, out) + rows * table.shape[1] * 4, ops)}
+
+
+def timed_render(fn) -> tuple[torch.Tensor, float]:
+    """(fn's frame, its ms on the host clock between synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def vs_plain(task, fn) -> torch.Tensor:
+    """fn's frame through the plain versions."""
+    task.set_use_kernels(False)
+    try:
+        return fn()
+    finally:
+        task.set_use_kernels(True)
+
+
+def chamfer(a: torch.Tensor, b: torch.Tensor, n: int, gen) -> float:
+    """Symmetric mean nearest-vertex distance of n vertices drawn from each
+    mesh to the other's whole vertex set (in f64: cdist's product form keeps
+    the distances of near-coincident points to ~1e-8)."""
+    def one_way(src, dst):
+        pick = src[torch.randint(0, src.shape[0], (n,), generator=gen, device=src.device)]
+        pick, dst = pick.double(), dst.double()
+        return torch.cat([torch.cdist(pick[i:i + 64], dst).min(dim=1).values
+                          for i in range(0, n, 64)]).mean()
+
+    return float(0.5 * (one_way(a, b) + one_way(b, a)))
+
+
+def mesh_phase(tb, card, out: Path) -> dict:
+    """``compute_marching_cubes_mesh`` on fox at MESH_RES^3 through the
+    kernels, its stages timed (the field, marching cubes, the colours, the
+    normals); the same extraction with the field through the plain versions
+    (counts within MESH_PLAIN_COUNT_SHARE, vertices within
+    MESH_CHAMFER_VOXELS of a voxel as a symmetric mean Chamfer distance);
+    ``optimise_mesh`` MESH_OPT_STEPS steps; a PLY written and read back."""
+    from instant_ngp_torch.geometry import marching_cubes as mc
+    from instant_ngp_torch.geometry.mesh_io import read_ply, save_ply
+
+    task = tb.task
+    t0 = time.perf_counter()
+    mesh = tb.compute_marching_cubes_mesh(resolution=(MESH_RES,) * 3)
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    n_v, n_f = len(mesh["V"]), len(mesh["F"])
+    check(n_v > 1000 and n_f > 1000 and all(np.isfinite(mesh[k]).all() for k in "VNC"),
+          f"fox mesh: {n_v} vertices, {n_f} faces")
+    check(int(mesh["F"].min()) >= 0 and int(mesh["F"].max()) < n_v, "fox mesh: face indices")
+    (field, _), field_ms = timed_render(lambda: mc.sample_field(task, MESH_RES))
+    field_dev = device_split(lambda: mc.sample_field(task, MESH_RES), "hashgrid", reps=2)
+    (verts, faces), mc_ms = timed_render(lambda: mc.marching_cubes(field, 0.0))
+    verts = (verts + 0.5) / MESH_RES
+    colors, colors_ms = timed_render(lambda: mc.mesh_colors(task, verts))
+    _, normals_ms = timed_render(lambda: mc.vertex_normals(verts, faces))
+    check(np.array_equal(verts.cpu().numpy(), mesh["V"]) and np.array_equal(
+        faces.cpu().numpy(), mesh["F"]), "fox mesh: the stages differ from the Testbed's call")
+    field_p = vs_plain(task, lambda: mc.sample_field(task, MESH_RES)[0])
+    verts_p, faces_p = mc.marching_cubes(field_p, 0.0)
+    verts_p = (verts_p + 0.5) / MESH_RES
+    share = max(abs(verts_p.shape[0] - n_v) / n_v, abs(faces_p.shape[0] - n_f) / n_f)
+    gen = torch.Generator(device=verts.device).manual_seed(SEED)
+    cham = chamfer(verts, verts_p, MESH_CHAMFER_SAMPLES, gen) * MESH_RES
+    field_err = float((field - field_p).abs().max())
+    print(f"mesh fox {MESH_RES}^3: {n_v} vertices, {n_f} faces; compute_marching_cubes_mesh "
+          f"{whole_ms:.1f} ms; field {field_ms:.1f} ms (device {field_dev['device_ms']:.2f} ms, "
+          f"{field_dev['timed_by']}), marching cubes {mc_ms:.1f} ms, colours {colors_ms:.1f} ms, "
+          f"normals {normals_ms:.1f} ms on {card}; the field through the plain versions: max "
+          f"|field - plain| {field_err:.3e}, {verts_p.shape[0]} vertices, {faces_p.shape[0]} "
+          f"faces (counts {share:.5f} apart), symmetric mean Chamfer {cham:.5f} voxels")
+    check(share <= MESH_PLAIN_COUNT_SHARE, f"fox mesh counts kernels vs plain {share}")
+    check(cham <= MESH_CHAMFER_VOXELS, f"fox mesh Chamfer kernels vs plain {cham} voxels")
+
+    def iso_err(v):
+        return float((mc.nerf_density(task, v) - 2.5).abs().mean())
+
+    before = iso_err(verts)
+    opt, opt_ms = timed_render(lambda: mc.optimise_mesh(task, verts, faces,
+                                                        n_steps=MESH_OPT_STEPS))
+    moved = float((opt - verts).abs().max())
+    after = iso_err(opt)
+    print(f"mesh fox optimise_mesh {MESH_OPT_STEPS} steps: {opt_ms:.1f} ms on {card}; largest "
+          f"move {moved:.3e}; mean |density - 2.5| {before:.4f} -> {after:.4f}")
+    check(bool(torch.isfinite(opt).all()) and moved > 0, "optimise_mesh")
+    path = out / "fox.ply"
+    (_, ply_ms) = timed_render(lambda: save_ply(path, opt, faces, colors))
+    rv, rf, rc = read_ply(path)
+    c8 = np.clip(colors.cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    check(np.array_equal(rv, opt.cpu().numpy()) and np.array_equal(rf, faces.cpu().numpy())
+          and np.array_equal(rc, c8), "the fox PLY read back")
+    print(f"mesh fox PLY: {path.stat().st_size} bytes written in {ply_ms:.1f} ms, read back equal")
+    return {"vertices": n_v, "faces": n_f, "whole_ms": whole_ms, "field_ms": field_ms,
+            "field_device_ms": field_dev["device_ms"], "marching_cubes_ms": mc_ms,
+            "colors_ms": colors_ms, "normals_ms": normals_ms, "plain_count_share": share,
+            "chamfer_voxels": cham, "optimise_ms": opt_ms, "iso_err": (before, after),
+            "ply_bytes": path.stat().st_size, "ply_ms": ply_ms}
+
+
+def sdf_mesh_export(tb, card, out: Path) -> dict:
+    """The SDF phase's trained field through ``compute_marching_cubes_mesh``
+    (SDF_MESH_RES^3, grey vertices) and ``compute_and_save_png_slices``; the
+    mesh written as OBJ and read back."""
+    from instant_ngp_torch.geometry.mesh_io import load_obj, save_obj
+    from instant_ngp_torch.io.png import read_png
+
+    t0 = time.perf_counter()
+    # thresh 0: the default 2.5 is the NeRF density's, and the JAX package's
+    # Testbed applies it to the distance too (an empty mesh)
+    mesh = tb.compute_marching_cubes_mesh(resolution=(SDF_MESH_RES,) * 3, thresh=0.0)
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    n_v, n_f = len(mesh["V"]), len(mesh["F"])
+    check(n_v > 1000 and np.all(mesh["C"] == np.float32(0.7)) and np.isfinite(mesh["V"]).all(),
+          f"sdf mesh: {n_v} vertices")
+    obj = out / "sdf.obj"
+    t0 = time.perf_counter()
+    save_obj(obj, mesh["V"], mesh["F"], mesh["C"])
+    obj_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(load_obj(obj), mesh["V"][mesh["F"]]), "the SDF OBJ read back")
+    t0 = time.perf_counter()
+    res3d = tb.compute_and_save_png_slices(str(out / "sdf"), resolution=SDF_MESH_RES)
+    png_ms = (time.perf_counter() - t0) * 1e3
+    sheet = read_png(out / f"sdf.density_slices_{res3d[0]}x{res3d[1]}x{res3d[2]}.png")
+    check(sheet.shape[0] > 0 and int(np.ptp(sheet)) > 100, f"the SDF slices {sheet.shape}")
+    print(f"sdf mesh {SDF_MESH_RES}^3: {n_v} vertices, {n_f} faces in {mesh_ms:.1f} ms; OBJ "
+          f"({obj.stat().st_size} bytes) written in {obj_ms:.1f} ms and read back equal; PNG "
+          f"slices at {res3d}, a {sheet.shape[1]}x{sheet.shape[0]} sheet, in {png_ms:.1f} ms on "
+          f"{card}")
+    return {"vertices": n_v, "faces": n_f, "mesh_ms": mesh_ms, "obj_ms": obj_ms,
+            "png_ms": png_ms, "slices": res3d}
+
+
+def views_phase(device, card) -> tuple[dict, dict, dict]:
+    """What a trained NeRF is used for, on fox through the Testbed: every
+    render mode at VIEWS_RES^2, the Testbed's slice render, depth of field at
+    spp VIEWS_DOF_SPP, a rotated crop box, each lens of VIEWS_LENSES, the fast
+    render, then ``compute_marching_cubes_mesh`` at MESH_RES^3 and
+    ``optimise_mesh`` (``mesh_phase``). Each render is held against the same
+    render through the plain versions (≥ MIN_PSNR_DB). The launches are read
+    over all of it; then kernel A's stochastic mode and K at fox's shapes (the
+    normals' hits, F's dX cotangent) against their plain versions, bit for
+    bit, and F's dX there. Returns (the launches, the checks by kernel, the
+    numbers)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.common import Lens, RenderMode
+    from instant_ngp_torch.nerf.task import RENDER_MODES
+    from instant_ngp_torch.ops.hashgrid import hashgrid_encode
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_bwd
+    from instant_ngp_torch.testbed import Testbed
+
+    t_phase = time.perf_counter()
+    tb = Testbed("nerf", device=device)
+    tb.load_snapshot(SNAPSHOT)
+    task = tb.task
+    xf, kw = view0(tb, VIEWS_RES)
+    res = VIEWS_RES
+    frames, dbs = {}, {}
+
+    def held(name, fn):
+        frame, ms = timed_render(fn)
+        check(bool(torch.isfinite(frame).all()), f"views {name}: non-finite values")
+        db = psnr(frame, vs_plain(task, fn))
+        frames[name], dbs[name] = ms, db
+        print(f"views {name}: {ms:.1f} ms on {card}; kernel vs plain PSNR {db:.2f} dB")
+        check(db >= MIN_PSNR_DB, f"views {name} kernel vs plain PSNR {db}")
+        return frame
+
+    task.render(res, res, xf, **kw)  # a first frame: the allocator's blocks, untimed
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    shade = None
+    for mode in RENDER_MODES:
+        frame = held(f"mode {mode}", lambda: task.render(res, res, xf, render_mode=mode, **kw))
+        if mode == "shade":
+            shade = frame
+        elif mode != "distortion":
+            check(not torch.equal(frame[..., :3], shade[..., :3]), f"views {mode} equals shade")
+    tb.render_mode, tb.slice_plane_z = RenderMode.SLICE, -0.5
+    tb.set_camera_to_training_view(0)
+    held("testbed slice", lambda: tb.render_tensor(res, res))
+    tb.render_mode = RenderMode.SHADE
+    center = 0.5 * (np.asarray(task.render_aabb_min) + np.asarray(task.render_aabb_max))
+    task.aperture_size, task.focus_z = VIEWS_DOF, float(np.linalg.norm(center - xf[:, 3]))
+    dof = held(f"depth of field spp {VIEWS_DOF_SPP}",
+               lambda: task.render(res, res, xf, spp=VIEWS_DOF_SPP, **kw))
+    task.aperture_size, task.focus_z = 0.0, 1.0
+    check(psnr(dof, shade) < 60.0, "views: the depth-of-field frame is the pinhole frame")
+    saved_box = (task.render_aabb_min, task.render_aabb_max)
+    half = 0.3 * (saved_box[1] - saved_box[0])
+    c, s_ = np.cos(VIEWS_CROP_TURN), np.sin(VIEWS_CROP_TURN)
+    rot = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+    task.render_aabb_min, task.render_aabb_max = (rot @ center - half).astype(np.float32), (
+        rot @ center + half).astype(np.float32)
+    tb.render_aabb_to_local = rot
+    crop = held("rotated crop box", lambda: task.render(res, res, xf, **kw))
+    tb.render_aabb_to_local = np.eye(3, dtype=np.float32)
+    task.render_aabb_min, task.render_aabb_max = saved_box
+    check(float(crop[..., 3].mean()) < float(shade[..., 3].mean()), "views: the crop cut nothing")
+    ds = tb.nerf_dataset
+    saved_lens = Lens(ds.lens_mode, ds.lens_params)
+    for lens, params in VIEWS_LENSES.items():
+        tb.render_lens = Lens(lens, np.asarray(params, np.float32))
+        held(f"lens {lens}", lambda: task.render(res, res, xf, **kw))
+    tb.render_lens = saved_lens
+    fast = held("fast", lambda: task.render(res, res, xf, render_quality="fast", **kw))
+    print(f"views fast vs exact: PSNR {psnr(fast, shade):.2f} dB")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = mesh_phase(tb, card, Path(tmp))
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"views launches: {launches}")
+    check(all(launches[k] > 0 for k in VIEWS_KERNELS), f"a kernel was not launched: {launches}")
+
+    # A's stochastic mode and K (and F's dX) at fox's shapes
+    enc = task.model.pos_encoding
+    table = enc.table.detach()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.rand((N_ROWS, 3), generator=gen, device=device)
+    a_check = check_encode_stochastic(enc.levels, enc.interpolation, table, x, "fox")
+    print(f"kernel hashgrid_encode_fwd_stochastic on fox ({N_ROWS} positions): "
+          f"{a_check['equal_rows']} rows bit for bit; device {a_check['device_ms']:.4f} ms, "
+          f"{a_check['table_rows_read']} table rows read")
+    # the normals mode's hits: o + depth·d of view 0's pixel-centre rays
+    depth = task.render(res, res, xf, return_depth=True, **kw)[1].reshape(-1)
+    ys, xs = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    uv = np.stack([(xs.reshape(-1) + 0.5) / res, (ys.reshape(-1) + 0.5) / res], -1)
+    o, d, _, _ = task._prep_rays(torch.from_numpy(uv.astype(np.float32)).to(device),
+                                 task._t([res, res]), task._t(kw["focal_length"]),
+                                 task._t(kw["principal_point"]), task._t(xf))
+    hit = (o + depth[:, None] * d)[shade[..., 3].reshape(-1) > 0.5]
+    aabb_min, aabb_max = task._aabb_t
+    pw = ((hit - aabb_min) / (aabb_max - aabb_min)).contiguous()
+    ws = [w.detach() for w in task.model.density_network.weights]
+    feats = hashgrid_encode(enc.levels, enc.interpolation, table, pw)
+    g_out = torch.zeros((pw.shape[0], ws[-1].shape[1]), device=device)
+    g_out[:, 0] = 1.0
+    f_check = check_mlp_bwd_trained(ws, feats, g_out, f"fox's {res}^2 normals hits")
+    g_enc = fused_mlp_bwd(ws, feats, g_out)[0]
+    k_check = check_encode_dx(enc.levels, enc.interpolation, table, pw, g_enc,
+                              f"fox's {res}^2 normals hits")
+    print(f"views phase: {time.perf_counter() - t_phase:.1f} s")
+    numbers = {"frame_ms": frames, "psnr_vs_plain_db": dbs, "mesh": mesh}
+    return launches, {"hashgrid_encode_fwd_stochastic": a_check, "fused_mlp_bwd": f_check,
+                      "hashgrid_encode_dx": k_check}, numbers
 
 
 IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
@@ -2976,6 +3318,7 @@ def sdf_phase(device, card) -> tuple[dict, dict, dict, dict]:
               f"{apart32:.5f} apart, {db32:.2f} dB")
         check(apart <= MAX_SDF_MASK_DIFF and db >= MIN_LOADED_PSNR_DB,
               f"the loaded SDF render: {apart} decided apart, PSNR {db}")
+        sdf_mesh_export(tb, card, Path(tmp))
         for t in (tb, rt["onto"]):
             t.task.stop_producer()
     print(f"sdf phase: {time.perf_counter() - t_phase:.1f} s")
@@ -3912,6 +4255,19 @@ def main() -> None:
     disk_launches, disk_render_launches, disk_checks = disk_phase(device, card, scene)
     # the run entry point on that scene, then the pyngp surface on fox
     run_launches, run_fox_launches, _ = run_phase(device, card, scene)
+    # what a trained NeRF is used for: render modes, lenses, the fast render, a mesh
+    views_launches, views_checks, _ = views_phase(device, card)
+    a_stoch = views_checks["hashgrid_encode_fwd_stochastic"]
+    record_kernel(results, "hashgrid_encode_fwd_stochastic", "instant_ngp_torch/csrc/hashgrid.cu",
+                  "instant_ngp_tpu/ops/hashgrid.py:614", a_stoch["max_abs_err"],
+                  **headline(a_stoch),
+                  extra=f" (stochastic-corner mode of A, the fast render; {a_stoch['equal_rows']} "
+                        f"of {a_stoch['rows']} rows bit for bit; device "
+                        f"{a_stoch['device_ms']:.4f} ms)",
+                  path="views", device_ms=a_stoch["device_ms"], variants={"fox": a_stoch})
+    for r in results:
+        if r["name"] == "fused_mlp_bwd":
+            r["variants"]["views_normals"] = views_checks["fused_mlp_bwd"]
     disk_pair = disk_checks.pop("fwd_bwd_pair")
     for r in results:  # the disk path's checks are variants of each record
         for variant, v in disk_checks.get(r["name"], {}).items():
@@ -3965,14 +4321,18 @@ def main() -> None:
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     results += config_records(config_checks)
     w, h = SDF_FRAME_WH
+    k_checks["fox_normals_hits"] = views_checks["hashgrid_encode_dx"]
     k_check, k_big = k_checks["sdf_render_hits"], k_checks[f"sdf_frame_hits_{w}x{h}"]
+    k_fox = k_checks["fox_normals_hits"]
     record_kernel(results, "hashgrid_encode_dx", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
                   "instant_ngp_tpu/ops/hashgrid.py:333",
                   max(v["max_abs_err"] for v in k_checks.values()), **headline(k_check),
                   extra=f" ({k_check['equal_rows']} of {k_check['rows']} rows bit for bit; device "
                         f"{k_check['device_ms']:.4f} ms; {w}x{h} hits: {k_big['rows']} rows bit "
                         f"for bit, {k_big['ms']:.4f} ms, device {k_big['device_ms']:.4f} ms, "
-                        f"bound {k_big['bound_ms']:.4f} ms; "
+                        f"bound {k_big['bound_ms']:.4f} ms; fox's normals hits: {k_fox['rows']} "
+                        f"rows bit for bit, device {k_fox['device_ms']:.4f} ms, bound "
+                        f"{k_fox['bound_ms']:.4f} ms; "
                         f"{k_checks['contract']['cases']} contract cases bit for bit)",
                   path="sdf_render", device_ms=k_check["device_ms"], redesigned=DX_DESIGN,
                   variants=k_checks)
@@ -3997,7 +4357,8 @@ def main() -> None:
              "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
              "sdf_render": sdf_render_launches, "volume": volume_launches,
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
-             "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches}
+             "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches,
+             "views": views_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

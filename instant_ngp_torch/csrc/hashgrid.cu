@@ -36,6 +36,22 @@
 // library is built with -fmad=false so no other expression is contracted.
 // Simplex applies to hashed 3-D levels only, with argmax/argmin taking the
 // first index and amin = (amax + 1) % 3 on ties.
+//
+// Stochastic-corner mode (the template flag kStochastic; entry
+// ngp_hashgrid_encode_fwd_stochastic): the fast render's inference encode,
+// replacing instant_ngp_tpu/ops/hashgrid.py::GridEncoding.encode_infer
+// (stochastic_corner=True, bricks=None). Plain version:
+// ops/hashgrid.py::hashgrid_encode_stochastic_plain. A hashed level with
+// more than one corner loads ONE row, the first corner whose running sum of
+// weights (f32, corner order) is not below u·(sum of all), and writes it as
+// the level's features; nearest levels read their corner as above, and dense
+// levels sum the corners' rows as a chain of FMAs from corner 0's product
+// (the order of XLA's einsum on the CPU in the JAX package). u is
+// made from the f32 bits of the sample's position (XOR of bits·prime[d+1],
+// times 0x9E3779B1, top 24 bits · 2^-24) plus the level's offset
+// l·0.6180339887 (f64, rounded to f32), mod 1 (fmodf, exact). Bound: the
+// same dependent gathers, at 1 row for every hashed level in place of 4
+// or 8, so the bytes fall to what the dense levels and the output need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,11 +131,27 @@ __device__ __forceinline__ Row<F> load_row(const float* __restrict__ tab, uint32
     return r;
 }
 
+// the first corner whose running weight sum is not below u·(sum of all),
+// clamped to the last: JAX's sum(cumsum(w) < u·cumsum(w)[-1])
+template <int C>
+__device__ __forceinline__ int pick_corner(const float (&w)[C], float u) {
+    float cdf[C];
+    cdf[0] = w[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) cdf[c] = cdf[c - 1] + w[c];
+    const float thr = u * cdf[C - 1];
+    int sel = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) sel += cdf[c] < thr ? 1 : 0;
+    return sel < C - 1 ? sel : C - 1;
+}
+
 // the encoding of one position at one level: every corner row load is
-// issued before the first sum
-template <int D, int F>
+// issued before the first sum. kStochastic: a hashed level loads the one
+// corner pick_corner draws with the level's uniform u.
+template <int D, int F, bool kStochastic = false>
 __device__ __forceinline__ void encode_level(const Level& lv, int interp, const float (&pos)[D],
-                                             float (&acc)[F]) {
+                                             float u, float (&acc)[F]) {
     constexpr int C = 1 << D;
     float t[D];
     int g[D];
@@ -156,6 +188,13 @@ __device__ __forceinline__ void encode_level(const Level& lv, int interp, const 
             const float t_min = fminf(fminf(t[0], t[1]), t[2]);
             const float t_mid = ((t[0] + t[1]) + t[2]) - t_max - t_min;
             const float w[4] = {1.0f - t_max, t_max - t_mid, t_mid - t_min, t_min};
+            const int cbits[4] = {0, 1 << amax, 7 ^ (1 << amin), 7};
+            if constexpr (kStochastic) {
+                const Row<F> r = load_row<F>(lv.tab, corner_index<D>(lv, g, cbits[pick_corner<4>(w, u)]));
+#pragma unroll
+                for (int f = 0; f < F; ++f) acc[f] = r.v[f];
+                return;
+            }
             // corners 000, e_max, 1 - e_min, 111
             const Row<F> rows[4] = {
                 load_row<F>(lv.tab, corner_index<D>(lv, g, 0)),
@@ -172,14 +211,34 @@ __device__ __forceinline__ void encode_level(const Level& lv, int interp, const 
         }
     }
     float w[C];
-    Row<F> rows[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
         float wc = (c & 1) ? t[0] : 1.0f - t[0];
 #pragma unroll
         for (int d = 1; d < D; ++d) wc = wc * (((c >> d) & 1) ? t[d] : 1.0f - t[d]);
         w[c] = wc;
-        rows[c] = load_row<F>(lv.tab, corner_index<D>(lv, g, c));
+    }
+    if constexpr (kStochastic) {
+        if (lv.hashed) {
+            const Row<F> r = load_row<F>(lv.tab, corner_index<D>(lv, g, pick_corner<C>(w, u)));
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = r.v[f];
+            return;
+        }
+    }
+    Row<F> rows[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) rows[c] = load_row<F>(lv.tab, corner_index<D>(lv, g, c));
+    if constexpr (kStochastic) {
+        // a chain of FMAs from corner 0's product, as the plain version
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = w[0] * rows[0].v[f];
+#pragma unroll
+        for (int c = 1; c < C; ++c) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] = fmaf(w[c], rows[c].v[f], acc[f]);
+        }
+        return;
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -193,7 +252,18 @@ __device__ __forceinline__ void encode_level(const Level& lv, int interp, const 
 template <int F>
 constexpr int kRowPad = F >= 4 ? 4 : F;
 
-template <int D, int F>
+// the stochastic mode's uniform in [0, 1) from the bits of a position
+template <int D>
+__device__ __forceinline__ float position_uniform(const float (&pos)[D]) {
+    constexpr uint32_t kPrimes[4] = {1u, 2654435761u, 805459861u, 3674653429u};
+    uint32_t h = 0u;
+#pragma unroll
+    for (int d = 0; d < D; ++d) h ^= __float_as_uint(pos[d]) * kPrimes[d + 1];
+    h *= 0x9E3779B1u;
+    return (float)(h >> 8) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+template <int D, int F, bool kStochastic>
 __global__ void __launch_bounds__(kThreads, D <= 2 ? 8 : 4)
 hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ table, LevelTable lt,
                        int n_levels, int interp, long long n, float* __restrict__ out) {
@@ -211,11 +281,14 @@ hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ ta
     float pos[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) pos[d] = lane < rows ? xs[lane * D + d] : 0.0f;
+    const float u_pos = kStochastic ? position_uniform<D>(pos) : 0.0f;
     for (int l = warp; l < n_levels; l += kWarps) {
         const Level lv = {lt.scale[l], lt.res[l], lt.size[l], lt.magic[l], lt.shift[l],
                           lt.hashed[l] != 0, table + (size_t)lt.offset[l] * F};
+        float u = 0.0f;
+        if constexpr (kStochastic) u = fmodf(u_pos + (float)((double)l * 0.6180339887), 1.0f);
         float acc[F];
-        encode_level<D, F>(lv, interp, pos, acc);
+        encode_level<D, F, kStochastic>(lv, interp, pos, u, acc);
         if (lane < rows) {
             float* o = os + lane * rs + l * F;
             if constexpr (F % 4 == 0) {
@@ -250,36 +323,34 @@ hashgrid_encode_kernel(const float* __restrict__ x, const float* __restrict__ ta
     }
 }
 
-template <int D, int F>
+template <int D, int F, bool kStochastic>
 int launch_df(const float* xp, const float* tp, const LevelTable& lt, int n_levels, int interp,
               long long n, float* op, cudaStream_t st) {
     // at most 32 x (3 + 32·8 + 4) floats, under the 48 KB a block has without an opt-in
     const size_t smem = sizeof(float) * (size_t)kTile * (D + n_levels * F + kRowPad<F>);
     const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
-    hashgrid_encode_kernel<D, F><<<blocks, kThreads, smem, st>>>(xp, tp, lt, n_levels, interp, n, op);
+    hashgrid_encode_kernel<D, F, kStochastic><<<blocks, kThreads, smem, st>>>(
+        xp, tp, lt, n_levels, interp, n, op);
     return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kStochastic>
 int launch_encode(const float* xp, const float* tp, const LevelTable& lt, int n_levels,
                   int n_features, int interp, long long n, float* op, cudaStream_t st) {
     switch (n_features) {
-        case 1: return launch_df<D, 1>(xp, tp, lt, n_levels, interp, n, op, st);
-        case 2: return launch_df<D, 2>(xp, tp, lt, n_levels, interp, n, op, st);
-        case 4: return launch_df<D, 4>(xp, tp, lt, n_levels, interp, n, op, st);
-        case 8: return launch_df<D, 8>(xp, tp, lt, n_levels, interp, n, op, st);
+        case 1: return launch_df<D, 1, kStochastic>(xp, tp, lt, n_levels, interp, n, op, st);
+        case 2: return launch_df<D, 2, kStochastic>(xp, tp, lt, n_levels, interp, n, op, st);
+        case 4: return launch_df<D, 4, kStochastic>(xp, tp, lt, n_levels, interp, n, op, st);
+        case 8: return launch_df<D, 8, kStochastic>(xp, tp, lt, n_levels, interp, n, op, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
-}  // namespace
-
-// scale, res, size, offset, magic, shift, hashed: host arrays of n_levels
-extern "C" int ngp_hashgrid_encode_fwd(const void* x, const void* table, const void* scale,
-                                       const void* res, const void* size, const void* offset,
-                                       const void* hashed, const void* magic, const void* shift,
-                                       int n_dims, int n_levels, int n_features, int interp,
-                                       long long n, void* out, void* stream) {
+template <bool kStochastic>
+int encode_entry(const void* x, const void* table, const void* scale, const void* res,
+                 const void* size, const void* offset, const void* hashed, const void* magic,
+                 const void* shift, int n_dims, int n_levels, int n_features, int interp,
+                 long long n, void* out, void* stream) {
     if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
     LevelTable lt;
     for (int l = 0; l < n_levels; ++l) {
@@ -296,9 +367,33 @@ extern "C" int ngp_hashgrid_encode_fwd(const void* x, const void* table, const v
     const float* tp = static_cast<const float*>(table);
     float* op = static_cast<float*>(out);
     switch (n_dims) {
-        case 1: return launch_encode<1>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
-        case 2: return launch_encode<2>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
-        case 3: return launch_encode<3>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
+        case 1: return launch_encode<1, kStochastic>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
+        case 2: return launch_encode<2, kStochastic>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
+        case 3: return launch_encode<3, kStochastic>(xp, tp, lt, n_levels, n_features, interp, n, op, st);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+}  // namespace
+
+// scale, res, size, offset, magic, shift, hashed: host arrays of n_levels
+extern "C" int ngp_hashgrid_encode_fwd(const void* x, const void* table, const void* scale,
+                                       const void* res, const void* size, const void* offset,
+                                       const void* hashed, const void* magic, const void* shift,
+                                       int n_dims, int n_levels, int n_features, int interp,
+                                       long long n, void* out, void* stream) {
+    return encode_entry<false>(x, table, scale, res, size, offset, hashed, magic, shift, n_dims,
+                               n_levels, n_features, interp, n, out, stream);
+}
+
+// the stochastic-corner mode, with the same arguments
+extern "C" int ngp_hashgrid_encode_fwd_stochastic(const void* x, const void* table,
+                                                  const void* scale, const void* res,
+                                                  const void* size, const void* offset,
+                                                  const void* hashed, const void* magic,
+                                                  const void* shift, int n_dims, int n_levels,
+                                                  int n_features, int interp, long long n,
+                                                  void* out, void* stream) {
+    return encode_entry<true>(x, table, scale, res, size, offset, hashed, magic, shift, n_dims,
+                              n_levels, n_features, interp, n, out, stream);
 }

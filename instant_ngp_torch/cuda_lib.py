@@ -46,6 +46,9 @@ SIGNATURES = {
     # x, table, level scale/res/size/offset/hashed/magic/shift (host
     # arrays), n_dims, n_levels, n_features, interpolation, n, out
     "hashgrid_encode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P, _P],
+    # the same arguments: kernel A's stochastic-corner mode (the fast render)
+    "hashgrid_encode_fwd_stochastic": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                       _P, _P],
     # x (f32), w (host pointers, one f32 (in, out) layer each), dims (host
     # int[n_layers+1]), n_layers, act, out_act, n, out
     "fused_mlp": [_P, _P, _P, _I, _I, _I, _L, _P, _P],

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.encodings import (Composite, encoding_flat, encoding_from_config, encoding_tables,
                              encoding_tree, init_encoding, set_encoding_kernels)
+from ..ops.hashgrid import GridEncoding
 from ..ops.mlp import MLP, mlp_from_config
 from ..ops.optimizers import state_from_tree, state_to_tree
 
@@ -40,16 +41,23 @@ class NerfNetwork(nn.Module):
         self.density_network = density_network
         self.rgb_network = rgb_network
 
-    def density(self, pos: torch.Tensor, max_level=None) -> torch.Tensor:
+    def density(self, pos: torch.Tensor, max_level=None, fast: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1] → (N, 16) f32 density-MLP output; channel 0
-        is the density logit."""
-        return self.density_network(self.pos_encoding(pos, max_level=max_level))
+        is the density logit. ``fast`` (a render's ``render_quality="fast"``,
+        nerf_network.py:80-111): a grid encoding reads one stochastic corner
+        a hashed level; other encodings encode as always."""
+        if fast and isinstance(self.pos_encoding, GridEncoding):
+            feats = self.pos_encoding.encode_stochastic(pos, max_level=max_level)
+        else:
+            feats = self.pos_encoding(pos, max_level=max_level)
+        return self.density_network(feats)
 
-    def forward(self, pos: torch.Tensor, dir_warped: torch.Tensor, max_level=None) -> torch.Tensor:
+    def forward(self, pos: torch.Tensor, dir_warped: torch.Tensor, max_level=None,
+                fast: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1]; dir_warped (N, 3) in [0, 1] (warp_direction
         applied by the caller). Returns (N, 4) f32: rgb logits + density
         logit."""
-        d_out = self.density(pos, max_level=max_level)
+        d_out = self.density(pos, max_level=max_level, fast=fast)
         rgb_in = torch.cat([d_out, self.dir_encoding(dir_warped)], dim=-1)
         rgb = self.rgb_network(rgb_in)
         return torch.cat([rgb[:, :3], d_out[:, :1]], dim=-1)

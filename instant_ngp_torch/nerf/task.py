@@ -41,6 +41,7 @@ from ..common import (
 from ..io.nerf_loader import NerfDataset
 from ..models.factory import autoconfig_grid_encoding
 from ..models.nerf_network import NerfNetwork, flat_from_tree, params_from_jax, tree_from_flat
+from ..ops.gather import bilinear_read, bilinear_read_plain
 from ..ops.losses import loss_type_from_string
 from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
 from ..ops.raymarch import ray_intersect_aabb
@@ -177,9 +178,16 @@ class NerfTask:
             if (hi > lo).all():
                 self.render_aabb_min = lo
                 self.render_aabb_max = hi
-        if dataset.render_aabb_to_local is not None and not np.allclose(
-                dataset.render_aabb_to_local, np.eye(3)):
-            raise NotImplementedError("rotated render crop boxes are not ported yet")
+        # the crop box is axis-aligned in the frame this rotation reaches
+        # (reference render_aabb_to_local, testbed_nerf.cu:1472)
+        self.render_aabb_to_local = np.eye(3, dtype=np.float32)
+        if dataset.render_aabb_to_local is not None:
+            self.render_aabb_to_local = np.asarray(dataset.render_aabb_to_local, np.float32)
+        # thin-lens depth of field: aperture radius 0 is a pinhole
+        self.aperture_size = 0.0
+        self.focus_z = 1.0
+        # the first of the three encoding features the encodingvis mode shows
+        self.visualized_dimension = 0
         self._aabb_t = (self._t(self.aabb_min), self._t(self.aabb_max))
         self.use_kernels = True
 
@@ -327,8 +335,11 @@ class NerfTask:
             self.set_density_grid(torch.from_numpy(np.asarray(density_grid, np.float32)))
         self.training_step = int(training_step)
         if cam_offsets is not None:
-            shapes = {k: np.shape(v) for k, v in cam_offsets.items()}
-            if shapes != {k: v.shape for k, v in self.cam_offsets.items()}:
+            shapes = {k: np.shape(v) for k, v in cam_offsets.items() if k != "distortion"}
+            dist = cam_offsets.get("distortion")
+            if shapes != {k: v.shape for k, v in self.cam_offsets.items()
+                          if k != "distortion"} or (dist is not None and (
+                              np.ndim(dist) != 3 or np.shape(dist)[2] != 2)):
                 raise ValueError(f"camera offsets {shapes} do not fit this scene's "
                                  f"{self.dataset.n_images} images (or are not ported)")
             self.cam_offsets = {k: np.array(v, np.float32) for k, v in cam_offsets.items()}
@@ -350,16 +361,13 @@ class NerfTask:
             params = self.opt.inference_params(self.state.opt_state, params)
         return dict(zip(self._param_names, params))
 
-    def inference_density(self, pos: torch.Tensor) -> torch.Tensor:
-        """``model.density`` on the inference parameters: pos (N, 3) in the
-        unit cube → (N, 16)."""
-        params = self.inference_params()
-
-        def sub(prefix):
-            return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
-
-        feats = functional_call(self.model.pos_encoding, sub("pos_encoding."), (pos,))
-        return functional_call(self.model.density_network, sub("density_network."), (feats,))
+    def inference_density(self, pos: torch.Tensor, params: dict | None = None) -> torch.Tensor:
+        """``model.density`` on the inference parameters (or ``params``, by
+        name): pos (N, 3) in the unit cube → (N, 16)."""
+        params = self.inference_params() if params is None else params
+        feats = functional_call(self.model.pos_encoding, _strip(params, "pos_encoding."), (pos,))
+        return functional_call(self.model.density_network, _strip(params, "density_network."),
+                               (feats,))
 
     def set_use_kernels(self, flag: bool) -> None:
         """True (default): rendering and training run the CUDA kernels on
@@ -399,8 +407,15 @@ class NerfTask:
         return o, d, tmin, tmax
 
     def _crop_tminmax(self, o, d):
-        """Ray interval inside scene AABB ∩ render crop box."""
+        """Ray interval inside scene AABB ∩ render crop box (task.py:487-503).
+        The crop box is axis-aligned in the frame ``render_aabb_to_local``
+        reaches; both boxes are convex, so the interval inside both is the
+        intersection of their entry/exit intervals."""
         tmin, tmax = _aabb_entry(o, d, *self._aabb_t)
+        rot = np.asarray(self.render_aabb_to_local, np.float32)
+        if not np.allclose(rot, np.eye(3)):
+            rot_t = self._t(rot)
+            o, d = o @ rot_t.T, d @ rot_t.T
         t2min, t2max = _aabb_entry(o, d, self._t(self.render_aabb_min),
                                    self._t(self.render_aabb_max))
         return torch.maximum(tmin, t2min), torch.minimum(tmax, t2max)
@@ -429,16 +444,17 @@ class NerfTask:
         pos_w = ((pos - aabb_min) / (aabb_max - aabb_min)).reshape(R * K, 3)
         return pos_w, warp_direction(d)[:, None, :].expand(R, K, 3).reshape(R * K, 3)
 
-    def _eval_window(self, o, d, ts, valid):
+    def _eval_window(self, o, d, ts, valid, fast: bool = False):
         """Network outputs (R, K, 4) on the valid samples of a window,
-        zero elsewhere. Only the valid samples are evaluated."""
+        zero elsewhere. Only the valid samples are evaluated; ``fast`` reads
+        one stochastic corner a hashed level (``render_quality="fast"``)."""
         R, K = ts.shape
         pos_w, dirs = self._window_inputs(o, d, ts)
         sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
         out = torch.zeros((R * K, 4), dtype=torch.float32, device=o.device)
         if sel.numel() > 0:
             out[sel] = functional_call(self.model, self.inference_params(),
-                                       (pos_w[sel], dirs[sel]))
+                                       (pos_w[sel], dirs[sel]), {"fast": fast})
         return out.reshape(R, K, 4)
 
     def _composite_window(self, out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
@@ -449,10 +465,11 @@ class NerfTask:
                          self.density_activation)
 
     @torch.no_grad()
-    def _render_rays(self, o, d, tminmax=None, max_rounds: int = 64):
+    def _render_rays(self, o, d, tminmax=None, max_rounds: int = 64, fast: bool = False):
         """Render rays → (rgb (R, 3), alpha (R,), depth (R,), cost (R,)):
         windows of march + eval + composite on the alive rays, compacted
-        before each window."""
+        before each window. Without ``tminmax`` the rays are clipped to the
+        crop box and the near distance here."""
         R = o.shape[0]
         if tminmax is not None:
             tmin, tmax = tminmax
@@ -472,7 +489,7 @@ class NerfTask:
             o_c, d_c, t_c, tmax_c = o[idx].contiguous(), d[idx].contiguous(), t[idx], tmax[idx]
             alive_c = torch.ones_like(idx, dtype=torch.bool)
             ts, dts, valid, t_exit, _ = self._march_window(o_c, d_c, t_c, alive_c, tmax_c)
-            out = self._eval_window(o_c, d_c, ts, valid)
+            out = self._eval_window(o_c, d_c, ts, valid, fast=fast)
             t_n, T_n, rgb_n, depth_n, alive_n, cost_n = self._composite_window(
                 out, ts, dts, valid, t_c, t_exit, T[idx], rgb[idx], depth[idx], alive_c,
                 tmax_c, cost[idx], self.min_transmittance)
@@ -484,24 +501,38 @@ class NerfTask:
     def render(self, width: int, height: int, camera_matrix, focal_length=None,
                principal_point=(0.5, 0.5), fov: float = 50.0, spp: int = 1,
                background=(0.0, 0.0, 0.0, 0.0), to_srgb: bool = False,
-               render_mode: str = "shade", uv_warp_fn=None, return_depth: bool = False):
+               render_mode: str = "shade", uv_warp_fn=None, return_depth: bool = False,
+               render_quality: str = "exact"):
         """Render a frame → (H, W, 4) f32 RGBA tensor on the task's device
         (task.py:2128-2342), through the dataset's lens. ``spp`` samples a
         pixel: sample 0 at the pixel centre, sample s ≥ 1 offset by
         (halton(s, 2), halton(s, 3)); ``uv_warp_fn`` maps each sample's (n,
         2) numpy uv before ray generation (foveation). rgb and alpha (and
         depth) are summed over the samples in sample order on the device,
-        scaled by 1/spp, and only then is ``background`` blended in. With
-        ``return_depth``: (frame, (H, W) expected termination depth). Shade
-        mode only; the other render modes and depth of field wait for
-        ROADMAP Queue 1 item 2."""
-        if render_mode != "shade":
-            raise NotImplementedError(f"render mode {render_mode!r} waits for ROADMAP Queue 1 "
-                                      "item 2 (the rest of NeRF)")
+        scaled by 1/spp, and only then is ``background`` blended in (shade
+        mode). With ``return_depth``: (frame, (H, W) expected termination
+        depth).
+
+        ``render_mode``: shade, depth, positions, normals (−∇σ through the
+        density network), ao (alpha), cost (samples a ray), encodingvis
+        (three encoding features from ``visualized_dimension`` at the hit),
+        distortion (the distortion map at uv, zeros without one) or slice
+        (the density on the plane ``focus_z`` along each ray). An
+        ``aperture_size`` > 0 renders a thin lens focused at ``focus_z``:
+        sample s sits on the aperture disk at Halton(s + 1; 5, 7).
+        ``render_quality`` "fast" reads one stochastic corner a hashed level
+        (kernel A's stochastic mode); "baked" and "slab" are not ported."""
+        if render_mode not in RENDER_MODES:
+            raise ValueError(f"unknown render mode {render_mode!r}")
+        if render_quality not in ("exact", "fast"):
+            raise NotImplementedError(f"render_quality {render_quality!r} waits for ROADMAP "
+                                      "Queue 1 item 3 (the baked and slab renders)")
+        fast = render_quality == "fast"
         if focal_length is None:
             fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
             focal_length = (fl, fl)
-        xform = self._t(camera_matrix)
+        xform_np = np.asarray(camera_matrix, np.float32)
+        xform = self._t(xform_np)
         ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
         xs = xs.reshape(-1).astype(np.float32)
         ys = ys.reshape(-1).astype(np.float32)
@@ -519,8 +550,16 @@ class NerfTask:
             uv = torch.from_numpy(uv).to(self.device)
             rgbs, alphas, depths = [], [], []
             for i in range(0, n, RENDER_CHUNK):
-                o, d, tmin, tmax = self._prep_rays(uv[i:i + RENDER_CHUNK], wh, fl, pp, xform)
-                rgb, alpha, depth, _ = self._render_rays(o, d, tminmax=(tmin, tmax))
+                uv_c = uv[i:i + RENDER_CHUNK]
+                if self.aperture_size > 0.0:
+                    o, d = self._thin_lens_rays(uv_c, wh, fl, pp, xform_np, s)
+                    tminmax = None
+                else:
+                    o, d, tmin, tmax = self._prep_rays(uv_c, wh, fl, pp, xform)
+                    tminmax = (tmin, tmax)
+                rgb, alpha, depth, cost = self._render_rays(o, d, tminmax=tminmax, fast=fast)
+                if render_mode != "shade":
+                    rgb = self._mode_rgb(render_mode, o, d, uv_c, rgb, alpha, depth, cost)
                 rgbs.append(rgb)
                 alphas.append(alpha)
                 depths.append(depth)
@@ -529,14 +568,169 @@ class NerfTask:
             depth_acc += torch.cat(depths)
         inv = 1.0 / max(spp, 1)
         rgb, alpha = rgb_acc * inv, alpha_acc * inv
-        bg = self._t(background)
-        rgb = rgb + (1.0 - alpha)[:, None] * bg[None, :3] * (bg[3] if len(bg) > 3 else 1.0)
-        if to_srgb:
-            rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
+        if render_mode == "shade":
+            bg = self._t(background)
+            rgb = rgb + (1.0 - alpha)[:, None] * bg[None, :3] * (bg[3] if len(bg) > 3 else 1.0)
+            if to_srgb:
+                rgb = linear_to_srgb(torch.clamp(rgb, min=0.0))
         frame = torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
         if return_depth:
             return frame, (depth_acc * inv).reshape(height, width)
         return frame
+
+    def _thin_lens_rays(self, uv, wh, fl, pp, xform: np.ndarray, s: int):
+        """Depth-of-field rays of sample ``s`` (task.py:2231-2255): the
+        origin moved to a point of the aperture disk at Halton(s + 1; 5, 7),
+        the ray re-aimed at the plane z = ``focus_z`` of camera space. The
+        lens offset is formed in f64 on the host and rounded to f32, as the
+        JAX package forms it in numpy."""
+        R = uv.shape[0]
+        dir_cam, _ = uv_to_ray_cam(
+            uv, (wh[0], wh[1]), fl[None, :].expand(R, 2), pp[None, :].expand(R, 2),
+            lens_mode=LensMode(self.dataset.lens_mode), lens_params=self.lens_params)
+        ang = 2.0 * np.pi * halton(s + 1, 5)
+        rad = self.aperture_size * np.sqrt(halton(s + 1, 7))
+        lens = rad * (np.cos(ang) * xform[:, 0] + np.sin(ang) * xform[:, 1])
+        shift = self._t([lens @ xform[:, 0], lens @ xform[:, 1], 0.0])
+        xf = self._t(xform)
+        d = (dir_cam * self.focus_z - shift) @ xf[:, :3].T
+        o = (xf[:, 3] + self._t(lens)).expand(d.shape)
+        d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+        return o, d
+
+    def _mode_rgb(self, mode: str, o, d, uv, rgb, alpha, depth, cost) -> torch.Tensor:
+        """The colour of a G-buffer render mode for one chunk of rays
+        (task.py:2263-2325)."""
+        n = alpha.shape[0]
+        aabb_min, aabb_max = self._aabb_t
+        if mode in ("positions", "normals", "encodingvis"):
+            hit = o + depth[:, None] * d
+            if mode == "positions":
+                return torch.clamp((hit - aabb_min) / (aabb_max - aabb_min), 0.0, 1.0)
+            if mode == "normals":
+                return self._surface_normals(hit)
+            pw = torch.clamp((hit - aabb_min) / (aabb_max - aabb_min), 0.0, 1.0)
+            feats = functional_call(self.model.pos_encoding, _strip(self.inference_params(), "pos_encoding."),
+                                    (pw,))
+            vd = int(np.clip(self.visualized_dimension, 0, max(feats.shape[-1] - 3, 0)))
+            return torch.clamp(torch.abs(feats[:, vd:vd + 3].to(torch.float32)) * 10.0, 0.0, 1.0)
+        if mode == "depth":
+            return depth[:, None].expand(n, 3)
+        if mode == "ao":
+            return alpha[:, None].expand(n, 3)
+        if mode == "cost":
+            heat = torch.clamp(cost / 256.0, 0.0, 1.0)
+            return torch.stack([heat, 1.0 - heat, torch.zeros_like(heat)], -1)
+        if mode == "distortion":
+            off = self._distortion_at(uv)
+            mag = torch.linalg.vector_norm(off, dim=-1)
+            return torch.stack([torch.clamp(off[:, 0] * 50 + 0.5, 0, 1),
+                                torch.clamp(off[:, 1] * 50 + 0.5, 0, 1),
+                                torch.clamp(mag * 100, 0, 1)], -1)
+        # slice: the density on the plane focus_z along each ray
+        pw = (o + float(self.focus_z) * d - aabb_min) / (aabb_max - aabb_min)
+        logit = self.inference_density(torch.clamp(pw, 0.0, 1.0))[:, 0].to(torch.float32)
+        heat = torch.clamp(torch.log1p(network_to_density(logit, self.density_activation)) / 6.0,
+                           0.0, 1.0)
+        heat = torch.where(torch.all((pw >= 0) & (pw <= 1), dim=-1), heat, 0.0)
+        return torch.stack([heat, heat * 0.5, 1.0 - heat], -1)
+
+    def _distortion_at(self, uv: torch.Tensor) -> torch.Tensor:
+        """The (n, 2) offsets of the task's distortion map (a snapshot's
+        ``cam_offsets["distortion"]``, (h, w, 2)) read bilinearly at uv
+        through kernel I's bilinear entry; zeros without a map."""
+        dist = self.cam_offsets.get("distortion")
+        if dist is None:
+            return torch.zeros((uv.shape[0], 2), dtype=torch.float32, device=uv.device)
+        h, w = dist.shape[:2]
+        tex = torch.zeros((h * w, 4), dtype=torch.float32, device=uv.device)
+        tex[:, :2] = self._t(dist).reshape(h * w, 2)
+        read = bilinear_read if self.use_kernels else bilinear_read_plain
+        return read(tex, (w, h), uv.contiguous())[:, :2]
+
+    def _surface_normals(self, pos_world: torch.Tensor) -> torch.Tensor:
+        """−∇σ at pos_world, normalized and mapped to [0, 1] (task.py:
+        2405-2417): the gradient of the density logits' sum through the
+        density network (kernel F's dX) and the encoding (kernel K)."""
+        aabb_min, aabb_max = self._aabb_t
+        params = {k: v.detach() for k, v in self.inference_params().items()}
+        with torch.enable_grad():
+            p = pos_world.detach().requires_grad_(True)
+            out = self.inference_density((p - aabb_min) / (aabb_max - aabb_min), params)
+            (g,) = torch.autograd.grad(out[:, 0].to(torch.float32).sum(), p)
+        nrm = -g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-9)
+        return nrm * 0.5 + 0.5
+
+    @torch.no_grad()
+    def render_slice(self, width: int, height: int, camera_matrix, focal_length=None,
+                     principal_point=(0.5, 0.5), fov: float = 50.0, plane_dist: float = 1.5,
+                     background=(0.0, 0.0, 0.0, 0.0)) -> torch.Tensor:
+        """The slice render (task.py:2036-2126, reference ERenderMode::Slice):
+        the whole model on the plane of view-space depth ``plane_dist``,
+        rgba = [rgb·a, a] with a = 1 − exp(−σ·0.01), over ``background``.
+        Returns (H, W, 4) f32 on the task's device."""
+        if focal_length is None:
+            fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
+            focal_length = (fl, fl)
+        xform = self._t(camera_matrix)
+        ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+        uv = torch.from_numpy(np.stack([(xs.reshape(-1) + 0.5) / width,
+                                        (ys.reshape(-1) + 0.5) / height],
+                                       -1).astype(np.float32)).to(self.device)
+        n = uv.shape[0]
+        fl = self._t(focal_length)[None, :].expand(n, 2)
+        pp = self._t(principal_point)[None, :].expand(n, 2)
+        # unit z-depth camera directions: eye + dir·plane_dist is the plane
+        dir_cam, off_cam = uv_to_ray_cam(uv, (width, height), fl, pp,
+                                         lens_mode=LensMode(self.dataset.lens_mode),
+                                         lens_params=self.lens_params)
+        d_w = dir_cam @ xform[:, :3].T
+        world = xform[:, 3] + off_cam @ xform[:, :3].T + d_w * plane_dist
+        aabb_min, aabb_max = self._aabb_t
+        pos_w = (world - aabb_min) / (aabb_max - aabb_min)
+        dirs = d_w / torch.clamp(torch.linalg.vector_norm(d_w, dim=-1, keepdim=True), min=1e-9)
+        out = functional_call(self.model, self.inference_params(),
+                              (pos_w, warp_direction(dirs)))
+        rgb = network_to_rgb(out[:, :3].to(torch.float32), self.rgb_activation)
+        sigma = network_to_density(out[:, 3].to(torch.float32), self.density_activation)
+        a = torch.clamp(1.0 - torch.exp(-sigma * 0.01), 0.0, 1.0)
+        bg = self._t(background)
+        rgb = rgb * a[:, None] + (1.0 - a[:, None]) * bg[:3] * bg[3]
+        alpha = a + (1.0 - a) * bg[3]
+        return torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
+
+
+RENDER_MODES = ("shade", "depth", "positions", "normals", "ao", "cost", "encodingvis",
+                "distortion", "slice")
+
+
+def _strip(params: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def level_stats(task: NerfTask) -> list[dict]:
+    """Each hash-grid level's parameter statistics (task.py:2470, the
+    reference's LevelStats panel, testbed.cu:5234-5284)."""
+    out = []
+    enc = task.model.pos_encoding
+    for lv, table in zip(enc.levels, enc.unpack_params()):
+        chunk = table.detach().cpu().numpy()
+        out.append({"resolution": lv.resolution, "hashed": lv.hashed, "n_entries": lv.size,
+                    "mean": float(chunk.mean()), "std": float(chunk.std()),
+                    "min": float(chunk.min()), "max": float(chunk.max()),
+                    "frac_nonzero": float((np.abs(chunk) > 1e-6).mean())})
+    return out
+
+
+@torch.no_grad()
+def density_slice(task: NerfTask, z: float = 0.5, res: int = 256) -> np.ndarray:
+    """The activated density on the slice z of the unit cube, (res, res)
+    with x along the rows (task.py:2490)."""
+    xs = (np.arange(res) + 0.5) / res
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    pts = np.stack([gx, gy, np.full_like(gx, z)], -1).reshape(-1, 3).astype(np.float32)
+    out = task.inference_density(torch.from_numpy(pts).to(task.device))[:, 0].to(torch.float32)
+    return np.exp(np.clip(out.cpu().numpy(), -15, 15)).reshape(res, res)
 
 
 def halton(i: int, b: int) -> float:

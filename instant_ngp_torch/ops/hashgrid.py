@@ -26,7 +26,14 @@ of the position bits plus a per-(level, draw) offset, so the draw is the
 JAX package's draw bit for bit on the same x. Dense levels always take
 every corner, in f32 (the JAX package sums them in a bf16 matmul splat).
 
-Position gradient (the SDF render's analytic normals): on CUDA tensors
+The fast render (``render_quality="fast"``): on CUDA tensors
+``hashgrid_encode_stochastic`` launches kernel A in its stochastic-corner mode
+and on CPU tensors runs ``hashgrid_encode_stochastic_plain``: a hashed level
+returns the row of one corner drawn by its interpolation weight, as the JAX
+package's ``encode_infer(stochastic_corner=True)``.
+
+Position gradient (the SDF render's analytic normals, the NeRF normals
+render mode and ``optimise_mesh``): on CUDA tensors
 ``hashgrid_encode_dx`` launches kernel K (the end of
 ``csrc/hashgrid_bwd.cu``), on CPU tensors it runs
 ``hashgrid_encode_dx_plain``, the JAX package's analytic d/dx in its order.
@@ -40,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Optional
 
@@ -48,7 +56,7 @@ import torch
 from torch import nn
 
 from .. import cuda_lib
-from ..common import fma
+from ..common import fma, fma_exact
 
 # Spatial-hash primes (tiny-cuda-nn convention; the first dim uses 1 so
 # that dense and hashed indices coincide along x).
@@ -139,7 +147,9 @@ def _level_corners(level: GridLevelSpec, interpolation: str, x: torch.Tensor):
                            for b in corners])
         t_max = torch.amax(t, dim=-1)
         t_min = torch.amin(t, dim=-1)
-        t_mid = torch.sum(t, dim=-1) - t_max - t_min
+        # the sum in axis order, as the kernels take it (torch.sum's order on
+        # the card is its own)
+        t_mid = ((t[:, 0] + t[:, 1]) + t[:, 2]) - t_max - t_min
         return idx, torch.stack([1.0 - t_max, t_max - t_mid, t_mid - t_min, t_min])
     if interpolation not in ("linear", "simplex"):
         raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
@@ -164,6 +174,45 @@ def hashgrid_encode_plain(levels, interpolation: str, table: torch.Tensor,
         idx, w = _level_corners(level, interpolation, x)
         feats = table[level.offset + idx]  # (C, N, F)
         outs.append(torch.sum(w[:, :, None] * feats, dim=0))
+    return torch.cat(outs, dim=-1)
+
+
+def stochastic_offset(level: int) -> float:
+    """The per-level offset of the stochastic-corner encode's uniform:
+    level·0.6180339887 in f64 on the host, rounded to f32, as the JAX
+    package's ``encode_infer`` forms it (hashgrid.py:614-690)."""
+    return float(np.float32(level * 0.6180339887))
+
+
+def hashgrid_encode_stochastic_plain(levels, interpolation: str, table: torch.Tensor,
+                                     x: torch.Tensor) -> torch.Tensor:
+    """The fast render's encode (JAX ``encode_infer(stochastic_corner=
+    True)``): x (N, D) → (N, L·F) f32. A hashed level with more than one
+    corner returns the table row of ONE corner, the first whose running sum
+    of weights (f32, in corner order) is not below u·(sum of all), with u =
+    (the position-bits uniform + ``stochastic_offset(l)``) mod 1; dense and
+    nearest levels interpolate exactly, the corners' weighted rows summed as
+    a chain of FMAs from corner 0's product (the order of XLA's einsum on
+    the CPU, which the JAX package's dense levels run there)."""
+    outs = []
+    u_rand = None
+    for l, level in enumerate(levels):
+        idx, w = _level_corners(level, interpolation, x)
+        n_corners = idx.shape[0]
+        if level.hashed and n_corners > 1:
+            if u_rand is None:
+                u_rand = _position_uniform(x)
+            u_l = torch.remainder(u_rand + stochastic_offset(l), 1.0)
+            cdf = torch.stack(list(itertools.accumulate(w.unbind(0))))
+            c_sel = torch.clamp(torch.sum(cdf < (u_l * cdf[-1])[None, :], dim=0), 0,
+                                n_corners - 1)
+            outs.append(table[level.offset + torch.gather(idx, 0, c_sel[None, :])[0]])
+            continue
+        feats = table[level.offset + idx]
+        acc = w[0, :, None] * feats[0]
+        for c in range(1, n_corners):
+            acc = fma_exact(w[c, :, None], feats[c], acc)
+        outs.append(acc)
     return torch.cat(outs, dim=-1)
 
 
@@ -347,6 +396,27 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     return out
 
 
+def hashgrid_encode_stochastic(levels, interpolation: str, table: torch.Tensor,
+                               x: torch.Tensor) -> torch.Tensor:
+    """See ``hashgrid_encode_stochastic_plain``. CPU tensors run the plain
+    version; CUDA tensors launch kernel A in its stochastic-corner mode (the
+    same blocks, warps and output staging; a hashed level loads one row)."""
+    if x.device.type == "cpu":
+        return hashgrid_encode_stochastic_plain(levels, interpolation, table, x)
+    cuda_lib.check_cuda(x, table, dtype=torch.float32)
+    n, n_dims = x.shape
+    n_features = table.shape[1]
+    _check_kernel_shapes(levels, interpolation, n_dims, n_features, "A")
+    L = len(levels)
+    arrays = (*_level_arrays(levels), *_magic_arrays(levels))
+    out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
+    if n > 0:
+        cuda_lib.launch("hashgrid_encode_fwd_stochastic", x.data_ptr(), table.data_ptr(),
+                        *map(ctypes.addressof, arrays), n_dims, L, n_features,
+                        INTERPOLATIONS[interpolation], n, out.data_ptr())
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _draw_offsets(n_levels: int, k: int) -> ctypes.Array:
     """draw_offset(l, d) for d < k, as the host float[L·MAX_DRAWS] of a
@@ -506,16 +576,31 @@ class GridEncoding(nn.Module):
         """x (N, D) in [0, 1] → (N, L·F) f32. max_level: optional scalar or
         (N,) in [0, 1]; levels l ≥ max_level·L contribute zero."""
         out = _GridEncodeFunction.apply(self, self.table, x.contiguous())
-        if max_level is not None:
-            L, F = self.n_levels, self.n_features_per_level
-            max_level = torch.as_tensor(max_level, dtype=torch.float32, device=out.device)
-            lvl = torch.arange(L, dtype=torch.float32, device=out.device).repeat_interleave(F)
-            if max_level.ndim == 0:
-                mask = lvl[None, :] < max_level * L
-            else:
-                mask = lvl[None, :] < max_level[:, None] * L
-            out = out * mask.to(out.dtype)
+        return _masked(out, max_level, self.n_levels, self.n_features_per_level)
+
+    @torch.no_grad()
+    def encode_stochastic(self, x: torch.Tensor,
+                          max_level: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The fast render's inference encode (``hashgrid_encode_stochastic``):
+        no gradients."""
+        encode = hashgrid_encode_stochastic if self.use_kernel else \
+            hashgrid_encode_stochastic_plain
+        out = encode(self.levels, self.interpolation, self.table.detach(), x.contiguous())
+        return _masked(out, max_level, self.n_levels, self.n_features_per_level)
+
+
+def _masked(out: torch.Tensor, max_level, n_levels: int, n_features: int) -> torch.Tensor:
+    """Zero the features of levels l ≥ max_level·L (scalar or (N,))."""
+    if max_level is None:
         return out
+    max_level = torch.as_tensor(max_level, dtype=torch.float32, device=out.device)
+    lvl = torch.arange(n_levels, dtype=torch.float32, device=out.device).repeat_interleave(
+        n_features)
+    if max_level.ndim == 0:
+        mask = lvl[None, :] < max_level * n_levels
+    else:
+        mask = lvl[None, :] < max_level[:, None] * n_levels
+    return out * mask.to(out.dtype)
 
 
 def grid_encoding_from_config(cfg: dict, n_dims: int, device=None) -> GridEncoding:

@@ -6,6 +6,8 @@ port's ``Testbed`` on the card.
         --test_transforms data/scene/transforms_test.json \\
         --screenshot_transforms data/scene/transforms_test.json --screenshot_dir shots \\
         --save_snapshot scene.ingp
+    python -m instant_ngp_torch.run --load_snapshot data/fox_1536.ingp --n_steps 0 \
+        --save_mesh fox.ply --marching_cubes_res 256 --optimize_mesh_steps 25
     python -m instant_ngp_torch.run ... --device cpu  # the plain versions, no card
 
 The evaluation of ``--test_transforms`` is the reference's protocol
@@ -15,9 +17,10 @@ taken back to sRGB; PSNR, SSIM and ꟻLIP per view and their means.
 
 As in ``scripts/run.py``, ``--mode``, ``--near_distance``, ``--exposure`` and
 ``--screenshot_spp`` are parsed and never read, and screenshots render at
-spp 1. ``--train_mode rfl`` / ``rflrelax``, ``--save_mesh`` and
-``--optimize_mesh_steps`` wait for ROADMAP Queue 1 item 2 and exit before
-anything loads. ``--nerf_compatibility`` sets what the port's NeRF task has
+spp 1. ``--save_mesh`` writes the marching-cubes mesh (PLY by the suffix,
+else OBJ) after the snapshot is saved, optimised ``--optimize_mesh_steps``
+steps. ``--train_mode rfl`` / ``rflrelax`` wait for ROADMAP Queue 1 item 2
+(its training half) and exit before anything loads. ``--nerf_compatibility`` sets what the port's NeRF task has
 (no cone stepping, no random background); a run whose training stops (a
 step that marched no sample) ends its loop, where ``scripts/run.py`` would
 spin on it.
@@ -88,13 +91,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (cpu runs the kernels' plain versions)")
     args = p.parse_args(argv)
-    refused = [flag for flag, on in (("--train_mode " + args.train_mode, args.train_mode != "nerf"),
-                                     ("--save_mesh", bool(args.save_mesh)),
-                                     ("--optimize_mesh_steps", args.optimize_mesh_steps > 0)) if on]
-    if refused:
-        p.error(f"{', '.join(refused)}: not ported yet, waits for ROADMAP Queue 1 item 2 "
-                "(the rest of NeRF)")
+    if args.train_mode != "nerf":
+        p.error(f"--train_mode {args.train_mode}: not ported yet, waits for ROADMAP Queue 1 "
+                "item 2 (the rest of NeRF: its training half)")
     return args
+
+
+def save_mesh(testbed, path: str, res: int, optimize_steps: int) -> None:
+    """``--save_mesh`` (scripts/run.py:135-151): marching cubes at ``res``,
+    the vertices optimised ``optimize_steps`` steps (NeRF; their colours
+    stay those of the extracted vertices), written as PLY by the suffix or
+    else OBJ."""
+    from .geometry.marching_cubes import extract_mesh, optimise_mesh
+    from .geometry.mesh_io import save_obj, save_ply
+
+    verts, faces, colors = extract_mesh(testbed.task, res=res)
+    if optimize_steps > 0 and verts.shape[0]:
+        verts = optimise_mesh(testbed.task, verts, faces, n_steps=optimize_steps)
+    (save_ply if path.endswith(".ply") else save_obj)(path, verts, faces, colors)
+    print(f"saved mesh {path} ({verts.shape[0]} verts, {faces.shape[0]} faces)")
 
 
 def evaluate(task, test_transforms) -> tuple[list[float], list[float], list[float]]:
@@ -167,6 +182,9 @@ def main(argv=None) -> None:
     if args.save_snapshot:
         testbed.save_snapshot(args.save_snapshot)
         print(f"saved snapshot {args.save_snapshot}")
+
+    if args.save_mesh:
+        save_mesh(testbed, args.save_mesh, args.marching_cubes_res, args.optimize_mesh_steps)
 
     if args.test_transforms:
         print(f"evaluating {args.test_transforms}")

@@ -17,6 +17,8 @@ render or to train on.
     tb.screenshot("shot.png", 1920, 1080, spp=4)
     tb.load_camera_path("path.json")
     frame = tb.render(1920, 1080, start_t=0.5, end_t=0.55)  # a frame of the path
+    tb.render_mode = RenderMode.NORMALS  # depth, positions, ao, cost, ..., slice
+    tb.compute_and_save_marching_cubes_mesh("scene.ply", resolution=(256, 256, 256))
 
     tb = Testbed()
     tb.load_training_data("scene_dir")
@@ -722,9 +724,11 @@ class Testbed:
         self.fov_axis = 1
         self.camera_smoothing = False
         self.render_with_lens_distortion = True
-        self.render_quality = "exact"  # "fast", "baked" and "slab" wait for items 2 and 3
-        self.render_mode = RenderMode.SHADE  # shade only until item 2
+        self.render_quality = "exact"  # or "fast"; "baked" and "slab" wait for item 3
+        self.render_mode = RenderMode.SHADE
         self.slice_plane_z = 0.0
+        self.autofocus = False  # m_autofocus: focus at the crop box's centre
+        self.mesh_thresh = 2.5  # the NeRF density of exported surfaces
         self.screen_center = (0.5, 0.5)  # the principal point of a free camera
         self.fixed_res_factor = 8  # render factor 8 / this when dynamic_res is off
         self.render_transparency_as_checkerboard = False
@@ -778,15 +782,35 @@ class Testbed:
         self._task_queue: collections.deque = collections.deque()
         self._task_queue_lock = threading.Lock()
 
+    # --- depth of field (testbed.py:1417-1422, 1762-1775) ---
+    @property
+    def aperture_size(self) -> float:
+        return float(getattr(self.task, "aperture_size", 0.0))
+
+    @aperture_size.setter
+    def aperture_size(self, v: float) -> None:
+        self.task.aperture_size = float(v)
+
+    @property
+    def dof(self) -> float:
+        """pyngp dof ≡ the aperture size (python_api.cu:631)."""
+        return self.aperture_size
+
+    @dof.setter
+    def dof(self, v: float) -> None:
+        self.aperture_size = float(v)
+
+    @property
+    def autofocus_target(self) -> float:
+        """The focus distance ``NerfTask.focus_z``."""
+        return getattr(self.task, "focus_z", 1.0)
+
+    @autofocus_target.setter
+    def autofocus_target(self, v) -> None:
+        self.task.focus_z = float(v)
+
     # --- knobs of later slices ---
-    autofocus = _knob("autofocus", False)
-    autofocus_target = _knob("autofocus_target", 1.0)
-    aperture_size = _knob("aperture_size", 0.0)
-    dof = _knob("dof", 0.0)
     max_level_rand_training = _knob("max_level_rand_training", False)
-    compute_marching_cubes_mesh = _method("compute_marching_cubes_mesh")
-    compute_and_save_marching_cubes_mesh = _method("compute_and_save_marching_cubes_mesh")
-    compute_and_save_png_slices = _method("compute_and_save_png_slices")
     init_window = _method("init_window", 4)
     init_vr = _method("init_vr", 4)
     destroy_window = _method("destroy_window", 4)
@@ -1053,13 +1077,26 @@ class Testbed:
 
     def _render_nerf(self, width, height, spp, linear, cam, fov) -> torch.Tensor:
         task = self.task
-        if self.render_quality != "exact":
-            raise not_ported(f"render_quality {self.render_quality!r}",
-                             3 if self.render_quality in ("baked", "slab") else 2)
+        mode = self.render_mode.value if isinstance(self.render_mode, RenderMode) else str(
+            self.render_mode)
+        mode = mode.replace("_", "")
+        quality = self.render_quality
+        if quality in ("baked", "slab"):
+            if mode == "shade":
+                raise not_ported(f"render_quality {quality!r}", 3)
+            quality = "exact"  # the G-buffer modes take the exact path (task.py:2168-2171)
         task.min_transmittance = self.nerf_min_transmittance
+        task.visualized_dimension = self.visualized_dimension
         bg = (0.0, 0.0, 0.0, 0.0) if self.render_transparency_as_checkerboard else tuple(
             self.background_color)
         kw = self._view_intrinsics(width, height)
+        produced_linear = task.rgb_activation == NerfActivation.EXPONENTIAL
+        if mode == "slice":
+            # the model on the plane slice_plane_z + scale (testbed.py:1278-1290)
+            frame = task.render_slice(width, height, cam, fov=fov or self.fov,
+                                      plane_dist=self.slice_plane_z + self.scale,
+                                      background=bg, **kw)
+            return self._to_space(frame, produced_linear, linear)
         fov_eff = fov or self.fov
         if self.zoom != 1.0:  # m_zoom scales the focal length
             if "focal_length" in kw:
@@ -1067,12 +1104,14 @@ class Testbed:
             else:
                 fov_eff = 2.0 * math.degrees(math.atan(
                     math.tan(math.radians(fov_eff) * 0.5) / self.zoom))
-        mode = self.render_mode.value if isinstance(self.render_mode, RenderMode) else str(
-            self.render_mode)
+        if self.autofocus:
+            # focus at the crop box's centre (testbed.py:1302-1307)
+            center = 0.5 * (np.asarray(task.render_aabb_min) + np.asarray(task.render_aabb_max))
+            task.focus_z = float(np.linalg.norm(center - np.asarray(cam)[:, 3]))
         frame = task.render(width, height, cam, fov=fov_eff, spp=spp, background=bg,
-                            render_mode=mode.replace("_", ""), **kw)
+                            render_mode=mode, render_quality=quality, **kw)
         # LDR scenes train and render in sRGB, HDR in linear (testbed_nerf.cu:2354)
-        frame = self._to_space(frame, task.rgb_activation == NerfActivation.EXPONENTIAL, linear)
+        frame = self._to_space(frame, produced_linear, linear)
         if self.nerf.sharpen:
             frame = _unsharp(frame, self.nerf.sharpen)
         return frame
@@ -1369,8 +1408,8 @@ class Testbed:
 
     @property
     def crop_box(self) -> BoundingBox:
-        """The render box as a BoundingBox (axis-aligned boxes only until
-        item 2)."""
+        """The render box as a BoundingBox, in the frame that
+        ``render_aabb_to_local`` reaches."""
         if not isinstance(self.task, NerfTask):
             return BoundingBox(np.zeros(3), np.ones(3))
         return BoundingBox(self.task.render_aabb_min, self.task.render_aabb_max)
@@ -1387,14 +1426,94 @@ class Testbed:
 
     @property
     def render_aabb_to_local(self) -> np.ndarray:
-        """The rotation into the render box's frame: the identity (rotated
-        boxes wait for item 2)."""
+        """The rotation into the render box's frame (pyngp
+        render_aabb_to_local, python_api.cu:642)."""
+        if isinstance(self.task, NerfTask):
+            return np.asarray(self.task.render_aabb_to_local, np.float32)
         return np.eye(3, dtype=np.float32)
 
     @render_aabb_to_local.setter
     def render_aabb_to_local(self, m) -> None:
-        if not np.allclose(np.asarray(m, np.float32).reshape(3, 3), np.eye(3)):
-            raise not_ported("a rotated render crop box", 2)
+        m = np.asarray(m, np.float32).reshape(3, 3)
+        if isinstance(self.task, NerfTask):
+            self.task.render_aabb_to_local = m
+
+    # --- mesh export (testbed.py:1460-1480, 1591-1640, 2053-2074) ---
+    def compute_marching_cubes_mesh(self, resolution=(256, 256, 256), aabb=None,
+                                    thresh: float = 2.5) -> dict:
+        """pyngp compute_marching_cubes_mesh: {"V", "N", "C", "F"} as numpy,
+        the vertices in the unit cube (NeRF: model coordinates), their
+        area-weighted normals, colours and the faces. Only
+        ``resolution[0]`` is read and ``aabb`` is not, as in the JAX
+        package."""
+        from .geometry.marching_cubes import extract_mesh, vertex_normals
+
+        res = int(resolution[0]) if np.ndim(resolution) else int(resolution)
+        verts, faces, colors = extract_mesh(self.task, res=res, iso=thresh)
+        normals = vertex_normals(verts, faces)
+        if colors is None:
+            colors = torch.full_like(verts, 0.7)
+        return {"V": verts.cpu().numpy(), "N": normals.cpu().numpy(),
+                "C": colors.cpu().numpy(), "F": faces.cpu().numpy()}
+
+    def compute_and_save_marching_cubes_mesh(self, filename: str, resolution=(256, 256, 256),
+                                             aabb=None, thresh: float = 2.5,
+                                             generate_uvs_for_exporting_texture: bool = False,
+                                             generate_uvs_for_obj_file: bool = False) -> int:
+        """pyngp compute_and_save_marching_cubes_mesh: a ``.ply`` by its
+        suffix, else an OBJ (with a UV atlas and texture where asked).
+        Returns the vertex count."""
+        from .geometry.marching_cubes import extract_mesh
+        from .geometry.mesh_io import save_obj, save_obj_unwrapped, save_ply
+
+        res = int(resolution[0]) if np.ndim(resolution) else int(resolution)
+        verts, faces, colors = extract_mesh(self.task, res=res, iso=thresh)
+        if str(filename).lower().endswith(".ply"):
+            save_ply(filename, verts, faces, colors)
+        elif generate_uvs_for_exporting_texture or generate_uvs_for_obj_file:
+            save_obj_unwrapped(filename, verts, faces, colors)
+        else:
+            save_obj(filename, verts, faces, colors)
+        return int(verts.shape[0])
+
+    def compute_and_save_png_slices(self, filename: str, resolution: int = 256, aabb=None,
+                                    thresh: float = float("inf"), density_range: float = 4.0,
+                                    flip_y_and_z_axes: bool = False) -> tuple:
+        """pyngp compute_and_save_png_slices (reference testbed.cu:556-585):
+        the field on a grid over the render box (NeRF; the unit cube
+        otherwise, or ``aabb``), its z-slices tiled into
+        ``<filename>.density_slices_<rx>x<ry>x<rz>.png``. SDF: the box grows
+        by ``density_range`` voxels and the range turns into voxel units,
+        negated. Returns the grid's resolution."""
+        from .geometry.marching_cubes import (get_density_on_grid, get_marching_cubes_res,
+                                              save_density_grid_to_png)
+
+        if aabb is None or (hasattr(aabb, "is_empty") and aabb.is_empty()):
+            if self.mode == TestbedMode.NERF and self.task is not None:
+                lo = np.asarray(self.task.render_aabb_min)
+                hi = np.asarray(self.task.render_aabb_max)
+            else:
+                lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+            to_local = self.render_aabb_to_local
+        else:
+            lo = np.asarray(aabb.min, np.float32)
+            hi = np.asarray(aabb.max, np.float32)
+            to_local = np.eye(3, dtype=np.float32)
+        if thresh == float("inf"):
+            thresh = float(self.mesh_thresh)
+        rng = float(density_range)
+        res3d = get_marching_cubes_res(int(resolution), lo, hi)
+        if self.mode == TestbedMode.SDF:
+            pad = rng * (hi - lo)[0] / res3d[0]
+            lo, hi = lo - pad, hi + pad
+            res3d = get_marching_cubes_res(int(resolution), lo, hi)
+            rng = -rng * (hi - lo)[0] / res3d[0]
+            thresh = 0.0
+        density = get_density_on_grid(self.task, res3d, lo, hi, to_local)
+        save_density_grid_to_png(density, f"{filename}.density_slices_{res3d[0]}x{res3d[1]}x"
+                                          f"{res3d[2]}.png", thresh=thresh, density_range=rng,
+                                 flip_y_and_z_axes=flip_y_and_z_axes)
+        return tuple(int(r) for r in res3d)
 
     @property
     def render_near_distance(self) -> float:
@@ -1568,7 +1687,11 @@ class Testbed:
         if nerf:
             cam = None
             if "cam_offsets" in snap:
-                cam = snapshot_io.unpack_tree(snap["cam_offsets"], task.cam_offsets)
+                template = dict(task.cam_offsets)
+                if len(snap["cam_offsets"]) == len(snapshot_io.tree_leaves(template)) + 1:
+                    # one more leaf: a trained distortion map, whose shape the file gives
+                    template["distortion"] = np.zeros((0, 0, 2), np.float32)
+                cam = snapshot_io.unpack_tree(snap["cam_offsets"], template)
             task.load_state(params, opt_state,
                             snapshot_io.restore_density_grid(snap, task.max_cascade + 1), step,
                             cam)

@@ -9,7 +9,8 @@ the last printed digit (the renders agree at tests/test_torch_render.py's 45
 dB), and the screenshot PNG within one 8-bit step. Then: the flags and their defaults, a 3-step
 training run whose snapshot the JAX Testbed loads, the flags that wait for
 ROADMAP Queue 1 item 2 exiting before anything loads, and a run in a child
-process that imports neither jax nor the JAX package."""
+process (with a mesh export) that imports neither jax nor the JAX package.
+``--save_mesh`` against the JAX package is tests/test_torch_mesh_export.py's."""
 
 import importlib.util
 import json
@@ -118,9 +119,8 @@ def test_training_run_saves_a_snapshot_the_jax_testbed_loads(scene, tmp_path, ca
         assert np.array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("flags", [["--train_mode", "rfl"], ["--train_mode", "rflrelax"],
-                                   ["--save_mesh", "mesh.obj"], ["--optimize_mesh_steps", "5"]],
-                         ids=["rfl", "rflrelax", "save_mesh", "optimize_mesh_steps"])
+@pytest.mark.parametrize("flags", [["--train_mode", "rfl"], ["--train_mode", "rflrelax"]],
+                         ids=["rfl", "rflrelax"])
 def test_flags_of_later_slices_exit_before_anything_loads(flags, capsys):
     with pytest.raises(SystemExit) as exit_:
         run.main(["--scene", "/nonexistent/scene", "--n_steps", "5", *flags])
@@ -147,14 +147,21 @@ def test_flags_and_defaults_are_scripts_run_s(monkeypatch, capsys):
     assert ours == vars(scripts_run.parse_args())
 
 
-def test_run_imports_neither_jax_nor_the_jax_package(scene):
+def test_run_imports_neither_jax_nor_the_jax_package(scene, tmp_path):
+    """A run that evaluates, exports an optimised mesh (its modules:
+    geometry/marching_cubes.py, geometry/mesh_io.py) and renders imports
+    neither jax nor the JAX package."""
+    mesh = tmp_path / "mesh.ply"
     code = (
         "import runpy, sys\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         f"sys.argv = ['run', '--load_snapshot', {str(TINY)!r}, '--n_steps', '0',\n"
-        f"            '--test_transforms', {str(scene / 'transforms.json')!r}, '--device', 'cpu']\n"
+        f"            '--test_transforms', {str(scene / 'transforms.json')!r}, '--device', 'cpu',\n"
+        f"            '--save_mesh', {str(mesh)!r}, '--marching_cubes_res', '16',\n"
+        "            '--optimize_mesh_steps', '2']\n"
         "runpy.run_module('instant_ngp_torch.run', run_name='__main__', alter_sys=True)\n"
+        "import instant_ngp_torch.geometry.marching_cubes, instant_ngp_torch.geometry.mesh_io\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'instant_ngp_tpu')"
         " or m == 'pyngp']\n"
         "assert not bad, bad\n"
@@ -164,3 +171,4 @@ def test_run_imports_neither_jax_nor_the_jax_package(scene):
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.splitlines()[-1] == "clean" and "PSNR=" in proc.stdout
+    assert f"saved mesh {mesh}" in proc.stdout and mesh.exists()

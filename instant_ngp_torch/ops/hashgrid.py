@@ -27,8 +27,9 @@ JAX package's draw bit for bit on the same x. Dense levels always take
 every corner, in f32 (the JAX package sums them in a bf16 matmul splat).
 
 The fast render (``render_quality="fast"``): on CUDA tensors
-``hashgrid_encode_stochastic`` launches kernel A in its stochastic-corner mode
-and on CPU tensors runs ``hashgrid_encode_stochastic_plain``: a hashed level
+``hashgrid_encode(..., stochastic=True)`` launches kernel A in its
+stochastic-corner mode and on CPU tensors runs
+``hashgrid_encode_stochastic_plain``: a hashed level
 returns the row of one corner drawn by its interpolation weight, as the JAX
 package's ``encode_infer(stochastic_corner=True)``.
 
@@ -184,17 +185,13 @@ def stochastic_offset(level: int) -> float:
     return float(np.float32(level * 0.6180339887))
 
 
-def hashgrid_encode_stochastic_plain(levels, interpolation: str, table: torch.Tensor,
-                                     x: torch.Tensor) -> torch.Tensor:
-    """The fast render's encode (JAX ``encode_infer(stochastic_corner=
-    True)``): x (N, D) → (N, L·F) f32. A hashed level with more than one
-    corner returns the table row of ONE corner, the first whose running sum
-    of weights (f32, in corner order) is not below u·(sum of all), with u =
-    (the position-bits uniform + ``stochastic_offset(l)``) mod 1; dense and
-    nearest levels interpolate exactly, the corners' weighted rows summed as
-    a chain of FMAs from corner 0's product (the order of XLA's einsum on
-    the CPU, which the JAX package's dense levels run there)."""
-    outs = []
+def _stochastic_corners(levels, interpolation: str, x: torch.Tensor):
+    """Per level of the stochastic-corner encode, (level, idx, w, corners):
+    a hashed level with more than one corner gives idx (1, N), the ONE
+    corner drawn, the first whose running sum of weights (f32, in corner
+    order) is not below u·(sum of all), with u = (the position-bits uniform
+    + ``stochastic_offset(l)``) mod 1, and w None; any other level gives
+    all its corners, idx and w (C, N). ``corners`` is the level's C."""
     u_rand = None
     for l, level in enumerate(levels):
         idx, w = _level_corners(level, interpolation, x)
@@ -206,9 +203,26 @@ def hashgrid_encode_stochastic_plain(levels, interpolation: str, table: torch.Te
             cdf = torch.stack(list(itertools.accumulate(w.unbind(0))))
             c_sel = torch.clamp(torch.sum(cdf < (u_l * cdf[-1])[None, :], dim=0), 0,
                                 n_corners - 1)
-            outs.append(table[level.offset + torch.gather(idx, 0, c_sel[None, :])[0]])
-            continue
+            yield level, torch.gather(idx, 0, c_sel[None, :]), None, n_corners
+        else:
+            yield level, idx, w, n_corners
+
+
+def hashgrid_encode_stochastic_plain(levels, interpolation: str, table: torch.Tensor,
+                                     x: torch.Tensor) -> torch.Tensor:
+    """The fast render's encode (JAX ``encode_infer(stochastic_corner=
+    True)``): x (N, D) → (N, L·F) f32. A hashed level with more than one
+    corner returns the table row of the corner ``_stochastic_corners``
+    draws; dense and nearest levels interpolate exactly, the corners'
+    weighted rows summed as a chain of FMAs from corner 0's product (the
+    order of XLA's einsum on the CPU, which the JAX package's dense levels
+    run there)."""
+    outs = []
+    for level, idx, w, n_corners in _stochastic_corners(levels, interpolation, x):
         feats = table[level.offset + idx]
+        if w is None:
+            outs.append(feats[0])
+            continue
         acc = w[0, :, None] * feats[0]
         for c in range(1, n_corners):
             acc = fma_exact(w[c, :, None], feats[c], acc)
@@ -375,13 +389,16 @@ def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: in
 
 
 def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor, stochastic: bool = False) -> torch.Tensor:
     """Encode x (N, D) f32 with the flat table (n_entries, F) f32. CPU
     tensors run the plain version; CUDA tensors launch kernel A (a block
     per 32 samples, a warp per level, the output rows staged in shared
-    memory)."""
+    memory). ``stochastic``: the fast render's encode
+    (``hashgrid_encode_stochastic_plain``), A's stochastic-corner mode,
+    counted apart as ``hashgrid_encode_fwd_stochastic``."""
     if x.device.type == "cpu":
-        return hashgrid_encode_plain(levels, interpolation, table, x)
+        plain = hashgrid_encode_stochastic_plain if stochastic else hashgrid_encode_plain
+        return plain(levels, interpolation, table, x)
     cuda_lib.check_cuda(x, table, dtype=torch.float32)
     n, n_dims = x.shape
     n_features = table.shape[1]
@@ -390,28 +407,8 @@ def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,
     arrays = (*_level_arrays(levels), *_magic_arrays(levels))
     out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
     if n > 0:
-        cuda_lib.launch("hashgrid_encode_fwd", x.data_ptr(), table.data_ptr(),
-                        *map(ctypes.addressof, arrays), n_dims, L, n_features,
-                        INTERPOLATIONS[interpolation], n, out.data_ptr())
-    return out
-
-
-def hashgrid_encode_stochastic(levels, interpolation: str, table: torch.Tensor,
-                               x: torch.Tensor) -> torch.Tensor:
-    """See ``hashgrid_encode_stochastic_plain``. CPU tensors run the plain
-    version; CUDA tensors launch kernel A in its stochastic-corner mode (the
-    same blocks, warps and output staging; a hashed level loads one row)."""
-    if x.device.type == "cpu":
-        return hashgrid_encode_stochastic_plain(levels, interpolation, table, x)
-    cuda_lib.check_cuda(x, table, dtype=torch.float32)
-    n, n_dims = x.shape
-    n_features = table.shape[1]
-    _check_kernel_shapes(levels, interpolation, n_dims, n_features, "A")
-    L = len(levels)
-    arrays = (*_level_arrays(levels), *_magic_arrays(levels))
-    out = torch.empty((n, L * n_features), dtype=torch.float32, device=x.device)
-    if n > 0:
-        cuda_lib.launch("hashgrid_encode_fwd_stochastic", x.data_ptr(), table.data_ptr(),
+        name = "hashgrid_encode_fwd_stochastic" if stochastic else "hashgrid_encode_fwd"
+        cuda_lib.launch(name, x.data_ptr(), table.data_ptr(),
                         *map(ctypes.addressof, arrays), n_dims, L, n_features,
                         INTERPOLATIONS[interpolation], n, out.data_ptr())
     return out
@@ -581,11 +578,11 @@ class GridEncoding(nn.Module):
     @torch.no_grad()
     def encode_stochastic(self, x: torch.Tensor,
                           max_level: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The fast render's inference encode (``hashgrid_encode_stochastic``):
-        no gradients."""
-        encode = hashgrid_encode_stochastic if self.use_kernel else \
-            hashgrid_encode_stochastic_plain
-        out = encode(self.levels, self.interpolation, self.table.detach(), x.contiguous())
+        """The fast render's inference encode (``hashgrid_encode(...,
+        stochastic=True)``): no gradients."""
+        args = (self.levels, self.interpolation, self.table.detach(), x.contiguous())
+        out = hashgrid_encode(*args, stochastic=True) if self.use_kernel else \
+            hashgrid_encode_stochastic_plain(*args)
         return _masked(out, max_level, self.n_levels, self.n_features_per_level)
 
 

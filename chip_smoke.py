@@ -24,6 +24,20 @@ microbenchmarks:
   on the snapshot's trained grid, G on the snapshot model's outputs there
   and on random inputs at K 48, 40 and 100, two calls of G bit for bit equal,
   and H at the Pallas probes' shapes, with rows of 4 and with int32 indices;
+- camera: the train phase's 50 views with the odd ones' poses turned 0.5°
+  about a seeded axis and moved 0.005 along a seeded direction, every third
+  view's linear exposure scaled by 2^±0.5 in turn, and 16 latent dims; the
+  snapshot's model (its rgb MLP given 16 seeded input rows), frozen, and
+  300 frames that optimize the extrinsics, exposure, focal length,
+  distortion map and latents (kernels A-C, E-H, I's bilinear entry and K);
+  checked to keep every loss finite, to lower the perturbed views' mean
+  rotation and position errors and to move each scaled view's exposure
+  toward the inverse of its scale; G in every loss and train mode with d/d
+  target against its plain version in float64 at R 4,096 K 32 (timed), the
+  8,192-ray ceiling and a seeded K past 64; one camera step through the
+  kernels against the plain versions, every parameter and camera leaf; K
+  bit for bit, F (48 and 32 inputs), H into the distortion map and I's read
+  of it at that step's shapes; the time a camera step adds to a plain one;
 - disk: ``io/synthetic.py``'s scene (24 train and 4 test views at 128^2)
   written to disk, loaded by ``Testbed.load_training_data`` with
   ``configs/nerf/base.json`` and trained 300 frames, checked to go through
@@ -50,7 +64,11 @@ microbenchmarks:
   spp 1 on a transparent background bit for bit ``task.render`` of the view,
   and 1920x1080 frames timed at spp 1 and 8; the trained run also writes
   ``--save_mesh`` (a PLY at 256^3, optimised 25 steps through F's dX and
-  K), read back;
+  K), read back; two more children at once train 300 steps with
+  ``--train_mode rfl --rfl_warmup_steps 100`` and ``--train_mode rflrelax
+  --rflrelax_begin_step 100 --rflrelax_end_step 250``, each checked to print
+  its mode switches, keep its losses finite and score its test split above
+  the untrained run;
 - views: what a trained NeRF is used for, on fox at 256^2 through the
   Testbed: every render mode (shade, depth, positions, normals, ao, cost,
   encodingvis, distortion, slice), the Testbed's slice render, depth of
@@ -1472,10 +1490,10 @@ def busy_text(wall_ms: float, busy_ms) -> str:
     return f"device busy {busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}"
 
 
-def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
+def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict, object]:
     """The training path. Returns (the E-H records, the training march's
     record, the launches of the training run, B against F's recompute on
-    the trained model)."""
+    the trained model, the rendered training set)."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.nerf.task import NerfTask
     from instant_ngp_torch.testbed import Testbed
@@ -1545,7 +1563,342 @@ def train_phase(tb, device, card) -> tuple[list[dict], dict, dict, dict]:
     print(f"views {EVAL_VIEWS}: PSNR of the mean MSE {before[1]:.2f} -> {after[1]:.2f} dB")
     check(after[1] - before[1] >= MIN_PSNR_GAIN_DB,
           f"PSNR rose from {before[1]:.2f} to {after[1]:.2f} dB only")
-    return results, march, launches, pair
+    return results, march, launches, pair, ds
+
+
+# the camera phase: camera optimization on the train phase's 50 views of
+# fox, the snapshot's parameters and grid, fox's width with 16 latent dims
+CAMERA_STEPS = 300
+CAMERA_ROT_DEG = 0.5  # the odd views' poses turned this much about a seeded axis
+CAMERA_SHIFT = 0.005  # and moved this far along a seeded direction
+CAMERA_EXPOSURE_LOG2 = 0.5  # every third view's linear exposure 2^±this, alternating
+CAMERA_EXTRA_DIMS = 16
+# frames timed with the camera optimized and without; with the PROFILED_STEPS
+# after them, one grid-update interval from an update step: each window holds
+# one update, in its host-timed part, and its profiled steps none
+CAMERA_TIMED_FRAMES = 13
+CAMERA_LATENT_ROWS = 1e-2  # the rgb MLP's weights of the latent inputs: seeded U(±this)
+# NerfTask's K 48 and 256 march iterations: the snapshot's rays need more than 32
+# samples (at K 32 every ray stops short of the fox and the loss is ~300x the
+# model's own at K 48); at 2,048 rays x 48 slots they fit the 2^17 capacity
+CAMERA_RAYS = 2048
+CAMERA_KERNELS = TRAIN_KERNELS + ("hashgrid_encode_dx", "bilinear_read")
+TRAIN_MODES = ("nerf", "rfl", "rflrelax")
+
+
+def perturbed_camera_set(ds, gen):
+    """The training set of ``train_phase`` for the camera phase: the odd
+    views' poses turned by CAMERA_ROT_DEG about a seeded axis and moved by
+    CAMERA_SHIFT along a seeded direction; every third view's linear pixels
+    scaled by 2^(±CAMERA_EXPOSURE_LOG2), + and − in turn (clamped to 1 and
+    taken back to 8-bit sRGB); CAMERA_EXTRA_DIMS latent dims. Returns (the
+    dataset, the true poses (n, 3, 4), each view's log2 scale)."""
+    from instant_ngp_torch.common import linear_to_srgb, srgb_to_linear
+    from instant_ngp_torch.render.camera import so3_exp
+
+    n = ds.n_images
+    true = np.array(ds.xforms_start, np.float32)
+    xf = true.copy()
+    for i in range(1, n, 2):
+        axis = torch.nn.functional.normalize(torch.randn(3, generator=gen), dim=0)
+        turn = so3_exp(axis * np.radians(CAMERA_ROT_DEG)).numpy()
+        shift = torch.nn.functional.normalize(torch.randn(3, generator=gen), dim=0).numpy()
+        xf[i, :, :3] = turn @ true[i, :, :3]
+        xf[i, :, 3] = true[i, :, 3] + CAMERA_SHIFT * shift
+    scale = np.zeros(n, np.float32)
+    images = np.array(ds.images)
+    for i in range(0, n, 3):
+        scale[i] = CAMERA_EXPOSURE_LOG2 if (i // 3) % 2 == 0 else -CAMERA_EXPOSURE_LOG2
+        rgb = torch.from_numpy(images[i, ..., :3].astype(np.float32) / 255.0)
+        lin = torch.clamp(srgb_to_linear(rgb) * float(2.0 ** scale[i]), 0.0, 1.0)
+        images[i, ..., :3] = (linear_to_srgb(lin) * 255.0 + 0.5).to(torch.uint8).numpy()
+    cds = dataclasses.replace(ds, images=images, xforms_start=xf, xforms_end=xf.copy(),
+                              n_extra_learnable_dims=CAMERA_EXTRA_DIMS)
+    return cds, true, scale
+
+
+@torch.no_grad()
+def pose_errors(task, true: np.ndarray, views) -> tuple[float, float]:
+    """The mean rotation error (degrees) and the mean position error of the
+    offset cameras of ``views`` against their true poses."""
+    from instant_ngp_torch.render.camera import so3_exp
+
+    cam = task.cam_offsets
+    xf = np.asarray(task.dataset.xforms_start, np.float32)
+    rot = so3_exp(cam["rot"].cpu()).numpy()
+    pos = cam["pos"].cpu().numpy()
+    angles, shifts = [], []
+    for i in views:
+        r_eff = rot[i] @ xf[i, :, :3]
+        rel = r_eff @ true[i, :, :3].T
+        angles.append(np.degrees(np.arccos(np.clip((np.trace(rel) - 1.0) / 2.0, -1.0, 1.0))))
+        shifts.append(float(np.linalg.norm(xf[i, :, 3] + pos[i] - true[i, :, 3])))
+    return float(np.mean(angles)), float(np.mean(shifts))
+
+
+class Capture:
+    """Record the arguments of every call of ``module.name`` inside the
+    ``with`` block (the calls still run)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls.append(args)
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def check_composite_mode(gargs, mode: str, timed: bool = False) -> dict:
+    """Kernel G in train mode ``mode`` with d objective / d target against
+    its plain version evaluated in float64: each output (per-ray loss, d/d
+    out, d/d target) within TOL_COMPOSITE_TRAIN of its max |ref| plus twice
+    the f32 plain version's own largest distance from that reference (the
+    f32 rounding any evaluation of the formulas carries); two calls bit for
+    bit. ``timed``: times, device time and bound too."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    outs = nerf_train.composite_train(*gargs, mode, want_dtarget=True)
+    again = nerf_train.composite_train(*gargs, mode, want_dtarget=True)
+    R, K = gargs[1].shape
+    what = f"G {gargs[11].value} {mode} R {R} K {K}"
+    check(all(torch.equal(a, b) for a, b in zip(outs, again)), f"{what}: two calls differ")
+    exact = nerf_train.composite_train_plain(*[
+        a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a for a in gargs],
+        mode, want_dtarget=True)
+    plain = nerf_train.composite_train_plain(*gargs, mode, want_dtarget=True)
+    errs, used = [], []
+    for i, (k_out, p_out, x_out) in enumerate(zip(outs, plain, exact)):
+        err, scale = max_err(k_out, x_out)
+        p_err = max_err(p_out, x_out)[0]
+        allowed = TOL_COMPOSITE_TRAIN * scale + 2.0 * p_err
+        used.append(err / allowed if allowed > 0 else float(err > 0))
+        check(err <= allowed, f"{what}: output {i} err {err} at max |ref| {scale} (the f32 "
+                              f"plain version's {p_err})")
+        errs.append(err)
+    v = {"max_abs_err": max(errs), "allowance_used": max(used)}
+    if timed:
+        v.update(ms=time_ms(lambda: nerf_train.composite_train(*gargs, mode, want_dtarget=True)),
+                 plain_ms=time_ms(lambda: nerf_train.composite_train_plain(
+                     *gargs, mode, want_dtarget=True)),
+                 **device_split(lambda: nerf_train.composite_train(*gargs, mode,
+                                                                    want_dtarget=True),
+                                "composite_train"),
+                 **bound(nbytes(*[a for a in gargs if torch.is_tensor(a)], *outs)))
+    return v
+
+
+def composite_mode_checks(task, device) -> dict:
+    """G in every loss and train mode, with d/d target, on seeded inputs at
+    R 4,096 K 32 (timed), at the 8,192-ray ceiling and at a seeded K past
+    two chunks (the scratch path)."""
+    from instant_ngp_torch.common import LossType
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    k_rand = int(torch.randint(65, 101, (1,), generator=torch.Generator().manual_seed(SEED)))
+    out = {}
+    for R, K, timed in ((TRAIN_RAYS, TRAIN_K, True), (2 * TRAIN_RAYS, TRAIN_K, False),
+                        (TRAIN_RAYS, k_rand, False)):
+        base = seed_composite_train_args(task, R, K, gen, task.state.grid.mean_density)
+        for loss in LossType:
+            gargs = base[:11] + (loss,) + base[12:]
+            for mode in TRAIN_MODES:
+                out[f"{loss.value}_{mode}_R{R}_K{K}"] = check_composite_mode(gargs, mode, timed)
+    worst = max(v["allowance_used"] for v in out.values())
+    timed = {k: round(v["device_ms"], 5) for k, v in out.items() if "device_ms" in v}
+    print(f"kernel composite_train in {len(out)} loss x mode x shape cases (K {k_rand} among "
+          f"them) with d/d target: at most {worst:.4f} of the allowance; device ms at R "
+          f"{TRAIN_RAYS} K {TRAIN_K}: {timed}")
+    return out
+
+
+def camera_step_checks(task, device) -> dict:
+    """One camera step at the main path's ray count: its gradients through
+    the kernels against the plain versions, every parameter and camera
+    leaf within TOL_STEP_GRAD of the leaf's max |ref|; then on the shapes
+    and values that step gave them: K bit for bit, F (dX and dW) on both
+    MLPs with the rows near a ReLU tie left out, H's deposit into the
+    distortion map, I's read of it bit for bit."""
+    from instant_ngp_torch.nerf import train as nerf_train
+    from instant_ngp_torch.ops import gather, hashgrid, mlp, scatter
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    draws = nerf_train.draw_step(task, gen, task.n_rays_current, task.cdf_valid)
+    batch = nerf_train.march_batch(task, draws)
+    runs = {}
+    with Capture(hashgrid, "hashgrid_encode_dx") as k_calls, \
+            Capture(mlp, "fused_mlp_bwd") as f_calls, \
+            Capture(scatter, "scatter_add_rows") as h_calls, \
+            Capture(gather, "bilinear_read") as i_calls:
+        runs[True] = nerf_train.step_gradients(task, draws, batch)[:2]
+    task.set_use_kernels(False)
+    runs[False] = nerf_train.step_gradients(task, draws, batch)[:2]
+    task.set_use_kernels(True)
+    (grads, per_ray), (grads_p, per_ray_p) = runs[True], runs[False]
+    names = task._param_names + [f"cam.{k}" for k in task.camera_keys()]
+    rel = {}
+    for name, a, b in zip(names, grads, grads_p):
+        scale = float(b.abs().max())
+        rel[name] = float((a - b).abs().max()) / scale if scale > 0 else float((a != 0).any())
+    print(f"camera step kernels vs plain ({draws.img_idx.shape[0]} rays): max |k - p| / max |p| "
+          f"per leaf {({k: f'{v:.2e}' for k, v in rel.items()})}, loss "
+          f"{float(per_ray.mean()):.6f} vs {float(per_ray_p.mean()):.6f}")
+    check(all(v <= TOL_STEP_GRAD for v in rel.values()), f"camera step gradients differ: {rel}")
+    check(abs(float(per_ray.mean()) / float(per_ray_p.mean()) - 1.0) <= TOL_STEP_LOSS,
+          "camera step loss differs")
+    check(len(k_calls.calls) == 1 and len(f_calls.calls) == 2 and len(h_calls.calls) == 1
+          and len(i_calls.calls) >= 1,
+          f"the camera step's calls: K {len(k_calls.calls)}, F {len(f_calls.calls)}, H "
+          f"{len(h_calls.calls)}, I {len(i_calls.calls)}")
+    out = {"step_grad_max_rel": rel}
+    levels, interp, table, x, g = k_calls.calls[0]
+    out["hashgrid_encode_dx"] = check_encode_dx(levels, interp, table, x, g, "the camera step")
+    for what, (ws, x, g, act, out_act) in zip(("rgb", "density"), f_calls.calls):
+        x, g = x.detach(), g.contiguous()
+        label = f"the camera step's {what} MLP ({x.shape[1]} inputs)"
+        v = check_mlp_bwd_trained(ws, x, g, label)
+        # the device time of the call as the step makes it, on all its rows:
+        # the back-to-back ms above is a small call's, which the host paces
+        v.update(device_split(lambda: mlp.fused_mlp_bwd(ws, x, g, act, out_act),
+                              KERNEL_NAMES["fused_mlp_bwd"]))
+        print(f"kernel fused_mlp_bwd on {label}, all {x.shape[0]} rows: device {v['device_ms']:.4f} "
+              f"ms (kernel {v['kernel_ms']:.4f}, {v['timed_by']})")
+        out[f"fused_mlp_bwd_{what}"] = v
+    idx, vals, size = h_calls.calls[0]
+    v = check_scatter(idx, vals, size, "distortion-map deposit")
+    out["scatter_add_rows"] = {"shape": f"{idx.shape[0]} rows of {vals.shape[1]} into the "
+                                        f"{size}-texel map", **v}
+    print(f"kernel scatter_add_rows into the distortion map ({out['scatter_add_rows']['shape']}): "
+          f"max_abs_err {v['max_abs_err']:.3e} (TOL_SCATTER {TOL_SCATTER} of max |ref|), device "
+          f"{v['device_ms']:.4f} ms, index_add_ {v['library_device_ms']:.4f}")
+    texture, resolution, uv = i_calls.calls[0]
+    out["bilinear_read"] = check_bilinear(texture, resolution, uv, "the distortion map")
+    return out
+
+
+def timed_frames(trainer, n: int) -> tuple[float, float, float | None, list]:
+    """(median host ms of n frames, wall and device busy ms of PROFILED_STEPS
+    more under the profiler, per step; the trace's top device items), the n
+    frames from the next grid-update step on."""
+    task = trainer.task
+    while task.training_step % task.grid_update_interval:
+        trainer.frame()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        trainer.frame()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, top, _ = profile_frames(trainer)
+    return (statistics.median(ms), wall / PROFILED_STEPS,
+            None if busy is None else busy / PROFILED_STEPS, top)
+
+
+def camera_phase(tb, ds, device, card) -> tuple[dict, dict]:
+    """Camera optimization at fox's width: the snapshot's inference
+    parameters (the rgb MLP's first matrix given CAMERA_EXTRA_DIMS seeded
+    rows for the latents) and grid, frozen (the model that rendered the
+    views), and CAMERA_STEPS frames on ``perturbed_camera_set`` with the
+    extrinsics, exposure, focal length, distortion map and latents optimized.
+    Gates: every loss finite; the perturbed views' mean rotation and
+    position errors fall; each scaled view's exposure moves toward the
+    inverse of its scale. Then G in every loss and mode, the step's
+    gradients kernels vs plain, K, F, H and I at the step's shapes, and the
+    time the camera adds to a step. Returns (the run's launches, the
+    checks)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.models.nerf_network import tree_from_flat
+    from instant_ngp_torch.nerf.task import NerfTask
+    from instant_ngp_torch.testbed import Testbed
+
+    t_phase = time.perf_counter()
+    cds, true, scale = perturbed_camera_set(ds, torch.Generator().manual_seed(SEED + 17))
+    trainer = Testbed("nerf", device=device)
+    trainer.nerf_dataset, trainer.network_config = cds, dict(tb.network_config)
+    trainer.task = NerfTask(cds, trainer.network_config, device, seed=SEED,
+                            target_batch_size=TARGET_BATCH, n_rays_per_batch=CAMERA_RAYS,
+                            optimize_extrinsics=True, optimize_exposure=True,
+                            optimize_focal_length=True, optimize_distortion=True)
+    task = trainer.task
+    params = tree_from_flat(tb.task.model, list(tb.task.inference_params().values()))
+    w0 = params["rgb_net"][0]
+    rows = np.random.default_rng(SEED).uniform(-CAMERA_LATENT_ROWS, CAMERA_LATENT_ROWS,
+                                               (CAMERA_EXTRA_DIMS, w0.shape[1]))
+    params["rgb_net"][0] = np.concatenate([w0, rows.astype(np.float32)])
+    task.load_state(params, None, tb.task.state.grid.density.cpu().numpy(), 0)
+    # the scene model stays the one that rendered the views: the camera state
+    # alone takes the steps (Adam's moments of the model still advance)
+    task.shall_train_encoding = task.shall_train_network = False
+    perturbed = range(1, cds.n_images, 2)
+    rot0, pos0 = pose_errors(task, true, perturbed)
+    scaled = [i for i in range(cds.n_images) if scale[i] != 0]
+    check(task.model.rgb_network.weights[0].shape[0] == 32 + CAMERA_EXTRA_DIMS,
+          "the rgb MLP does not take the latents")
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(CAMERA_STEPS):
+        trainer.frame()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    losses = trainer.loss_graph
+    rot1, pos1 = pose_errors(task, true, perturbed)
+    exposure = task.cam_offsets["exposure"].mean(dim=1).cpu().numpy()
+    moved = {i: float(exposure[i]) for i in scaled}
+    print(f"camera launches: {launches}")
+    print(f"camera {CAMERA_STEPS} frames in {train_s:.2f} s on {card}; loss first "
+          f"{LOSS_WINDOW} {np.mean(losses[:LOSS_WINDOW]):.6f}, last {LOSS_WINDOW} "
+          f"{np.mean(losses[-LOSS_WINDOW:]):.6f}; perturbed views' mean rotation error "
+          f"{rot0:.4f} -> {rot1:.4f} deg, position error {pos0:.6f} -> {pos1:.6f}; focal offset "
+          f"{task.cam_offsets['focal'].cpu().numpy()}, |distortion| max "
+          f"{float(task.cam_offsets['distortion'].abs().max()):.3e}, latents moved "
+          f"{float(task.cam_offsets['extra'].std()):.4f} (std); exposure of the scaled views "
+          f"(log2 image scale: offset) "
+          f"{[(float(scale[i]), round(e, 5)) for i, e in moved.items()]}")
+    check(len(losses) == CAMERA_STEPS and all(np.isfinite(losses)),
+          "a camera-phase loss is not finite")
+    check(rot1 < rot0 and pos1 < pos0,
+          f"the pose errors did not fall: rotation {rot0} -> {rot1}, position {pos0} -> {pos1}")
+    check(all(abs(e + scale[i]) < abs(scale[i]) for i, e in moved.items()),
+          f"an exposure moved away from its view's scale: {moved}")
+    check(all(launches[k] > 0 for k in CAMERA_KERNELS), f"a kernel was not launched: {launches}")
+
+    modes = composite_mode_checks(task, device)
+    step = camera_step_checks(task, device)
+
+    # a camera step against a plain one on the same task and state
+    on = timed_frames(trainer, CAMERA_TIMED_FRAMES)
+    stash = {k: task.cam_offsets.pop(k) for k in ("extra", "distortion")}
+    flags = {k: getattr(task, k) for k in ("optimize_extrinsics", "optimize_exposure",
+                                           "optimize_focal_length")}
+    for k in flags:
+        setattr(task, k, False)
+    off = timed_frames(trainer, CAMERA_TIMED_FRAMES)
+    task.cam_offsets.update(stash)
+    for k, v in flags.items():
+        setattr(task, k, v)
+    task.state.cam_opt = None
+    cost = {"camera_host_ms": on[0], "plain_host_ms": off[0], "camera_wall_ms": on[1],
+            "plain_wall_ms": off[1], "camera_device_ms": on[2], "plain_device_ms": off[2],
+            "camera_top": on[3], "plain_top": off[3]}
+    dev = ("not measured" if on[2] is None or off[2] is None
+           else f"{on[2]:.3f} vs {off[2]:.3f} ms (+{on[2] - off[2]:.3f})")
+    print(f"camera step vs plain step on {card}: host median {on[0]:.3f} vs {off[0]:.3f} ms "
+          f"(+{on[0] - off[0]:.3f}) over {CAMERA_TIMED_FRAMES} frames each; device busy a step "
+          f"{dev}; top device items of {PROFILED_STEPS} camera steps (ms) {on[3]}, of plain "
+          f"steps {off[3]}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"composite_modes": modes, **step, "cost": cost,
+                      "pose_errors": {"rotation_deg": [rot0, rot1], "position": [pos0, pos1]},
+                      "exposure": moved}
 
 
 # the disk phase: io/synthetic.py's scene at its defaults (24 train and 4
@@ -1823,6 +2176,10 @@ RUN_FOX_RES = 256
 RUN_FOX_SPP = 4
 RUN_FOX_TIMED_SPP = (1, 8)  # fox frames timed at RUN_FRAME_WH
 RUN_KERNELS = TRAIN_KERNELS + ("composite_window",)  # training, then the renders
+# the train-mode schedules of scripts/run.py, each a child run of RUN_STEPS steps
+RUN_MODE_FLAGS = {"rfl": ["--train_mode", "rfl", "--rfl_warmup_steps", "100"],
+                  "rflrelax": ["--train_mode", "rflrelax", "--rflrelax_begin_step", "100",
+                               "--rflrelax_end_step", "250"]}
 # python -m instant_ngp_torch.run in a child process, which prints the
 # kernels' launch counts of its whole run after the entry point's own lines
 RUN_CHILD = ("import json, runpy, sys\n"
@@ -1832,21 +2189,33 @@ RUN_CHILD = ("import json, runpy, sys\n"
              "print('launches ' + json.dumps(cuda_lib.LAUNCHES))\n")
 
 
-def run_entry(args: list[str], what: str) -> tuple[list[str], dict, float]:
-    """``python -m instant_ngp_torch.run`` with ``args`` in a child process from
-    the repository root (the module run as ``__main__``, as ``-m`` runs it).
-    Prints its lines; fails unless it exits 0. Returns its lines, the
-    launches of its run and its wall seconds."""
+def run_entries(runs: dict) -> dict:
+    """``python -m instant_ngp_torch.run`` once for each {what: args}, each in
+    its own child process from the repository root (the module run as
+    ``__main__``, as ``-m`` runs it), all at once. Prints their lines; fails
+    unless each exits 0. Returns {what: (its lines, the launches of its run,
+    its wall seconds)}."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", RUN_CHILD, *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
-    for line in lines:
-        print(f"run ({what}): {line}")
-    check(proc.returncode == 0, f"the {what} run exited {proc.returncode}: {proc.stderr[-3000:]}")
-    launches = json.loads(lines[-1][len("launches "):])
-    return lines[:-1], launches, wall
+    procs = {what: subprocess.Popen([sys.executable, "-c", RUN_CHILD, *args], cwd=ROOT,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for what, args in runs.items()}
+    out = {}
+    try:
+        for what, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            lines = stdout.splitlines()
+            for line in lines:
+                print(f"run ({what}): {line}")
+            check(proc.returncode == 0, f"the {what} run exited {proc.returncode}: "
+                                        f"{stderr[-3000:]}")
+            out[what] = (lines[:-1], json.loads(lines[-1][len("launches "):]),
+                         time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
 
 def run_summary(lines: list[str]) -> dict:
@@ -1967,9 +2336,9 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
         for i in RUN_PATH_VIEWS:
             path.add_camera(ds.xforms_start[i], fov=50.0)
         path.save(out / "path.json")
-        untrained, untrained_launches, untrained_s = run_entry(
-            ["--scene", str(scene_dir), "--n_steps", "0", "--test_transforms", str(test_json)],
-            "untrained")
+        untrained, untrained_launches, untrained_s = run_entries({"untrained": [
+            "--scene", str(scene_dir), "--n_steps", "0", "--test_transforms", str(test_json)]
+        })["untrained"]
         before = run_summary(untrained)
         # an untrained model's grid holds no occupied cell: its renders march
         # and composite, and no sample reaches the encoding or the MLPs
@@ -1977,15 +2346,15 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
               f"a render kernel was not launched: {untrained_launches}")
         snapshot = out / "run.ingp"
         w, h = RUN_FRAME_WH
-        lines, launches, wall = run_entry(
-            ["--scene", str(scene_dir), "--n_steps", str(RUN_STEPS), "--save_snapshot",
-             str(snapshot), "--test_transforms", str(test_json), "--screenshot_transforms",
-             str(test_json), "--screenshot_frames", "0", "--screenshot_dir", str(out / "shots"),
-             "--width", str(w), "--height", str(h), "--video_camera_path",
-             str(out / "path.json"), "--video_n_seconds", RUN_VIDEO[0], "--video_fps",
-             RUN_VIDEO[1], "--video_spp", RUN_VIDEO[2], "--video_output", str(out / "video"),
-             "--save_mesh", str(out / "mesh.ply"), "--optimize_mesh_steps", str(MESH_OPT_STEPS)],
-            "trained")
+        lines, launches, wall = run_entries({"trained": [
+            "--scene", str(scene_dir), "--n_steps", str(RUN_STEPS), "--save_snapshot",
+            str(snapshot), "--test_transforms", str(test_json), "--screenshot_transforms",
+            str(test_json), "--screenshot_frames", "0", "--screenshot_dir", str(out / "shots"),
+            "--width", str(w), "--height", str(h), "--video_camera_path",
+            str(out / "path.json"), "--video_n_seconds", RUN_VIDEO[0], "--video_fps",
+            RUN_VIDEO[1], "--video_spp", RUN_VIDEO[2], "--video_output", str(out / "video"),
+            "--save_mesh", str(out / "mesh.ply"), "--optimize_mesh_steps", str(MESH_OPT_STEPS)]
+        })["trained"]
         after = run_summary(lines)
         check(all(launches[k] > 0 for k in RUN_KERNELS + ("hashgrid_encode_dx",)),
               f"a kernel was not launched: {launches}")
@@ -2007,6 +2376,27 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
               f"s of wall time on {card}")
         check(gain >= MIN_DISK_GAIN_DB["test"],
               f"the run's test PSNR rose by {gain:.2f} dB, under {MIN_DISK_GAIN_DB['test']}")
+        # the RFL modes' schedules of scripts/run.py, two children at once
+        modes = run_entries({f"train_mode {m}": ["--scene", str(scene_dir), "--n_steps",
+                                                 str(RUN_STEPS), "--test_transforms",
+                                                 str(test_json), *flags]
+                             for m, flags in RUN_MODE_FLAGS.items()})
+        mode_runs = {}
+        for what, (m_lines, m_launches, m_wall) in modes.items():
+            m = run_summary(m_lines)
+            switches = [ln for ln in m_lines if ln.startswith("train_mode=")]
+            mode_runs[what] = {**m, "switches": switches, "wall_s": m_wall,
+                               "launches": m_launches}
+            print(f"run ({what}): test PSNR {before['psnr']:.2f} -> {m['psnr']:.2f} dB, SSIM "
+                  f"{m['ssim']:.3f}, FLIP {m['flip']:.4f}; switches {switches}; {m_wall:.1f} s "
+                  f"of wall time (both children at once) on {card}")
+            check(len(m["losses"]) >= RUN_STEPS // 100 and all(np.isfinite(m["losses"])),
+                  f"the {what} run's losses {m['losses']}")
+            check(m["psnr"] > before["psnr"], f"the {what} run's test PSNR {m['psnr']} is not "
+                                              f"above the untrained run's {before['psnr']}")
+            n_switches = {"rfl": 2, "rflrelax": 3}[what.split()[-1]]  # nerf, rfl(relax)[, nerf]
+            check(len(switches) == n_switches and all(m_launches[k] > 0 for k in RUN_KERNELS),
+                  f"the {what} run: switches {switches}, launches {m_launches}")
         images = [out / "shots" / "0000.png", out / "video" / "00000.png",
                   out / "video" / "00001.png"]
         shapes = [read_png(p).shape[:2] if p.exists() else None for p in images]
@@ -2015,9 +2405,9 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
         # the snapshot holds the raw parameters (no optimizer state, as
         # scripts/run.py saves it), the trained run scored their EMA: the
         # reload is held to the entry point's evaluation of the snapshot
-        reloaded, _, reload_s = run_entry(
-            ["--load_snapshot", str(snapshot), "--n_steps", "0", "--test_transforms",
-             str(test_json)], "snapshot")
+        reloaded, _, reload_s = run_entries({"snapshot": [
+            "--load_snapshot", str(snapshot), "--n_steps", "0", "--test_transforms",
+            str(test_json)]})["snapshot"]
         reload_db = run_reload_psnr(snapshot, test_json, device)
         printed = run_summary(reloaded)["views"][0][0]
         print(f"run: the snapshot ({snapshot.stat().st_size} bytes) loaded into a fresh Testbed: "
@@ -2029,7 +2419,8 @@ def run_phase(device, card, scene_dir: Path) -> tuple[dict, dict, dict]:
               f"printed {printed:.2f}")
     fox_launches, fox = run_fox(device, card)
     numbers = {"untrained": before, "trained": after, "trained_wall_s": wall,
-               "untrained_wall_s": untrained_s, "reload_view0_db": reload_db, **fox}
+               "untrained_wall_s": untrained_s, "reload_view0_db": reload_db,
+               "modes": mode_runs, **fox}
     return launches, fox_launches, numbers
 
 
@@ -4256,8 +4647,22 @@ def main() -> None:
           f"on {card}")
 
     # the training path
-    train_results, march, train_launches, nerf_pair = train_phase(tb, device, card)
+    train_results, march, train_launches, nerf_pair, train_set = train_phase(tb, device, card)
     results += train_results
+    # camera optimization on that training set, from the snapshot
+    camera_launches, camera = camera_phase(tb, train_set, device, card)
+    for r in results:
+        if r["name"] == "composite_train":
+            r["variants"]["modes"] = camera["composite_modes"]
+            r["max_abs_err"] = max(r["max_abs_err"], *(v["max_abs_err"] for v in
+                                                         camera["composite_modes"].values()))
+            r["modes_device_ms"] = {k: v["device_ms"] for k, v in
+                                    camera["composite_modes"].items() if "device_ms" in v}
+        if r["name"] == "fused_mlp_bwd":
+            for what in ("rgb", "density"):
+                r["variants"][f"camera_{what}"] = camera[f"fused_mlp_bwd_{what}"]
+        if r["name"] == "scatter_add_rows":
+            r["variants"]["distortion_deposit"] = camera["scatter_add_rows"]
 
     # a scene from disk: train, save, load without and with the scene; the
     # configs phase trains nerf/big.json on it too
@@ -4305,6 +4710,8 @@ def main() -> None:
                                  "image_trained": image_pair}
         if r["name"] == "take_rows":
             r["variants"]["image_step_texels"] = take_image_step
+        if r["name"] == "bilinear_read":
+            r["variants"]["distortion_read"] = camera["bilinear_read"]
         if r["name"] in image_main:
             take_main_path(r, image_main[r["name"]])
     bench_launches = gather_phase()
@@ -4334,6 +4741,7 @@ def main() -> None:
     results += config_records(config_checks)
     w, h = SDF_FRAME_WH
     k_checks["fox_normals_hits"] = views_checks["hashgrid_encode_dx"]
+    k_checks["camera_step"] = camera["hashgrid_encode_dx"]
     k_check, k_big = k_checks["sdf_render_hits"], k_checks[f"sdf_frame_hits_{w}x{h}"]
     k_fox = k_checks["fox_normals_hits"]
     record_kernel(results, "hashgrid_encode_dx", "instant_ngp_torch/csrc/hashgrid_bwd.cu",
@@ -4370,7 +4778,7 @@ def main() -> None:
              "sdf_render": sdf_render_launches, "volume": volume_launches,
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
              "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches,
-             "views": views_launches}
+             "views": views_launches, "camera": camera_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

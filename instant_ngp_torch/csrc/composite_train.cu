@@ -2,23 +2,33 @@
 //
 // Replaces instant_ngp_tpu/nerf/task.py::_composite (task.py:683, the
 // cumsum compositing at :748-757), the per-ray loss (task.py:937-940), the
-// density regularizers (task.py:1004-1020) and JAX's autodiff of all three:
-// the reference's compute_loss_kernel_train_nerf (testbed_nerf.cu:852-1180)
+// objectives of the three train modes (task.py:930-990), the density
+// regularizers (task.py:1004-1020) and JAX's autodiff of them: the
+// reference's compute_loss_kernel_train_nerf (testbed_nerf.cu:852-1180)
 // fuses them the same way. Plain version: instant_ngp_torch/nerf/train.py::
 // composite_train_plain.
 //
 // Per ray, over its K samples: rgb and density activations, tau = sigma·dt,
 // T_k = exp(−cumsum(tau)_k + tau_k) (the JAX order), w_k = (1 − e^−tau_k)·
 // T_k, rgb = Σ w_k c_k plus T_final·bg where T_final >= EPS_T, the loss
-// (Huber/5 or L2) averaged over the channels, times pixel_ok. Then the
-// gradient of mean(per-ray loss) + Σ stopgrad(coeff)·clip(σ_logit, ±30):
-// G = d objective / d rgb, and d tau_k = G·(T_k e^−tau_k c_k − suffix_k)
-// with suffix_k = rgb − Σ_{j<=k} w_j c_j, which gives d/d σ_logit through
-// the clamped exp (0.5 on the clamp bounds, as JAX differentiates
-// jnp.clip) and d/d rgb logits as G·w_k·logistic'. The regularizer adds its
-// coefficient where the grid is foggy (mean density, read on the device)
-// and σ_logit < 0 (−1e-4), and where the sample is nearer than
-// near_distance with σ_logit > −10 (+1e-4), times valid and reg_scale.
+// (L2, Huber/5, L1, MAPE, SMAPE, LogL1 or RelativeL2; a template parameter)
+// averaged over the channels, times pixel_ok: the per-ray loss of every
+// mode. Then the gradient of the mode's objective (a template parameter)
+// plus Σ stopgrad(coeff)·clip(σ_logit, ±30):
+//   nerf: G = d objective / d rgb, d tau_k = G·(T_k e^−tau_k c_k − suffix_k)
+//     with suffix_k = rgb − Σ_{j<=k} w_j c_j, d/d rgb logits G·w_k·act';
+//   rfl: the loss composited over the samples, Σ w_k ℓ(t, c_k) + T_final·
+//     ℓ(t, bg): the same identity with L_k = Σ_ch ℓ(t, c_k) (a fourth scan);
+//   rflrelax: each sample's ℓ'(t, lerp_k) at lerp_k = (1 − α_k)·suffix_k /
+//     max(T_k − w_k, 1e-6) + α_k c_k, with stop-gradient coefficients.
+// d σ_logit goes through the clamped exp (0.5 on the clamp bounds, as JAX
+// differentiates jnp.clip). The regularizer adds its coefficient where the
+// grid is foggy (mean density, read on the device) and σ_logit < 0 (−1e-4),
+// and where the sample is nearer than near_distance with σ_logit > −10
+// (+1e-4), times valid and reg_scale. Where the caller passes dtarget, d
+// objective / d target (R, 3) is written too (the exposure's gradient): a
+// warp sum over the samples in the RFL modes. |x|'s slope is +1 at 0, as
+// JAX takes it.
 //
 // What bounds it on an H100: bytes. A sample reads its out row (16 B), ts,
 // dts (4 B each) and valid (1 B) and writes its dout row (16 B): 41 B, so
@@ -32,12 +42,12 @@
 // valid entries, so a warp's out load is 512 contiguous bytes. The forward
 // is an inclusive warp scan of tau (5 __shfl_up_sync steps) plus the running
 // Σ tau carried from the chunk before, which gives T_k; and inclusive scans
-// of w·c per channel plus their carries, which give Σ_{j<=k} w_j c_j for the
-// backward and, from the last lane, rgb. Loss and G are computed by every
-// lane of the warp alike. The backward needs only each sample's forward
-// state and rgb, so nothing is recomputed: the state of the first
-// kRegChunks chunks stays in registers (K <= 64), that of later chunks goes
-// to a scratch buffer the wrapper allocates at the size
+// of w·c per channel (and of w·L in RFL) plus their carries, which give Σ_{j<=k}
+// w_j c_j for the backward and, from the last lane, rgb. Loss and G are
+// computed by every lane of the warp alike. The backward needs only each
+// sample's forward state and rgb, so nothing is recomputed: the state of the
+// first kRegChunks chunks stays in registers (K <= 64), that of later chunks
+// goes to a scratch buffer the wrapper allocates at the size
 // ngp_composite_train_scratch_floats gives (lane-contiguous, one coalesced
 // 128-byte store and load per field). No shared memory, no
 // atomics: a ray's result depends on its inputs alone, so the kernel is
@@ -52,12 +62,13 @@
 namespace {
 
 constexpr int kNone = 0, kRelu = 1, kLogistic = 2, kExponential = 3;
-constexpr int kL2 = 0, kHuber = 1;
+constexpr int kL2 = 0, kHuber = 1, kL1 = 2, kMape = 3, kSmape = 4, kLogL1 = 5, kRelL2 = 6;
+constexpr int kNerf = 0, kRfl = 1, kRelax = 2;
 constexpr float kMinOpticalThickness = 0.01f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;      // rays per block
 constexpr int kRegChunks = 2;  // chunks of 32 samples whose state stays in registers
-constexpr int kStateFields = 15;
+constexpr int kStateFields = 17;
 
 __device__ __forceinline__ float clip_grad(float v, float lo, float hi) {
     if (v == lo || v == hi) return 0.5f;
@@ -97,11 +108,60 @@ __device__ __forceinline__ float warp_scan(float x, int lane) {
     return x;
 }
 
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x = x + __shfl_xor_sync(kFull, x, d);
+    return x;
+}
+
+__device__ __forceinline__ float abs_slope(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+// the loss of prediction p against target t, and its derivatives in p and
+// in t, with the JAX package's stop-gradients (ops/losses.py::loss_and_grads)
+template <int kLoss>
+__device__ __forceinline__ float loss_value(float t, float p) {
+    const float d = p - t;
+    const float ad = fabsf(d);
+    if (kLoss == kL2) return d * d;
+    if (kLoss == kHuber) return (ad > 0.1f ? ad - 0.05f : (5.0f * d) * d) / 5.0f;
+    if (kLoss == kL1) return ad;
+    if (kLoss == kMape) return ad / (fabsf(p) + 1e-2f);
+    if (kLoss == kSmape) return ad / (0.5f * (fabsf(p) + fabsf(t)) + 1e-2f);
+    if (kLoss == kLogL1) return logf(ad + 1.0f);
+    return d * d / (p * p + 1e-2f);
+}
+
+template <int kLoss>
+__device__ __forceinline__ float loss_dp(float t, float p) {
+    const float d = p - t;
+    const float s = abs_slope(d);
+    if (kLoss == kL2) return 2.0f * d;
+    if (kLoss == kHuber) return (fabsf(d) > 0.1f ? s : 10.0f * d) / 5.0f;
+    if (kLoss == kL1) return s;
+    if (kLoss == kMape) return s / (fabsf(p) + 1e-2f);
+    if (kLoss == kSmape) return s / (0.5f * (fabsf(p) + fabsf(t)) + 1e-2f);
+    if (kLoss == kLogL1) return s / (fabsf(d) + 1.0f);
+    const float den = p * p + 1e-2f;
+    return 2.0f * d / den - d * d * (2.0f * p) / (den * den);
+}
+
+template <int kLoss>
+__device__ __forceinline__ float loss_dt(float t, float p) {
+    const float d = p - t;
+    if (kLoss == kSmape) {
+        const float den = 0.5f * (fabsf(p) + fabsf(t)) + 1e-2f;
+        return -abs_slope(d) / den - fabsf(d) / (den * den) * (0.5f * abs_slope(t));
+    }
+    if (kLoss == kRelL2) return -2.0f * d / (p * p + 1e-2f);
+    return -loss_dp<kLoss>(t, p);
+}
+
 // what the backward needs of one sample, from its forward
 struct Sample {
     float col[3], prefix[3], col_grad[3];  // c_k, Σ_{j<=k} w_j c_j, d c_k / d logit
-    float w, T_next, dt, density_grad, reg;
-    float valid;  // 1 or 0
+    float w, T, e, dt, density_grad, reg;
+    float valid;     // 1 or 0
+    float prefix_l;  // RFL: Σ_{j<=k} w_j L_j, L the sample's channel-summed loss
 };
 
 struct Params {
@@ -115,11 +175,13 @@ struct Params {
 };
 
 // the forward of chunk c of the ray at base (= r·K): the sample's state;
-// carry_tau and carry_wc hold the sums over the chunks before and are
-// advanced past this one
+// carry_tau, carry_wc and carry_l hold the sums over the chunks before and
+// are advanced past this one
+template <int kLoss, int kMode>
 __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, long long base,
-                                                int c, int lane, float& carry_tau,
-                                                float* carry_wc) {
+                                                int c, int lane, const float* tgt,
+                                                float& carry_tau, float* carry_wc,
+                                                float& carry_l) {
     const int k = c * 32 + lane;
     const bool in = k < p.K;
     float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -139,7 +201,8 @@ __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, lon
     const float e = expf(-tau);
     const float w = (1.0f - e) * T;
     s.w = w;  // 0 past K and where invalid: tau = 0
-    s.T_next = T * e;
+    s.T = T;
+    s.e = e;
     const float logits[3] = {o.x, o.y, o.z};
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
@@ -149,6 +212,14 @@ __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, lon
         carry_wc[ch] = __shfl_sync(kFull, s.prefix[ch], 31);
     }
     carry_tau = __shfl_sync(kFull, cum, 31);
+    s.prefix_l = 0.0f;
+    if (kMode == kRfl) {
+        float L = 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) L = L + loss_value<kLoss>(tgt[ch], s.col[ch]);
+        s.prefix_l = carry_l + warp_scan(w * L, lane);
+        carry_l = __shfl_sync(kFull, s.prefix_l, 31);
+    }
     s.dt = dt;
     s.density_grad = activate_grad(p.density_act, o.w, 15.0f);
     float coeff = ((foggy && o.w < 0.0f) ? -1e-4f : 0.0f) +
@@ -159,18 +230,53 @@ __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, lon
     return s;
 }
 
+// the backward of one sample: its dout row, and its share of d objective
+// / d target added to acc_t (RFL modes)
+template <int kLoss, int kMode>
 __device__ __forceinline__ void backward_sample(const Sample& s, const float* rgb, const float* G,
-                                                float4* dout, long long base, int k, int K) {
+                                                const float* tgt, float ct, float comp_l,
+                                                float4* dout, long long base, int k, int K,
+                                                float* acc_t) {
     if (k >= K) return;
-    float dtau = 0.0f;
     float go[3];
+    float ds;
+    if (kMode == kNerf) {
+        const float T_next = s.T * s.e;
+        float dtau = 0.0f;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-        const float suffix = rgb[ch] - s.prefix[ch];
-        dtau = dtau + G[ch] * (s.T_next * s.col[ch] - suffix);
-        go[ch] = G[ch] * s.w * s.col_grad[ch];
+        for (int ch = 0; ch < 3; ++ch) {
+            const float suffix = rgb[ch] - s.prefix[ch];
+            dtau = dtau + G[ch] * (T_next * s.col[ch] - suffix);
+            go[ch] = G[ch] * s.w * s.col_grad[ch];
+        }
+        ds = s.valid != 0.0f ? dtau * s.dt * s.density_grad : 0.0f;
+    } else if (kMode == kRfl) {
+        float L = 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            L = L + loss_value<kLoss>(tgt[ch], s.col[ch]);
+            go[ch] = ct * s.w * loss_dp<kLoss>(tgt[ch], s.col[ch]) * s.col_grad[ch];
+            acc_t[ch] = acc_t[ch] + s.w * loss_dt<kLoss>(tgt[ch], s.col[ch]);
+        }
+        const float dtau = ct * ((s.T * s.e) * L - (comp_l - s.prefix_l));
+        ds = s.valid != 0.0f ? dtau * s.dt * s.density_grad : 0.0f;
+    } else {
+        const float alpha = 1.0f - s.e;
+        const float T_after = s.T - s.w;
+        const float coef = s.T * s.valid * ct;
+        float dsig = 0.0f;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            const float suffix = rgb[ch] - s.prefix[ch];
+            const float rgb_bg = suffix / fmaxf(T_after, 1e-6f);
+            const float lerp = (1.0f - alpha) * rgb_bg + alpha * s.col[ch];
+            const float g = loss_dp<kLoss>(tgt[ch], lerp);
+            go[ch] = coef * alpha * g * s.col_grad[ch];
+            dsig = dsig + g * (T_after * s.col[ch] - suffix);
+            acc_t[ch] = acc_t[ch] + coef * loss_dt<kLoss>(tgt[ch], lerp);
+        }
+        ds = dsig * s.dt * s.valid * ct * s.density_grad;
     }
-    const float ds = s.valid != 0.0f ? dtau * s.dt * s.density_grad : 0.0f;
     dout[base + k] = make_float4(go[0], go[1], go[2], ds + s.reg);
 }
 
@@ -191,12 +297,12 @@ __device__ __forceinline__ Sample load_state(const float* scratch, int lane) {
 static_assert(sizeof(Sample) == kStateFields * sizeof(float), "Sample is kStateFields floats");
 
 // kChunks: the chunks whose state stays in registers (1 where K <= 32)
-template <int kChunks>
+template <int kLoss, int kMode, int kChunks>
 __global__ void __launch_bounds__(kWarps * 32)
 composite_train_kernel(Params p, const float* __restrict__ target, const float* __restrict__ bg,
                        const bool* __restrict__ pixel_ok, const float* __restrict__ mean_density,
-                       int R, float inv_n_rays, float eps_t, int loss,
-                       float* __restrict__ per_ray, float4* __restrict__ dout,
+                       int R, float inv_n_rays, float eps_t, float* __restrict__ per_ray,
+                       float4* __restrict__ dout, float* __restrict__ dtarget,
                        float* __restrict__ scratch) {
     const int lane = threadIdx.x & 31;
     const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -206,73 +312,137 @@ composite_train_kernel(Params p, const float* __restrict__ target, const float* 
     // the scratch of this ray: its chunks from kChunks on, kStateFields x 32 each
     float* ray_scratch = scratch + (long long)r * max(n_chunks - kChunks, 0) * kStateFields * 32;
     const bool foggy = mean_density[0] < kMinOpticalThickness;
+    const float tgt[3] = {target[r * 3], target[r * 3 + 1], target[r * 3 + 2]};
 
     // forward
-    float carry_tau = 0.0f;
+    float carry_tau = 0.0f, carry_l = 0.0f;
     float carry_wc[3] = {0.0f, 0.0f, 0.0f};
     Sample held[kChunks];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-        if (c < n_chunks) held[c] = forward_chunk(p, foggy, base, c, lane, carry_tau, carry_wc);
+        if (c < n_chunks) {
+            held[c] = forward_chunk<kLoss, kMode>(p, foggy, base, c, lane, tgt, carry_tau,
+                                                  carry_wc, carry_l);
+        }
     }
     for (int c = kChunks; c < n_chunks; ++c) {
         store_state(ray_scratch + (long long)(c - kChunks) * kStateFields * 32,
-                    forward_chunk(p, foggy, base, c, lane, carry_tau, carry_wc), lane);
+                    forward_chunk<kLoss, kMode>(p, foggy, base, c, lane, tgt, carry_tau,
+                                                carry_wc, carry_l), lane);
     }
     const float T_final = expf(-carry_tau);
     const float bg_w = T_final >= eps_t ? T_final : 0.0f;
     const float ok = pixel_ok[r] ? 1.0f : 0.0f;
-    float rgb[3], d[3], lsum = 0.0f;
+    float rgb[3], d[3], bgc[3], lsum = 0.0f, lbg = 0.0f;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-        rgb[ch] = carry_wc[ch] + bg_w * bg[r * 3 + ch];
-        d[ch] = rgb[ch] - target[r * 3 + ch];
-        const float ad = fabsf(d[ch]);
-        float l;
-        if (loss == kHuber) {
-            l = (ad > 0.1f ? ad - 0.05f : (5.0f * d[ch]) * d[ch]) / 5.0f;
-        } else {
-            l = d[ch] * d[ch];
-        }
-        lsum = lsum + l;
+        bgc[ch] = bg[r * 3 + ch];
+        rgb[ch] = carry_wc[ch] + bg_w * bgc[ch];
+        d[ch] = rgb[ch] - tgt[ch];
+        lsum = lsum + loss_value<kLoss>(tgt[ch], rgb[ch]);
+        if (kMode == kRfl) lbg = lbg + loss_value<kLoss>(tgt[ch], bgc[ch]);
     }
     if (lane == 0) per_ray[r] = lsum / 3.0f * ok;
+    const float comp_l = carry_l + bg_w * lbg;
 
-    // G = d objective / d rgb
+    // G = d objective / d rgb (nerf mode), in the order JAX's autodiff forms it
     const float ct = inv_n_rays * ok / 3.0f;
     float G[3];
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-        if (loss == kHuber) {
+        if (kLoss == kHuber) {
             const float cth = ct / 5.0f;
             G[ch] = fabsf(d[ch]) > 0.1f ? (d[ch] > 0.0f ? cth : (d[ch] < 0.0f ? -cth : 0.0f))
                                         : cth * (5.0f * d[ch]) + cth * d[ch] * 5.0f;
-        } else {
+        } else if (kLoss == kL2) {
             G[ch] = ct * d[ch] + ct * d[ch];
+        } else {
+            G[ch] = ct * loss_dp<kLoss>(tgt[ch], rgb[ch]);
         }
     }
 
     // backward, from the forward's state
+    float acc_t[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-        if (c < n_chunks) backward_sample(held[c], rgb, G, dout, base, c * 32 + lane, p.K);
+        if (c < n_chunks) {
+            backward_sample<kLoss, kMode>(held[c], rgb, G, tgt, ct, comp_l, dout, base,
+                                          c * 32 + lane, p.K, acc_t);
+        }
     }
     for (int c = kChunks; c < n_chunks; ++c) {
-        backward_sample(load_state(ray_scratch + (long long)(c - kChunks) * kStateFields * 32, lane),
-                        rgb, G, dout, base, c * 32 + lane, p.K);
+        backward_sample<kLoss, kMode>(
+            load_state(ray_scratch + (long long)(c - kChunks) * kStateFields * 32, lane), rgb, G,
+            tgt, ct, comp_l, dout, base, c * 32 + lane, p.K, acc_t);
+    }
+    if (dtarget != nullptr) {
+        float dt_out[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            if (kMode == kNerf) {
+                dt_out[ch] = ct * loss_dt<kLoss>(tgt[ch], rgb[ch]);
+            } else if (kMode == kRfl) {
+                dt_out[ch] = ct * (warp_sum(acc_t[ch]) + bg_w * loss_dt<kLoss>(tgt[ch], bgc[ch]));
+            } else {
+                dt_out[ch] = warp_sum(acc_t[ch]);
+            }
+        }
+        if (lane == 0) {
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) dtarget[r * 3 + ch] = dt_out[ch];
+        }
     }
 }
 
-template <int kChunks>
-void launch(const Params& p, const void* target, const void* bg, const void* pixel_ok,
-            const void* mean_density, int R, float inv_n_rays, float eps_t, int loss,
-            void* per_ray, void* dout, void* scratch, cudaStream_t st) {
-    const unsigned blocks = (unsigned)((R + kWarps - 1) / kWarps);
-    composite_train_kernel<kChunks><<<blocks, kWarps * 32, 0, st>>>(
-        p, static_cast<const float*>(target), static_cast<const float*>(bg),
-        static_cast<const bool*>(pixel_ok), static_cast<const float*>(mean_density), R,
-        inv_n_rays, eps_t, loss, static_cast<float*>(per_ray), static_cast<float4*>(dout),
-        static_cast<float*>(scratch));
+struct Launch {
+    Params p;
+    const float *target, *bg, *mean_density;
+    const bool* pixel_ok;
+    int R;
+    float inv_n_rays, eps_t;
+    float *per_ray, *dtarget, *scratch;
+    float4* dout;
+    cudaStream_t st;
+};
+
+template <int kLoss, int kMode, int kChunks>
+void launch(const Launch& a) {
+    const unsigned blocks = (unsigned)((a.R + kWarps - 1) / kWarps);
+    composite_train_kernel<kLoss, kMode, kChunks><<<blocks, kWarps * 32, 0, a.st>>>(
+        a.p, a.target, a.bg, a.pixel_ok, a.mean_density, a.R, a.inv_n_rays, a.eps_t, a.per_ray,
+        a.dout, a.dtarget, a.scratch);
+}
+
+template <int kLoss, int kMode>
+void launch_k(const Launch& a) {
+    if (a.p.K <= 32) {
+        launch<kLoss, kMode, 1>(a);
+    } else {
+        launch<kLoss, kMode, kRegChunks>(a);
+    }
+}
+
+template <int kLoss>
+bool launch_mode(const Launch& a, int mode) {
+    switch (mode) {
+        case kNerf: launch_k<kLoss, kNerf>(a); return true;
+        case kRfl: launch_k<kLoss, kRfl>(a); return true;
+        case kRelax: launch_k<kLoss, kRelax>(a); return true;
+        default: return false;
+    }
+}
+
+bool launch_loss(const Launch& a, int loss, int mode) {
+    switch (loss) {
+        case kL2: return launch_mode<kL2>(a, mode);
+        case kHuber: return launch_mode<kHuber>(a, mode);
+        case kL1: return launch_mode<kL1>(a, mode);
+        case kMape: return launch_mode<kMape>(a, mode);
+        case kSmape: return launch_mode<kSmape>(a, mode);
+        case kLogL1: return launch_mode<kLogL1>(a, mode);
+        case kRelL2: return launch_mode<kRelL2>(a, mode);
+        default: return false;
+    }
 }
 
 }  // namespace
@@ -285,31 +455,38 @@ extern "C" long long ngp_composite_train_scratch_floats(int R, int K) {
     return spill > 0 ? (long long)R * spill * kStateFields * 32 : 0;
 }
 
-// scratch: ngp_composite_train_scratch_floats(R, K) floats, or null where that is 0
+// scratch: ngp_composite_train_scratch_floats(R, K) floats, or null where
+// that is 0; dtarget: (R, 3) f32, or null where the caller needs no d/d target
 extern "C" int ngp_composite_train(const void* out, const void* ts, const void* dts,
                                    const void* valid, const void* target, const void* bg,
                                    const void* pixel_ok, const void* mean_density, int R, int K,
                                    float near_distance, float reg_scale, float inv_n_rays,
-                                   float eps_t, int loss, int rgb_act, int density_act,
-                                   void* per_ray, void* dout, void* scratch, void* stream) {
+                                   float eps_t, int loss, int mode, int rgb_act, int density_act,
+                                   void* per_ray, void* dout, void* dtarget, void* scratch,
+                                   void* stream) {
     if (K < 0 || (K > 32 * kRegChunks && scratch == nullptr)) return (int)cudaErrorInvalidValue;
-    Params p;
-    p.out = static_cast<const float4*>(out);
-    p.ts = static_cast<const float*>(ts);
-    p.dts = static_cast<const float*>(dts);
-    p.valid = static_cast<const unsigned char*>(valid);
-    p.K = K;
-    p.near_distance = near_distance;
-    p.reg_scale = reg_scale;
-    p.rgb_act = rgb_act;
-    p.density_act = density_act;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (K <= 32) {
-        launch<1>(p, target, bg, pixel_ok, mean_density, R, inv_n_rays, eps_t, loss, per_ray,
-                  dout, scratch, st);
-    } else {
-        launch<kRegChunks>(p, target, bg, pixel_ok, mean_density, R, inv_n_rays, eps_t, loss,
-                           per_ray, dout, scratch, st);
-    }
+    Launch a;
+    a.p.out = static_cast<const float4*>(out);
+    a.p.ts = static_cast<const float*>(ts);
+    a.p.dts = static_cast<const float*>(dts);
+    a.p.valid = static_cast<const unsigned char*>(valid);
+    a.p.K = K;
+    a.p.near_distance = near_distance;
+    a.p.reg_scale = reg_scale;
+    a.p.rgb_act = rgb_act;
+    a.p.density_act = density_act;
+    a.target = static_cast<const float*>(target);
+    a.bg = static_cast<const float*>(bg);
+    a.pixel_ok = static_cast<const bool*>(pixel_ok);
+    a.mean_density = static_cast<const float*>(mean_density);
+    a.R = R;
+    a.inv_n_rays = inv_n_rays;
+    a.eps_t = eps_t;
+    a.per_ray = static_cast<float*>(per_ray);
+    a.dout = static_cast<float4*>(dout);
+    a.dtarget = static_cast<float*>(dtarget);
+    a.scratch = static_cast<float*>(scratch);
+    a.st = static_cast<cudaStream_t>(stream);
+    if (!launch_loss(a, loss, mode)) return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 
   pos ──HashGrid──▶ density MLP ──▶ 16-wide density output
                                       │ (channel 0 is the density logit)
-  [density_out ⊕ SH(dir)] ──▶ RGB MLP ──▶ rgb (3)
+  [density_out ⊕ SH(dir) ⊕ extra] ──▶ RGB MLP ──▶ rgb (3)
   network output = (rgb0, rgb1, rgb2, density_logit)
 
 Parameters move between the packages as numpy trees in the JAX layout:
@@ -16,7 +16,9 @@ occupancy grid and the error map, by ``train_state_from_jax`` /
 ``train_state_to_numpy``. In the port the parameters are one list,
 ``param_list()``, in the packing order [density_net, rgb_net, pos_enc
 tables] (the direction encoding has none), and a grid's per-level tables are
-one flat table.
+one flat table. ``n_extra_dims`` per-image latent dims (the camera state's
+``extra``, ``nerf/task.py``) join the rgb MLP's input after the direction
+encoding: its input is 16 + 16 + E wide.
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ from ..ops.optimizers import state_from_tree, state_to_tree
 
 class NerfNetwork(nn.Module):
     def __init__(self, pos_encoding: nn.Module, dir_encoding: nn.Module,
-                 density_network: MLP, rgb_network: MLP):
+                 density_network: MLP, rgb_network: MLP, n_extra_dims: int = 0):
         super().__init__()
         self.pos_encoding = pos_encoding
         self.dir_encoding = dir_encoding
         self.density_network = density_network
         self.rgb_network = rgb_network
+        self.n_extra_dims = n_extra_dims
 
     def density(self, pos: torch.Tensor, max_level=None, fast: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1] → (N, 16) f32 density-MLP output; channel 0
@@ -52,13 +55,20 @@ class NerfNetwork(nn.Module):
             feats = self.pos_encoding(pos, max_level=max_level)
         return self.density_network(feats)
 
-    def forward(self, pos: torch.Tensor, dir_warped: torch.Tensor, max_level=None,
+    def forward(self, pos: torch.Tensor, dir_warped: torch.Tensor, extra=None, max_level=None,
                 fast: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1]; dir_warped (N, 3) in [0, 1] (warp_direction
-        applied by the caller). Returns (N, 4) f32: rgb logits + density
-        logit."""
+        applied by the caller); extra (N, E) latent dims, zeros where the
+        model has them and none are given. Returns (N, 4) f32: rgb logits +
+        density logit."""
         d_out = self.density(pos, max_level=max_level, fast=fast)
-        rgb_in = torch.cat([d_out, self.dir_encoding(dir_warped)], dim=-1)
+        inputs = [d_out, self.dir_encoding(dir_warped)]
+        if self.n_extra_dims > 0:
+            if extra is None:
+                extra = torch.zeros((pos.shape[0], self.n_extra_dims), dtype=torch.float32,
+                                    device=pos.device)
+            inputs.append(extra.to(torch.float32))
+        rgb_in = torch.cat(inputs, dim=-1)
         rgb = self.rgb_network(rgb_in)
         return torch.cat([rgb[:, :3], d_out[:, :1]], dim=-1)
 
@@ -90,9 +100,7 @@ class NerfNetwork(nn.Module):
     @staticmethod
     def from_config(config: dict, n_extra_dims: int = 0, device=None) -> "NerfNetwork":
         """Build from the NeRF JSON schema (encoding/dir_encoding/network/
-        rgb_network blocks)."""
-        if n_extra_dims:
-            raise NotImplementedError("per-image latent dims are not ported yet")
+        rgb_network blocks); the rgb MLP takes n_extra_dims more inputs."""
         pos_enc = encoding_from_config(config.get("encoding", {"otype": "HashGrid"}), 3,
                                        device=device)
         dir_enc = encoding_from_config(
@@ -101,9 +109,9 @@ class NerfNetwork(nn.Module):
         # density MLP: 16-wide output, first channel = density logit
         density_net = mlp_from_config(config.get("network", {}), pos_enc.n_output_dims, 16,
                                       device=device)
-        rgb_net = mlp_from_config(config.get("rgb_network", {}), 16 + dir_enc.n_output_dims, 3,
-                                  device=device)
-        return NerfNetwork(pos_enc, dir_enc, density_net, rgb_net)
+        rgb_net = mlp_from_config(config.get("rgb_network", {}),
+                                  16 + dir_enc.n_output_dims + n_extra_dims, 3, device=device)
+        return NerfNetwork(pos_enc, dir_enc, density_net, rgb_net, n_extra_dims)
 
 
 def params_to_numpy(model: NerfNetwork) -> dict:
@@ -177,8 +185,9 @@ def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
     """Copy a JAX ``NerfTrainState`` (or a tree of the same fields with
     numpy leaves) into the port's model and training ``state``: params in
     place; Adam m/v/step and the parameter EMA as a new optimizer state;
-    the occupancy grid's density, mean and update count, and the error map.
-    The bitfield and skip chain are derived again from the density."""
+    the occupancy grid's density, mean and update count, the error map, and
+    the camera offsets with their optimizer's state. The bitfield and skip
+    chain are derived again from the density."""
     get = (lambda o, k: o[k]) if isinstance(jax_state, dict) else getattr
     params_from_jax(model, get(jax_state, "params"))
     state.opt_state = state_from_tree(get(jax_state, "opt_state"),
@@ -189,6 +198,18 @@ def train_state_from_jax(model: NerfNetwork, state, jax_state) -> None:
                            float(np.asarray(get(grid, "mean_density"))),
                            int(np.asarray(get(grid, "ema_step"))))
     state.error_map.copy_(torch.from_numpy(np.asarray(get(jax_state, "error_map"), np.float32)))
+    def field(k):
+        return jax_state.get(k) if isinstance(jax_state, dict) else getattr(jax_state, k, None)
+
+    cam, cam_opt = field("cam"), field("cam_opt")
+    device = state.error_map.device
+    if cam is not None:
+        state.cam = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                     for k, v in cam.items()}
+    if cam_opt is not None:
+        keys = sorted(state.cam)
+        state.cam_opt = state_from_tree(
+            cam_opt, lambda tree: [np.asarray(tree[k], np.float32) for k in keys], device)
 
 
 def train_state_to_numpy(model: NerfNetwork, state) -> dict:
@@ -201,4 +222,8 @@ def train_state_to_numpy(model: NerfNetwork, state) -> dict:
                  "mean_density": np.float32(state.grid.mean_density.cpu()),
                  "ema_step": np.int32(state.grid.ema_step)},
         "error_map": state.error_map.cpu().numpy(),
+        "cam": {k: v.detach().cpu().numpy() for k, v in state.cam.items()},
+        **({"cam_opt": state_to_tree(state.cam_opt, lambda flat: {
+            k: t.detach().cpu().numpy() for k, t in zip(sorted(state.cam), flat)})}
+           if state.cam_opt is not None else {}),
     }

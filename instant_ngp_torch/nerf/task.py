@@ -41,17 +41,19 @@ from ..common import (
 from ..io.nerf_loader import NerfDataset
 from ..models.factory import autoconfig_grid_encoding
 from ..models.nerf_network import NerfNetwork, flat_from_tree, params_from_jax, tree_from_flat
-from ..ops.gather import bilinear_read, bilinear_read_plain
+from ..ops.gather import bilinear_read_differentiable
 from ..ops.losses import loss_type_from_string
-from ..ops.optimizers import Optimizer, OptimizerSpec, state_from_tree, state_to_tree
+from ..ops.optimizers import (Optimizer, OptimizerSpec, camera_optimizer, camera_optimizer_spec,
+                              state_from_tree, state_to_tree)
 from ..ops.raymarch import ray_intersect_aabb
-from ..render.camera import uv_to_ray_cam
+from ..render.camera import so3_exp, uv_to_ray_cam
 from . import train as nerf_train
 from .occupancy import OccupancyGrid, mark_untrained_cells
 from .sampler import MarchConfig, march_rays, march_rays_plain
 
 # rays per render pass: bounds the (rays, K) window buffers of a large frame
 RENDER_CHUNK = 1 << 18
+DISTORTION_SHAPE = (32, 32, 2)  # the trainable uv offset map (configs/nerf/base.json)
 
 
 def running_sum(x: torch.Tensor) -> torch.Tensor:
@@ -138,10 +140,12 @@ class NerfTask:
     def __init__(self, dataset: NerfDataset, config: dict, device, seed: int = 1337,
                  target_batch_size: int = 1 << 18, n_rays_per_batch: int = 1 << 13,
                  max_samples_per_ray: int = 48, n_march_iters: int = 256,
+                 optimize_extrinsics: bool = False, optimize_exposure: bool = False,
+                 optimize_focal_length: bool = False, optimize_distortion: bool = False,
                  use_error_map: bool = True):
-        if dataset.n_extra_learnable_dims or dataset.depths is not None or dataset.rays is not None:
-            raise NotImplementedError("latent dims, depth supervision and supplied rays "
-                                      "are not ported yet")
+        if dataset.depths is not None or dataset.rays is not None:
+            raise NotImplementedError("depth supervision and supplied rays wait for ROADMAP "
+                                      "Queue 1 item 2 (the rest of NeRF)")
         self.dataset = dataset
         self.config = dict(config)
         self.device = torch.device(device)
@@ -190,6 +194,25 @@ class NerfTask:
         self.visualized_dimension = 0
         self._aabb_t = (self._t(self.aabb_min), self._t(self.aabb_max))
         self.use_kernels = True
+
+        # --- camera optimization (task.py:111-147, 261-293) ---
+        self.optimize_extrinsics = optimize_extrinsics
+        self.optimize_exposure = optimize_exposure
+        self.optimize_focal_length = optimize_focal_length
+        self.optimize_distortion = optimize_distortion
+        # per-image latents train whenever present; False pins them
+        self.optimize_extra_dims = dataset.n_extra_learnable_dims > 0
+        self.exposure_l2_reg = 0.0  # decoupled decays of the exposure and focal offsets
+        self.intrinsic_l2_reg = 1e-4
+        # the latents renders read: a training view's (>= 0), or the vector
+        # set_rendering_extra_dims gave (-1)
+        self.rendering_extra_dims_from_training_view = 0
+        self._rendering_extra_dims = None
+        # the reference applies a camera step every so many steps; the camera
+        # here takes a step every training step at a rate divided by it
+        self.n_steps_between_cam_updates = 16
+        self.max_level_rand_training = False  # per-ray coarse-to-fine level cap
+        self.train_mode = "nerf"  # "nerf" | "rfl" | "rflrelax", read every step
 
         # --- training (task.py:172-461) ---
         self.loss_type = loss_type_from_string(self.config.get("loss", {}).get("otype", "Huber"))
@@ -258,13 +281,23 @@ class NerfTask:
         self.lens_params = self._t(dataset.lens_params)
         self.resolution_t = self._t(dataset.resolution)
         self.error_map_wh = self._t([ew, eh])
-        # the per-image camera offsets of the JAX package's camera
-        # optimization (task.py:265-270), which is not ported: zeros, carried
-        # through snapshots; training raises if a snapshot set any
-        self.cam_offsets = {"rot": np.zeros((n_img, 3), np.float32),
-                            "pos": np.zeros((n_img, 3), np.float32),
-                            "exposure": np.zeros((n_img, 3), np.float32),
-                            "focal": np.zeros((2,), np.float32)}
+        # the camera state (task.py:261-293): per-image rotation (axis-angle)
+        # and position offsets, exposure (log2, per channel), a shared focal
+        # scale, per-image latents ("extra", 0.1·N(0, 1)) and a 32×32 uv offset
+        # map ("distortion"), each an f32 tensor on the device; Adam over them
+        # (camera_optimizer), its state made at the first step that needs it
+        dev = self.device
+        self.cam_offsets = {k: torch.zeros(shape, dtype=torch.float32, device=dev)
+                            for k, shape in (("rot", (n_img, 3)), ("pos", (n_img, 3)),
+                                             ("exposure", (n_img, 3)), ("focal", (2,)))}
+        if dataset.n_extra_learnable_dims > 0:
+            extra_gen = torch.Generator(device=dev).manual_seed(seed ^ 0xE17A)
+            self.cam_offsets["extra"] = 0.1 * torch.randn(
+                (n_img, dataset.n_extra_learnable_dims), generator=extra_gen, device=dev)
+        if optimize_distortion:
+            self.cam_offsets["distortion"] = torch.zeros(DISTORTION_SHAPE, dtype=torch.float32,
+                                                         device=dev)
+        self.cam_opt_spec = camera_optimizer_spec()
         if not np.allclose(dataset.xforms_start, dataset.xforms_end) or np.any(
                 np.asarray(dataset.rolling_shutter) != 0):
             raise NotImplementedError("motion blur and rolling shutter are not ported yet")
@@ -335,14 +368,186 @@ class NerfTask:
             self.set_density_grid(torch.from_numpy(np.asarray(density_grid, np.float32)))
         self.training_step = int(training_step)
         if cam_offsets is not None:
-            shapes = {k: np.shape(v) for k, v in cam_offsets.items() if k != "distortion"}
-            dist = cam_offsets.get("distortion")
-            if shapes != {k: v.shape for k, v in self.cam_offsets.items()
-                          if k != "distortion"} or (dist is not None and (
-                              np.ndim(dist) != 3 or np.shape(dist)[2] != 2)):
-                raise ValueError(f"camera offsets {shapes} do not fit this scene's "
-                                 f"{self.dataset.n_images} images (or are not ported)")
-            self.cam_offsets = {k: np.array(v, np.float32) for k, v in cam_offsets.items()}
+            self.set_camera_offsets(cam_offsets)
+
+    def set_camera_offsets(self, tree: dict) -> None:
+        """Take a camera-offset tree of numpy arrays in the JAX layout (a
+        snapshot's ``cam_offsets``): rot, pos, exposure and focal of this
+        scene's shapes, and where present extra (n, E) and distortion (h, w,
+        2). The camera optimizer's state stays where the leaves keep their
+        shapes, as the JAX package's load keeps its ``cam_opt``."""
+        n = self.dataset.n_images
+        want = {"rot": (n, 3), "pos": (n, 3), "exposure": (n, 3), "focal": (2,)}
+        shapes = {k: tuple(np.shape(v)) for k, v in tree.items()}
+        extra, dist = shapes.get("extra"), shapes.get("distortion")
+        if ({k: shapes.get(k) for k in want} != want
+                or set(shapes) - set(want) - {"extra", "distortion"}
+                or (extra is not None and (len(extra) != 2 or extra[0] != n))
+                or (dist is not None and (len(dist) != 3 or dist[2] != 2))):
+            raise ValueError(f"camera offsets {shapes} do not fit this scene's {n} images")
+        before = {k: tuple(v.shape) for k, v in self.cam_offsets.items()}
+        self.cam_offsets = {k: torch.tensor(np.asarray(v, np.float32), device=self.device)
+                            for k, v in tree.items()}
+        if {k: tuple(v.shape) for k, v in self.cam_offsets.items()} != before:
+            self.state.cam_opt = None
+
+    # --- the camera state (task.py:1202-1336, 1746-1770) ---
+    @property
+    def cam_offsets(self) -> dict:
+        """The camera offsets, name → f32 tensor on the task's device
+        (``state.cam``)."""
+        return self.state.cam
+
+    @cam_offsets.setter
+    def cam_offsets(self, cam: dict) -> None:
+        self.state.cam = cam
+
+    def camera_keys(self) -> list[str]:
+        """The camera leaves in the JAX tree's order (sorted keys)."""
+        return sorted(self.cam_offsets)
+
+    def camera_optimizer(self) -> Optimizer:
+        return camera_optimizer(self.cam_opt_spec, self.camera_keys())
+
+    def camera_optimizer_state(self) -> dict:
+        """The camera optimizer's state, made from the offsets at its first
+        use (zero moments, step 0)."""
+        if self.state.cam_opt is None:
+            self.state.cam_opt = self.camera_optimizer().init(
+                [self.cam_offsets[k] for k in self.camera_keys()])
+        return self.state.cam_opt
+
+    def optimizes_camera(self) -> bool:
+        """Whether a step differentiates the camera state (task.py:894-898):
+        a flag is on, or the state holds latents or a distortion map."""
+        return (self.optimize_extrinsics or self.optimize_exposure or self.optimize_focal_length
+                or any(k in self.cam_offsets for k in ("extra", "distortion")))
+
+    def cam_offsets_numpy(self) -> dict:
+        """The camera offsets as the JAX package's tree of numpy arrays."""
+        return {k: v.detach().cpu().numpy() for k, v in self.cam_offsets.items()}
+
+    def set_camera_optimizer_hparams(self, extrinsic_learning_rate=None,
+                                     extrinsic_l2_reg=None) -> None:
+        """pyngp extrinsic_learning_rate / extrinsic_l2_reg (task.py:
+        1202-1220): the camera takes a step every training step, so the rate
+        is the given one divided by ``n_steps_between_cam_updates``."""
+        import dataclasses
+
+        spec = self.cam_opt_spec
+        if extrinsic_learning_rate is not None:
+            spec = dataclasses.replace(spec, learning_rate=float(extrinsic_learning_rate)
+                                       / max(int(self.n_steps_between_cam_updates), 1))
+        if extrinsic_l2_reg is not None:
+            spec = dataclasses.replace(spec, l2_reg=float(extrinsic_l2_reg))
+        self.cam_opt_spec = spec
+
+    @torch.no_grad()
+    def find_closest_training_view(self, pose) -> int:
+        """The training view whose offset camera is nearest ``pose`` by
+        position distance + 0.25 × z-axis distance (task.py:1222-1238)."""
+        xf = np.asarray(self.dataset.xforms_start, np.float32)
+        rot = so3_exp(self.cam_offsets["rot"].cpu()).numpy()
+        R_eff = np.einsum("nij,njk->nik", rot, xf[:, :, :3])
+        t_eff = xf[:, :, 3] + self.cam_offsets["pos"].cpu().numpy()
+        pose = np.asarray(pose, np.float32)
+        score = (np.linalg.norm(t_eff - pose[:, 3], axis=-1)
+                 + 0.25 * np.linalg.norm(R_eff[:, :, 2] - pose[:, 2], axis=-1))
+        return int(np.argmin(score))
+
+    def get_extra_dims(self, view: int) -> np.ndarray:
+        """The trained latent code of one training view (task.py:1240-1248);
+        empty where the scene has none."""
+        if "extra" not in self.cam_offsets:
+            return np.zeros((0,), np.float32)
+        v = int(view)
+        if not 0 <= v < self.dataset.n_images:
+            raise IndexError(f"invalid training view {view}")
+        return self.cam_offsets["extra"][v].detach().cpu().numpy()
+
+    @torch.no_grad()
+    def set_camera_extrinsics(self, frame_idx: int, camera_to_world,
+                              convert_to_ngp: bool = True) -> None:
+        """Replace one training camera's pose (task.py:1250-1284): the
+        dataset's and the device's transform, that frame's rot, pos and
+        exposure offsets zeroed, and the camera optimizer's state made anew."""
+        ds = self.dataset
+        i = int(frame_idx)
+        if not 0 <= i < ds.n_images:
+            raise IndexError(f"invalid frame index {frame_idx}")
+        m = np.asarray(camera_to_world, np.float32).reshape(3, 4)
+        if convert_to_ngp:
+            m = ds.nerf_matrix_to_ngp(m)
+        ds.xforms_start[i] = m
+        ds.xforms_end[i] = m
+        self.xforms[i] = self._t(m)
+        for k in ("rot", "pos", "exposure"):
+            self.cam_offsets[k][i] = 0.0
+        self.state.cam_opt = None
+
+    def set_camera_intrinsics(self, frame_idx: int, fx: float = 0.0, fy: float = 0.0,
+                              cx: float = -0.5, cy: float = -0.5, k1: float = 0.0,
+                              k2: float = 0.0, p1: float = 0.0, p2: float = 0.0,
+                              k3: float = 0.0, k4: float = 0.0, is_fisheye: bool = False) -> None:
+        """One frame's focal length and principal point (a negative c is a
+        fraction of the image, as given), and the lens of the whole dataset
+        where any coefficient is set (task.py:1296-1336)."""
+        ds = self.dataset
+        i = int(frame_idx)
+        if not 0 <= i < ds.n_images:
+            raise IndexError(f"invalid frame index {frame_idx}")
+        fx, fy = float(fx), float(fy)
+        if fx <= 0.0:
+            fx = fy
+        if fy <= 0.0:
+            fy = fx
+        w, h = ds.resolution
+        cx = -float(cx) if cx < 0 else float(cx) / w
+        cy = -float(cy) if cy < 0 else float(cy) / h
+        ds.focal_lengths[i] = (fx, fy)
+        ds.principal_points[i] = (cx, cy)
+        self.focals[i] = self._t([fx, fy])
+        self.principals[i] = self._t([cx, cy])
+        if any((k1, k2, k3, k4, p1, p2)):
+            if is_fisheye:
+                ds.lens_mode = LensMode.OPENCV_FISHEYE.value
+                ds.lens_params = np.array([k1, k2, k3, k4], np.float32)
+            else:
+                ds.lens_mode = LensMode.OPENCV.value
+                ds.lens_params = np.array([k1, k2, p1, p2], np.float32)
+            self.lens_params = self._t(ds.lens_params)
+
+    @torch.no_grad()
+    def reset_camera_extrinsics(self) -> None:
+        """Zero every trained pose and exposure offset and make the camera
+        optimizer's state anew (pyngp reset_camera_extrinsics)."""
+        for k in ("rot", "pos", "exposure"):
+            self.cam_offsets[k].zero_()
+        self.state.cam_opt = None
+
+    def render_extra_vec(self) -> torch.Tensor | None:
+        """The (E,) latents renders condition on (task.py:1746-1759): the
+        training view ``rendering_extra_dims_from_training_view`` (clamped to
+        the last), or the vector ``set_rendering_extra_dims`` gave, or zeros;
+        None where the model has no latent dims."""
+        ne = self.model.n_extra_dims
+        if not ne or "extra" not in self.cam_offsets:
+            return None
+        v = int(self.rendering_extra_dims_from_training_view)
+        if v >= 0:
+            return self.cam_offsets["extra"][min(v, self.dataset.n_images - 1)].detach()
+        if self._rendering_extra_dims is not None:
+            return self._t(self._rendering_extra_dims)
+        return torch.zeros((ne,), dtype=torch.float32, device=self.device)
+
+    def set_rendering_extra_dims(self, vals) -> None:
+        """Render with an explicit latent vector (task.py:1761-1770)."""
+        ne = self.model.n_extra_dims
+        vals = np.asarray(vals, np.float32).reshape(-1)
+        if vals.shape[0] != ne:
+            raise ValueError(f"expected {ne} extra dims, got {vals.shape[0]}")
+        self._rendering_extra_dims = vals
+        self.rendering_extra_dims_from_training_view = -1
 
     def optimizer_state(self) -> dict:
         """The optimizer state, made from the current parameters at its
@@ -380,9 +585,6 @@ class NerfTask:
         """n training steps (``nerf/train.py``); returns the last loss. A
         fresh grid is first culled to the cells the training cameras see
         (task.py:228-259)."""
-        if any(np.any(v != 0) for v in self.cam_offsets.values()):
-            raise NotImplementedError("training with a snapshot's camera offsets (camera "
-                                      "optimization) is not ported yet")
         if self.state.grid.fresh:
             ds = self.dataset
             self.state.grid.set_density(
@@ -454,8 +656,14 @@ class NerfTask:
         out = torch.zeros((R * K, 4), dtype=torch.float32, device=o.device)
         if sel.numel() > 0:
             out[sel] = functional_call(self.model, self.inference_params(),
-                                       (pos_w[sel], dirs[sel]), {"fast": fast})
+                                       (pos_w[sel], dirs[sel]),
+                                       {"extra": self._render_extra(sel.numel()), "fast": fast})
         return out.reshape(R, K, 4)
+
+    def _render_extra(self, n: int) -> torch.Tensor | None:
+        """``render_extra_vec`` for n rows, or None."""
+        vec = self.render_extra_vec()
+        return None if vec is None else vec[None, :].expand(n, vec.shape[0])
 
     def _composite_window(self, out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
                           cost, eps_t=EPS_T):
@@ -642,11 +850,7 @@ class NerfTask:
         dist = self.cam_offsets.get("distortion")
         if dist is None:
             return torch.zeros((uv.shape[0], 2), dtype=torch.float32, device=uv.device)
-        h, w = dist.shape[:2]
-        tex = torch.zeros((h * w, 4), dtype=torch.float32, device=uv.device)
-        tex[:, :2] = self._t(dist).reshape(h * w, 2)
-        read = bilinear_read if self.use_kernels else bilinear_read_plain
-        return read(tex, (w, h), uv.contiguous())[:, :2]
+        return distortion_read(torch.as_tensor(dist, device=uv.device), uv, self.use_kernels)
 
     def _surface_normals(self, pos_world: torch.Tensor) -> torch.Tensor:
         """−∇σ at pos_world, normalized and mapped to [0, 1] (task.py:
@@ -690,7 +894,7 @@ class NerfTask:
         pos_w = (world - aabb_min) / (aabb_max - aabb_min)
         dirs = d_w / torch.clamp(torch.linalg.vector_norm(d_w, dim=-1, keepdim=True), min=1e-9)
         out = functional_call(self.model, self.inference_params(),
-                              (pos_w, warp_direction(dirs)))
+                              (pos_w, warp_direction(dirs)), {"extra": self._render_extra(n)})
         rgb = network_to_rgb(out[:, :3].to(torch.float32), self.rgb_activation)
         sigma = network_to_density(out[:, 3].to(torch.float32), self.density_activation)
         a = torch.clamp(1.0 - torch.exp(-sigma * 0.01), 0.0, 1.0)
@@ -698,6 +902,16 @@ class NerfTask:
         rgb = rgb * a[:, None] + (1.0 - a[:, None]) * bg[:3] * bg[3]
         alpha = a + (1.0 - a) * bg[3]
         return torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
+
+
+def distortion_read(dist: torch.Tensor, uv: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    """The (n, 2) offsets of an (h, w, 2) distortion map read bilinearly at
+    uv, differentiable in the map: kernel I's bilinear entry on the map as
+    an (h·w, 4) texture whose last two channels are zero, and its gradient
+    a 4-corner deposit through kernel H (``bilinear_read_differentiable``)."""
+    h, w = dist.shape[:2]
+    tex = torch.nn.functional.pad(dist.reshape(h * w, 2), (0, 2))
+    return bilinear_read_differentiable(tex, (w, h), uv.contiguous(), use_kernel)[:, :2]
 
 
 RENDER_MODES = ("shade", "depth", "positions", "normals", "ao", "cost", "encodingvis",

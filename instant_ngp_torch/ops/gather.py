@@ -108,6 +108,41 @@ def bilinear_read(texture: torch.Tensor, resolution: tuple[int, int],
     return out
 
 
+class _BilinearReadFunction(torch.autograd.Function):
+    """``bilinear_read`` differentiable in its texture: forward through
+    kernel I's bilinear entry, backward a 4-corner deposit through kernel H
+    (``scatter_add_rows``); the plain versions of both where ``use_kernel``
+    is off or the tensors lie on the CPU."""
+
+    @staticmethod
+    def forward(ctx, texture, resolution, uv, use_kernel):
+        ctx.resolution, ctx.use_kernel, ctx.n_texels = resolution, use_kernel, texture.shape[0]
+        ctx.save_for_backward(uv)
+        read = bilinear_read if use_kernel else bilinear_read_plain
+        return read(texture, resolution, uv)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .scatter import scatter_add_rows, scatter_add_rows_plain
+
+        # each corner's weight times the read's cotangent, as JAX's vjp of
+        # bilinear_read forms them (image_fit/task.py:57-62), added into its texel
+        (uv,) = ctx.saved_tensors
+        idx, frac = bilinear_texels(ctx.resolution, uv)
+        fx, fy = frac[:, 0:1], frac[:, 1:2]
+        vals = torch.cat([(1 - fx) * (1 - fy) * g, fx * (1 - fy) * g, (1 - fx) * fy * g,
+                          fx * fy * g])
+        scatter = scatter_add_rows if ctx.use_kernel else scatter_add_rows_plain
+        return scatter(idx, vals.contiguous(), ctx.n_texels), None, None, None
+
+
+def bilinear_read_differentiable(texture: torch.Tensor, resolution: tuple[int, int],
+                                 uv: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    """``bilinear_read`` with a gradient with respect to the texture (the
+    camera optimization's distortion map)."""
+    return _BilinearReadFunction.apply(texture, resolution, uv, use_kernel)
+
+
 def take_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table (T, F), idx (N,) integer in [0, T) → (N, F) of table's type."""
     return table[idx]

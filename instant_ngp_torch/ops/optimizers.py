@@ -11,7 +11,9 @@ package's order of operations. The state is a dict ``{"step": int, "m":
 learning rate and the bias corrections are host f32 scalars and an update
 needs no device read. ``state_to_tree`` / ``state_from_tree`` carry a state
 to and from the JAX package's tree of numpy arrays (snapshots, tests).
-Shampoo is not ported yet.
+Shampoo is not ported yet. ``camera_optimizer`` is the NeRF camera
+offsets' Adam (``instant_ngp_tpu/nerf/task.py:287-293``), over the offsets'
+tensors in sorted-key order, the JAX tree's leaf order.
 """
 
 from __future__ import annotations
@@ -134,6 +136,24 @@ class Optimizer:
         if self.spec.ema_decay is not None and "ema" in state:
             return state["ema"]
         return list(params)
+
+
+# the camera leaves extrinsic_l2_reg applies to: the reference regularizes per
+# group (testbed.h:785-789); exposure and focal take their own decoupled decay
+CAMERA_L2_KEYS = ("rot", "pos")
+
+
+def camera_optimizer_spec() -> OptimizerSpec:
+    """The camera offsets' Adam: rate 1e-4, β 0.9 / 0.99, ε 1e-8, the rate
+    ×0.33 every 2,048 steps from step 0, l2_reg (``extrinsic_l2_reg``) 0."""
+    return OptimizerSpec(learning_rate=1e-4, beta1=0.9, beta2=0.99, epsilon=1e-8, l2_reg=0.0,
+                         decay_start=0, decay_interval=2048, decay_base=0.33)
+
+
+def camera_optimizer(spec: OptimizerSpec, keys: Sequence[str]) -> Optimizer:
+    """Adam over the camera tensors named ``keys``, in that order, with
+    l2_reg on rot and pos only."""
+    return Optimizer(spec, [k in CAMERA_L2_KEYS for k in keys])
 
 
 STATE_KEYS = ("m", "v", "ema")

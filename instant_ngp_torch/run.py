@@ -19,9 +19,12 @@ As in ``scripts/run.py``, ``--mode``, ``--near_distance``, ``--exposure`` and
 ``--screenshot_spp`` are parsed and never read, and screenshots render at
 spp 1. ``--save_mesh`` writes the marching-cubes mesh (PLY by the suffix,
 else OBJ) after the snapshot is saved, optimised ``--optimize_mesh_steps``
-steps. ``--train_mode rfl`` / ``rflrelax`` wait for ROADMAP Queue 1 item 2
-(its training half) and exit before anything loads. ``--nerf_compatibility`` sets what the port's NeRF task has
-(no cone stepping, no random background); a run whose training stops (a
+steps. ``--train_mode rfl`` trains nerf for ``--rfl_warmup_steps`` steps, then
+RFL; ``rflrelax`` trains RflRelax from ``--rflrelax_begin_step`` to
+``--rflrelax_end_step`` and nerf around it (scripts/run.py:108-118); each
+switch prints ``train_mode=<mode> from step <n>``. ``--nerf_compatibility``
+sets what the port's NeRF task has (no cone stepping, no random background,
+nerf mode); a run whose training stops (a
 step that marched no sample) ends its loop, where ``scripts/run.py`` would
 spin on it.
 """
@@ -90,11 +93,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--rflrelax_end_step", type=int, default=25000)
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (cpu runs the kernels' plain versions)")
-    args = p.parse_args(argv)
-    if args.train_mode != "nerf":
-        p.error(f"--train_mode {args.train_mode}: not ported yet, waits for ROADMAP Queue 1 "
-                "item 2 (the rest of NeRF: its training half)")
-    return args
+    return p.parse_args(argv)
+
+
+def scheduled_train_mode(args, step: int) -> str | None:
+    """The train mode of the frame at ``step`` (scripts/run.py:108-118):
+    ``rfl`` after ``--rfl_warmup_steps`` steps of nerf; ``rflrelax`` inside
+    [``--rflrelax_begin_step``, ``--rflrelax_end_step``), nerf around it; None
+    for ``--train_mode nerf`` (the task's mode is left as it is)."""
+    if args.train_mode == "rflrelax":
+        return "rflrelax" if args.rflrelax_begin_step <= step < args.rflrelax_end_step else "nerf"
+    if args.train_mode == "rfl":
+        return "nerf" if step <= args.rfl_warmup_steps else "rfl"
+    return None
 
 
 def save_mesh(testbed, path: str, res: int, optimize_steps: int) -> None:
@@ -160,13 +171,21 @@ def main(argv=None) -> None:
         task.cone_angle = 0.0
         task.march_cfg = dataclasses.replace(task.march_cfg, cone_angle=0.0)
         task.random_bg_color = False
+        task.train_mode = "nerf"
 
     n_steps = args.n_steps if args.n_steps >= 0 else 35000
     if n_steps > 0:
         print(f"training {n_steps} steps...")
         t0 = time.time()
         last_print = 0
+        mode = None
         while testbed.training_step < n_steps:
+            scheduled = scheduled_train_mode(args, testbed.training_step)
+            if scheduled is not None:
+                testbed.task.train_mode = scheduled
+                if scheduled != mode:
+                    print(f"train_mode={scheduled} from step {testbed.training_step}", flush=True)
+                    mode = scheduled
             testbed.frame()
             if not testbed.shall_train:
                 print(f"training stopped at step {testbed.training_step}: a step marched no "

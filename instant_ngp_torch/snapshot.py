@@ -324,6 +324,22 @@ def unpack_tree(packed: list, template):
                                      for dt, shape, raw in packed])
 
 
+def unpack_cam_offsets(packed: list) -> dict:
+    """A snapshot's ``cam_offsets`` (``pack_tree`` of the camera state, its
+    keys sorted: [distortion], exposure, [extra], focal, pos, rot) as a dict
+    of numpy arrays. Which of the optional leaves it holds follows from the
+    count and the first leaf's shape (the map's is (h, w, 2))."""
+    leaves = [np.frombuffer(raw, dtype=np.dtype(dt)).reshape(shape) for dt, shape, raw in packed]
+    keys = ["exposure", "focal", "pos", "rot"]
+    if leaves and leaves[0].ndim == 3:
+        keys.insert(0, "distortion")
+    if len(leaves) == len(keys) + 1:
+        keys.insert(keys.index("focal"), "extra")
+    if len(leaves) != len(keys):
+        raise ValueError(f"camera offsets of {len(leaves)} leaves: not a camera state")
+    return dict(zip(keys, leaves))
+
+
 def save_snapshot(path, network_config: dict, params: dict, mode: str, training_step: int = 0,
                   loss: float = 0.0, density_grid: np.ndarray | None = None,
                   nerf_extra: dict | None = None, camera: dict | None = None,

@@ -108,13 +108,17 @@ from .io.image import load_image, save_image
 from .io.nerf_loader import NerfDataset, load_nerf
 from .models import network as image_network
 from .models import nerf_network
-from .nerf.task import NerfTask
+from .nerf.task import DISTORTION_SHAPE, NerfTask
 from .ops.encodings import encoding_tables
 from .ops.losses import loss_type_from_string
 from .render.camera_path import CameraPath
 from .render.camera_predictor import CameraPredictionMode, MatLogCameraPredictor
 from .sdf.task import SdfTask
 from .volume.task import VolumeTask
+
+# the camera-optimization toggles a NeRF task takes when it is built
+CAMERA_FLAGS = ("optimize_extrinsics", "optimize_exposure", "optimize_focal_length",
+                "optimize_distortion")
 
 # ROADMAP Queue 1's items that parts of the surface wait for
 NOT_PORTED_ITEMS = {2: "the rest of NeRF", 3: "the baked and slab renders",
@@ -301,9 +305,8 @@ class _DatasetView:
 class _NerfTrainingView:
     """pyngp testbed.nerf.training.* (python_api.cu Testbed::Nerf::Training).
     Settings made before a scene is loaded are queued and applied when its
-    task is built. Camera, exposure, focal, distortion and latent
-    optimization, the RFL modes, depth supervision and the sharpness error
-    wait for Queue 1 item 2."""
+    task is built. Depth supervision, the sharpness error and the rolling
+    shutter's extrinsics wait for Queue 1 item 2."""
 
     def __init__(self, tb: "Testbed"):
         self._tb = tb
@@ -349,12 +352,11 @@ class _NerfTrainingView:
 
     @property
     def train_mode(self) -> TrainMode:
-        return TrainMode.NERF
+        return TrainMode(self._get("train_mode", "train_mode", "nerf"))
 
     @train_mode.setter
     def train_mode(self, v) -> None:
-        if TrainMode(getattr(v, "value", v)) != TrainMode.NERF:
-            raise not_ported(f"train_mode {TrainMode(getattr(v, 'value', v)).value}", 2)
+        self._set("train_mode", "train_mode", TrainMode(getattr(v, "value", v)).value)
 
     @property
     def n_images_for_training(self) -> int:
@@ -362,7 +364,7 @@ class _NerfTrainingView:
 
     @property
     def loss_type(self) -> LossType:
-        """pyngp nerf.training.loss_type (python_api.cu:785): Huber or L2."""
+        """pyngp nerf.training.loss_type (python_api.cu:785)."""
         task = self._task()
         if task is None:
             return loss_type_from_string(self._tb._nerf_pending.get("loss_type", "huber"))
@@ -371,8 +373,6 @@ class _NerfTrainingView:
     @loss_type.setter
     def loss_type(self, v) -> None:
         loss = loss_type_from_string(str(getattr(v, "name", v)))
-        if loss not in (LossType.HUBER, LossType.L2):
-            raise not_ported(f"the NeRF loss {loss.value}", 2)
         self._set("loss_type", "loss_type", loss if self._task() is not None else loss.value)
 
     @property
@@ -408,41 +408,115 @@ class _NerfTrainingView:
 
     def reset_camera_extrinsics(self) -> None:
         """pyngp reset_camera_extrinsics (testbed_nerf.cu:2215-2227): zero the
-        trained pose and exposure offsets (a snapshot's, here)."""
+        trained pose and exposure offsets, the camera optimizer made anew."""
         task = self._task()
         if task is not None:
-            for k in ("rot", "pos", "exposure"):
-                task.cam_offsets[k] = np.zeros_like(task.cam_offsets[k])
+            task.reset_camera_extrinsics()
 
     def get_extra_dims(self, view: int) -> np.ndarray:
-        """pyngp get_extra_dims (python_api.cu:810-813): the port's scenes have
-        no latent codes, so an empty vector, as the JAX package gives one."""
-        if self._task() is None:
-            raise RuntimeError("load a NeRF scene first")
-        return np.zeros((0,), np.float32)
+        """pyngp get_extra_dims (python_api.cu:810-813): a training view's
+        trained latent code; empty where the scene has none."""
+        return self._scene_task().get_extra_dims(view)
 
-    optimize_extrinsics = _knob("optimize_extrinsics", False)
-    optimize_exposure = _knob("optimize_exposure", False)
-    optimize_focal_length = _knob("optimize_focal_length", False)
-    optimize_distortion = _knob("optimize_distortion", False)
-    optimize_extra_dims = _knob("optimize_extra_dims", False)
-    optimize_per_image_latents = _knob("optimize_per_image_latents", False)
-    n_steps_between_cam_updates = _knob("n_steps_between_cam_updates", 16)
-    extrinsic_learning_rate = _knob("extrinsic_learning_rate", 1e-3)
-    extrinsic_l2_reg = _knob("extrinsic_l2_reg", 1e-4)
-    intrinsic_l2_reg = _knob("intrinsic_l2_reg", 1e-4)
-    exposure_l2_reg = _knob("exposure_l2_reg", 0.0)
+    def _scene_task(self) -> NerfTask:
+        task = self._task()
+        if task is None:
+            raise RuntimeError("load a NeRF scene first")
+        return task
+
+    def set_camera_intrinsics(self, frame_idx: int, fx: float = 0.0, fy: float = 0.0,
+                              cx: float = -0.5, cy: float = -0.5, k1: float = 0.0,
+                              k2: float = 0.0, p1: float = 0.0, p2: float = 0.0, k3: float = 0.0,
+                              k4: float = 0.0, is_fisheye: bool = False) -> None:
+        """pyngp set_camera_intrinsics (python_api.cu:815-831)."""
+        self._scene_task().set_camera_intrinsics(frame_idx, fx, fy, cx, cy, k1, k2, p1, p2, k3,
+                                                 k4, is_fisheye)
+
+    def set_camera_extrinsics(self, frame_idx: int, camera_to_world,
+                              convert_to_ngp: bool = True) -> None:
+        """pyngp set_camera_extrinsics (python_api.cu:832-839)."""
+        self._scene_task().set_camera_extrinsics(frame_idx, camera_to_world,
+                                                 convert_to_ngp=convert_to_ngp)
+
+    def _opt_flag(self, name: str) -> bool:
+        return bool(self._get(name, name, False))
+
+    def _set_opt_flag(self, name: str, v) -> None:
+        """Camera-optimization toggles (python_api.cu:791-800): turning
+        ``optimize_distortion`` on gives the task a zero map where it has
+        none, and the camera optimizer's state is made anew."""
+        task = self._task()
+        self._set(name, name, bool(v))
+        if (task is not None and name == "optimize_distortion" and v
+                and "distortion" not in task.cam_offsets):
+            task.cam_offsets["distortion"] = torch.zeros(DISTORTION_SHAPE, dtype=torch.float32,
+                                                         device=task.device)
+            task.state.cam_opt = None
+
+    optimize_extrinsics = property(lambda s: s._opt_flag("optimize_extrinsics"),
+                                   lambda s, v: s._set_opt_flag("optimize_extrinsics", v))
+    optimize_exposure = property(lambda s: s._opt_flag("optimize_exposure"),
+                                 lambda s, v: s._set_opt_flag("optimize_exposure", v))
+    optimize_focal_length = property(lambda s: s._opt_flag("optimize_focal_length"),
+                                     lambda s, v: s._set_opt_flag("optimize_focal_length", v))
+    optimize_distortion = property(lambda s: s._opt_flag("optimize_distortion"),
+                                   lambda s, v: s._set_opt_flag("optimize_distortion", v))
+    # the reference binds the latents' toggle under two names (python_api.cu:789-792)
+    optimize_extra_dims = property(
+        lambda s: s._opt_flag("optimize_extra_dims"),
+        lambda s, v: s._set("optimize_extra_dims", "optimize_extra_dims", bool(v)))
+    optimize_per_image_latents = optimize_extra_dims
+    n_steps_between_cam_updates = property(
+        lambda s: s._get("n_steps_between_cam_updates", "n_steps_between_cam_updates", 16),
+        lambda s, v: s._set("n_steps_between_cam_updates", "n_steps_between_cam_updates",
+                            int(v)))
+    exposure_l2_reg = property(
+        lambda s: s._get("exposure_l2_reg", "exposure_l2_reg", 0.0),
+        lambda s, v: s._set("exposure_l2_reg", "exposure_l2_reg", float(v)))
+    intrinsic_l2_reg = property(
+        lambda s: s._get("intrinsic_l2_reg", "intrinsic_l2_reg", 1e-4),
+        lambda s, v: s._set("intrinsic_l2_reg", "intrinsic_l2_reg", float(v)))
+
+    @property
+    def extrinsic_learning_rate(self) -> float:
+        """The camera's rate per n_steps_between_cam_updates steps."""
+        task = self._task()
+        if task is None:
+            return self._tb._nerf_pending.get("extrinsic_learning_rate", 1e-3)
+        return float(task.cam_opt_spec.learning_rate
+                     * max(int(task.n_steps_between_cam_updates), 1))
+
+    @extrinsic_learning_rate.setter
+    def extrinsic_learning_rate(self, v) -> None:
+        task = self._task()
+        if task is None:
+            self._tb._nerf_pending["extrinsic_learning_rate"] = float(v)
+        else:
+            task.set_camera_optimizer_hparams(extrinsic_learning_rate=float(v))
+
+    @property
+    def extrinsic_l2_reg(self) -> float:
+        task = self._task()
+        if task is None:
+            return self._tb._nerf_pending.get("extrinsic_l2_reg", 1e-4)
+        return float(task.cam_opt_spec.l2_reg)
+
+    @extrinsic_l2_reg.setter
+    def extrinsic_l2_reg(self, v) -> None:
+        task = self._task()
+        if task is None:
+            self._tb._nerf_pending["extrinsic_l2_reg"] = float(v)
+        else:
+            task.set_camera_optimizer_hparams(extrinsic_l2_reg=float(v))
+
     include_sharpness_in_error = _knob("include_sharpness_in_error", False)
     depth_supervision_lambda = _knob("depth_supervision_lambda", 0.0)
     depth_loss_type = _knob("depth_loss_type", "L1")
-    set_camera_intrinsics = _method("set_camera_intrinsics")
-    set_camera_extrinsics = _method("set_camera_extrinsics")
     set_camera_extrinsics_rolling_shutter = _method("set_camera_extrinsics_rolling_shutter")
 
 
 class _NerfView:
-    """pyngp testbed.nerf.* (python_api.cu:520-620). The latent-code members
-    wait for Queue 1 item 2."""
+    """pyngp testbed.nerf.* (python_api.cu:520-620)."""
 
     def __init__(self, tb: "Testbed"):
         self._tb = tb
@@ -502,23 +576,42 @@ class _NerfView:
     def find_closest_training_view(self, pose=None) -> int:
         """pyngp find_closest_training_view (testbed_nerf.cu:3710-3723): the
         training view nearest the current (or given) camera by position
-        distance + 0.25 × z-axis distance. The port trains no camera
-        offsets, so the views are the dataset's."""
-        xf = np.asarray(self._task().dataset.xforms_start, np.float32)
-        pose = np.asarray(self._tb.camera_matrix if pose is None else pose, np.float32)
-        score = (np.linalg.norm(xf[:, :, 3] - pose[:, 3], axis=-1)
-                 + 0.25 * np.linalg.norm(xf[:, :, 2] - pose[:, 2], axis=-1))
-        return int(np.argmin(score))
+        distance + 0.25 × z-axis distance, over the offset cameras."""
+        return self._task().find_closest_training_view(
+            self._tb.camera_matrix if pose is None else pose)
 
     def get_rendering_extra_dims(self) -> np.ndarray:
-        return np.zeros((0,), np.float32)  # no latent codes, as the JAX package's without any
+        """The latent vector renders condition on (python_api.cu:741-743)."""
+        task = self._tb.task
+        vec = task.render_extra_vec() if isinstance(task, NerfTask) else None
+        return np.zeros((0,), np.float32) if vec is None else vec.cpu().numpy()
 
-    rendering_extra_dims_from_training_view = _knob("rendering_extra_dims_from_training_view", 0)
+    @property
+    def rendering_extra_dims_from_training_view(self) -> int:
+        task = self._tb.task
+        if isinstance(task, NerfTask):
+            return task.rendering_extra_dims_from_training_view
+        return self._tb._nerf_pending.get("rendering_extra_dims_from_training_view", 0)
+
+    @rendering_extra_dims_from_training_view.setter
+    def rendering_extra_dims_from_training_view(self, v) -> None:
+        task = self._tb.task
+        if isinstance(task, NerfTask):
+            task.rendering_extra_dims_from_training_view = int(v)
+        else:
+            self._tb._nerf_pending["rendering_extra_dims_from_training_view"] = int(v)
 
     def set_rendering_extra_dims_from_training_view(self, i: int) -> None:
+        """Render with training view i's latents (python_api.cu:735-745)."""
         self.rendering_extra_dims_from_training_view = int(i)
 
-    set_rendering_extra_dims = _method("set_rendering_extra_dims")
+    def set_rendering_extra_dims(self, vals) -> None:
+        """Render with an explicit latent vector (python_api.cu:725-733)."""
+        task = self._tb.task
+        if isinstance(task, NerfTask):
+            task.set_rendering_extra_dims(vals)
+        else:
+            self._tb._nerf_pending["rendering_extra_dims"] = vals
 
 
 def _set_cone_angle(task: NerfTask, cone_angle: float) -> None:
@@ -809,8 +902,16 @@ class Testbed:
     def autofocus_target(self, v) -> None:
         self.task.focus_z = float(v)
 
+    @property
+    def max_level_rand_training(self) -> bool:
+        """Train each ray at a random coarse-to-fine level cap (task.py:849)."""
+        return bool(getattr(self.task, "max_level_rand_training", False))
+
+    @max_level_rand_training.setter
+    def max_level_rand_training(self, v) -> None:
+        self.task.max_level_rand_training = bool(v)
+
     # --- knobs of later slices ---
-    max_level_rand_training = _knob("max_level_rand_training", False)
     init_window = _method("init_window", 4)
     init_vr = _method("init_vr", 4)
     destroy_window = _method("destroy_window", 4)
@@ -880,8 +981,10 @@ class Testbed:
                                    seed=self.seed)
         elif self.mode == TestbedMode.NERF:
             self.nerf_dataset = load_nerf(self.scene_path)
+            pend = self._nerf_pending
             self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
-                                 seed=self.seed, target_batch_size=self.training_batch_size)
+                                 seed=self.seed, target_batch_size=self.training_batch_size,
+                                 **{k: bool(pend.get(k, False)) for k in CAMERA_FLAGS})
             self.camera_matrix = self.nerf_dataset.xforms_start[0].copy()
             pend = self._nerf_pending
             for key, attr in (("near_distance", "training_near_distance"),
@@ -897,6 +1000,17 @@ class Testbed:
                 _set_cone_angle(self.task, pend["cone_angle_constant"])
             if "loss_type" in pend:
                 self.task.loss_type = loss_type_from_string(pend["loss_type"])
+            for key in ("train_mode", "optimize_extra_dims", "n_steps_between_cam_updates",
+                        "exposure_l2_reg", "intrinsic_l2_reg",
+                        "rendering_extra_dims_from_training_view"):
+                if key in pend:
+                    setattr(self.task, key, pend[key])
+            if "extrinsic_learning_rate" in pend or "extrinsic_l2_reg" in pend:
+                self.task.set_camera_optimizer_hparams(
+                    extrinsic_learning_rate=pend.get("extrinsic_learning_rate"),
+                    extrinsic_l2_reg=pend.get("extrinsic_l2_reg"))
+            if "rendering_extra_dims" in pend:
+                self.task.set_rendering_extra_dims(pend["rendering_extra_dims"])
         else:
             img, is_hdr = load_image(self.scene_path)
             self.task = ImageTask(img, is_hdr, self.network_config, device=self.device,
@@ -1639,7 +1753,7 @@ class Testbed:
                   "nerf_extra": {"aabb_scale": ds.aabb_scale,
                                  "rgb": {"rays_per_batch": task.n_rays_per_batch},
                                  "dataset": snapshot_io.dataset_to_json(ds)},
-                  "cam_offsets": task.cam_offsets}
+                  "cam_offsets": task.cam_offsets_numpy()}
             # the JAX package builds the live crop box (task.render_aabb_min/max)
             # here but never writes it (testbed.py:2102), so a round trip loses
             # it; matched on purpose, so that both packages write one document
@@ -1687,11 +1801,7 @@ class Testbed:
         if nerf:
             cam = None
             if "cam_offsets" in snap:
-                template = dict(task.cam_offsets)
-                if len(snap["cam_offsets"]) == len(snapshot_io.tree_leaves(template)) + 1:
-                    # one more leaf: a trained distortion map, whose shape the file gives
-                    template["distortion"] = np.zeros((0, 0, 2), np.float32)
-                cam = snapshot_io.unpack_tree(snap["cam_offsets"], template)
+                cam = snapshot_io.unpack_cam_offsets(snap["cam_offsets"])
             task.load_state(params, opt_state,
                             snapshot_io.restore_density_grid(snap, task.max_cascade + 1), step,
                             cam)

@@ -7,8 +7,8 @@ evaluation against ``scripts/run.py`` takes one view, ~60 s of its ray
 generation's compiles on the CPU): the printed PSNR, SSIM and ꟻLIP agree to
 the last printed digit (the renders agree at tests/test_torch_render.py's 45
 dB), and the screenshot PNG within one 8-bit step. Then: the flags and their defaults, a 3-step
-training run whose snapshot the JAX Testbed loads, the flags that wait for
-ROADMAP Queue 1 item 2 exiting before anything loads, and a run in a child
+training run whose snapshot the JAX Testbed loads, the RFL modes' schedule
+against ``scripts/run.py``'s, and a run in a child
 process (with a mesh export) that imports neither jax nor the JAX package.
 ``--save_mesh`` against the JAX package is tests/test_torch_mesh_export.py's."""
 
@@ -119,14 +119,62 @@ def test_training_run_saves_a_snapshot_the_jax_testbed_loads(scene, tmp_path, ca
         assert np.array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("flags", [["--train_mode", "rfl"], ["--train_mode", "rflrelax"]],
+def _scripts_run_modes(monkeypatch, argv) -> list[str]:
+    """The train mode of every frame that ``scripts/run.py``'s main loop
+    asks for, on a Testbed stand-in that records ``task.train_mode`` at each
+    ``frame()``."""
+    import types
+
+    spec = importlib.util.spec_from_file_location("scripts_run", ROOT / "scripts" / "run.py")
+    scripts_run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scripts_run)
+    made = []
+
+    class Recorder:
+        def __init__(self):
+            self.training_step, self.loss, self.mode = 0, 0.0, None
+            self.task = types.SimpleNamespace(train_mode="nerf")
+            self.modes = []
+            made.append(self)
+
+        def reload_network_from_file(self, path):
+            pass
+
+        def load_training_data(self, path):
+            pass
+
+        def frame(self):
+            self.modes.append(self.task.train_mode)
+            self.training_step += 1
+
+    monkeypatch.setattr(scripts_run, "ngp", types.SimpleNamespace(
+        Testbed=Recorder, TestbedMode=scripts_run.ngp.TestbedMode))
+    monkeypatch.setattr(sys, "argv", ["run.py", *argv])
+    scripts_run.main()
+    return made[0].modes
+
+
+@pytest.mark.parametrize("flags", [["--train_mode", "rfl", "--rfl_warmup_steps", "2"],
+                                   ["--train_mode", "rflrelax", "--rflrelax_begin_step", "1",
+                                    "--rflrelax_end_step", "3"]],
                          ids=["rfl", "rflrelax"])
-def test_flags_of_later_slices_exit_before_anything_loads(flags, capsys):
-    with pytest.raises(SystemExit) as exit_:
-        run.main(["--scene", "/nonexistent/scene", "--n_steps", "5", *flags])
-    assert exit_.value.code == 2
-    err = capsys.readouterr()
-    assert "Queue 1 item 2" in err.err and flags[0] in err.err and "training" not in err.out
+def test_flags_of_later_slices_exit_before_anything_loads(flags, scene, monkeypatch, capsys):
+    """The train-mode flags, which exited before anything loaded while the
+    RFL modes waited for their slice, now train: a 5-step run on the scene
+    whose printed mode switches (``train_mode=<mode> from step <n>``) are
+    the schedule ``scripts/run.py``'s loop sets, frame by frame, and whose
+    loss stays finite."""
+    argv = ["--scene", str(scene), "--network", str(scene / "tiny.json"), "--n_steps", "5",
+            "--batch_size", str(1 << 12), *flags]
+    run.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    switches = [(m, int(n)) for m, n in re.findall(r"^train_mode=(\w+) from step (\d+)$", out,
+                                                   re.M)]
+    theirs = _scripts_run_modes(monkeypatch, argv)
+    capsys.readouterr()
+    want = [(m, i) for i, m in enumerate(theirs) if i == 0 or theirs[i - 1] != m]
+    assert len(theirs) == 5 and len(want) >= 2 and switches == want
+    assert np.isfinite(float(re.search(r"final loss=(\S+)", out).group(1)))
 
 
 def test_flags_and_defaults_are_scripts_run_s(monkeypatch, capsys):

@@ -5,7 +5,9 @@ and of its ``nerf``, ``nerf.training``, ``nerf.training.dataset``, ``sdf``,
 ``sdf.training``, ``image`` and ``image.training`` views, on the class and on
 a fresh instance, is in the port's, except the names of ``NOT_YET_PORTED``,
 each of which raises ``NotImplementedError`` naming the ROADMAP Queue 1 item
-it waits for (a method when called, a knob when set off its default).
+it waits for (a method when called, a knob when set off its default). The
+camera optimization's and the latents' names (``CAMERA_SLICE``) set or
+called on both Testbeds on a scene with latent dims have the same effect.
 ``instant_ngp_torch.pyngp`` has every name of the root ``pyngp.py``. Then the
 cases of ``tests/test_pyngp_surface.py`` that the port's surface reaches, run
 on the port (a 16² generated scene, the tiny config, 4,096-ray batches)."""
@@ -17,6 +19,7 @@ import threading
 
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -39,18 +42,24 @@ FOX = Path(__file__).resolve().parents[1] / "data" / "fox_1536.ingp"
 # every public name the port's surface leaves for a later slice, with the
 # ROADMAP Queue 1 item it waits for
 NOT_YET_PORTED = {
-    "Testbed.max_level_rand_training": 2,
     "Testbed.init_window": 4, "Testbed.init_vr": 4, "Testbed.destroy_window": 4,
-    "nerf.rendering_extra_dims_from_training_view": 2,
-    "nerf.set_rendering_extra_dims_from_training_view": 2, "nerf.set_rendering_extra_dims": 2,
     **{f"nerf.training.{name}": 2 for name in (
+        "include_sharpness_in_error", "depth_supervision_lambda", "depth_loss_type",
+        "set_camera_extrinsics_rolling_shutter")},
+}
+
+# the names that left NOT_YET_PORTED with the camera optimization, the latents
+# and the coarse-to-fine level cap; each case sets or calls one of them on
+# both Testbeds (test_names_of_the_camera_slice_work_as_in_the_jax_testbed)
+CAMERA_SLICE = (
+    "Testbed.max_level_rand_training", "nerf.rendering_extra_dims_from_training_view",
+    "nerf.set_rendering_extra_dims_from_training_view", "nerf.set_rendering_extra_dims",
+    *(f"nerf.training.{name}" for name in (
         "optimize_extrinsics", "optimize_exposure", "optimize_focal_length",
         "optimize_distortion", "optimize_extra_dims", "optimize_per_image_latents",
         "n_steps_between_cam_updates", "extrinsic_learning_rate", "extrinsic_l2_reg",
-        "intrinsic_l2_reg", "exposure_l2_reg", "include_sharpness_in_error",
-        "depth_supervision_lambda", "depth_loss_type", "set_camera_intrinsics",
-        "set_camera_extrinsics", "set_camera_extrinsics_rolling_shutter")},
-}
+        "intrinsic_l2_reg", "exposure_l2_reg", "set_camera_intrinsics",
+        "set_camera_extrinsics")))
 
 VIEWS = {
     "Testbed": (lambda tb: tb, lambda m: m.Testbed),
@@ -334,12 +343,13 @@ def test_frame_playback_and_record(scene):
 
 
 def test_view_binding(scene):
-    """Latent codes wait for Queue 1 item 2: view 0's (none) is the default."""
+    """View 0's latents are the default; a scene without latent dims has
+    none, from any view (the JAX Testbed's empty vector)."""
     tb = _nerf_testbed(scene)
     assert tb.nerf.rendering_extra_dims_from_training_view == 0
     tb.nerf.set_rendering_extra_dims_from_training_view(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tb.nerf.set_rendering_extra_dims_from_training_view(1)
+    tb.nerf.set_rendering_extra_dims_from_training_view(1)
+    assert tb.nerf.rendering_extra_dims_from_training_view == 1
     assert tb.nerf.get_rendering_extra_dims().shape == (0,)
     assert tb.nerf.training.get_extra_dims(0).shape == (0,)
 
@@ -428,6 +438,9 @@ def test_training_knobs_forward_and_queue_before_a_scene(scene):
     tr.random_bg_color = False
     tr.loss_type = ngp.LossType.L2
     tr.sample_focal_plane_proportional_to_error = False
+    tr.train_mode = "rflrelax"
+    tr.optimize_exposure = True
+    tr.extrinsic_learning_rate = 2e-3
     tb.nerf.cone_angle_constant = 0.01
     tb.shall_train_encoding = False
     tb.load_training_data(scene)
@@ -437,11 +450,12 @@ def test_training_knobs_forward_and_queue_before_a_scene(scene):
     assert t.march_cfg.cone_angle == t.cone_angle == 0.01
     assert t.sample_image_proportional_to_error and not t.sample_focal_plane_proportional_to_error
     assert not t.shall_train_encoding and tr.n_images_for_training == 2
-    assert tr.train_mode == ngp.TrainMode.NERF and tr.linear_colors is False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tr.train_mode = "rfl"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tr.loss_type = "L1"
+    assert tr.train_mode == ngp.TrainMode.RFL_RELAX and tr.linear_colors is False
+    assert t.optimize_exposure and t.cam_opt_spec.learning_rate == pytest.approx(2e-3 / 16)
+    tr.train_mode = "rfl"
+    tr.loss_type = "L1"
+    assert tr.train_mode == ngp.TrainMode.RFL and t.train_mode == "rfl"
+    assert tr.loss_type == ngp.LossType.L1 == t.loss_type
     m = tr.get_camera_extrinsics(1)
     np.testing.assert_allclose(tb.nerf_dataset.nerf_matrix_to_ngp(m),
                                tb.nerf_dataset.xforms_start[1], atol=1e-6)
@@ -560,3 +574,152 @@ def test_empty_dataset_lens_and_reset(scene):
     assert tb.training_step == 0 and tb.task.training_step == 0
     tb.clear_training_data()
     assert tb.task is None and not tb.want_repl()
+
+
+@pytest.fixture(scope="module")
+def latent_scene(scene, tmp_path_factory):
+    """The 16² scene with 4 latent dims a view (its transforms.json's
+    ``n_extra_learnable_dims``)."""
+    import json
+    import shutil
+
+    out = tmp_path_factory.mktemp("latent") / "s"
+    shutil.copytree(scene, out)
+    meta = json.loads((out / "transforms.json").read_text())
+    meta["n_extra_learnable_dims"] = 4
+    (out / "transforms.json").write_text(json.dumps(meta))
+    return out
+
+
+def _both_on(scene_dir):
+    """The JAX Testbed and the port's on the scene, the port's latents those
+    of the JAX task (each package draws its own)."""
+    theirs = jax_testbed.Testbed()
+    theirs.training_batch_size = 1 << 12
+    theirs.reload_network_from_json(graft._tiny_nerf_config())
+    theirs.load_training_data(str(scene_dir))
+    ours = _nerf_testbed(scene_dir)
+    ours.task.cam_offsets["extra"] = torch.from_numpy(np.array(theirs.task.state.cam["extra"]))
+    return theirs, ours
+
+
+def _cam(tb, key):
+    task = tb.task
+    v = task.state.cam[key] if hasattr(task.state, "params") else task.cam_offsets[key]
+    return np.asarray(v)
+
+
+@pytest.mark.parametrize("name", CAMERA_SLICE)
+def test_names_of_the_camera_slice_work_as_in_the_jax_testbed(latent_scene, name):
+    theirs, ours = _both_on(latent_scene)
+    view, attr = name.rsplit(".", 1)
+    objs = [VIEWS[view][0](tb) for tb in (theirs, ours)]
+    rng = np.random.default_rng(len(name))
+    if attr == "max_level_rand_training":
+        for o in objs:
+            setattr(o, attr, True)
+        assert theirs.task.max_level_rand_training is ours.task.max_level_rand_training is True
+        ours.frame()  # each ray trains at its drawn level cap
+        assert np.isfinite(ours.loss)
+    elif attr in ("rendering_extra_dims_from_training_view",
+                  "set_rendering_extra_dims_from_training_view"):
+        for o in objs:
+            if attr.startswith("set_"):
+                getattr(o, attr)(1)
+            else:
+                setattr(o, attr, 1)
+        assert [o.rendering_extra_dims_from_training_view for o in objs] == [1, 1]
+        np.testing.assert_array_equal(ours.nerf.get_rendering_extra_dims(),
+                                      np.asarray(theirs.nerf.get_rendering_extra_dims()))
+        np.testing.assert_array_equal(ours.nerf.get_rendering_extra_dims(),
+                                      ours.nerf.training.get_extra_dims(1))
+    elif attr == "set_rendering_extra_dims":
+        vec = rng.normal(size=4).astype(np.float32)
+        for o in objs:
+            o.set_rendering_extra_dims(vec)
+        assert [o.rendering_extra_dims_from_training_view for o in objs] == [-1, -1]
+        for tb in (theirs, ours):
+            np.testing.assert_array_equal(np.asarray(tb.nerf.get_rendering_extra_dims()), vec)
+        with pytest.raises(ValueError):
+            ours.nerf.set_rendering_extra_dims(vec[:3])
+    elif attr.startswith("optimize_"):
+        default = [getattr(o, attr) for o in objs]
+        assert default[0] == default[1]
+        for o in objs:
+            setattr(o, attr, not default[0])
+        assert [getattr(o, attr) for o in objs] == [not default[0]] * 2
+        if attr == "optimize_distortion":
+            for tb in (theirs, ours):
+                np.testing.assert_array_equal(_cam(tb, "distortion"), np.zeros((32, 32, 2)))
+            assert ours.task.state.cam_opt is None  # made anew at the next step
+    elif attr in ("n_steps_between_cam_updates", "extrinsic_learning_rate", "extrinsic_l2_reg",
+                  "intrinsic_l2_reg", "exposure_l2_reg"):
+        value = {"n_steps_between_cam_updates": 8, "extrinsic_learning_rate": 2e-3,
+                 "extrinsic_l2_reg": 1e-3, "intrinsic_l2_reg": 3e-4,
+                 "exposure_l2_reg": 0.25}[attr]
+        for o in objs:
+            setattr(o, attr, value)
+        got = [getattr(o, attr) for o in objs]
+        assert got[0] == pytest.approx(got[1], rel=1e-7) and got[1] == pytest.approx(value)
+        jspec, pspec = theirs.task.cam_opt.spec, ours.task.cam_opt_spec
+        assert (jspec.learning_rate, jspec.l2_reg) == pytest.approx((pspec.learning_rate,
+                                                                     pspec.l2_reg))
+    elif attr == "set_camera_intrinsics":
+        for o in objs:
+            o.set_camera_intrinsics(1, fx=30.0, fy=31.0, cx=7.0, cy=-0.4, k1=0.01, p1=0.001)
+        a, b = theirs.nerf_dataset, ours.nerf_dataset
+        np.testing.assert_array_equal(a.focal_lengths, b.focal_lengths)
+        np.testing.assert_array_equal(a.principal_points, b.principal_points)
+        assert a.lens_mode == b.lens_mode
+        np.testing.assert_array_equal(a.lens_params, b.lens_params)
+        np.testing.assert_array_equal(ours.task.focals.numpy(), b.focal_lengths)
+    else:  # set_camera_extrinsics
+        m = np.concatenate([np.linalg.qr(rng.normal(size=(3, 3)))[0],
+                            rng.normal(size=(3, 1))], 1).astype(np.float32)
+        offs = {k: rng.normal(size=_cam(ours, k).shape).astype(np.float32)
+                for k in ("rot", "pos", "exposure")}
+        import dataclasses as dc
+
+        theirs.task.state = dc.replace(theirs.task.state, cam={
+            **theirs.task.state.cam, **{k: jnp.asarray(v) for k, v in offs.items()}})
+        ours.task.cam_offsets.update({k: torch.from_numpy(v.copy()) for k, v in offs.items()})
+        for o in objs:
+            o.set_camera_extrinsics(1, m)
+        np.testing.assert_array_equal(theirs.nerf_dataset.xforms_start,
+                                      ours.nerf_dataset.xforms_start)
+        np.testing.assert_array_equal(ours.task.xforms.numpy(), ours.nerf_dataset.xforms_start)
+        for k in offs:
+            np.testing.assert_array_equal(_cam(theirs, k), _cam(ours, k))
+            assert not np.any(_cam(ours, k)[1]) and np.array_equal(_cam(ours, k)[0], offs[k][0])
+        np.testing.assert_allclose(ours.nerf.training.get_camera_extrinsics(1),
+                                   theirs.nerf.training.get_camera_extrinsics(1), atol=1e-6)
+
+
+def test_offset_cameras_reach_find_closest_and_reset(latent_scene):
+    """``find_closest_training_view`` over the offset poses, and
+    ``reset_camera_extrinsics`` zeroing them, as in the JAX Testbed."""
+    import dataclasses as dc
+
+    theirs, ours = _both_on(latent_scene)
+    n = ours.nerf_dataset.n_images
+    offs = {"rot": np.zeros((n, 3), np.float32), "pos": np.zeros((n, 3), np.float32),
+            "exposure": np.full((n, 3), 0.5, np.float32)}
+    # move view 0's camera onto view 1's pose: the closest view to it flips
+    xf = ours.nerf_dataset.xforms_start
+    offs["pos"][0] = xf[1, :, 3] - xf[0, :, 3]
+    theirs.task.state = dc.replace(theirs.task.state, cam={
+        **theirs.task.state.cam, **{k: jnp.asarray(v) for k, v in offs.items()}})
+    ours.task.cam_offsets.update({k: torch.from_numpy(v.copy()) for k, v in offs.items()})
+    pose = xf[1].copy()
+    pose[:, 3] += 1e-3
+    assert ours.nerf.find_closest_training_view(pose) == theirs.nerf.find_closest_training_view(
+        pose)
+    for pose in (xf[0], xf[1], xf[1] + 0.3):
+        assert (ours.nerf.find_closest_training_view(pose)
+                == theirs.nerf.find_closest_training_view(pose))
+    for tb in (theirs, ours):
+        tb.nerf.training.reset_camera_extrinsics()
+    for k in offs:
+        np.testing.assert_array_equal(_cam(ours, k), _cam(theirs, k))
+        assert not np.any(_cam(ours, k))
+    np.testing.assert_array_equal(_cam(ours, "extra"), _cam(theirs, "extra"))  # kept

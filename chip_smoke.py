@@ -38,6 +38,24 @@ microbenchmarks:
   kernels against the plain versions, every parameter and camera leaf; K
   bit for bit, F (48 and 32 inputs), H into the distortion map and I's read
   of it at that step's shapes; the time a camera step adds to a plain one;
+- capture: the train phase's 50 views written to disk as a capture with
+  16-bit depth maps (the snapshot's depth render, 0 where its alpha < 0.5),
+  every fifth view at 2/3 size, ``rays_*.dat`` of the port's lens rays for
+  the odd views, and the odd views' end transforms turned 0.5° with rolling
+  shutters; fox's configuration from seed 0, 300 frames a run through
+  ``Testbed.load_training_data`` and ``frame()``: (a) depth (λ 1, L1) and
+  the same scene without depths, (b) the two sizes with the rays (the first
+  step's supplied rays equal to the lens rays of the same draws), (c) the
+  moving cameras, (d) a trained environment map and the sharpness-weighted
+  error map, (e) Shampoo with a 32-feature direction grid; checked to raise
+  the eval views' PSNR by 6 dB, depth to bring the rendered depth nearer the
+  snapshot's, (c) and (e) to halve the loss, the envmap to move and render
+  through the kernels within 40 dB of the plain versions, the sharp grid to
+  fill; G with the depth term, d/d bg and the depth in every loss × mode
+  and on a step's own inputs against its plain version in float64; each
+  run's step kernels vs plain; I (the rays' row gather, the envmap's
+  bilinear read), H (the envmap's deposit), A and E (the direction grid)
+  and B and F (the 48-input rgb MLP) at the shapes the step gives them;
 - disk: ``io/synthetic.py``'s scene (24 train and 4 test views at 128^2)
   written to disk, loaded by ``Testbed.load_training_data`` with
   ``configs/nerf/base.json`` and trained 300 frames, checked to go through
@@ -191,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -716,13 +735,8 @@ def render_training_set(tb):
     crop = task.render_aabb_min, task.render_aabb_max
     task.render_aabb_min, task.render_aabb_max = task.aabb_min, task.aabb_max
     for i in range(ds.n_images):
-        frame = task.render(w_t, h_t, ds.xforms_start[i], focal_length=tuple(focals[i]),
-                            principal_point=tuple(ds.principal_points[i]),
-                            background=(0, 0, 0, 0))
-        alpha = frame[..., 3:4].clamp(0.0, 1.0)
-        straight = torch.where(alpha > 0, frame[..., :3] / alpha.clamp(min=1e-6), 0.0)
-        rgba = torch.cat([straight.clamp(0.0, 1.0), alpha], dim=-1)
-        images[i] = (rgba * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+        images[i] = render_rgba(task, w_t, h_t, ds.xforms_start[i], focals[i],
+                                ds.principal_points[i])[0]
     task.render_aabb_min, task.render_aabb_max = crop
     return dataclasses.replace(ds, images=images, focal_lengths=focals, resolution=(w_t, h_t),
                                render_aabb=None)
@@ -1230,6 +1244,11 @@ def composite_train_rounding(gargs) -> torch.Tensor:
     return K * 2.0 ** -24 * torch.cat([dx, ds[..., None]], dim=-1)
 
 
+def given(outs) -> tuple:
+    """The outputs of G's wrappers that were asked for (not None)."""
+    return tuple(o for o in outs if o is not None)
+
+
 def check_composite_train(gargs) -> dict:
     """Kernel G against its plain version evaluated in float64 on gargs:
     within TOL_COMPOSITE_TRAIN of max |ref|, d/d out within that plus each
@@ -1239,15 +1258,15 @@ def check_composite_train(gargs) -> dict:
     from instant_ngp_torch.nerf import train as nerf_train
 
     errs, plain_errs, used = [], [], []
-    outs = nerf_train.composite_train(*gargs)
-    again = nerf_train.composite_train(*gargs)
+    outs = given(nerf_train.composite_train(*gargs))
+    again = given(nerf_train.composite_train(*gargs))
     R, K = gargs[1].shape
     check(all(torch.equal(a, b) for a, b in zip(outs, again)),
           f"G R {R} K {K}: two calls on the same inputs differ")
-    exact = nerf_train.composite_train_plain(*[
-        a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a for a in gargs])
+    exact = given(nerf_train.composite_train_plain(*[
+        a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a for a in gargs]))
     rounding = composite_train_rounding(gargs)
-    plain = nerf_train.composite_train_plain(*gargs)
+    plain = given(nerf_train.composite_train_plain(*gargs))
     for i, (k_out, p_out, x_out) in enumerate(zip(outs, plain, exact)):
         err, scale = max_err(k_out, x_out)
         plain_errs.append(max_err(p_out, x_out)[0])
@@ -1361,8 +1380,10 @@ def step_gradients_check(task, draws, batch, what: str) -> None:
             runs[use_kernels] = nerf_train.step_gradients(task, draws, batch)[:2]
         task.set_use_kernels(True)
         (grads, per_ray), (grads_p, per_ray_p) = runs[True], runs[False]
+        # a leaf the step does not reach (a camera leaf of a step that trains
+        # only the envmap) is zero in both: no error
         errs = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-                for a, b in zip(grads, grads_p)]
+                if bool(b.any()) else float(a.any()) for a, b in zip(grads, grads_p)]
         loss, loss_p = float(per_ray.mean()), float(per_ray_p.mean())
         loss_err = abs(loss - loss_p) / abs(loss_p)
         print(f"{what} train step kernels vs plain, {corners} corner(s), {R} rays{packed}: "
@@ -1657,24 +1678,29 @@ class Capture:
         setattr(self.module, self.name, self.fn)
 
 
-def check_composite_mode(gargs, mode: str, timed: bool = False) -> dict:
-    """Kernel G in train mode ``mode`` with d objective / d target against
-    its plain version evaluated in float64: each output (per-ray loss, d/d
-    out, d/d target) within TOL_COMPOSITE_TRAIN of its max |ref| plus twice
-    the f32 plain version's own largest distance from that reference (the
-    f32 rounding any evaluation of the formulas carries); two calls bit for
-    bit. ``timed``: times, device time and bound too."""
+def check_composite_mode(gargs, mode: str, timed: bool = False, depth=None,
+                         want_dbg: bool = False) -> dict:
+    """Kernel G in train mode ``mode`` with d objective / d target (and with
+    the depth term ``depth``, d objective / d bg and the depth where asked)
+    against its plain version evaluated in float64: each output (per-ray
+    loss, d/d out, d/d target, ...) within TOL_COMPOSITE_TRAIN of its max
+    |ref| plus twice the f32 plain version's own largest distance from that
+    reference (the f32 rounding any evaluation of the formulas carries); two
+    calls bit for bit. ``timed``: times, device time and bound too."""
     from instant_ngp_torch.nerf import train as nerf_train
 
-    outs = nerf_train.composite_train(*gargs, mode, want_dtarget=True)
-    again = nerf_train.composite_train(*gargs, mode, want_dtarget=True)
+    kw = dict(want_dtarget=True, depth=depth, want_dbg=want_dbg, want_depth=depth is not None)
+    outs = given(nerf_train.composite_train(*gargs, mode, **kw))
+    again = given(nerf_train.composite_train(*gargs, mode, **kw))
     R, K = gargs[1].shape
-    what = f"G {gargs[11].value} {mode} R {R} K {K}"
+    what = f"G {gargs[11].value} {mode} R {R} K {K}" + ("" if depth is None else " with depth")
     check(all(torch.equal(a, b) for a, b in zip(outs, again)), f"{what}: two calls differ")
-    exact = nerf_train.composite_train_plain(*[
+    exact_depth = None if depth is None else dataclasses.replace(depth,
+                                                                 target=depth.target.double())
+    exact = given(nerf_train.composite_train_plain(*[
         a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a for a in gargs],
-        mode, want_dtarget=True)
-    plain = nerf_train.composite_train_plain(*gargs, mode, want_dtarget=True)
+        mode, **dict(kw, depth=exact_depth)))
+    plain = given(nerf_train.composite_train_plain(*gargs, mode, **kw))
     errs, used = [], []
     for i, (k_out, p_out, x_out) in enumerate(zip(outs, plain, exact)):
         err, scale = max_err(k_out, x_out)
@@ -1686,13 +1712,13 @@ def check_composite_mode(gargs, mode: str, timed: bool = False) -> dict:
         errs.append(err)
     v = {"max_abs_err": max(errs), "allowance_used": max(used)}
     if timed:
-        v.update(ms=time_ms(lambda: nerf_train.composite_train(*gargs, mode, want_dtarget=True)),
-                 plain_ms=time_ms(lambda: nerf_train.composite_train_plain(
-                     *gargs, mode, want_dtarget=True)),
-                 **device_split(lambda: nerf_train.composite_train(*gargs, mode,
-                                                                    want_dtarget=True),
+        inputs = [a for a in gargs if torch.is_tensor(a)] + ([] if depth is None
+                                                             else [depth.target])
+        v.update(ms=time_ms(lambda: nerf_train.composite_train(*gargs, mode, **kw)),
+                 plain_ms=time_ms(lambda: nerf_train.composite_train_plain(*gargs, mode, **kw)),
+                 **device_split(lambda: nerf_train.composite_train(*gargs, mode, **kw),
                                 "composite_train"),
-                 **bound(nbytes(*[a for a in gargs if torch.is_tensor(a)], *outs)))
+                 **bound(nbytes(*inputs, *outs)))
     return v
 
 
@@ -1899,6 +1925,486 @@ def camera_phase(tb, ds, device, card) -> tuple[dict, dict]:
     return launches, {"composite_modes": modes, **step, "cost": cost,
                       "pose_errors": {"rotation_deg": [rot0, rot1], "position": [pos0, pos1]},
                       "exposure": moved}
+
+
+# the capture phase: the snapshot's 50 views (the train phase's set) written
+# to disk as a capture with depth maps, two image sizes, supplied rays,
+# moving cameras; fox's config trained from seed SEED on each feature
+CAPTURE_STEPS = 300
+# every CAPTURE_SMALL_EVERY-th view at 2/3 of the set's size in the sizes run: fox's
+# views are portrait, 270x480, so these are 180x320
+CAPTURE_SMALL_SCALE = (2, 3)
+CAPTURE_SMALL_EVERY = 5
+CAPTURE_TURN_DEG = 0.5  # the motion run's odd views end turned this much from their start
+CAPTURE_DEPTH_UNIT = 1e-4  # NGP units a step of a 16-bit depth PNG
+CAPTURE_MIN_ALPHA = 0.5  # pixels of the snapshot's render below it get depth 0
+CAPTURE_RAY_TOL = 1e-5  # supplied rays against the lens rays of the same draws
+CAPTURE_DIR_GRID = {"otype": "HashGrid", "n_levels": 16, "n_features_per_level": 2,
+                    "log2_hashmap_size": 14, "base_resolution": 2, "per_level_scale": 1.3}
+CAPTURE_TIMED_FRAMES = 13
+# kernels that one feature's run launches beside TRAIN_KERNELS
+CAPTURE_RUN_KERNELS = {"sizes_rays": ("take_rows",),
+                       "envmap_sharpness": ("bilinear_read", "scatter_add_rows")}
+
+
+@torch.no_grad()
+def render_rgba(task, w: int, h: int, xform, focal, pp) -> tuple[np.ndarray, torch.Tensor]:
+    """One view of the snapshot through its whole aabb as uint8 sRGB
+    straight-alpha RGBA (the snapshot is an LDR model, so a render's rgb is
+    premultiplied sRGB), and the render's depth (h, w) with alpha (h, w)."""
+    frame, depth = task.render(w, h, xform, focal_length=tuple(focal), principal_point=tuple(pp),
+                               background=(0, 0, 0, 0), return_depth=True)
+    alpha = frame[..., 3:4].clamp(0.0, 1.0)
+    straight = torch.where(alpha > 0, frame[..., :3] / alpha.clamp(min=1e-6), 0.0)
+    rgba = torch.cat([straight.clamp(0.0, 1.0), alpha], dim=-1)
+    return (rgba * 255.0 + 0.5).to(torch.uint8).cpu().numpy(), torch.stack(
+        [depth, alpha[..., 0]])
+
+
+def lens_rays_nerf(ds, i: int, w: int, h: int, focal, device) -> np.ndarray:
+    """The port's lens rays of view i's pixel centres at (w, h), in the nerf
+    convention of a ``rays_*.dat`` file: (h, w, 6) f32 origin and direction
+    (the inverse of the loader's nerf_ray_to_ngp)."""
+    from instant_ngp_torch.common import LensMode
+    from instant_ngp_torch.render.camera import uv_to_ray_cam
+
+    ys, xs = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                            indexing="ij")
+    uv = torch.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h], -1).float()
+    n = uv.shape[0]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    d_cam, o_off = uv_to_ray_cam(uv, (w, h), t(focal)[None].expand(n, 2),
+                                 t(ds.principal_points[i])[None].expand(n, 2),
+                                 lens_mode=LensMode(ds.lens_mode), lens_params=t(ds.lens_params))
+    xf = t(ds.xforms_start[i])
+    d = d_cam @ xf[:, :3].T
+    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    o = xf[:, 3] + o_off @ xf[:, :3].T
+    o = (o[:, [2, 0, 1]] - t(ds.offset)) / float(ds.scale)
+    return torch.cat([o, d[:, [2, 0, 1]]], -1).reshape(h, w, 6).cpu().numpy()
+
+
+def rotation_deg(axis: np.ndarray, deg: float) -> np.ndarray:
+    axis = axis / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    a = np.radians(deg)
+    return np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+
+
+def write_capture(tb, ds, root: Path, device) -> tuple[dict, torch.Tensor]:
+    """Write the capture (module comment above) under ``root``: the views
+    as PNGs, their depth (the snapshot's depth render, 0 where its alpha <
+    CAPTURE_MIN_ALPHA) as 16-bit PNGs in CAPTURE_DEPTH_UNIT steps, and one
+    transforms file a run: ``plain`` (no depth), ``depth``, ``sizes_rays``
+    (every CAPTURE_SMALL_EVERY-th view rendered at CAPTURE_SMALL_SCALE of
+    the size, the odd views' lens rays as ``rays_*.dat`` beside them) and ``motion`` (the odd
+    views' end transforms turned CAPTURE_TURN_DEG about a seeded axis,
+    rolling shutter [0, 0, 1, 0] on views 1 mod 4 and [0, 0, 0, 1] on 3
+    mod 4). Returns the files by run and the snapshot's (depth, alpha) (N,
+    2, H, W) on the device."""
+    from instant_ngp_torch.io.png import write_png
+
+    task = tb.task
+    w, h = ds.resolution
+    for sub in ("images", "depth", "sizes"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    crop = task.render_aabb_min, task.render_aabb_max
+    task.render_aabb_min, task.render_aabb_max = task.aabb_min, task.aabb_max
+    rng = np.random.default_rng(SEED + 21)
+    lens = dict(zip(("k1", "k2", "p1", "p2"), map(float, ds.lens_params[:4])))
+    base = {"aabb_scale": int(ds.aabb_scale), "scale": float(ds.scale),
+            "offset": [float(v) for v in ds.offset], **(lens if ds.lens_mode == "opencv" else {})}
+    frames = {run: [] for run in ("plain", "depth", "sizes_rays", "motion")}
+    depth_alpha = []
+    try:
+        for i in range(ds.n_images):
+            name = f"r_{i:02d}.png"
+            _, da = render_rgba(task, w, h, ds.xforms_start[i], ds.focal_lengths[i],
+                                ds.principal_points[i])
+            depth_alpha.append(da)
+            write_png(root / "images" / name, ds.images[i])
+            depth = torch.where(da[1] >= CAPTURE_MIN_ALPHA, da[0], 0.0).cpu().numpy()
+            write_png(root / "depth" / name, np.clip(np.round(depth / CAPTURE_DEPTH_UNIT), 0,
+                                                     65535).astype(np.uint16))
+            m = np.eye(4, dtype=np.float32)
+            m[:3] = ds.ngp_matrix_to_nerf(ds.xforms_start[i])
+            fx, fy = map(float, ds.focal_lengths[i])
+            cx, cy = map(float, ds.principal_points[i])
+            frame = {"transform_matrix": m.tolist(), "fl_x": fx, "fl_y": fy, "cx": cx * w,
+                     "cy": cy * h}
+            frames["plain"].append(dict(frame, file_path=f"images/{name}"))
+            frames["depth"].append(dict(frame, file_path=f"images/{name}",
+                                        depth_path=f"depth/{name}"))
+            wi, hi, sized = w, h, dict(frame)
+            if i % CAPTURE_SMALL_EVERY == 0:
+                wi, hi = small_size(ds)
+                focal = (fx * wi / w, fy * hi / h)
+                rgba, _ = render_rgba(task, wi, hi, ds.xforms_start[i], focal,
+                                      ds.principal_points[i])
+                sized.update(fl_x=focal[0], fl_y=focal[1], cx=cx * wi, cy=cy * hi)
+                write_png(root / "sizes" / name, rgba)
+            else:
+                focal = (fx, fy)
+                write_png(root / "sizes" / name, ds.images[i])
+            if i % 2:
+                lens_rays_nerf(ds, i, wi, hi, focal, device).tofile(
+                    root / "sizes" / f"rays_r_{i:02d}.dat")
+            frames["sizes_rays"].append(dict(sized, file_path=f"sizes/{name}"))
+            moving = dict(frame, file_path=f"images/{name}")
+            if i % 2:
+                end = m.copy()
+                end[:3, :3] = rotation_deg(rng.normal(size=3), CAPTURE_TURN_DEG) @ m[:3, :3]
+                moving = dict(moving, transform_matrix_start=m.tolist(),
+                              transform_matrix_end=end.tolist(),
+                              rolling_shutter=[0, 0, 1, 0] if i % 4 == 1 else [0, 0, 0, 1])
+                del moving["transform_matrix"]
+            frames["motion"].append(moving)
+    finally:
+        task.render_aabb_min, task.render_aabb_max = crop
+    files = {}
+    for run, fr in frames.items():
+        meta = dict(base, frames=fr)
+        if run == "depth":
+            meta["integer_depth_scale"] = CAPTURE_DEPTH_UNIT / float(ds.scale)
+        files[run] = root / f"transforms_{run}.json"
+        files[run].write_text(json.dumps(meta))
+    return files, torch.stack(depth_alpha)
+
+
+def small_size(ds) -> tuple[int, int]:
+    """The (w, h) of the sizes run's small views."""
+    num, den = CAPTURE_SMALL_SCALE
+    return ds.resolution[0] * num // den, ds.resolution[1] * num // den
+
+
+def capture_config(shampoo: bool = False) -> dict:
+    """fox_train_config, with (``shampoo``) its optimizer's innermost otype
+    Shampoo and a hash-grid direction encoding (CAPTURE_DIR_GRID: 32
+    features, so the rgb MLP takes 48 inputs)."""
+    cfg = fox_train_config()
+    if shampoo:
+        node = cfg["optimizer"]
+        while "nested" in node:
+            node = node["nested"]
+        node["otype"] = "Shampoo"
+        cfg["dir_encoding"] = dict(CAPTURE_DIR_GRID)
+    return cfg
+
+
+def capture_run(name: str, path: Path, cfg: dict, device, ds, setup=None) -> dict:
+    """A Testbed from seed SEED on ``path`` (``setup`` called on it before
+    the load), CAPTURE_STEPS frames with the launch counts reset just before
+    and read just after; the eval views' PSNR before and after."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.testbed import Testbed
+
+    trainer = Testbed("nerf", device=device)
+    trainer.seed = SEED
+    trainer.reload_network_from_json(cfg)
+    if setup is not None:
+        setup(trainer)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():  # the even views have no rays file, as written
+        warnings.filterwarnings("ignore", message="missing rays file")
+        trainer.load_training_data(path)
+    load_s = time.perf_counter() - t0
+    before = eval_views(trainer.task, ds)[1]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(CAPTURE_STEPS):
+        trainer.frame()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    after = eval_views(trainer.task, ds)[1]
+    losses = trainer.loss_graph
+    first, last = float(np.mean(losses[:LOSS_WINDOW])), float(np.mean(losses[-LOSS_WINDOW:]))
+    print(f"capture {name}: load {load_s:.2f} s, {CAPTURE_STEPS} frames in {seconds:.2f} s; loss "
+          f"first {LOSS_WINDOW} {first:.6f}, last {LOSS_WINDOW} {last:.6f}; PSNR on views "
+          f"{EVAL_VIEWS} {before:.2f} -> {after:.2f} dB; launches {launches}")
+    check(len(losses) == CAPTURE_STEPS and all(np.isfinite(losses)),
+          f"capture {name}: a loss is not finite")
+    want = TRAIN_KERNELS + CAPTURE_RUN_KERNELS.get(name, ())
+    check(all(launches[k] > 0 for k in want), f"capture {name}: a kernel was not launched: "
+                                               f"{launches}")
+    return {"trainer": trainer, "launches": launches, "psnr": (before, after),
+            "loss": (first, last), "seconds": seconds}
+
+
+@torch.no_grad()
+def depth_error(task, ds, depth_alpha) -> float:
+    """The mean |rendered − snapshot depth| on the eval views' pixels whose
+    snapshot alpha > CAPTURE_MIN_ALPHA."""
+    w, h = ds.resolution
+    errs = []
+    for i in EVAL_VIEWS:
+        _, depth = task.render(w, h, ds.xforms_start[i], focal_length=tuple(ds.focal_lengths[i]),
+                               principal_point=tuple(ds.principal_points[i]),
+                               background=(0, 0, 0, 0), return_depth=True)
+        ref, alpha = depth_alpha[i]
+        mask = alpha > CAPTURE_MIN_ALPHA
+        errs.append((depth - ref).abs()[mask])
+    return float(torch.cat(errs).mean())
+
+
+def capture_composite_checks(task, device) -> dict:
+    """G with the depth term, d/d bg and the depth in every loss × train mode
+    on seeded inputs (the depth loss another of the seven each case, 20 % of
+    the target depths 0), timed at R TRAIN_RAYS K TRAIN_K in nerf mode; in
+    each mode with every seventh ray's red logits at −100; then on a step's
+    own inputs with its depth maps, timed."""
+    from instant_ngp_torch.common import LossType
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    base = seed_composite_train_args(task, TRAIN_RAYS, TRAIN_K, gen, task.state.grid.mean_density)
+    target = torch.rand((TRAIN_RAYS,), generator=gen, device=device) * 2.0 + 0.05
+    target = torch.where(torch.rand((TRAIN_RAYS,), generator=gen, device=device) < 0.2, 0.0,
+                         target)
+    losses = list(LossType)
+    out = {}
+    for j, loss in enumerate(losses):
+        gargs = base[:11] + (loss,) + base[12:]
+        for mode in TRAIN_MODES:
+            depth = nerf_train.DepthTerm(target, 1.0, losses[(j + 1) % len(losses)])
+            out[f"{loss.value}_{mode}"] = check_composite_mode(
+                gargs, mode, timed=loss == LossType.HUBER and mode == "nerf", depth=depth,
+                want_dbg=True)
+    # rgb logits past e^-x's overflow (x < -88.7), where JAX's logistic gradient is NaN and
+    # G's is 0 (the train cell's NaN stop, ROADMAP Queue 3)
+    overflow = base[0].clone()
+    overflow[::7, :, 0] = -100.0
+    for mode in TRAIN_MODES:
+        out[f"overflow_{mode}"] = check_composite_mode((overflow,) + base[1:], mode)
+    draws = nerf_train.draw_step(task, gen, task.n_rays_current, task.cdf_valid)
+    batch = nerf_train.march_batch(task, draws)
+    depth = nerf_train.depth_term(task, draws.img_idx, batch.uv)
+    check(depth is not None and bool((depth.target > 0).any()), "the step has no target depths")
+    out["step"] = check_composite_mode(step_composite_args(task, draws, batch), task.train_mode,
+                                       timed=True, depth=depth, want_dbg=True)
+    out["step"]["shape"] = f"R {batch.ts.shape[0]}, K {batch.ts.shape[1]}"
+    worst = max(v["allowance_used"] for v in out.values())
+    print(f"kernel composite_train with the depth term, d/d bg and the depth in "
+          f"{len(out) - 1} loss x mode cases (3 with overflowing logits) and the depth run's "
+          f"step ({out['step']['shape']}): "
+          f"at most {worst:.4f} of the allowance; device ms seeded R {TRAIN_RAYS} K {TRAIN_K} "
+          f"{out['huber_nerf']['device_ms']:.5f}, on the step {out['step']['device_ms']:.5f} "
+          f"(bound {out['step']['bound_ms']:.5f})")
+    return out
+
+
+def capture_kernel_checks(task, what: str, modules: dict) -> dict:
+    """One step of ``task`` (draws from the task's generator state seeded
+    apart) with the calls of ``modules`` (name → (module, function)) captured;
+    its gradients kernels against plain; each captured call's kernel
+    against its plain version. Returns the checks by kernel name."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    gen = torch.Generator(device=task.device).manual_seed(SEED + 23)
+    draws = nerf_train.draw_step(task, gen, task.n_rays_current, task.cdf_valid)
+    spies = {k: Capture(*v) for k, v in modules.items()}
+    for spy in spies.values():
+        spy.__enter__()
+    try:
+        batch = nerf_train.march_batch(task, draws)
+        nerf_train.step_gradients(task, draws, batch)
+    finally:
+        for spy in spies.values():
+            spy.__exit__()
+    step_gradients_check(task, draws, batch, f"capture {what}")
+    out = {}
+    for name, spy in spies.items():
+        check(len(spy.calls) >= 1, f"capture {what}: no {name} call")
+        # the direction grid's and the rgb MLP's: the last forward call, the
+        # first backward one
+        args = [detached(a) for a in (spy.calls[0] if name.endswith("_bwd") else spy.calls[-1])]
+        if name == "take_rows":
+            out[name] = check_take(*args[:2], f"the {what} step's supplied rays")
+        elif name == "bilinear_read":
+            out[name] = check_bilinear(*args[:3], f"the {what} step's envmap")
+        elif name == "scatter_add_rows":
+            idx, vals, size = args[:3]
+            out[name] = {"shape": f"{idx.shape[0]} rows of {vals.shape[1]} into {size}",
+                         **check_scatter(idx, vals, size, f"the {what} step's envmap deposit")}
+        elif name == "hashgrid_encode_fwd":
+            levels, interp, table, x = args[:4]
+            out[name] = check_encode(levels, interp, table, x, f"the {what} step's direction grid")
+        elif name == "hashgrid_encode_bwd":
+            out[name] = check_encode_bwd(*args[:6], f"the {what} step's direction grid")
+        elif name == "fused_mlp":
+            ws, x = args[:2]
+            out[name] = check_mlp(ws, x, f"the {what} step's rgb MLP ({x.shape[1]} in)")
+        elif name == "fused_mlp_bwd":
+            ws, x, g = args[:3]
+            out[name] = check_mlp_bwd_trained(ws, x, g.contiguous(),
+                                              f"the {what} step's rgb MLP ({x.shape[1]} in)")
+        if "device_ms" not in out[name]:  # the call as the step makes it
+            out[name]["device_ms"] = device_split(lambda: spy.fn(*args),
+                                                  KERNEL_NAMES.get(name, name))["device_ms"]
+        v = out[name]
+        print(f"kernel {name} on the capture {what} step: max_abs_err {v['max_abs_err']:.3e}, "
+              f"{v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, device "
+              f"{v.get('device_ms', float('nan')):.4f} ms, bound {v['bound_ms']:.5f} ms"
+              + (f", library {v['library_ms']:.4f} ms" if "library_ms" in v else ""))
+    return out
+
+
+def detached(a):
+    """A captured argument without its autograd history (a tensor, or a list
+    of them: an MLP's weights)."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(detached(t) for t in a)
+    return a.detach() if torch.is_tensor(a) else a
+
+
+def capture_phase(tb, ds, device, card) -> tuple[dict, dict]:
+    """The capture phase (module comment above; ROADMAP Queue 1 item 2):
+    runs (a) depth (λ 1, L1) against (a0) the same scene without depths,
+    (b) two image sizes and supplied rays, (c) moving cameras, (d) a trained
+    envmap and the sharpness-weighted error map, (e) Shampoo and a direction
+    grid, each with its gates; G with the depth term in every loss × mode;
+    I, H, A, E, B and F at the shapes the features give them. Returns (the
+    runs' launches summed, the checks by kernel)."""
+    from instant_ngp_torch.nerf import train as nerf_train
+    from instant_ngp_torch.ops import gather, hashgrid, mlp, scatter
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    try:
+        files, depth_alpha = write_capture(tb, ds, Path(tmp.name) / "capture", device)
+        print(f"capture written in {time.perf_counter() - t_phase:.1f} s: {ds.n_images} views at "
+              f"{ds.resolution}, depth maps, {small_size(ds)} views, rays of the odd views")
+        runs = {"depth": capture_run("depth", files["depth"], capture_config(), device, ds),
+                "plain": capture_run("plain", files["plain"], capture_config(), device, ds)}
+        task = runs["depth"]["trainer"].task
+        check(task.depths is not None and task.depth_supervision_lambda == 1.0
+              and task.depth_loss_type == "L1", "the depth run does not supervise depth")
+        err = {k: depth_error(runs[k]["trainer"].task, ds, depth_alpha) for k in runs}
+        print(f"capture depth: mean |depth - snapshot depth| on the eval views' alpha > "
+              f"{CAPTURE_MIN_ALPHA} pixels: with depths {err['depth']:.5f}, without "
+              f"{err['plain']:.5f}")
+        check(err["depth"] < err["plain"], f"depth supervision did not bring the depth nearer: "
+                                           f"{err}")
+        checks = {"composite_train": capture_composite_checks(task, device)}
+        step_gradients_check(task, *capture_step(task), "capture depth")
+
+        # (b) two image sizes, supplied rays: the first step's march (after its
+        # grid update) from the rays against the lens rays' of the same draws
+        from instant_ngp_torch.nerf.occupancy import draw_grid_update
+        from instant_ngp_torch.testbed import Testbed
+
+        probe = Testbed("nerf", device=device)
+        probe.seed = SEED
+        probe.reload_network_from_json(capture_config())
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="missing rays file")
+            probe.load_training_data(files["sizes_rays"])
+        pt = probe.task
+        check(pt.rays is not None and pt.img_wh is not None, "the sizes run has no rays or sizes")
+        pt.train(0)  # the fresh grid's culling (zeros: rays defeat the cone test)
+        n_cascades = pt.state.grid.density.shape[0]
+        nerf_train.update_grid_step(pt, draw_grid_update(pt.generator, n_cascades, True), True)
+        draws = nerf_train.draw_step(pt, pt.generator, pt.n_rays_current, False)
+        with_rays = nerf_train.march_batch(pt, draws)
+        rays, pt.rays = pt.rays, None
+        lens = nerf_train.march_batch(pt, draws)
+        pt.rays = rays
+        odd = (draws.img_idx % 2 == 1) & (draws.img_idx % CAPTURE_SMALL_EVERY != 0)
+        d_o = float((with_rays.o - lens.o).abs()[odd].max())
+        d_d = float((with_rays.d - lens.d).abs()[odd].max())
+        agree = float((with_rays.n_valid == lens.n_valid)[odd].float().mean())
+        print(f"capture sizes_rays: the first step's {int(odd.sum())} rays of the full-size odd "
+              f"views, supplied against lens rays: max |o| diff {d_o:.2e}, max |d| diff "
+              f"{d_d:.2e}, sample counts agree on {agree:.6f}")
+        check(d_o <= CAPTURE_RAY_TOL and d_d <= CAPTURE_RAY_TOL,
+              f"supplied rays differ from the lens rays: {d_o}, {d_d}")
+        check(agree >= MIN_MARCH_AGREE, f"the supplied rays' march differs: {agree}")
+        del probe, pt
+        runs["sizes_rays"] = capture_run("sizes_rays", files["sizes_rays"], capture_config(),
+                                         device, ds)
+        checks["sizes_rays"] = capture_kernel_checks(runs["sizes_rays"]["trainer"].task,
+                                                     "sizes_rays",
+                                                     {"take_rows": (nerf_train, "take_rows")})
+
+        # (c) moving cameras
+        runs["motion"] = capture_run("motion", files["motion"], capture_config(), device, ds)
+        check(runs["motion"]["trainer"].task.has_motion, "the motion run's cameras do not move")
+        step_gradients_check(runs["motion"]["trainer"].task,
+                             *capture_step(runs["motion"]["trainer"].task), "capture motion")
+
+        # (d) a trained envmap and the sharpness-weighted error map
+        def envmap_sharpness(trainer):
+            trainer.train_envmap = True
+            trainer.nerf.training.include_sharpness_in_error = True
+
+        runs["envmap_sharpness"] = capture_run("envmap_sharpness", files["plain"],
+                                               capture_config(), device, ds, envmap_sharpness)
+        et = runs["envmap_sharpness"]["trainer"]
+        env = et.task.cam_offsets["envmap"]
+        sharp_cells = int((et.task.state.sharp_grid != 0).sum())
+        xf, kw = view0(et, RES)
+        frame = et.task.render(RES, RES, xf, **kw)
+        env_db = psnr_vs_plain(et, frame, RES, xf, kw)
+        print(f"capture envmap_sharpness: envmap {tuple(env.shape)} max |value| "
+              f"{float(env.abs().max()):.4e}, mean {float(env.mean()):.4e}; shade render with "
+              f"it, kernels vs plain {env_db:.2f} dB; {sharp_cells} sharp-grid cells non-zero")
+        check(bool(torch.isfinite(env).all()) and bool(env.abs().max() > 0),
+              "the envmap did not move from zeros or is not finite")
+        check(env_db >= MIN_PSNR_DB, f"the envmap render, kernels vs plain: {env_db} dB")
+        check(sharp_cells > 0, "the sharp grid has no non-zero cell")
+        checks["envmap_sharpness"] = capture_kernel_checks(
+            et.task, "envmap_sharpness", {"bilinear_read": (gather, "bilinear_read"),
+                                          "scatter_add_rows": (scatter, "scatter_add_rows")})
+
+        # (e) Shampoo and a direction grid
+        runs["shampoo_dir_grid"] = capture_run("shampoo_dir_grid", files["plain"],
+                                               capture_config(shampoo=True), device, ds)
+        st = runs["shampoo_dir_grid"]["trainer"]
+        check(st.task.opt.spec.is_shampoo and st.task.model.rgb_network.weights[0].shape[0] == 48,
+              "the Shampoo run is not Shampoo with a 32-feature direction grid")
+        checks["shampoo_dir_grid"] = capture_kernel_checks(
+            st.task, "shampoo_dir_grid", {"hashgrid_encode_fwd": (hashgrid, "hashgrid_encode"),
+                                          "hashgrid_encode_bwd": (hashgrid, "hashgrid_encode_bwd"),
+                                          "fused_mlp": (mlp, "fused_mlp"),
+                                          "fused_mlp_bwd": (mlp, "fused_mlp_bwd")})
+        host, wall, busy, top = timed_frames(st, CAPTURE_TIMED_FRAMES)
+        base_host, base_wall, base_busy, _ = timed_frames(runs["plain"]["trainer"],
+                                                          CAPTURE_TIMED_FRAMES)
+        dev = ("not measured" if busy is None or base_busy is None
+               else f"{busy:.3f} vs {base_busy:.3f} ms")
+        print(f"capture shampoo_dir_grid step vs the plain run's on {card}: host median "
+              f"{host:.3f} vs {base_host:.3f} ms; device busy a step {dev}; top device items "
+              f"(ms) {top}")
+        checks["shampoo_dir_grid"]["cost"] = {"host_ms": host, "device_ms": busy,
+                                              "plain_host_ms": base_host,
+                                              "plain_device_ms": base_busy}
+    finally:
+        tmp.cleanup()
+    for name, r in runs.items():
+        gain = r["psnr"][1] - r["psnr"][0]
+        if name in ("motion", "shampoo_dir_grid"):
+            check(r["loss"][1] <= MAX_LOSS_RATIO * r["loss"][0],
+                  f"capture {name}: the loss did not halve: {r['loss']}")
+        check(gain >= MIN_PSNR_GAIN_DB, f"capture {name}: PSNR rose {gain:.2f} dB")
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    summary = {name: {"psnr_db": r["psnr"], "loss": r["loss"], "seconds": r["seconds"]}
+               for name, r in runs.items()}
+    print(f"capture phase: {json.dumps(summary)}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, {**checks, "runs": summary, "depth_error": err}
+
+
+def capture_step(task) -> tuple:
+    """A step's draws and march on ``task`` from a seeded generator."""
+    from instant_ngp_torch.nerf import train as nerf_train
+
+    gen = torch.Generator(device=task.device).manual_seed(SEED + 24)
+    draws = nerf_train.draw_step(task, gen, task.n_rays_current, task.cdf_valid)
+    return draws, nerf_train.march_batch(task, draws)
 
 
 # the disk phase: io/synthetic.py's scene at its defaults (24 train and 4
@@ -2810,6 +3316,8 @@ def check_take(table, idx, what: str) -> dict:
             "plain_ms": time_ms(lambda: take_rows_plain(table, idx)),
             "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
             "device_ms": device_split(lambda: take_rows(table, idx), "take_rows")["device_ms"],
+            "library_device_ms": device_split(lambda: torch.index_select(table, 0, idx),
+                                              "index")["device_ms"],
             **bound(nbytes(idx, out) + int(torch.unique(idx).numel()) * row_bytes)}
 
 
@@ -2829,9 +3337,9 @@ def grid_sample_read(texture, resolution, uv):
 
 def check_bilinear(texture, resolution, uv, what: str) -> dict:
     """Kernel I's bilinear entry against its plain version, bit for bit:
-    times, device time, the library call's time (grid_sample) and bound
-    (the positions read once, the distinct texels of their corners read
-    once, the reads written once)."""
+    times, device time, the library call's (grid_sample) back-to-back and
+    device times, and bound (the positions read once, the distinct texels of
+    their corners read once, the reads written once)."""
     from instant_ngp_torch.ops.gather import bilinear_read, bilinear_read_plain, bilinear_texels
 
     out, ref = bilinear_read(texture, resolution, uv), bilinear_read_plain(texture, resolution, uv)
@@ -2844,6 +3352,8 @@ def check_bilinear(texture, resolution, uv, what: str) -> dict:
             "library_ms": time_ms(grid_sample_read(texture, resolution, uv)),
             "device_ms": device_split(lambda: bilinear_read(texture, resolution, uv),
                                       "bilinear_read")["device_ms"],
+            "library_device_ms": device_split(grid_sample_read(texture, resolution, uv),
+                                              "grid_sampler")["device_ms"],
             **bound(nbytes(uv, out) + int(torch.unique(idx).numel()) * row_bytes)}
 
 
@@ -4600,6 +5110,7 @@ def gather_phase() -> dict:
 
 
 def main() -> None:
+    t_main = time.perf_counter()
     name, card = phase_device()
     phase_build()
     from instant_ngp_torch import cuda_lib
@@ -4663,6 +5174,9 @@ def main() -> None:
                 r["variants"][f"camera_{what}"] = camera[f"fused_mlp_bwd_{what}"]
         if r["name"] == "scatter_add_rows":
             r["variants"]["distortion_deposit"] = camera["scatter_add_rows"]
+
+    # the rest of NeRF's training half: a capture made of the snapshot's views
+    capture_launches, capture = capture_phase(tb, train_set, device, card)
 
     # a scene from disk: train, save, load without and with the scene; the
     # configs phase trains nerf/big.json on it too
@@ -4772,13 +5286,24 @@ def main() -> None:
                   path="volume_gt", device_ms=m_check["device_ms"], redesigned=VOLUME_DESIGN,
                   variants={f"volume_render_{VOLUME_RENDER_RES}": m_check})
 
+    for r in results:  # the capture phase's checks are variants of each record
+        if r["name"] == "composite_train":
+            g = capture["composite_train"]
+            r["variants"]["capture_depth_modes"] = {k: v for k, v in g.items() if k != "step"}
+            r["variants"]["capture_depth_step"] = g["step"]
+            r["max_abs_err"] = max(r["max_abs_err"], *(v["max_abs_err"] for v in g.values()))
+        for run in ("sizes_rays", "envmap_sharpness", "shampoo_dir_grid"):
+            v = capture[run].get(r["name"])
+            if v is not None:
+                r.setdefault("variants", {})[f"capture_{run}"] = v
+                r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     paths = {"render": render_launches, "train": train_launches, "disk": disk_launches,
              "disk_render": disk_render_launches, "image": image_launches,
              "image_eval": image_eval_launches, "bench": bench_launches, "sdf": sdf_launches,
              "sdf_render": sdf_render_launches, "volume": volume_launches,
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
              "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches,
-             "views": views_launches, "camera": camera_launches}
+             "views": views_launches, "camera": camera_launches, "capture": capture_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)
@@ -4792,6 +5317,7 @@ def main() -> None:
                          else train_launches[counter] or render_launches[counter])
         if r["name"] == "gather_cols_sum":  # the transpose route's first launch
             r["transpose_launches"] = bench_launches["gather_cols_transpose"]
+    print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s of command time in all")
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

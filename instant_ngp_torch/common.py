@@ -353,7 +353,11 @@ def clip_grad(val: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def network_to_rgb_grad(val: torch.Tensor, activation: NerfActivation) -> torch.Tensor:
     """d network_to_rgb / d val, with the clamp's gradient as ``clip_grad``
-    and the logistic's as JAX's autodiff of 1 / (1 + e^-x) computes it."""
+    and the logistic's as JAX's autodiff of 1 / (1 + e^-x) computes it,
+    e^-x / (1 + e^-x)², except where e^-x overflows (x < -88.7): there that
+    quotient is inf / inf = NaN in JAX, and 0, its limit, here. One such
+    sample's NaN reached every parameter through the MLPs' backward and
+    stopped fox's training (instant_ngp_torch/bench/nerf_repeat.py)."""
     if activation == NerfActivation.NONE:
         return torch.ones_like(val)
     if activation == NerfActivation.RELU:
@@ -361,7 +365,7 @@ def network_to_rgb_grad(val: torch.Tensor, activation: NerfActivation) -> torch.
     if activation == NerfActivation.LOGISTIC:
         e = torch.exp(-val)
         u = 1.0 + e
-        return e / (u * u)
+        return torch.where(torch.isinf(e), 0.0, e / (u * u))
     if activation == NerfActivation.EXPONENTIAL:
         return torch.exp(torch.clamp(val, -10.0, 10.0)) * clip_grad(val, -10.0, 10.0)
     raise ValueError(activation)

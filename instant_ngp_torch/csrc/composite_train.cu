@@ -26,13 +26,26 @@
 // grid is foggy (mean density, read on the device) and σ_logit < 0 (−1e-4),
 // and where the sample is nearer than near_distance with σ_logit > −10
 // (+1e-4), times valid and reg_scale. Where the caller passes dtarget, d
-// objective / d target (R, 3) is written too (the exposure's gradient): a
-// warp sum over the samples in the RFL modes. |x|'s slope is +1 at 0, as
-// JAX takes it.
+// objective / d target (R, 3) is written too (the exposure's and the
+// environment map's gradient): a warp sum over the samples in the RFL modes;
+// where it passes dbg, d objective / d bg (R, 3) (the environment map's):
+// G·T_final in nerf mode, ct·T_final·ℓ'(t, bg) in rfl, 0 in rflrelax (its
+// coefficients are stop-gradients). |x|'s slope is +1 at 0, as JAX takes it.
+//
+// Depth (task.py:753, :1021-1037): depth = Σ w_k t_k, a fifth scan, runs
+// where the caller asks for the depth (depth_out, the sharpness deposit) or
+// passes target depths. With targets, the objective gains λ·mean(ℓ_d(t_d,
+// depth)·[t_d > 0]) in every mode (ℓ_d any of the seven losses, a runtime
+// code: one scalar a ray), so d tau_k gains D·(T_k e^−tau_k t_k −
+// (depth − Σ_{j<=k} w_j t_j)), D = λ/R·[t_d > 0]·ℓ_d'(t_d, depth): the suffix
+// identity with t_k in place of c_k, no background term. The per-ray loss
+// stays photometric (the error map's deposit).
 //
 // What bounds it on an H100: bytes. A sample reads its out row (16 B), ts,
 // dts (4 B each) and valid (1 B) and writes its dout row (16 B): 41 B, so
-// 5.4 MB at R 4096, K 32, 0.0016 ms at 3.35 TB/s; a few exp a sample. The
+// 5.4 MB at R 4096, K 32, 0.0016 ms at 3.35 TB/s; a few exp a sample (the
+// depth term adds a ray's target depth read and its depth and d/d bg written,
+// 20 B a ray). The
 // work per ray is a chain (a prefix sum), so what the card reaches is set by
 // latency: how many rays are in flight and how long one ray's chain is.
 //
@@ -68,7 +81,7 @@ constexpr float kMinOpticalThickness = 0.01f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;      // rays per block
 constexpr int kRegChunks = 2;  // chunks of 32 samples whose state stays in registers
-constexpr int kStateFields = 17;
+constexpr int kStateFields = 19;
 
 __device__ __forceinline__ float clip_grad(float v, float lo, float hi) {
     if (v == lo || v == hi) return 0.5f;
@@ -88,9 +101,11 @@ __device__ __forceinline__ float activate_grad(int act, float v, float clamp_at)
     switch (act) {
         case kRelu: return v > 0.0f ? 1.0f : (v == 0.0f ? 0.5f : 0.0f);
         case kLogistic: {
+            // e / (1 + e)^2, JAX's autodiff of 1 / (1 + e^-v), but 0 where e^-v
+            // overflows (v < -88.7), where that quotient is inf / inf = NaN
             const float e = expf(-v);
             const float u = 1.0f + e;
-            return e / (u * u);
+            return isinf(e) ? 0.0f : e / (u * u);
         }
         case kExponential:
             return expf(fminf(fmaxf(v, -clamp_at), clamp_at)) * clip_grad(v, -clamp_at, clamp_at);
@@ -145,6 +160,19 @@ __device__ __forceinline__ float loss_dp(float t, float p) {
     return 2.0f * d / den - d * d * (2.0f * p) / (den * den);
 }
 
+// loss_dp of the loss with runtime code ``loss`` (the depth term's)
+__device__ __noinline__ float loss_dp_code(int loss, float t, float p) {
+    switch (loss) {
+        case kL2: return loss_dp<kL2>(t, p);
+        case kHuber: return loss_dp<kHuber>(t, p);
+        case kL1: return loss_dp<kL1>(t, p);
+        case kMape: return loss_dp<kMape>(t, p);
+        case kSmape: return loss_dp<kSmape>(t, p);
+        case kLogL1: return loss_dp<kLogL1>(t, p);
+        default: return loss_dp<kRelL2>(t, p);
+    }
+}
+
 template <int kLoss>
 __device__ __forceinline__ float loss_dt(float t, float p) {
     const float d = p - t;
@@ -162,6 +190,7 @@ struct Sample {
     float w, T, e, dt, density_grad, reg;
     float valid;     // 1 or 0
     float prefix_l;  // RFL: Σ_{j<=k} w_j L_j, L the sample's channel-summed loss
+    float t, prefix_t;  // t_k and Σ_{j<=k} w_j t_j where the depth is needed
 };
 
 struct Params {
@@ -172,16 +201,17 @@ struct Params {
     int K;
     float near_distance, reg_scale;
     int rgb_act, density_act;
+    bool need_depth;  // the depth scan runs (depth_out or target depths given)
 };
 
 // the forward of chunk c of the ray at base (= r·K): the sample's state;
-// carry_tau, carry_wc and carry_l hold the sums over the chunks before and
-// are advanced past this one
+// carry_tau, carry_wc, carry_l and carry_t hold the sums over the chunks
+// before and are advanced past this one
 template <int kLoss, int kMode>
 __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, long long base,
                                                 int c, int lane, const float* tgt,
                                                 float& carry_tau, float* carry_wc,
-                                                float& carry_l) {
+                                                float& carry_l, float& carry_t) {
     const int k = c * 32 + lane;
     const bool in = k < p.K;
     float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -220,6 +250,12 @@ __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, lon
         s.prefix_l = carry_l + warp_scan(w * L, lane);
         carry_l = __shfl_sync(kFull, s.prefix_l, 31);
     }
+    s.t = t;
+    s.prefix_t = 0.0f;
+    if (p.need_depth) {  // uniform across the warp
+        s.prefix_t = carry_t + warp_scan(w * t, lane);
+        carry_t = __shfl_sync(kFull, s.prefix_t, 31);
+    }
     s.dt = dt;
     s.density_grad = activate_grad(p.density_act, o.w, 15.0f);
     float coeff = ((foggy && o.w < 0.0f) ? -1e-4f : 0.0f) +
@@ -235,8 +271,8 @@ __device__ __forceinline__ Sample forward_chunk(const Params& p, bool foggy, lon
 template <int kLoss, int kMode>
 __device__ __forceinline__ void backward_sample(const Sample& s, const float* rgb, const float* G,
                                                 const float* tgt, float ct, float comp_l,
-                                                float4* dout, long long base, int k, int K,
-                                                float* acc_t) {
+                                                float depth, float Gd, float4* dout,
+                                                long long base, int k, int K, float* acc_t) {
     if (k >= K) return;
     float go[3];
     float ds;
@@ -277,6 +313,10 @@ __device__ __forceinline__ void backward_sample(const Sample& s, const float* rg
         }
         ds = dsig * s.dt * s.valid * ct * s.density_grad;
     }
+    if (Gd != 0.0f && s.valid != 0.0f) {
+        const float dtau_d = Gd * ((s.T * s.e) * s.t - (depth - s.prefix_t));
+        ds = ds + dtau_d * s.dt * s.density_grad;
+    }
     dout[base + k] = make_float4(go[0], go[1], go[2], ds + s.reg);
 }
 
@@ -303,6 +343,8 @@ composite_train_kernel(Params p, const float* __restrict__ target, const float* 
                        const bool* __restrict__ pixel_ok, const float* __restrict__ mean_density,
                        int R, float inv_n_rays, float eps_t, float* __restrict__ per_ray,
                        float4* __restrict__ dout, float* __restrict__ dtarget,
+                       const float* __restrict__ target_depth, float depth_lambda,
+                       int depth_loss, float* __restrict__ depth_out, float* __restrict__ dbg,
                        float* __restrict__ scratch) {
     const int lane = threadIdx.x & 31;
     const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -315,20 +357,20 @@ composite_train_kernel(Params p, const float* __restrict__ target, const float* 
     const float tgt[3] = {target[r * 3], target[r * 3 + 1], target[r * 3 + 2]};
 
     // forward
-    float carry_tau = 0.0f, carry_l = 0.0f;
+    float carry_tau = 0.0f, carry_l = 0.0f, carry_t = 0.0f;
     float carry_wc[3] = {0.0f, 0.0f, 0.0f};
     Sample held[kChunks];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
         if (c < n_chunks) {
             held[c] = forward_chunk<kLoss, kMode>(p, foggy, base, c, lane, tgt, carry_tau,
-                                                  carry_wc, carry_l);
+                                                  carry_wc, carry_l, carry_t);
         }
     }
     for (int c = kChunks; c < n_chunks; ++c) {
         store_state(ray_scratch + (long long)(c - kChunks) * kStateFields * 32,
                     forward_chunk<kLoss, kMode>(p, foggy, base, c, lane, tgt, carry_tau,
-                                                carry_wc, carry_l), lane);
+                                                carry_wc, carry_l, carry_t), lane);
     }
     const float T_final = expf(-carry_tau);
     const float bg_w = T_final >= eps_t ? T_final : 0.0f;
@@ -344,6 +386,14 @@ composite_train_kernel(Params p, const float* __restrict__ target, const float* 
     }
     if (lane == 0) per_ray[r] = lsum / 3.0f * ok;
     const float comp_l = carry_l + bg_w * lbg;
+    const float depth = carry_t;
+    if (depth_out != nullptr && lane == 0) depth_out[r] = depth;
+    // D = d objective / d depth
+    float Gd = 0.0f;
+    if (target_depth != nullptr) {
+        const float td = target_depth[r];
+        Gd = td > 0.0f ? depth_lambda * inv_n_rays * loss_dp_code(depth_loss, td, depth) : 0.0f;
+    }
 
     // G = d objective / d rgb (nerf mode), in the order JAX's autodiff forms it
     const float ct = inv_n_rays * ok / 3.0f;
@@ -366,14 +416,22 @@ composite_train_kernel(Params p, const float* __restrict__ target, const float* 
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
         if (c < n_chunks) {
-            backward_sample<kLoss, kMode>(held[c], rgb, G, tgt, ct, comp_l, dout, base,
-                                          c * 32 + lane, p.K, acc_t);
+            backward_sample<kLoss, kMode>(held[c], rgb, G, tgt, ct, comp_l, depth, Gd, dout,
+                                          base, c * 32 + lane, p.K, acc_t);
         }
     }
     for (int c = kChunks; c < n_chunks; ++c) {
         backward_sample<kLoss, kMode>(
             load_state(ray_scratch + (long long)(c - kChunks) * kStateFields * 32, lane), rgb, G,
-            tgt, ct, comp_l, dout, base, c * 32 + lane, p.K, acc_t);
+            tgt, ct, comp_l, depth, Gd, dout, base, c * 32 + lane, p.K, acc_t);
+    }
+    if (dbg != nullptr && lane == 0) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            dbg[r * 3 + ch] = kMode == kNerf ? G[ch] * bg_w
+                            : kMode == kRfl ? ct * bg_w * loss_dp<kLoss>(tgt[ch], bgc[ch])
+                                            : 0.0f;
+        }
     }
     if (dtarget != nullptr) {
         float dt_out[3];
@@ -402,6 +460,10 @@ struct Launch {
     float inv_n_rays, eps_t;
     float *per_ray, *dtarget, *scratch;
     float4* dout;
+    const float* target_depth;
+    float depth_lambda;
+    int depth_loss;
+    float *depth_out, *dbg;
     cudaStream_t st;
 };
 
@@ -410,7 +472,8 @@ void launch(const Launch& a) {
     const unsigned blocks = (unsigned)((a.R + kWarps - 1) / kWarps);
     composite_train_kernel<kLoss, kMode, kChunks><<<blocks, kWarps * 32, 0, a.st>>>(
         a.p, a.target, a.bg, a.pixel_ok, a.mean_density, a.R, a.inv_n_rays, a.eps_t, a.per_ray,
-        a.dout, a.dtarget, a.scratch);
+        a.dout, a.dtarget, a.target_depth, a.depth_lambda, a.depth_loss, a.depth_out, a.dbg,
+        a.scratch);
 }
 
 template <int kLoss, int kMode>
@@ -456,15 +519,21 @@ extern "C" long long ngp_composite_train_scratch_floats(int R, int K) {
 }
 
 // scratch: ngp_composite_train_scratch_floats(R, K) floats, or null where
-// that is 0; dtarget: (R, 3) f32, or null where the caller needs no d/d target
+// that is 0; dtarget: (R, 3) f32, or null where the caller needs no d/d target;
+// target_depth: (R,) f32 target depths (0: none), or null without the depth
+// term; depth_out: (R,) f32, or null; dbg: (R, 3) f32 d/d bg, or null
 extern "C" int ngp_composite_train(const void* out, const void* ts, const void* dts,
                                    const void* valid, const void* target, const void* bg,
                                    const void* pixel_ok, const void* mean_density, int R, int K,
                                    float near_distance, float reg_scale, float inv_n_rays,
                                    float eps_t, int loss, int mode, int rgb_act, int density_act,
-                                   void* per_ray, void* dout, void* dtarget, void* scratch,
-                                   void* stream) {
+                                   void* per_ray, void* dout, void* dtarget,
+                                   const void* target_depth, float depth_lambda, int depth_loss,
+                                   void* depth_out, void* dbg, void* scratch, void* stream) {
     if (K < 0 || (K > 32 * kRegChunks && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+    if (target_depth != nullptr && (depth_loss < kL2 || depth_loss > kRelL2)) {
+        return (int)cudaErrorInvalidValue;
+    }
     Launch a;
     a.p.out = static_cast<const float4*>(out);
     a.p.ts = static_cast<const float*>(ts);
@@ -475,6 +544,7 @@ extern "C" int ngp_composite_train(const void* out, const void* ts, const void* 
     a.p.reg_scale = reg_scale;
     a.p.rgb_act = rgb_act;
     a.p.density_act = density_act;
+    a.p.need_depth = target_depth != nullptr || depth_out != nullptr;
     a.target = static_cast<const float*>(target);
     a.bg = static_cast<const float*>(bg);
     a.pixel_ok = static_cast<const bool*>(pixel_ok);
@@ -486,6 +556,11 @@ extern "C" int ngp_composite_train(const void* out, const void* ts, const void* 
     a.dout = static_cast<float4*>(dout);
     a.dtarget = static_cast<float*>(dtarget);
     a.scratch = static_cast<float*>(scratch);
+    a.target_depth = static_cast<const float*>(target_depth);
+    a.depth_lambda = depth_lambda;
+    a.depth_loss = depth_loss;
+    a.depth_out = static_cast<float*>(depth_out);
+    a.dbg = static_cast<float*>(dbg);
     a.st = static_cast<cudaStream_t>(stream);
     if (!launch_loss(a, loss, mode)) return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -76,9 +76,11 @@ SIGNATURES = {
     "fused_mlp_bwd": [_P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P],
     # out, ts, dts, valid, target, bg, pixel_ok, mean_density, R, K,
     # near_distance, reg_scale, inv_n_rays, eps_t, loss, mode, rgb_act,
-    # density_act, per_ray, dout, dtarget (or null), scratch (null where K <= 64)
+    # density_act, per_ray, dout, dtarget (or null), target_depth (or null),
+    # depth_lambda, depth_loss, depth_out (or null), dbg (or null), scratch
+    # (null where K <= 64)
     "composite_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I,
-                        _I, _P, _P, _P, _P, _P],
+                        _I, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
     # x (f32), w (host pointers), dims (host int[n_layers+1]), n_layers, act,
     # out_act, n, scratch (fused_mlp_wide_sizes' bytes), out: kernel B's wide route
     "fused_mlp_wide": [_P, _P, _P, _I, _I, _I, _L, _P, _P, _P],

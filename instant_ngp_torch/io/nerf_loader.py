@@ -9,13 +9,13 @@ when ``file_path`` has none, global and per-frame ``fl_*`` /
 ``black_transparent``, ``rolling_shutter``, ``transform_matrix_start`` /
 ``_end``, per-frame ``sharpness``, the lens keys (opencv k1…p2, fisheye,
 ftheta, latlong, equirectangular, orthographic), ``up`` and
-``render_aabb``. Matrices go from the nerf convention to NGP's
-(nerf_loader.h:101-168).
-
-What the port's ``NerfTask`` cannot train raises ``NotImplementedError``
-here, before anything is dropped: images of differing sizes, supplied rays
-(``rays_*.dat``), depth maps (``depth_path``) and an environment map
-(``envmap``).
+``render_aabb``, ``envmap`` (its path is kept; the environment map itself
+is trained from zeros), per-frame ``depth_path`` (16-bit gray PNGs times
+``integer_depth_scale`` and the scene scale) and ``rays_<stem>.dat`` files
+of supplied rays beside the images. Images of differing sizes are padded
+into the largest canvas, each with its own size in
+``per_image_resolution``. Matrices and rays go from the nerf convention to
+NGP's (nerf_loader.h:101-168).
 
 LDR pixels stay sRGB uint8 with straight alpha, as the reference reads them
 back (read_rgba, common_device.cuh:846-869); HDR pixels stay linear float16.
@@ -36,6 +36,7 @@ import numpy as np
 
 from ..common import NERF_CASCADES, NERF_SCALE
 from .image import load_image
+from .png import read_png
 
 IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".exr")
 
@@ -61,22 +62,58 @@ class NerfDataset:
     lens_mode: str = "perspective"
     sharpness: Optional[np.ndarray] = None  # (N,) per-frame sharpness from transforms.json
     n_extra_learnable_dims: int = 0
-    depths: Optional[np.ndarray] = None  # (N, H, W) depth supervision: not ported
-    rays: Optional[np.ndarray] = None  # (N, H, W, 6) supplied rays: not ported
+    depths: Optional[np.ndarray] = None  # (N, H, W) f32 depth supervision, scene units
+    # (N, H, W, 6) per-pixel supplied rays (o ⊕ d, NGP space) from rays_<stem>.dat
+    # files (reference nerf_loader.cu:644-666)
+    rays: Optional[np.ndarray] = None
     from_mitsuba: bool = False
     up: np.ndarray = dataclasses.field(default_factory=lambda: np.array([0.0, 0.0, 1.0]))
     render_aabb: Optional[np.ndarray] = None  # (2, 3) min/max in NGP space
     # rotation into the crop box's local frame; None = identity
     render_aabb_to_local: Optional[np.ndarray] = None  # (3, 3)
-    envmap_path: Optional[str] = None  # not ported: load_nerf raises
+    envmap_path: Optional[str] = None
     paths: tuple = ()
-    # (N, 2) per-image (w, h) of a scene with differing sizes: not ported,
-    # load_nerf raises; None for a scene of one size
+    # (N, 2) per-image (w, h) of a scene with differing sizes, each image
+    # padded into the largest canvas; None for a scene of one size
     per_image_resolution: Optional[np.ndarray] = None
 
     @property
     def n_images(self) -> int:
         return self.images.shape[0]
+
+    def compute_sharpness_maps(self, resolution=(72, 128)) -> np.ndarray:
+        """Per-image tiled sharpness, (N, SH, SW) f32: the variance of the
+        luma Laplacian in each tile (reference compute_sharpness,
+        nerf_loader.cu:111-151, at its 128×72 tiles), from integral images
+        of the Laplacian and its square in f64, the tiles' bounds in the
+        reference's integer arithmetic."""
+        sh, sw = resolution
+        w, h = self.resolution
+        imgs = self.images
+        rgb = (imgs[..., :3].astype(np.float32) / 255.0 if imgs.dtype == np.uint8
+               else imgs[..., :3].astype(np.float32))
+        luma = rgb @ np.array([0.2126, 0.7152, 0.0722], np.float32)  # (N, H, W)
+        c = luma[:, 1:-1, 1:-1]
+        # pixel (y, x) of the interior at lap[y - 1, x - 1]
+        lap = (4.0 * c - luma[:, :-2, 1:-1] - luma[:, 2:, 1:-1] - luma[:, 1:-1, :-2]
+               - luma[:, 1:-1, 2:])
+
+        def integral(a):
+            return np.pad(np.cumsum(np.cumsum(a, axis=1), axis=2), ((0, 0), (1, 0), (1, 0)))
+
+        i1, i2 = integral(lap.astype(np.float64)), integral((lap ** 2).astype(np.float64))
+        out = np.zeros((self.n_images, sh, sw), np.float32)
+        xs = [(max((tx * w) // sw, 1), min(((tx + 1) * w) // sw, w - 2)) for tx in range(sw)]
+        ys = [(max((ty * h) // sh, 1), min(((ty + 1) * h) // sh, h - 2)) for ty in range(sh)]
+        for ty, (y1, y2) in enumerate(ys):
+            for tx, (x1, x2) in enumerate(xs):
+                cnt = max((x2 - x1) * (y2 - y1), 1)
+                a1, a2, b1, b2 = y1 - 1, y2 - 1, x1 - 1, x2 - 1
+                s1 = i1[:, a2, b2] - i1[:, a1, b2] - i1[:, a2, b1] + i1[:, a1, b1]
+                s2 = i2[:, a2, b2] - i2[:, a1, b2] - i2[:, a2, b1] + i2[:, a1, b1]
+                m1 = s1 / cnt
+                out[:, ty, tx] = np.maximum(s2 / cnt - m1 * m1, 0.0)
+        return out
 
     def nerf_matrix_to_ngp(self, m: np.ndarray) -> np.ndarray:
         """reference nerf_loader.h:101-120."""
@@ -158,13 +195,6 @@ def load_nerf(path) -> NerfDataset:
         warnings.warn(f"skipped {len(frames) - len(kept)} frames with missing image files")
     frames = [frames[i] for i in kept]
     image_paths = [image_paths[i] for i in kept]
-    if any("depth_path" in fr for fr in frames):
-        raise NotImplementedError("depth supervision (frames with depth_path) is not ported yet")
-    if "envmap" in meta:
-        raise NotImplementedError("an environment map (envmap) is not ported yet")
-    ray_files = [p.parent / f"rays_{p.stem}.dat" for p in image_paths]
-    if any(rf.exists() for rf in ray_files):
-        raise NotImplementedError("supplied rays (rays_*.dat) are not ported yet")
 
     with cf.ThreadPoolExecutor(max_workers=16) as pool:
         results = list(pool.map(load_image, image_paths))
@@ -172,14 +202,22 @@ def load_nerf(path) -> NerfDataset:
     paths = tuple(str(p) for p in image_paths)
     is_hdr = results[0][1]
     sizes = np.asarray([[im.shape[1], im.shape[0]] for im in imgs])  # (N, 2) wh
-    if (sizes != sizes[0]).any():
-        raise NotImplementedError("images of differing sizes (per-image resolution) are not "
-                                  "ported yet")
-    w, h = int(sizes[0, 0]), int(sizes[0, 1])
+    mixed = bool((sizes != sizes[0]).any())
+    w, h = int(sizes[:, 0].max()), int(sizes[:, 1].max())
+    if mixed:
+        # each image padded into the largest canvas; uv maps stay per image
+        # (reference TrainingImageMetadata.resolution)
+        padded = []
+        for im in imgs:
+            canvas = np.zeros((h, w, im.shape[2]), im.dtype)
+            canvas[:im.shape[0], :im.shape[1]] = im
+            padded.append(canvas)
+        imgs = padded
     if is_hdr:
         images = np.stack(imgs).astype(np.float16)
     else:
         images = (np.stack(imgs) * 255.0 + 0.5).astype(np.uint8)
+    rays = _load_rays(paths, sizes, (w, h), scale, offset)
 
     if meta.get("white_transparent") or meta.get("black_transparent"):
         # alpha from luminance (reference nerf_loader.cu mask handling)
@@ -202,7 +240,8 @@ def load_nerf(path) -> NerfDataset:
         focal_lengths=focal_lengths, principal_points=principal, rolling_shutter=rolling,
         resolution=(w, h), aabb_scale=aabb_scale, scale=scale, offset=offset,
         from_mitsuba=bool(meta.get("from_mitsuba", False)),
-        n_extra_learnable_dims=int(meta.get("n_extra_learnable_dims", 0)), paths=paths)
+        n_extra_learnable_dims=int(meta.get("n_extra_learnable_dims", 0)), paths=paths,
+        per_image_resolution=sizes.astype(np.int32) if mixed else None, rays=rays)
 
     fx_g = _focal(meta, "x", w)
     fy_g = _focal(meta, "y", h, other=fx_g)
@@ -212,12 +251,13 @@ def load_nerf(path) -> NerfDataset:
     cy_g = float(meta.get("cy", 0.5 * h)) / h
     rs_g = np.array(meta.get("rolling_shutter", [0, 0, 0, 0]), np.float32)
     for i, fr in enumerate(frames):
+        wi, hi = int(sizes[i, 0]), int(sizes[i, 1])
         # a global camera_angle falls back at the image's own resolution
-        fx = _focal(fr, "x", w, other=_focal(meta, "x", w, other=fx_g))
-        fy = _focal(fr, "y", h, other=_focal(meta, "y", h, other=fy_g)) or fx
+        fx = _focal(fr, "x", wi, other=_focal(meta, "x", wi, other=fx_g))
+        fy = _focal(fr, "y", hi, other=_focal(meta, "y", hi, other=fy_g)) or fx
         focal_lengths[i] = (fx, fy if fy else fx)
-        principal[i] = (float(fr["cx"]) / w if "cx" in fr else cx_g,
-                        float(fr["cy"]) / h if "cy" in fr else cy_g)
+        principal[i] = (float(fr["cx"]) / wi if "cx" in fr else cx_g,
+                        float(fr["cy"]) / hi if "cy" in fr else cy_g)
         rolling[i] = np.array(fr.get("rolling_shutter", rs_g), np.float32)
         m = fr.get("transform_matrix", fr.get("transform_matrix_start"))
         m_end = fr.get("transform_matrix_end", m)
@@ -247,4 +287,42 @@ def load_nerf(path) -> NerfDataset:
         ds.up = np.array(meta["up"], np.float32)
     if "render_aabb" in meta:
         ds.render_aabb = np.array(meta["render_aabb"], np.float32).reshape(2, 3)
+    if "envmap" in meta:
+        ds.envmap_path = str(base_dir / meta["envmap"])
+    if any("depth_path" in fr for fr in frames):
+        # 16-bit depth maps (reference nerf_loader.cu:392-404)
+        depth_scale = float(meta.get("integer_depth_scale", 1.0 / 65535.0))
+        ds.depths = np.zeros((n, h, w), np.float32)
+        for i, fr in enumerate(frames):
+            if "depth_path" in fr:
+                dimg = read_png(base_dir / fr["depth_path"])[..., 0]
+                ds.depths[i] = dimg.astype(np.float32) * depth_scale * scale
     return ds
+
+
+def _load_rays(paths, sizes: np.ndarray, canvas, scale: float,
+               offset: np.ndarray) -> Optional[np.ndarray]:
+    """The supplied rays of a scene whose images have ``rays_<stem>.dat``
+    files beside them (per pixel six f32, origin and direction, in the nerf
+    convention; reference nerf_loader.cu:644-666), as (N, H, W, 6) in NGP
+    space: the origin scaled and offset, both cycled xyz → yzx
+    (nerf_ray_to_ngp, nerf_loader.h:153-168); zeros for an image without a
+    file. None where no image has one."""
+    ray_files = [Path(p).parent / f"rays_{Path(p).stem}.dat" for p in paths]
+    if not any(rf.exists() for rf in ray_files):
+        return None
+    w, h = canvas
+    rays = np.zeros((len(paths), h, w, 6), np.float32)
+    for i, rf in enumerate(ray_files):
+        wi, hi = int(sizes[i, 0]), int(sizes[i, 1])
+        if not rf.exists():
+            warnings.warn(f"missing rays file {rf}; frame {i} rays zeroed")
+            continue
+        raw = np.fromfile(rf, np.float32)
+        if raw.size < wi * hi * 6:
+            raise ValueError(f"rays file {rf} too small: {raw.size}")
+        r = raw[:wi * hi * 6].reshape(hi, wi, 6)
+        o = r[..., :3] * scale + offset[None, None, :]
+        rays[i, :hi, :wi, :3] = o[..., [1, 2, 0]]
+        rays[i, :hi, :wi, 3:] = r[..., 3:][..., [1, 2, 0]]
+    return rays

@@ -1,12 +1,13 @@
 """A minimal PNG codec in numpy and ``zlib``, so that scenes load and save
 without PIL or imageio.
 
-Reads 8-bit gray, gray+alpha, RGB and RGBA images, not interlaced, with
-any of the five row filters (None, Sub, Up, Average, Paeth), the forms that
-PIL, imageio and ``io/synthetic.py`` write. Any other PNG (palette, 16-bit
-or sub-byte samples, Adam7 interlacing) raises ``ValueError``. Writes the
-same four colour types with zlib's default level, every row with filter 0
-unless the caller names another.
+Reads 8- and 16-bit gray, gray+alpha, RGB and RGBA images, not
+interlaced, with any of the five row filters (None, Sub, Up, Average,
+Paeth), the forms that PIL, imageio and ``io/synthetic.py`` write (depth
+maps are 16-bit gray). Any other PNG (palette or sub-byte samples, Adam7
+interlacing) raises ``ValueError``. Writes the same four colour types at 8
+bits (uint8 pixels) or 16 (uint16 pixels, big-endian samples) with zlib's
+default level, every row with filter 0 unless the caller names another.
 
 None, Sub and Up run a row at a time in numpy (Sub is a cumulative sum
 modulo 256 along the row). Average and Paeth depend on the reconstructed
@@ -23,7 +24,7 @@ from pathlib import Path
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type → channels, for the 8-bit colour types this codec reads
+# colour type → channels, for the colour types this codec reads
 _CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
 _COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
@@ -87,8 +88,8 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes → (H, W, C) uint8, C = 1 (gray), 2 (gray+alpha), 3 (RGB)
-    or 4 (RGBA)."""
+    """PNG bytes → (H, W, C) uint8 (8-bit) or uint16 (16-bit), C = 1
+    (gray), 2 (gray+alpha), 3 (RGB) or 4 (RGBA)."""
     if data[:len(SIGNATURE)] != SIGNATURE:
         raise ValueError("not a PNG file")
     header, idat = None, []
@@ -102,18 +103,21 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     width, height, depth, color_type, compression, filter_method, interlace = header
-    if depth != 8 or color_type not in _CHANNELS:
+    if depth not in (8, 16) or color_type not in _CHANNELS:
         raise ValueError(f"PNG: bit depth {depth}, colour type {color_type} is not supported "
-                         "(8-bit gray, gray+alpha, RGB or RGBA only)")
+                         "(8- or 16-bit gray, gray+alpha, RGB or RGBA only)")
     if compression != 0 or filter_method != 0 or interlace != 0:
         raise ValueError(f"PNG: compression {compression}, filter method {filter_method}, "
                          f"interlace {interlace} is not supported")
     channels = _CHANNELS[color_type]
-    stride = width * channels
+    bpp = channels * depth // 8  # the filters' byte distance: one pixel
+    stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != height * (stride + 1):
         raise ValueError(f"PNG: {raw.size} bytes of scanlines for a {width}x{height} image")
-    pixels = _unfilter(raw.reshape(height, stride + 1), height, stride, channels)
+    pixels = _unfilter(raw.reshape(height, stride + 1), height, stride, bpp)
+    if depth == 16:
+        pixels = pixels.view(">u2").astype(np.uint16)
     return pixels.reshape(height, width, channels)
 
 
@@ -142,24 +146,27 @@ def _filter_rows(a: np.ndarray, ftype: int, bpp: int) -> np.ndarray:
 
 
 def encode_png(pixels: np.ndarray, filter_type: int = 0) -> bytes:
-    """(H, W) or (H, W, C) uint8, C in 1..4 → PNG bytes, every row with
-    ``filter_type`` (0-4)."""
+    """(H, W) or (H, W, C) uint8 or uint16, C in 1..4 → an 8- or 16-bit
+    PNG's bytes, every row with ``filter_type`` (0-4)."""
     a = np.asarray(pixels)
-    if a.dtype != np.uint8:
-        raise ValueError(f"PNG: uint8 pixels expected, got {a.dtype}")
+    if a.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG: uint8 or uint16 pixels expected, got {a.dtype}")
     if a.ndim == 2:
         a = a[..., None]
     if a.ndim != 3 or a.shape[-1] not in _COLOR_TYPE:
         raise ValueError(f"PNG: cannot write an image of shape {a.shape}")
     height, width, channels = a.shape
+    depth = 8 * a.dtype.itemsize
+    row_bytes = a.astype(a.dtype.newbyteorder(">")).view(np.uint8).reshape(height, -1)
     rows = np.concatenate([np.full((height, 1), filter_type, np.uint8),
-                           _filter_rows(a.reshape(height, -1), filter_type, channels)], axis=1)
+                           _filter_rows(row_bytes, filter_type, channels * a.dtype.itemsize)],
+                          axis=1)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body))
 
-    ihdr = struct.pack(">IIBBBBB", width, height, 8, _COLOR_TYPE[channels], 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", width, height, depth, _COLOR_TYPE[channels], 0, 0, 0)
     return (SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b""))
 

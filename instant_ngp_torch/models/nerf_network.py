@@ -8,17 +8,17 @@
 
 Parameters move between the packages as numpy trees in the JAX layout:
 ``{"density_net": [W (in, out), …], "rgb_net": [...], "pos_enc": (table_l
-(size_l, F), …)}`` (``params_from_jax`` / ``params_to_numpy``; a Composite
-position encoding's ``pos_enc`` is a list of its nested trees, and an
-encoding without parameters has none); the whole
-training state, with the optimizer moments, the parameter EMA, the
-occupancy grid and the error map, by ``train_state_from_jax`` /
-``train_state_to_numpy``. In the port the parameters are one list,
-``param_list()``, in the packing order [density_net, rgb_net, pos_enc
-tables] (the direction encoding has none), and a grid's per-level tables are
-one flat table. ``n_extra_dims`` per-image latent dims (the camera state's
-``extra``, ``nerf/task.py``) join the rgb MLP's input after the direction
-encoding: its input is 16 + 16 + E wide.
+(size_l, F), …), "dir_enc": ...}`` (``params_from_jax`` /
+``params_to_numpy``; a Composite encoding's tree is a list of its nested
+trees, and an encoding without parameters has none); the whole training
+state, with the optimizer moments, the parameter EMA, the occupancy grid and
+the error map, by ``train_state_from_jax`` / ``train_state_to_numpy``. In
+the port the parameters are one list, ``param_list()``, in tcnn's packing
+order [density_net, rgb_net, pos_enc tables, dir_enc tables] (a parametric
+direction encoding, such as a grid, has tables; SH has none), and a grid's
+per-level tables are one flat table. ``n_extra_dims`` per-image latent dims
+(the camera state's ``extra``, ``nerf/task.py``) join the rgb MLP's input
+after the direction encoding: its input is 16 + 16 + E wide with SH.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.encodings import (Composite, encoding_flat, encoding_from_config, encoding_tables,
+from ..ops.encodings import (encoding_flat, encoding_from_config, encoding_tables,
                              encoding_tree, init_encoding, set_encoding_kernels)
 from ..ops.hashgrid import GridEncoding
 from ..ops.mlp import MLP, mlp_from_config
@@ -77,23 +77,27 @@ class NerfNetwork(nn.Module):
         self.density_network.init(generator)
         self.rgb_network.init(generator)
         init_encoding(self.pos_encoding, generator)
+        init_encoding(self.dir_encoding, generator)
 
     def param_list(self) -> list[nn.Parameter]:
         """The trainable parameters in packing order [density_net, rgb_net,
-        pos_enc tables]."""
+        pos_enc tables, dir_enc tables]."""
         return [*self.density_network.weights, *self.rgb_network.weights,
-                *encoding_tables(self.pos_encoding)]
+                *encoding_tables(self.pos_encoding), *encoding_tables(self.dir_encoding)]
 
     def matrix_mask(self) -> list[bool]:
-        """True for the MLP matrices (l2_reg applies), False for tables."""
+        """True for the MLP matrices (l2_reg applies, Shampoo preconditions
+        them), False for tables."""
         n_matrices = len(self.density_network.weights) + len(self.rgb_network.weights)
-        return [True] * n_matrices + [False] * len(encoding_tables(self.pos_encoding))
+        n_tables = len(encoding_tables(self.pos_encoding)) + len(encoding_tables(self.dir_encoding))
+        return [True] * n_matrices + [False] * n_tables
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route the encoding and both MLPs through their CUDA kernels
         (True, the default) or their plain versions (the reference a
         kernel render is checked against on the card)."""
         set_encoding_kernels(self.pos_encoding, flag)
+        set_encoding_kernels(self.dir_encoding, flag)
         self.density_network.use_kernel = flag
         self.rgb_network.use_kernel = flag
 
@@ -122,23 +126,26 @@ def params_to_numpy(model: NerfNetwork) -> dict:
 def tree_from_flat(model: NerfNetwork, flat) -> dict:
     """A list in ``param_list`` order (the parameters, or an optimizer
     moment) as the JAX package's parameter tree of numpy arrays. A
-    Composite direction encoding contributes its (parameter-free) leaves
+    Composite direction encoding without parameters contributes its leaves
     as None, as ``Composite.init`` does there.
 
     The tree's ``jax.tree.leaves`` order (``snapshot.tree_leaves``), which
-    snapshots store optimizer states in: density_net's matrices,
-    pos_enc's per-level tables, rgb_net's matrices (keys sorted; dir_enc's
+    snapshots store optimizer states in: density_net's matrices, dir_enc's
+    tables, pos_enc's per-level tables, rgb_net's matrices (keys sorted;
     None leaves dropped). ``param_list`` order is [density_net, rgb_net,
-    pos_enc tables], with a grid's levels in one flat table."""
+    pos_enc tables, dir_enc tables], with a grid's levels in one flat
+    table."""
     n_d = len(model.density_network.weights)
     n_r = len(model.rgb_network.weights)
     arrs = [t.detach().cpu().numpy() for t in flat]
     tree = {"density_net": arrs[:n_d], "rgb_net": arrs[n_d:n_d + n_r]}
-    pos = encoding_tree(model.pos_encoding, arrs[n_d + n_r:])
+    rest = arrs[n_d + n_r:]
+    pos = encoding_tree(model.pos_encoding, rest)
     if pos is not None:
         tree["pos_enc"] = pos
-    if isinstance(model.dir_encoding, Composite):
-        tree["dir_enc"] = [None] * len(model.dir_encoding.nested)
+    dir_tree = encoding_tree(model.dir_encoding, rest)
+    if dir_tree is not None:
+        tree["dir_enc"] = dir_tree
     return tree
 
 
@@ -162,9 +169,13 @@ def params_from_jax(model: NerfNetwork, tree: dict) -> NerfNetwork:
                          f"{[tuple(t.shape) for t in tables]}")
     for dst, src in zip(tables, flat):
         dst.copy_(torch.from_numpy(src))
-    dir_leaves = tree.get("dir_enc")
-    if dir_leaves is not None and any(leaf is not None for leaf in dir_leaves):
-        raise NotImplementedError("parametric direction encodings are not ported yet")
+    dir_tables = encoding_tables(model.dir_encoding)
+    dir_flat = encoding_flat(model.dir_encoding, tree.get("dir_enc")) if dir_tables else []
+    if [a.shape for a in dir_flat] != [tuple(t.shape) for t in dir_tables]:
+        raise ValueError(f"dir_enc: tables {[a.shape for a in dir_flat]} for "
+                         f"{[tuple(t.shape) for t in dir_tables]}")
+    for dst, src in zip(dir_tables, dir_flat):
+        dst.copy_(torch.from_numpy(src))
     return model
 
 
@@ -174,6 +185,8 @@ def flat_from_tree(model: NerfNetwork, tree: dict) -> list[np.ndarray]:
     flat = [np.asarray(w, np.float32) for w in tree["density_net"]]
     flat += [np.asarray(w, np.float32) for w in tree["rgb_net"]]
     flat += encoding_flat(model.pos_encoding, tree.get("pos_enc"))
+    if encoding_tables(model.dir_encoding):
+        flat += encoding_flat(model.dir_encoding, tree.get("dir_enc"))
     shapes = [tuple(p.shape) for p in model.param_list()]
     if [a.shape for a in flat] != shapes:
         raise ValueError(f"tree shapes {[a.shape for a in flat]} do not match the model {shapes}")

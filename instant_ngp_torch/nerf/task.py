@@ -30,6 +30,7 @@ from ..common import (
     EPS_T,
     MAX_DEPTH,
     NERF_CASCADES,
+    NERF_GRIDSIZE,
     LensMode,
     NerfActivation,
     fma,
@@ -54,6 +55,7 @@ from .sampler import MarchConfig, march_rays, march_rays_plain
 # rays per render pass: bounds the (rays, K) window buffers of a large frame
 RENDER_CHUNK = 1 << 18
 DISTORTION_SHAPE = (32, 32, 2)  # the trainable uv offset map (configs/nerf/base.json)
+ENVMAP_RESOLUTION = (128, 256)  # (EH, EW) of the trainable lat-long environment map
 
 
 def running_sum(x: torch.Tensor) -> torch.Tensor:
@@ -142,10 +144,8 @@ class NerfTask:
                  max_samples_per_ray: int = 48, n_march_iters: int = 256,
                  optimize_extrinsics: bool = False, optimize_exposure: bool = False,
                  optimize_focal_length: bool = False, optimize_distortion: bool = False,
-                 use_error_map: bool = True):
-        if dataset.depths is not None or dataset.rays is not None:
-            raise NotImplementedError("depth supervision and supplied rays wait for ROADMAP "
-                                      "Queue 1 item 2 (the rest of NeRF)")
+                 train_envmap: bool = False, envmap_resolution: tuple = ENVMAP_RESOLUTION,
+                 use_error_map: bool = True, include_sharpness_in_error: bool = False):
         self.dataset = dataset
         self.config = dict(config)
         self.device = torch.device(device)
@@ -200,6 +200,8 @@ class NerfTask:
         self.optimize_exposure = optimize_exposure
         self.optimize_focal_length = optimize_focal_length
         self.optimize_distortion = optimize_distortion
+        self.train_envmap = train_envmap
+        self.envmap_resolution = tuple(envmap_resolution)  # (EH, EW)
         # per-image latents train whenever present; False pins them
         self.optimize_extra_dims = dataset.n_extra_learnable_dims > 0
         self.exposure_l2_reg = 0.0  # decoupled decays of the exposure and focal offsets
@@ -227,6 +229,9 @@ class NerfTask:
         self.random_bg_color = True
         self.snap_to_pixel_centers = True
         self.training_near_distance = 0.1  # near-camera density penalty distance
+        # depth supervision (task.py:188-191, 445): on where the scene has depth maps
+        self.depth_supervision_lambda = 1.0 if dataset.depths is not None else 0.0
+        self.depth_loss_type = "L1"
         self.density_reg_scale = 1.0
         self.density_grid_decay = 0.95
         self.grid_update_interval = 16
@@ -256,11 +261,14 @@ class NerfTask:
                                                       dataset.resolution)
         # the optimizer state is made at the first training step
         # (optimizer_state): a task that only renders holds none
+        self.include_sharpness_in_error = include_sharpness_in_error
         self.state = nerf_train.NerfTrainState(
             opt_state=None,
             grid=OccupancyGrid(self.max_cascade + 1, self.device),
             error_map=torch.zeros((dataset.n_images, *self.error_map_res), dtype=torch.float32,
-                                  device=self.device))
+                                  device=self.device),
+            sharp_grid=(torch.zeros((NERF_CASCADES,) + (NERF_GRIDSIZE,) * 3, dtype=torch.float32,
+                                    device=self.device) if include_sharpness_in_error else None))
         # error-map importance sampling: CDFs rebuilt on a growing interval
         eh, ew = self.error_map_res
         n_img = dataset.n_images
@@ -281,6 +289,23 @@ class NerfTask:
         self.lens_params = self._t(dataset.lens_params)
         self.resolution_t = self._t(dataset.resolution)
         self.error_map_wh = self._t([ew, eh])
+        # a moving camera: each pixel's transform is slerped between the start
+        # and end transforms at its shutter time (task.py:334-358)
+        self.has_motion = bool(not np.allclose(dataset.xforms_start, dataset.xforms_end)
+                               or np.any(np.asarray(dataset.rolling_shutter) != 0))
+        self.xforms_end = self._t(dataset.xforms_end) if self.has_motion else None
+        self.rolling_shutter = self._t(dataset.rolling_shutter) if self.has_motion else None
+        self.depths = None if dataset.depths is None else self._t(dataset.depths)
+        self.img_wh = (None if dataset.per_image_resolution is None else torch.as_tensor(
+            np.asarray(dataset.per_image_resolution, np.int64), device=self.device))
+        # supplied rays as an (N·H·W, 6) table, read through kernel I's row gather;
+        # they bypass the near distance and the cameras' visibility culling
+        self.rays = None
+        if dataset.rays is not None:
+            self.rays = self._t(np.asarray(dataset.rays, np.float32).reshape(-1, 6))
+            self.training_near_distance = 0.0
+        self.sharpness = (self._t(dataset.compute_sharpness_maps())
+                          if include_sharpness_in_error else None)
         # the camera state (task.py:261-293): per-image rotation (axis-angle)
         # and position offsets, exposure (log2, per channel), a shared focal
         # scale, per-image latents ("extra", 0.1·N(0, 1)) and a 32×32 uv offset
@@ -297,10 +322,12 @@ class NerfTask:
         if optimize_distortion:
             self.cam_offsets["distortion"] = torch.zeros(DISTORTION_SHAPE, dtype=torch.float32,
                                                          device=dev)
+        if train_envmap:
+            # the trainable lat-long RGBA environment map (reference envmap
+            # TrainableBuffer, testbed.cu:4391-4409), trained with the camera state
+            self.cam_offsets["envmap"] = torch.zeros((*self.envmap_resolution, 4),
+                                                     dtype=torch.float32, device=dev)
         self.cam_opt_spec = camera_optimizer_spec()
-        if not np.allclose(dataset.xforms_start, dataset.xforms_end) or np.any(
-                np.asarray(dataset.rolling_shutter) != 0):
-            raise NotImplementedError("motion blur and rolling shutter are not ported yet")
 
     @property
     def images(self) -> torch.Tensor:
@@ -308,11 +335,14 @@ class NerfTask:
             self._images = torch.as_tensor(self.dataset.images, device=self.device)
         return self._images
 
-    def set_training_image(self, frame_idx: int, img) -> None:
+    def set_training_image(self, frame_idx: int, img, depth_img=None,
+                           depth_scale: float = 1.0) -> None:
         """Replace one training image at run time (pyngp
         ``nerf.training.set_image``, task.py:1337-1359): float (H, W, 4) in
         the dataset's training colour space, stored as the loader stores it
-        (uint8 sRGB, or float16 for an HDR scene)."""
+        (uint8 sRGB, or float16 for an HDR scene); and its depth map (H, W),
+        scaled by ``depth_scale`` and the scene scale, as the loader scales
+        it, where the scene has depth maps."""
         ds = self.dataset
         if not 0 <= int(frame_idx) < ds.n_images:
             raise IndexError(f"invalid frame index {frame_idx}")
@@ -327,6 +357,13 @@ class NerfTask:
         ds.images[frame_idx] = stored
         if self._images is not None:
             self._images[int(frame_idx)] = torch.from_numpy(stored).to(self.device)
+        if depth_img is not None:
+            if ds.depths is None:
+                raise ValueError("dataset has no depth channel; load with depth maps to "
+                                 "supervise depth (nerf_loader depth_path)")
+            depth = np.asarray(depth_img, np.float32) * float(depth_scale) * float(ds.scale)
+            ds.depths[frame_idx] = depth
+            self.depths[int(frame_idx)] = self._t(depth)
 
     @property
     def skipmip(self) -> torch.Tensor:
@@ -373,17 +410,19 @@ class NerfTask:
     def set_camera_offsets(self, tree: dict) -> None:
         """Take a camera-offset tree of numpy arrays in the JAX layout (a
         snapshot's ``cam_offsets``): rot, pos, exposure and focal of this
-        scene's shapes, and where present extra (n, E) and distortion (h, w,
-        2). The camera optimizer's state stays where the leaves keep their
-        shapes, as the JAX package's load keeps its ``cam_opt``."""
+        scene's shapes, and where present extra (n, E), distortion (h, w, 2)
+        and envmap (h, w, 4). The camera optimizer's state stays where the
+        leaves keep their shapes, as the JAX package's load keeps its
+        ``cam_opt``."""
         n = self.dataset.n_images
         want = {"rot": (n, 3), "pos": (n, 3), "exposure": (n, 3), "focal": (2,)}
         shapes = {k: tuple(np.shape(v)) for k, v in tree.items()}
-        extra, dist = shapes.get("extra"), shapes.get("distortion")
+        extra, dist, env = shapes.get("extra"), shapes.get("distortion"), shapes.get("envmap")
         if ({k: shapes.get(k) for k in want} != want
-                or set(shapes) - set(want) - {"extra", "distortion"}
+                or set(shapes) - set(want) - {"extra", "distortion", "envmap"}
                 or (extra is not None and (len(extra) != 2 or extra[0] != n))
-                or (dist is not None and (len(dist) != 3 or dist[2] != 2))):
+                or (dist is not None and (len(dist) != 3 or dist[2] != 2))
+                or (env is not None and (len(env) != 3 or env[2] != 4))):
             raise ValueError(f"camera offsets {shapes} do not fit this scene's {n} images")
         before = {k: tuple(v.shape) for k, v in self.cam_offsets.items()}
         self.cam_offsets = {k: torch.tensor(np.asarray(v, np.float32), device=self.device)
@@ -419,9 +458,10 @@ class NerfTask:
 
     def optimizes_camera(self) -> bool:
         """Whether a step differentiates the camera state (task.py:894-898):
-        a flag is on, or the state holds latents or a distortion map."""
+        a flag is on, or the state holds latents, a distortion map or an
+        environment map."""
         return (self.optimize_extrinsics or self.optimize_exposure or self.optimize_focal_length
-                or any(k in self.cam_offsets for k in ("extra", "distortion")))
+                or any(k in self.cam_offsets for k in ("extra", "distortion", "envmap")))
 
     def cam_offsets_numpy(self) -> dict:
         """The camera offsets as the JAX package's tree of numpy arrays."""
@@ -467,20 +507,33 @@ class NerfTask:
 
     @torch.no_grad()
     def set_camera_extrinsics(self, frame_idx: int, camera_to_world,
-                              convert_to_ngp: bool = True) -> None:
+                              convert_to_ngp: bool = True, xform_end=None,
+                              rolling_shutter=None) -> None:
         """Replace one training camera's pose (task.py:1250-1284): the
-        dataset's and the device's transform, that frame's rot, pos and
-        exposure offsets zeroed, and the camera optimizer's state made anew."""
+        dataset's and the device's start and end transforms (the end the
+        start where not given) and rolling shutter (where given), that
+        frame's rot, pos and exposure offsets zeroed, and the camera
+        optimizer's state made anew. As in the JAX package, a task whose
+        camera was still at its load keeps sampling the start transform."""
         ds = self.dataset
         i = int(frame_idx)
         if not 0 <= i < ds.n_images:
             raise IndexError(f"invalid frame index {frame_idx}")
         m = np.asarray(camera_to_world, np.float32).reshape(3, 4)
+        m_end = m if xform_end is None else np.asarray(xform_end, np.float32).reshape(3, 4)
         if convert_to_ngp:
             m = ds.nerf_matrix_to_ngp(m)
+            m_end = ds.nerf_matrix_to_ngp(m_end)
         ds.xforms_start[i] = m
-        ds.xforms_end[i] = m
+        ds.xforms_end[i] = m_end
         self.xforms[i] = self._t(m)
+        if self.xforms_end is not None:
+            self.xforms_end[i] = self._t(m_end)
+        if rolling_shutter is not None:
+            rs = np.asarray(rolling_shutter, np.float32).reshape(4)
+            ds.rolling_shutter[i] = rs
+            if self.rolling_shutter is not None:
+                self.rolling_shutter[i] = self._t(rs)
         for k in ("rot", "pos", "exposure"):
             self.cam_offsets[k][i] = 0.0
         self.state.cam_opt = None
@@ -587,9 +640,13 @@ class NerfTask:
         (task.py:228-259)."""
         if self.state.grid.fresh:
             ds = self.dataset
-            self.state.grid.set_density(
-                mark_untrained_cells(self.max_cascade + 1, ds.resolution, ds.focal_lengths,
-                                     ds.xforms_start, ds.principal_points, self.device), 0.0)
+            if self.rays is not None:  # supplied rays defeat the cameras' cone test
+                culled = torch.zeros_like(self.state.grid.density)
+            else:
+                culled = mark_untrained_cells(self.max_cascade + 1, ds.resolution,
+                                              ds.focal_lengths, ds.xforms_start,
+                                              ds.principal_points, self.device)
+            self.state.grid.set_density(culled, 0.0)
         self.optimizer_state()
         return nerf_train.train(self, n_steps)
 
@@ -766,6 +823,9 @@ class NerfTask:
                     o, d, tmin, tmax = self._prep_rays(uv_c, wh, fl, pp, xform)
                     tminmax = (tmin, tmax)
                 rgb, alpha, depth, cost = self._render_rays(o, d, tminmax=tminmax, fast=fast)
+                if render_mode == "shade" and self.train_envmap and "envmap" in self.cam_offsets:
+                    env = nerf_train.read_envmap(self.cam_offsets["envmap"], d, self.use_kernels)
+                    rgb = rgb + (1.0 - alpha)[:, None] * env[:, :3]
                 if render_mode != "shade":
                     rgb = self._mode_rgb(render_mode, o, d, uv_c, rgb, alpha, depth, cost)
                 rgbs.append(rgb)

@@ -326,13 +326,17 @@ def unpack_tree(packed: list, template):
 
 def unpack_cam_offsets(packed: list) -> dict:
     """A snapshot's ``cam_offsets`` (``pack_tree`` of the camera state, its
-    keys sorted: [distortion], exposure, [extra], focal, pos, rot) as a dict
-    of numpy arrays. Which of the optional leaves it holds follows from the
-    count and the first leaf's shape (the map's is (h, w, 2))."""
+    keys sorted: [distortion], [envmap], exposure, [extra], focal, pos, rot)
+    as a dict of numpy arrays. Which of the optional leaves it holds follows
+    from the count and the leading leaves' shapes (the distortion map's is
+    (h, w, 2), the environment map's (h, w, 4))."""
     leaves = [np.frombuffer(raw, dtype=np.dtype(dt)).reshape(shape) for dt, shape, raw in packed]
-    keys = ["exposure", "focal", "pos", "rot"]
-    if leaves and leaves[0].ndim == 3:
-        keys.insert(0, "distortion")
+    keys = []
+    for key, channels in (("distortion", 2), ("envmap", 4)):
+        i = len(keys)
+        if i < len(leaves) and leaves[i].ndim == 3 and leaves[i].shape[2] == channels:
+            keys.append(key)
+    keys += ["exposure", "focal", "pos", "rot"]
     if len(leaves) == len(keys) + 1:
         keys.insert(keys.index("focal"), "extra")
     if len(leaves) != len(keys):

@@ -68,8 +68,7 @@ intrinsics after ``set_camera_to_training_view``; its background is
 its own and returns the task's colour on transparent black.
 
 What waits for a later slice raises ``NotImplementedError`` naming its item
-of ROADMAP Queue 1 (``NOT_PORTED_ITEMS``): methods when called, knobs when
-set to anything but their default.
+of ROADMAP Queue 1 (``NOT_PORTED_ITEMS``) when called.
 """
 
 from __future__ import annotations
@@ -121,8 +120,7 @@ CAMERA_FLAGS = ("optimize_extrinsics", "optimize_exposure", "optimize_focal_leng
                 "optimize_distortion")
 
 # ROADMAP Queue 1's items that parts of the surface wait for
-NOT_PORTED_ITEMS = {2: "the rest of NeRF", 3: "the baked and slab renders",
-                    4: "sharding and the viewer"}
+NOT_PORTED_ITEMS = {3: "the baked and slab renders", 4: "sharding and the viewer"}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -195,21 +193,7 @@ class Ema:
         return self.value
 
 
-def _knob(name: str, default, item: int = 2):
-    """A pyngp knob that waits for a Queue 1 item: it reads its default and
-    refuses any other value."""
-
-    def get(self):
-        return default
-
-    def set(self, v):
-        if v != default:
-            raise not_ported(f"{name} = {v!r}", item)
-
-    return property(get, set, doc=f"pyngp's {name}; only {default!r} until Queue 1 item {item}.")
-
-
-def _method(name: str, item: int = 2):
+def _method(name: str, item: int):
     """A pyngp method that waits for a Queue 1 item."""
 
     def method(self, *args, **kwargs):
@@ -290,7 +274,12 @@ class _DatasetView:
 
     @property
     def envmap_resolution(self):
-        return (0, 0)  # the port's loader refuses an envmap
+        """(w, h) of the task's trained environment map; (0, 0) without one."""
+        task = self._tb.task
+        if isinstance(task, NerfTask) and "envmap" in task.cam_offsets:
+            eh, ew = task.cam_offsets["envmap"].shape[:2]
+            return (ew, eh)
+        return (0, 0)
 
     @property
     def render_aabb_to_local(self):
@@ -305,8 +294,7 @@ class _DatasetView:
 class _NerfTrainingView:
     """pyngp testbed.nerf.training.* (python_api.cu Testbed::Nerf::Training).
     Settings made before a scene is loaded are queued and applied when its
-    task is built. Depth supervision, the sharpness error and the rolling
-    shutter's extrinsics wait for Queue 1 item 2."""
+    task is built."""
 
     def __init__(self, tb: "Testbed"):
         self._tb = tb
@@ -398,13 +386,12 @@ class _NerfTrainingView:
     def set_image(self, frame_idx: int, img, depth_img=None, depth_scale: float = 1.0) -> None:
         """pyngp testbed.nerf.training.set_image (python_api.cu:45-72): replace
         a training image, float (H, W, 4) in the dataset's training colour
-        space, at run time (task.py:1337-1367). Depth waits for item 2."""
+        space, and where given its depth map (scaled by ``depth_scale`` and
+        the scene scale), at run time (task.py:1337-1367)."""
         task = self._task()
         if task is None:
             raise RuntimeError("load a NeRF scene before set_image")
-        if depth_img is not None:
-            raise not_ported("depth supervision (set_image's depth_img)", 2)
-        task.set_training_image(frame_idx, img)
+        task.set_training_image(frame_idx, img, depth_img, depth_scale)
 
     def reset_camera_extrinsics(self) -> None:
         """pyngp reset_camera_extrinsics (testbed_nerf.cu:2215-2227): zero the
@@ -509,10 +496,44 @@ class _NerfTrainingView:
         else:
             task.set_camera_optimizer_hparams(extrinsic_l2_reg=float(v))
 
-    include_sharpness_in_error = _knob("include_sharpness_in_error", False)
-    depth_supervision_lambda = _knob("depth_supervision_lambda", 0.0)
-    depth_loss_type = _knob("depth_loss_type", "L1")
-    set_camera_extrinsics_rolling_shutter = _method("set_camera_extrinsics_rolling_shutter")
+    @property
+    def include_sharpness_in_error(self) -> bool:
+        return bool(self._get("include_sharpness_in_error", "include_sharpness_in_error", False))
+
+    @include_sharpness_in_error.setter
+    def include_sharpness_in_error(self, v) -> None:
+        """pyngp include_sharpness_in_error: the sharpness maps and the sharp
+        grid are made with the task, so it is set before load_training_data."""
+        task = self._task()
+        if task is not None and bool(v) != task.include_sharpness_in_error:
+            raise RuntimeError("include_sharpness_in_error must be set before "
+                               "load_training_data (it allocates the sharpness maps)")
+        self._tb._nerf_pending["include_sharpness_in_error"] = bool(v)
+
+    depth_supervision_lambda = property(
+        lambda s: s._get("depth_supervision_lambda", "depth_supervision_lambda", 0.0),
+        lambda s, v: s._set("depth_supervision_lambda", "depth_supervision_lambda", float(v)))
+
+    @property
+    def depth_loss_type(self) -> str:
+        """pyngp depth_loss_type (python_api.cu:786; default L1)."""
+        return self._get("depth_loss_type", "depth_loss_type", "L1")
+
+    @depth_loss_type.setter
+    def depth_loss_type(self, v) -> None:
+        name = str(getattr(v, "name", v))
+        loss_type_from_string(name)
+        self._set("depth_loss_type", "depth_loss_type", name)
+
+    def set_camera_extrinsics_rolling_shutter(self, frame_idx: int, camera_to_world_start,
+                                              camera_to_world_end, rolling_shutter,
+                                              convert_to_ngp: bool = True) -> None:
+        """pyngp set_camera_extrinsics_rolling_shutter (testbed_nerf.cu:2188-2209):
+        a training view's start and end transforms and its rolling shutter."""
+        self._scene_task().set_camera_extrinsics(frame_idx, camera_to_world_start,
+                                                 convert_to_ngp=convert_to_ngp,
+                                                 xform_end=camera_to_world_end,
+                                                 rolling_shutter=rolling_shutter)
 
 
 class _NerfView:
@@ -982,8 +1003,12 @@ class Testbed:
         elif self.mode == TestbedMode.NERF:
             self.nerf_dataset = load_nerf(self.scene_path)
             pend = self._nerf_pending
+            # train_envmap: set on the Testbed before the load (testbed.py:1054)
             self.task = NerfTask(self.nerf_dataset, self.network_config, self.device,
                                  seed=self.seed, target_batch_size=self.training_batch_size,
+                                 train_envmap=bool(getattr(self, "train_envmap", False)),
+                                 include_sharpness_in_error=bool(
+                                     pend.get("include_sharpness_in_error", False)),
                                  **{k: bool(pend.get(k, False)) for k in CAMERA_FLAGS})
             self.camera_matrix = self.nerf_dataset.xforms_start[0].copy()
             pend = self._nerf_pending
@@ -1002,7 +1027,8 @@ class Testbed:
                 self.task.loss_type = loss_type_from_string(pend["loss_type"])
             for key in ("train_mode", "optimize_extra_dims", "n_steps_between_cam_updates",
                         "exposure_l2_reg", "intrinsic_l2_reg",
-                        "rendering_extra_dims_from_training_view"):
+                        "rendering_extra_dims_from_training_view", "depth_supervision_lambda",
+                        "depth_loss_type"):
                 if key in pend:
                     setattr(self.task, key, pend[key])
             if "extrinsic_learning_rate" in pend or "extrinsic_l2_reg" in pend:

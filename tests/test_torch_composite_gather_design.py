@@ -150,7 +150,7 @@ def test_kernel_g_scan_order_within_tolerance_of_jax(jax_task, K, foggy):
     # the same inputs through the port's plain version: the emulation differs
     # from it only in the order of its sums
     t = [torch.from_numpy(np.asarray(a)) for a in (out, ts, dts, valid, target, bg, ok)]
-    p_per_ray, p_dout = port_train.composite_train_plain(
+    p_per_ray, p_dout, *_ = port_train.composite_train_plain(
         *t, torch.tensor(mean_density), NEAR, REG_SCALE, float(f32(1) / f32(R)), LossType.HUBER,
         NerfActivation.LOGISTIC, NerfActivation.EXPONENTIAL)
     for got, want in ((per_ray, p_per_ray.numpy()), (dout, p_dout.numpy())):

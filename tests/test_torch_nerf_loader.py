@@ -1,7 +1,8 @@
 """Scenes from disk in the PyTorch port, against the JAX package on the CPU:
-the PNG codec against PIL, the scene generator, ``load_nerf`` field by
-field, what the port raises on, and one training step from a scene loaded
-from disk."""
+the PNG codec against PIL (8- and 16-bit), the scene generator,
+``load_nerf`` field by field (also on scenes with images of two sizes,
+supplied rays, 16-bit depth maps, an envmap, start and end transforms and
+rolling shutters), and one training step from a scene loaded from disk."""
 
 import contextlib
 import dataclasses
@@ -105,13 +106,25 @@ def _with_ihdr(data: bytes, **fields) -> bytes:
 
 
 def test_png_rejects_interlaced_16_bit_and_palette_files():
+    """Interlaced, sub-byte and palette files raise; a 16-bit gray file (a
+    depth map) decodes to what PIL reads, and the codec's own 16-bit files
+    with every filter read back in PIL."""
     base = png.encode_png(np.zeros((4, 4, 3), np.uint8))
     with pytest.raises(ValueError, match="interlace"):
         png.decode_png(_with_ihdr(base, interlace=1))
+    with pytest.raises(ValueError, match="bit depth 4"):
+        png.decode_png(_with_ihdr(base, depth=4, color_type=0))
     buf = io.BytesIO()
-    Image.fromarray(np.arange(16, dtype=np.uint16).reshape(4, 4) * 4000).save(buf, "PNG")
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.decode_png(buf.getvalue())
+    depth = (np.arange(16, dtype=np.uint16).reshape(4, 4) * 4000).astype(np.uint16)
+    Image.fromarray(depth).save(buf, "PNG")
+    got = png.decode_png(buf.getvalue())
+    assert got.dtype == np.uint16 and np.array_equal(got[..., 0], np.asarray(
+        Image.open(io.BytesIO(buf.getvalue())))) and np.array_equal(got[..., 0], depth)
+    wide = np.random.default_rng(1).integers(0, 65536, (9, 7), dtype=np.uint16)
+    for f in range(5):
+        data = png.encode_png(wide, filter_type=f)
+        assert np.array_equal(np.asarray(Image.open(io.BytesIO(data))), wide)
+        assert np.array_equal(png.decode_png(data)[..., 0], wide)
     buf = io.BytesIO()
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("P").save(buf, "PNG")
     with pytest.raises(ValueError, match="colour type 3"):
@@ -234,20 +247,80 @@ def test_load_nerf_equals_jax_on_hand_written_scenes(tmp_path, name):
         else ["img_0.png", "img_1.png", "img_2.png", "img_10.png"])
 
 
+def _depth_png(path, h, w, seed):
+    """A 16-bit depth PNG of seeded values, some of them 0 (no depth)."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 65536, (h, w), dtype=np.uint16)
+    d[rng.random((h, w)) < 0.1] = 0
+    png.write_png(path, d)
+    return d
+
+
 @pytest.mark.parametrize("case", ["mixed_sizes", "rays", "depth", "envmap"])
-def test_load_nerf_raises_on_what_the_port_cannot_train(tmp_path, case):
-    meta, per_frame = {"camera_angle_x": 0.9}, {}
+def test_load_nerf_equals_jax_on_capture_features(tmp_path, case):
+    """Each feature the loader once refused, as the JAX loader loads it:
+    an image of another size (padded into the canvas, with its own size
+    and intrinsics), supplied rays beside one image (the others' warned and
+    zeroed), a 16-bit depth map (bit for bit what PIL reads, times
+    integer_depth_scale and the scene scale) and an envmap key."""
+    meta, per_frame = {"camera_angle_x": 0.9, "scale": 0.5}, {}
     if case == "depth":
-        per_frame = {0: {"depth_path": "depth_0.png"}}
+        meta["integer_depth_scale"] = 1.0 / 4000.0
+        per_frame = {0: {"depth_path": "depth_0.png"}, 2: {"depth_path": "depth_2.png"}}
     if case == "envmap":
         meta = dict(meta, envmap="env.exr")
     _write_scene(tmp_path, meta, per_frame)
     if case == "mixed_sizes":
-        png.write_png(tmp_path / "img_1.png", np.zeros((10, 16, 4), np.uint8))
+        png.write_png(tmp_path / "img_1.png", np.full((10, 14, 4), 200, np.uint8))
     if case == "rays":
-        np.zeros(16 * 12 * 6, np.float32).tofile(tmp_path / "rays_img_0.dat")
-    with pytest.raises(NotImplementedError):
-        load_nerf(tmp_path)
+        rng = np.random.default_rng(3)
+        rng.normal(size=16 * 12 * 6).astype(np.float32).tofile(tmp_path / "rays_img_0.dat")
+    if case == "depth":
+        raw = {i: _depth_png(tmp_path / f"depth_{i}.png", 12, 16, i) for i in (0, 2)}
+        for i, d in raw.items():
+            assert np.array_equal(np.asarray(Image.open(tmp_path / f"depth_{i}.png")), d)
+    warn = (pytest.warns(UserWarning, match="missing rays") if case == "rays"
+            else contextlib.nullcontext())
+    with warn:
+        ours = load_nerf(tmp_path)
+    with warn:
+        theirs = jax_load_nerf(tmp_path)
+    _assert_datasets_equal(ours, theirs)
+    if case == "mixed_sizes":
+        np.testing.assert_array_equal(ours.per_image_resolution, [[16, 12], [14, 10], [16, 12],
+                                                                  [16, 12]])
+    if case == "rays":
+        assert ours.rays.shape == (4, 12, 16, 6) and np.any(ours.rays[0])
+        assert not np.any(ours.rays[1:])
+    if case == "depth":
+        # frame entries 0 and 2 are img_2 and img_10, the 3rd and 4th in natural order
+        assert ours.depths.shape == (4, 12, 16) and not np.any(ours.depths[:2])
+        np.testing.assert_array_equal(
+            ours.depths[3], raw[2].astype(np.float32) * np.float32(1.0 / 4000.0) * 0.5)
+    if case == "envmap":
+        assert ours.envmap_path == str(tmp_path / "env.exr")
+
+
+def test_load_nerf_equals_jax_on_a_capture(tmp_path):
+    """A scene with every feature of a capture at once: two image sizes,
+    16-bit depth maps, rays for some views, an envmap, per-frame start and
+    end transforms and rolling shutters; the datasets field for field equal,
+    and the sharpness maps of ``compute_sharpness_maps``."""
+    meta = {"camera_angle_x": 0.9, "envmap": "env.png", "rolling_shutter": [0.0, 0.0, 0.5, 0.0]}
+    per_frame = {0: {"transform_matrix_start": "m0", "depth_path": "depth_0.png"},
+                 1: {"depth_path": "depth_1.png", "rolling_shutter": [0.0, 0.0, 0.0, 1.0]}}
+    _write_scene(tmp_path, meta, per_frame)
+    png.write_png(tmp_path / "img_10.png", np.full((10, 14, 4), 90, np.uint8))
+    for i in (0, 1):
+        _depth_png(tmp_path / f"depth_{i}.png", 12, 16, 10 + i)
+    np.arange(14 * 10 * 6, dtype=np.float32).tofile(tmp_path / "rays_img_10.dat")
+    with pytest.warns(UserWarning, match="missing rays"):
+        ours = load_nerf(tmp_path)
+    with pytest.warns(UserWarning, match="missing rays"):
+        theirs = jax_load_nerf(tmp_path)
+    _assert_datasets_equal(ours, theirs)
+    assert not np.array_equal(ours.xforms_start, ours.xforms_end)
+    np.testing.assert_array_equal(ours.compute_sharpness_maps(), theirs.compute_sharpness_maps())
 
 
 def _disk_tasks(scene):

@@ -41,12 +41,14 @@ FOX = Path(__file__).resolve().parents[1] / "data" / "fox_1536.ingp"
 
 # every public name the port's surface leaves for a later slice, with the
 # ROADMAP Queue 1 item it waits for
-NOT_YET_PORTED = {
-    "Testbed.init_window": 4, "Testbed.init_vr": 4, "Testbed.destroy_window": 4,
-    **{f"nerf.training.{name}": 2 for name in (
-        "include_sharpness_in_error", "depth_supervision_lambda", "depth_loss_type",
-        "set_camera_extrinsics_rolling_shutter")},
-}
+NOT_YET_PORTED = {"Testbed.init_window": 4, "Testbed.init_vr": 4, "Testbed.destroy_window": 4}
+
+# the names that left NOT_YET_PORTED with the rest of NeRF's training half;
+# each case sets or calls one on both Testbeds
+# (test_names_of_the_capture_slice_work_as_in_the_jax_testbed)
+CAPTURE_SLICE = tuple(f"nerf.training.{name}" for name in (
+    "include_sharpness_in_error", "depth_supervision_lambda", "depth_loss_type",
+    "set_camera_extrinsics_rolling_shutter"))
 
 # the names that left NOT_YET_PORTED with the camera optimization, the latents
 # and the coarse-to-fine level cap; each case sets or calls one of them on
@@ -723,3 +725,54 @@ def test_offset_cameras_reach_find_closest_and_reset(latent_scene):
         np.testing.assert_array_equal(_cam(ours, k), _cam(theirs, k))
         assert not np.any(_cam(ours, k))
     np.testing.assert_array_equal(_cam(ours, "extra"), _cam(theirs, "extra"))  # kept
+
+
+@pytest.mark.parametrize("name", CAPTURE_SLICE)
+def test_names_of_the_capture_slice_work_as_in_the_jax_testbed(scene, name):
+    attr = name.rsplit(".", 1)[1]
+    tbs = [jax_testbed.Testbed(), ngp.Testbed(device="cpu")]
+    for tb in tbs:
+        tb.training_batch_size = 1 << 12
+        tb.reload_network_from_json(graft._tiny_nerf_config())
+        if attr == "include_sharpness_in_error":  # set before the load, as pyngp asks
+            tb.nerf.training.include_sharpness_in_error = True
+        tb.load_training_data(str(scene))
+    theirs, ours = tbs
+    objs = [tb.nerf.training for tb in tbs]
+    if attr == "include_sharpness_in_error":
+        assert [o.include_sharpness_in_error for o in objs] == [True, True]
+        assert tuple(ours.task.state.sharp_grid.shape) == tuple(theirs.task.state.sharp_grid.shape)
+        np.testing.assert_allclose(ours.task.sharpness.numpy(),
+                                   np.asarray(theirs.task.data["sharpness"]), rtol=1e-6)
+        for o in objs:
+            with pytest.raises(RuntimeError):
+                o.include_sharpness_in_error = False
+        ours.frame()
+        assert np.isfinite(ours.loss)
+    elif attr == "depth_supervision_lambda":
+        assert [o.depth_supervision_lambda for o in objs] == [0.0, 0.0]  # no depth maps
+        for o in objs:
+            o.depth_supervision_lambda = 0.5
+        assert ours.task.depth_supervision_lambda == theirs.task.depth_supervision_lambda == 0.5
+    elif attr == "depth_loss_type":
+        assert [o.depth_loss_type for o in objs] == ["L1", "L1"]
+        for o in objs:
+            o.depth_loss_type = ngp.LossType.HUBER
+        assert ours.task.depth_loss_type == theirs.task.depth_loss_type
+        for o in objs:
+            o.depth_loss_type = "L2"
+        assert [o.depth_loss_type for o in objs] == ["L2", "L2"]
+    else:  # set_camera_extrinsics_rolling_shutter
+        rng = np.random.default_rng(4)
+        m0, m1 = (np.concatenate([np.linalg.qr(rng.normal(size=(3, 3)))[0],
+                                  rng.normal(size=(3, 1))], 1).astype(np.float32)
+                  for _ in range(2))
+        for o in objs:
+            o.set_camera_extrinsics_rolling_shutter(1, m0, m1, [0.1, 0.2, 0.3, 0.4])
+        a, b = theirs.nerf_dataset, ours.nerf_dataset
+        for field in ("xforms_start", "xforms_end", "rolling_shutter"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+        np.testing.assert_array_equal(b.rolling_shutter[1], np.float32([0.1, 0.2, 0.3, 0.4]))
+        np.testing.assert_array_equal(ours.task.xforms.numpy(), b.xforms_start)
+        # a scene loaded still keeps sampling its start transforms, as the JAX task
+        assert ours.task.has_motion is theirs.task.has_motion is False

@@ -114,7 +114,7 @@ def test_composite_train_plain_equals_jax(jax_task, loss_name, mode):
         jax.value_and_grad(objective, argnums=(0, 1), has_aux=True))(
         {"out": jnp.asarray(out.reshape(R * K, 4))}, jnp.asarray(target))
     t = [torch.from_numpy(np.asarray(a)) for a in (out, ts, dts, valid, target, bg, ok)]
-    per_ray, dout, dtarget = port_train.composite_train_plain(
+    per_ray, dout, dtarget, *_ = port_train.composite_train_plain(
         *t, torch.tensor(mean_density), NEAR, REG_SCALE, float(np.float32(1) / np.float32(R)),
         port_losses.loss_type_from_string(loss_name), NerfActivation.LOGISTIC,
         NerfActivation.EXPONENTIAL, mode, want_dtarget=True)
@@ -125,12 +125,12 @@ def test_composite_train_plain_equals_jax(jax_task, loss_name, mode):
         scale = float(np.abs(want).max())
         assert scale > 0
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * scale)
-    # without d/d target the same two outputs
-    per_ray2, dout2 = port_train.composite_train_plain(
+    # without d/d target the same two outputs, and None in its slot
+    per_ray2, dout2, dtarget2, *_ = port_train.composite_train_plain(
         *t, torch.tensor(mean_density), NEAR, REG_SCALE, float(np.float32(1) / np.float32(R)),
         port_losses.loss_type_from_string(loss_name), NerfActivation.LOGISTIC,
         NerfActivation.EXPONENTIAL, mode)
-    assert torch.equal(per_ray2, per_ray) and torch.equal(dout2, dout)
+    assert torch.equal(per_ray2, per_ray) and torch.equal(dout2, dout) and dtarget2 is None
 
 
 @pytest.mark.parametrize("loss_name", LOSSES)

@@ -120,7 +120,7 @@ def test_composite_loss_gradient_equals_jax(capacity):
         maps = prefix_compaction_maps(_t(n_valid), K, capacity)
         full = expand_gather(out_t, maps).reshape(R, K, 4)
         valid_t = valid_t & maps.kept.reshape(R, K)
-    per_ray, dout = port_train.composite_train_plain(
+    per_ray, dout, *_ = port_train.composite_train_plain(
         full.detach(), _t(ts), _t(dts), valid_t, _t(target), _t(bg), _t(ok),
         pt.state.grid.mean_density, 0.1, 1.0 / 128.0, float(np.float32(1) / np.float32(R)),
         pt.loss_type, pt.rgb_activation, pt.density_activation)

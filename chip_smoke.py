@@ -101,6 +101,17 @@ microbenchmarks:
   voxel) and a PLY written and read back; then A's stochastic mode at 2^19 fox
   positions and K and F's dX at the normals' hits against their plain
   versions (A and K bit for bit);
+- fast renders: fox's view 0 through ``Testbed.render`` with ``render_quality``
+  "baked" (the bake, frames at 256^2 and 1920x1080, a ``render_batch`` of views
+  0/24/49 whose view 0 equals the task's baked render bit for bit) and "slab"
+  (the bakes and frames deferred, diffuse and view-dependent), checked to go
+  through kernels A-C, N, D's activated mode, P and O; the launches and
+  device time of a 1920x1080 slab frame; N and D's activated mode on the
+  baked render's first round at 1920x1080, P (Triton) and the slab products
+  (TF32 against f32) on a chunk of its finest-level sweep at B 1024 and O on
+  its warp, against their plain versions (N and O bit for bit); each
+  quality's 256^2 frame through the plain versions (≥ 40 dB); the PSNR of
+  every fast frame against the exact frame, printed and not gated;
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
   entry at the edges of its clamps on a non-square texture and kernel J at
@@ -200,6 +211,7 @@ path: without CUDA it fails at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -481,11 +493,11 @@ def grid_work(levels, interpolation: str, x: torch.Tensor) -> tuple[int, int]:
 
 def record_kernel(results: list, name: str, source: str, replaces: str, err: float, ms: float,
                   plain_ms: float, bound_: dict, library_ms=None, extra: str = "",
-                  **fields) -> None:
+                  route: str = "cuda", **fields) -> None:
     lib = f" library {library_ms:.3f} ms" if library_ms is not None else ""
     print(f"kernel {name}: max_abs_err {err:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
           f"{lib} bound {bound_['bound_ms']:.4f} ms ({bound_['bound_by']}){extra}")
-    results.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+    results.append({"name": name, "route": route, "source": source, "replaces": replaces,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_,
                     "library_ms": library_ms, **fields})
 
@@ -3255,6 +3267,327 @@ def views_phase(device, card) -> tuple[dict, dict, dict]:
                       "hashgrid_encode_dx": k_check}, numbers
 
 
+FAST_RES = 256  # the fast renders' frames of fox's view 0, and RENDER_WH's
+FAST_BATCH_VIEWS = (0, 24, 49)  # render_batch's views, at FAST_RES^2
+FAST_SWEEP_B = 1024  # the baseplane of a 1920x1080 frame's finest level
+FAST_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "baked_query",
+                "composite_window_activated", "slab_step", "slab_warp")
+# P against its plain version, relative to each layer's max |ref|: Triton's
+# code for the same f32 operations (1.8e-7 on random slabs)
+TOL_SLAB_STEP = 1e-5
+# the slab products in TF32 against full f32, relative to max |ref|: the
+# same bf16-valued operands, sums in another order
+TOL_SLAB_PRODUCTS = 1e-5
+FAST_RECORDS = (  # kernel, route, source, what it replaces
+    ("baked_query", "cuda", "instant_ngp_torch/csrc/baked.cu", "instant_ngp_tpu/nerf/baked.py:72"),
+    ("composite_window_activated", "cuda", "instant_ngp_torch/csrc/composite.cu",
+     "instant_ngp_tpu/nerf/task.py:1853"),
+    ("slab_step", "triton", "instant_ngp_torch/nerf/slab.py", "instant_ngp_tpu/nerf/slab.py:447"),
+    ("slab_warp", "cuda", "instant_ngp_torch/csrc/slab.cu", "instant_ngp_tpu/nerf/slab.py:699"))
+
+
+def first_call(module, name: str, want) -> tuple[dict, object]:
+    """Wrap module.name so that the first call whose arguments satisfy
+    want(args) has clones of its tensor arguments kept (before the call:
+    P updates its layers in place). Returns (the kept call, the original)."""
+    kept, orig = {}, getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        if not kept and want(args):
+            kept["args"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            kept["kwargs"] = dict(kwargs)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return kept, orig
+
+
+def check_baked_round(task, cache, res: tuple, device) -> tuple[dict, dict]:
+    """Kernels N and D's activated mode against their plain versions on the
+    first round of the baked render's 2^18-ray chunk at the middle of a res
+    frame of view 0 (the window and step of the baked render; the frame's
+    first chunk is its top rows, nearly empty): N bit for bit, D within
+    TOL_COMPOSITE;
+    times, device times and bounds (N's: the index entries and table rows
+    the samples read, counted distinct)."""
+    from instant_ngp_torch.common import MIN_CONE_STEPSIZE, fma
+    from instant_ngp_torch.nerf import baked
+    from instant_ngp_torch.nerf.task import (RENDER_CHUNK, composite_window,
+                                             composite_window_plain)
+
+    w, h = res
+    xf, kw = view0_wh(task, w, h)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    mid = w * h // 2 // RENDER_CHUNK * RENDER_CHUNK  # the render's chunk at the frame's middle
+    uv = np.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h],
+                  -1)[mid:mid + RENDER_CHUNK]
+    o, d, tmin, tmax = task._prep_rays(torch.from_numpy(uv.astype(np.float32)).to(device),
+                                       task._t([w, h]), task._t(kw["focal_length"]),
+                                       task._t(kw["principal_point"]), task._t(xf))
+    dt = max(1.0, (1.0 / float(cache.res_host[0])) / MIN_CONE_STEPSIZE)
+    alive = tmax > tmin
+    ts, dts, valid, t_exit, _ = task._march_window(o, d, tmin, alive, tmax,
+                                                   window=task.baked_samples_per_window,
+                                                   dt_scale=dt)
+    R, K = ts.shape
+    pos = fma(ts[..., None], d[:, None, :], o[:, None, :]).reshape(R * K, 3).contiguous()
+    out = baked.query(cache, pos)
+    ref = baked.query_plain(cache, pos)
+    check(torch.equal(out, ref), "kernel N differs from its plain version")
+    flat, idx, inb, _ = baked.cells_of(cache, pos)
+    read = (idx >= 0) & inb
+    n_entries = int(torch.unique(flat).numel())
+    n_rows = int(torch.unique(idx[read]).numel())
+    n = {"max_abs_err": float((out - ref).abs().max()), "samples": R * K,
+         "occupied_share": float(read.float().mean()), "index_entries_read": n_entries,
+         "table_rows_read": n_rows, "ms": time_ms(lambda: baked.query(cache, pos)),
+         "plain_ms": time_ms(lambda: baked.query_plain(cache, pos), reps=5),
+         **device_split(lambda: baked.query(cache, pos), "baked_query"),
+         **bound(nbytes(pos, out) + 4 * n_entries + 64 * n_rows)}
+    zeros = torch.zeros((R,), device=device)
+    cargs = (out.reshape(R, K, 4), ts, dts, valid, tmin, t_exit, torch.ones_like(zeros),
+             torch.zeros((R, 3), device=device), zeros, alive, tmax, zeros,
+             task.min_transmittance, task.rgb_activation, task.density_activation, True)
+    k_res, p_res = composite_window(*cargs), composite_window_plain(*cargs)
+    check(bool(torch.equal(k_res[4], p_res[4])), "activated composite alive flags differ")
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k_res, p_res))
+    check(err <= TOL_COMPOSITE, f"activated composite err {err}")
+    dd = {"max_abs_err": err, "rays": R, "K": K,
+          "ms": time_ms(lambda: composite_window(*cargs)),
+          "plain_ms": time_ms(lambda: composite_window_plain(*cargs), reps=5),
+          **device_split(lambda: composite_window(*cargs), "composite_window"),
+          **bound(nbytes(*[a for a in cargs if torch.is_tensor(a)], *k_res[1:]))}
+    return n, dd
+
+
+def check_slab_step(call: dict) -> dict:
+    """Kernel P against its plain version on a call of the 1080p frame's
+    finest-level sweep (B 1024, a full chunk of slabs), each on copies of
+    its layers: within TOL_SLAB_STEP of each layer's max |ref|; times, device
+    time, bound."""
+    from instant_ngp_torch.nerf import slab
+
+    sl, a_k, dz, q, tin, front, back = call["args"]
+    outs = []
+    for step in (slab.slab_step, slab.slab_step_plain):
+        f, b = front.clone(), back.clone()
+        step(sl, a_k, dz, q, tin, f, b)
+        outs.append((f, b))
+    err = max(float((k - p).abs().max()) / max(float(p.abs().max()), 1.0)
+              for k, p in zip(*outs))
+    check(err <= TOL_SLAB_STEP, f"kernel P err {err}")
+    f, b = front.clone(), back.clone()
+    L, B, C, _ = sl.shape
+    return {"max_abs_err": err, "slabs": L, "B": B, "C": C,
+            "bit_equal": all(torch.equal(k, p) for k, p in zip(*outs)),
+            "ms": time_ms(lambda: slab.slab_step(sl, a_k, dz, q, tin, f, b)),
+            "plain_ms": time_ms(lambda: slab.slab_step_plain(sl, a_k, dz, q, tin, f, b), reps=3),
+            **device_split(lambda: slab.slab_step(sl, a_k, dz, q, tin, f, b), "slab_step"),
+            # per pixel and slab: ~8 operations for σ, 1/σ, t and α, 3 a value
+            # channel, 12 for the two layers' T and Σw·t
+            **bound(nbytes(sl, a_k, q, tin) + 2 * nbytes(front, back),
+                    L * B * B * (20 + 3 * (C - 1)), "float32")}
+
+
+def check_slab_products(call: dict) -> dict:
+    """The slab products of a chunk (``slab.slab_products``) in TF32, the
+    route the sweep takes, against full f32, and both timed."""
+    from instant_ngp_torch.nerf import slab
+
+    vol_t, ksl, Wu, Wv = call["args"]
+    tf32 = slab.slab_products(vol_t, ksl, Wu, Wv)
+    tf32_route = slab._product_precision
+    slab._product_precision = lambda device: contextlib.nullcontext()  # TF32 off (phase_device)
+    try:
+        f32 = slab.slab_products(vol_t, ksl, Wu, Wv)
+        f32_ms = time_ms(lambda: slab.slab_products(vol_t, ksl, Wu, Wv), reps=5)
+    finally:
+        slab._product_precision = tf32_route
+    err = float((tf32 - f32).abs().max()) / max(float(f32.abs().max()), 1.0)
+    check(err <= TOL_SLAB_PRODUCTS, f"slab products in TF32 err {err}")
+    L, B, n = Wu.shape
+    C = tf32.shape[2]
+    return {"max_rel_err_tf32_vs_f32": err, "tf32_ms": time_ms(
+        lambda: slab.slab_products(vol_t, ksl, Wu, Wv), reps=5), "f32_ms": f32_ms,
+        "flop": 2 * L * B * n * n * C + 2 * L * B * C * n * B}
+
+
+def check_slab_warp(call: dict) -> dict:
+    """Kernel O against its plain version on the 1080p frame's warp (bit for
+    bit); times, device time and bound (each pixel's direction and output,
+    and the distinct quad rows it reads)."""
+    from instant_ngp_torch.nerf import slab
+
+    args, kw = call["args"], call["kwargs"]
+    out = slab.warp_composite(*args, **kw)
+    ref = slab.warp_composite_plain(*args, **kw)
+    check(torch.equal(out, ref), "kernel O differs from its plain version")
+    dirs, eye, outer_pk, l_pk, zb, lo, hi, bg = args
+    rows = {True: [], False: []}
+    for _, outer, row, _, _, inside in slab.warp_rows(dirs, eye, zb, lo, hi, **kw):
+        rows[outer].append(row[inside])
+    n_rows = sum(int(torch.unique(torch.cat(r)).numel()) for r in rows.values() if r)
+    return {"max_abs_err": float((out - ref).abs().max()), "pixels": dirs.shape[0],
+            "C": l_pk.shape[1] // 4, "quad_rows_read": n_rows,
+            "ms": time_ms(lambda: slab.warp_composite(*args, **kw)),
+            "plain_ms": time_ms(lambda: slab.warp_composite_plain(*args, **kw), reps=3),
+            **device_split(lambda: slab.warp_composite(*args, **kw), "slab_warp"),
+            **bound(nbytes(dirs, out) + n_rows * l_pk.shape[1] * 2)}
+
+
+def view0_wh(task, w: int, h: int):
+    """Camera and render arguments of view 0 at w x h (the Testbed's view
+    intrinsics: focal lengths scaled by the height)."""
+    ds = task.dataset
+    xf = np.asarray(ds.xforms_start[0], np.float32)
+    s = h / ds.resolution[1]
+    return xf, dict(focal_length=tuple(ds.focal_lengths[0] * s),
+                    principal_point=tuple(ds.principal_points[0]), background=(0, 0, 0, 0))
+
+
+def fast_renders_phase(device, card) -> tuple[dict, dict, dict]:
+    """The baked and slab renders of fox's view 0 through the Testbed. The
+    main path, its launches read from the first bake to the last frame: the
+    baked bake, its frames at FAST_RES^2 and RENDER_WH and a render_batch of
+    FAST_BATCH_VIEWS (its view 0 bit for bit the task's baked render); then
+    the slab bakes and frames, deferred (the default), diffuse and
+    view-dependent. Then N and D's activated mode on the baked render's
+    first round at RENDER_WH, P and the slab products on a chunk of its
+    finest-level sweep, O on its warp, each against its plain version; the
+    FAST_RES^2 frames of each quality through the plain versions (≥
+    MIN_PSNR_DB); and, printed and not gated, the PSNR of every fast frame
+    against the exact frame. Returns (the launches, the checks by kernel,
+    the numbers)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.nerf import slab
+    from instant_ngp_torch.testbed import Testbed
+
+    t_phase = time.perf_counter()
+    tb = Testbed("nerf", device=device)
+    tb.load_snapshot(SNAPSHOT)
+    task = tb.task
+    tb.set_camera_to_training_view(0)
+    eye = np.asarray(tb.camera_matrix, np.float32)[:, 3]
+    sizes = {"256": (FAST_RES, FAST_RES), "1080p": RENDER_WH}
+    numbers = {"frame_ms": {}, "psnr_vs_exact_db": {}, "bake_s": {}}
+
+    def frame(quality, wh):
+        tb.render_quality = quality
+        try:
+            return torch.from_numpy(tb.render(*wh)).to(device)
+        finally:
+            tb.render_quality = "exact"
+
+    exact = {k: frame("exact", wh) for k, wh in sizes.items()}
+    # the slab render ignores the crop box (as the JAX package's): the exact
+    # frames without it too
+    crop = (task.render_aabb_min, task.render_aabb_max)
+    task.render_aabb_min, task.render_aabb_max = np.array(task.aabb_min), np.array(task.aabb_max)
+    uncropped = {k: frame("exact", wh) for k, wh in sizes.items()}
+    task.render_aabb_min, task.render_aabb_max = crop
+    numbers["psnr_vs_uncropped_exact_db"] = {}
+
+    def frames(name, quality):
+        out = {}
+        for k, wh in sizes.items():
+            out[k] = frame(quality, wh)  # a first frame: the allocator's blocks
+            out[k], ms = timed_render(lambda: frame(quality, wh))
+            check(bool(torch.isfinite(out[k]).all()), f"{name} {k}: non-finite values")
+            db, db_u = psnr(out[k], exact[k]), psnr(out[k], uncropped[k])
+            numbers["frame_ms"][f"{name}_{k}"], numbers["psnr_vs_exact_db"][f"{name}_{k}"] = ms, db
+            numbers["psnr_vs_uncropped_exact_db"][f"{name}_{k}"] = db_u
+            print(f"fast renders {name} {wh[0]}x{wh[1]}: {ms:.1f} ms on {card}; PSNR against "
+                  f"the exact frame {db:.2f} dB, against it without the crop box {db_u:.2f} dB")
+        return out
+
+    def bake(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        numbers["bake_s"][name] = time.perf_counter() - t0
+        return result
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    cache = bake("baked", lambda: task._get_baked(origin=eye))
+    print(f"fast renders baked bake: {numbers['bake_s']['baked']:.2f} s, {cache.n_rows} rows, "
+          f"resolutions {cache.res_host}")
+    baked_frames = frames("baked", "baked")
+    xfs = [np.asarray(tb.nerf_dataset.xforms_start[v], np.float32) for v in FAST_BATCH_VIEWS]
+    _, kw = view0_wh(task, FAST_RES, FAST_RES)
+    bkw = dict(focal_lengths=[kw["focal_length"]] * 3, principal_points=[kw["principal_point"]] * 3,
+               render_quality="baked")
+    batch, numbers["frame_ms"]["baked_batch_3x256"] = timed_render(
+        lambda: task.render_batch(FAST_RES, FAST_RES, xfs, **bkw))
+    one = task.render(FAST_RES, FAST_RES, xfs[0], render_quality="baked", **kw)
+    check(torch.equal(batch[0], one), "render_batch's view 0 differs from the baked render")
+    print(f"fast renders baked render_batch of {len(xfs)} views at {FAST_RES}^2: "
+          f"{numbers['frame_ms']['baked_batch_3x256']:.1f} ms")
+    dvols = bake("slab_deferred", lambda: task._get_slab(eye=eye))
+    print(f"fast renders slab bake (deferred, {dvols.n_feat} features): "
+          f"{numbers['bake_s']['slab_deferred']:.2f} s, resolutions {dvols.res}")
+    slab_frames = {"slab_deferred": frames("slab_deferred", "slab")}
+    task.slab_deferred_vd = False
+    bake("slab_diffuse", lambda: task._get_slab(eye=eye))
+    slab_frames["slab_diffuse"] = frames("slab_diffuse", "slab")
+    task.slab_deferred_vd, task.slab_bake_view_dependent = True, True
+    bake("slab_view_dependent", lambda: task._get_slab(origin=eye, eye=eye))
+    slab_frames["slab_view_dependent"] = frames("slab_view_dependent", "slab")
+    task.slab_bake_view_dependent = False
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"fast renders launches: {launches}")
+    check(all(launches[k] > 0 for k in FAST_KERNELS), f"a kernel was not launched: {launches}")
+
+    # one deferred 1080p frame: its launches, its device time (torch.profiler),
+    # and the calls of P, the products and O kept for their checks
+    frame("slab", RENDER_WH)  # the deferred bake again
+    keep_p, orig_p = first_call(slab, "slab_step", lambda a: a[0].shape[0] == slab.SLAB_CHUNK
+                                and a[0].shape[1] == FAST_SWEEP_B)
+    keep_m, orig_m = first_call(slab, "slab_products", lambda a: a[2].shape[:2] ==
+                                (slab.SLAB_CHUNK, FAST_SWEEP_B))
+    keep_o, orig_o = first_call(slab, "warp_composite", lambda a: True)
+    try:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        frame("slab", RENDER_WH)
+        torch.cuda.synchronize()
+        per_frame = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    finally:
+        slab.slab_step, slab.slab_products, slab.warp_composite = orig_p, orig_m, orig_o
+    split = device_split(lambda: frame("slab", RENDER_WH), "slab_step", reps=2)
+    wall = numbers["frame_ms"]["slab_deferred_1080p"]
+    numbers["slab_1080p_frame"] = {"launches": per_frame, **split, "wall_ms": wall}
+    print(f"fast renders slab deferred 1080p frame: kernel launches {per_frame}; "
+          f"{split['events_per_call']} device events, device busy {split['device_ms']:.1f} ms "
+          f"of {wall:.1f} ms ({busy_text(wall, split['device_ms'])})")
+
+    n_check, d_check = check_baked_round(task, cache, RENDER_WH, device)
+    p_check = check_slab_step(keep_p)
+    m_check = check_slab_products(keep_m)
+    o_check = check_slab_warp(keep_o)
+    p_check["products"] = m_check
+    print(f"fast renders slab products (chunk of {slab.SLAB_CHUNK} at B 1024): TF32 "
+          f"{m_check['tf32_ms']:.3f} ms, f32 {m_check['f32_ms']:.3f} ms, "
+          f"{m_check['flop'] / 1e9:.2f} GFLOP; TF32 against f32 {m_check['max_rel_err_tf32_vs_f32']:.2e}"
+          f" of max |ref|")
+
+    # the plain route's frames: the bakes through A and B's plain versions,
+    # then N, D, P and O's
+    dbs = {}
+    for quality, ref in (("baked", baked_frames["256"]), ("slab", slab_frames["slab_deferred"]["256"])):
+        plain = vs_plain(task, lambda: frame(quality, sizes["256"]))
+        dbs[quality] = psnr(ref, plain)
+        print(f"fast renders {quality} {FAST_RES}^2 kernel vs plain: PSNR {dbs[quality]:.2f} dB")
+        check(dbs[quality] >= MIN_PSNR_DB, f"fast renders {quality} kernel vs plain PSNR {dbs[quality]}")
+    numbers["psnr_vs_plain_db"] = dbs
+    task._baked_cache = task._slab_cache = None
+    print(f"fast renders phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"baked_query": n_check, "composite_window_activated": d_check,
+                      "slab_step": p_check, "slab_warp": o_check}, numbers
+
+
 IMAGE_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "hashgrid_encode_bwd", "fused_mlp_bwd",
                  "bilinear_read")
 # compute_image_mse (bilinear targets) and a render with ground-truth tiles (nearest texels)
@@ -5111,7 +5444,7 @@ def gather_phase() -> dict:
 
 def main() -> None:
     t_main = time.perf_counter()
-    name, card = phase_device()
+    device_name, card = phase_device()
     phase_build()
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.testbed import Testbed
@@ -5199,6 +5532,13 @@ def main() -> None:
     for r in results:
         if r["name"] == "fused_mlp_bwd":
             r["variants"]["views_normals"] = views_checks["fused_mlp_bwd"]
+    # the baked and slab renders: kernels N, D's activated mode, P and O
+    fast_launches, fast_checks, _ = fast_renders_phase(device, card)
+    for kernel, route, source, replaces in FAST_RECORDS:
+        v = fast_checks[kernel]
+        record_kernel(results, kernel, source, replaces, v["max_abs_err"], **headline(v), route=route,
+                      extra=f" (device {v['kernel_ms']:.4f} ms a call, {v['timed_by']})",
+                      path="fast_renders", device_ms=v["kernel_ms"], variants={"fast_renders": v})
     disk_pair = disk_checks.pop("fwd_bwd_pair")
     for r in results:  # the disk path's checks are variants of each record
         for variant, v in disk_checks.get(r["name"], {}).items():
@@ -5303,14 +5643,15 @@ def main() -> None:
              "sdf_render": sdf_render_launches, "volume": volume_launches,
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
              "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches,
-             "views": views_launches, "camera": camera_launches, "capture": capture_launches}
+             "views": views_launches, "camera": camera_launches, "capture": capture_launches,
+             "fast_renders": fast_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)
         counter = r.pop("counter", r["name"])
         path = r.pop("path", None)
         for path_name, counts in paths.items():
-            r[f"{path_name}_launches"] = counts[counter]
+            r[f"{path_name}_launches"] = counts.get(counter, 0)
         # launches: those of the record's own path; for the kernels of the NeRF
         # paths, the training run's where it runs them, else the render's
         r["launches"] = (paths[path][counter] if path is not None
@@ -5320,7 +5661,7 @@ def main() -> None:
     print(f"chip_smoke.py: {time.perf_counter() - t_main:.1f} s of command time in all")
     print(json.dumps({"kernels": results}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
 
 

@@ -62,6 +62,16 @@ SIGNATURES = {
     # cost_new
     "composite_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _I, _I, _P, _P, _P, _P, _P, _P],
+    # the same without the activations: kernel D's activated mode (the baked render)
+    "composite_window_activated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _F, _P, _P, _P, _P, _P, _P],
+    # pos (M, 3) f32, index (int32), table ((rows, 32) bf16), offsets, res
+    # (int32 a cascade), max_mip, M, out (M, 4) f32: kernel N
+    "baked_query": [_P, _P, _P, _P, _P, _I, _L, _P, _P],
+    # dirs (N, 3) f32, N, eye (3 floats), outer_pk, l_pk (bf16 quad rows),
+    # zb_tab (6, L) f32, win_lo, win_hi (6, L, 2) f32, bg (4,) f32, B0, Bo,
+    # nc, C, out (N, 5 or C + 1) f32: kernel O
+    "slab_warp": [_P, _L, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # x, g, level scale/res/size/offset/hashed (host arrays), n_dims,
     # n_levels, n_features, interpolation, n_draws, draw offsets (host
     # float[L*8]), g_scale, n, dtable
@@ -130,7 +140,11 @@ QUERIES = {
     "gather_cols_limits": ([_I, _P], _I),
 }
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# kernels written in Triton (compiled by Triton at first use, not by nvcc);
+# their wrappers count their launches here too (``count``)
+TRITON_KERNELS = ("slab_step",)
+
+LAUNCHES = {name: 0 for name in (*SIGNATURES, *TRITON_KERNELS)}
 
 _lib = None
 
@@ -222,6 +236,11 @@ def launch(name: str, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def count(name: str) -> None:
+    """Count one launch of the Triton kernel ``name``."""
     LAUNCHES[name] += 1
 
 

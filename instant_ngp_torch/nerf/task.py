@@ -14,6 +14,12 @@ training has made one, as the JAX package does (task.py:2169).
 
 ``composite_window`` launches kernel D (``csrc/composite.cu``) on CUDA
 tensors and runs ``composite_window_plain`` on CPU tensors.
+
+Two faster render qualities read a bake of the model instead of the model:
+"baked" (``nerf/baked.py``: march, one table row a sample through kernel N,
+kernel D's activated mode) and "slab" (``nerf/slab.py``: dense volumes
+swept slab by slab, kernels P and O). Each bake is cached on the task, keyed
+on the step, its settings and the route (kernels or plain versions).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..common import (
     ACTIVATION_CODES,
     EPS_T,
     MAX_DEPTH,
+    MIN_CONE_STEPSIZE,
     NERF_CASCADES,
     NERF_GRIDSIZE,
     LensMode,
@@ -48,6 +55,7 @@ from ..ops.optimizers import (Optimizer, OptimizerSpec, camera_optimizer, camera
                               state_from_tree, state_to_tree)
 from ..ops.raymarch import ray_intersect_aabb
 from ..render.camera import so3_exp, uv_to_ray_cam
+from . import baked, slab
 from . import train as nerf_train
 from .occupancy import OccupancyGrid, mark_untrained_cells
 from .sampler import MarchConfig, march_rays, march_rays_plain
@@ -70,7 +78,7 @@ def running_sum(x: torch.Tensor) -> torch.Tensor:
 
 def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost,
                            eps_t: float, rgb_activation: NerfActivation,
-                           density_activation: NerfActivation):
+                           density_activation: NerfActivation, activated: bool = False):
     """Composite one (R, K) window of network outputs onto the rays'
     running (T, rgb, depth). The weight of sample k is (1 − e^{−τ_k})·T·
     e^{−Σ_{j<k} τ_j} with τ = σ·dt. Returns the new (t, T, rgb, depth,
@@ -82,9 +90,14 @@ def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
     The running sum is therefore taken in f32, one sample after another:
     the order of kernel D and of XLA's cumsum (a reduce-window), where
     torch.cumsum accumulates in f64 on the CPU and by a parallel scan on
-    the GPU."""
-    rgb_s = network_to_rgb(out[..., :3].to(torch.float32), rgb_activation)
-    sigma = network_to_density(out[..., 3].to(torch.float32), density_activation)
+    the GPU. ``activated``: out holds activated [r, g, b, σ] (a baked
+    render's samples), read as they are (task.py:1853-1860)."""
+    if activated:
+        rgb_s = out[..., :3].to(torch.float32)
+        sigma = out[..., 3].to(torch.float32)
+    else:
+        rgb_s = network_to_rgb(out[..., :3].to(torch.float32), rgb_activation)
+        sigma = network_to_density(out[..., 3].to(torch.float32), density_activation)
     sigma = torch.where(valid, sigma, 0.0)
     tau = sigma * dts
     T_cum = T[:, None] * torch.exp(-running_sum(tau) + tau)
@@ -102,12 +115,13 @@ def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
 
 def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost,
                      eps_t: float, rgb_activation: NerfActivation,
-                     density_activation: NerfActivation):
+                     density_activation: NerfActivation, activated: bool = False):
     """See ``composite_window_plain``. CPU tensors run the plain version;
-    CUDA tensors launch kernel D (one thread per ray)."""
+    CUDA tensors launch kernel D (one thread per ray), ``activated`` its
+    activated mode."""
     if out.device.type == "cpu":
         return composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
-                                      cost, eps_t, rgb_activation, density_activation)
+                                      cost, eps_t, rgb_activation, density_activation, activated)
     R, K = ts.shape
     f32 = [out, ts, dts, t, t_exit, T, rgb, depth, tmax, cost]
     cuda_lib.check_cuda(*f32, dtype=torch.float32)
@@ -121,13 +135,16 @@ def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
     alive_new = torch.empty_like(alive)
     cost_new = torch.empty_like(cost)
     if R > 0:
-        cuda_lib.launch("composite_window", out.data_ptr(), ts.data_ptr(), dts.data_ptr(),
-                        valid.data_ptr(), t.data_ptr(), t_exit.data_ptr(), T.data_ptr(),
-                        rgb.data_ptr(), depth.data_ptr(), alive.data_ptr(), tmax.data_ptr(),
-                        cost.data_ptr(), R, K, eps_t, ACTIVATION_CODES[rgb_activation],
-                        ACTIVATION_CODES[density_activation], T_new.data_ptr(),
-                        rgb_new.data_ptr(), depth_new.data_ptr(), alive_new.data_ptr(),
-                        cost_new.data_ptr())
+        ptrs = (out.data_ptr(), ts.data_ptr(), dts.data_ptr(), valid.data_ptr(), t.data_ptr(),
+                t_exit.data_ptr(), T.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
+                alive.data_ptr(), tmax.data_ptr(), cost.data_ptr(), R, K, eps_t)
+        outs = (T_new.data_ptr(), rgb_new.data_ptr(), depth_new.data_ptr(),
+                alive_new.data_ptr(), cost_new.data_ptr())
+        if activated:
+            cuda_lib.launch("composite_window_activated", *ptrs, *outs)
+        else:
+            cuda_lib.launch("composite_window", *ptrs, ACTIVATION_CODES[rgb_activation],
+                            ACTIVATION_CODES[density_activation], *outs)
     return t_exit, T_new, rgb_new, depth_new, alive_new, cost_new
 
 
@@ -172,6 +189,23 @@ class NerfTask:
         self.render_march_iters = 64
         self.render_samples_per_window = 8
         self.render_near_distance = 0.0
+        # the baked render (task.py:394-399): a window of 16 samples, the
+        # finest cascade baked at 256^3; the slab render (task.py:400-420):
+        # levels of an eye-centred clipmap, the finest 0.25 across at 256^3,
+        # the outer ones at 192^3, deferred view dependence through 3 PCA
+        # features of the density MLP's output (or a per-camera bake)
+        self.baked_samples_per_window = 16
+        self.baked_res0 = 256
+        self._baked_cache = None  # (key, BakedCache)
+        self._slab_cache = None  # (key, DenseVolumes, the rgb head at the bake)
+        self.slab_res0 = 256
+        self.slab_res_outer = 192
+        self.slab_finest_extent = 0.25
+        self.slab_bake_view_dependent = False
+        self.slab_deferred_vd = True
+        self.slab_n_feat = 3
+        self._slab_feat_proj = None  # the frozen (mu, sd, P) PCA basis
+        self.mesh = None  # a device mesh for the slab warp: Queue 1 item 4
         # render crop box: the dataset crop intersected with the scene
         # aabb; an empty intersection means no crop
         self.render_aabb_min = np.array(self.aabb_min)
@@ -679,12 +713,15 @@ class NerfTask:
                                    self._t(self.render_aabb_max))
         return torch.maximum(tmin, t2min), torch.minimum(tmax, t2max)
 
-    def _march_window(self, o, d, t, alive, tmax):
+    def _march_window(self, o, d, t, alive, tmax, window: int | None = None,
+                      dt_scale: float = 1.0):
         """March one K-sample window from t for the alive rays (dead rays
-        start at MAX_DEPTH, so they emit nothing)."""
+        start at MAX_DEPTH, so they emit nothing); K is ``window`` or
+        ``render_samples_per_window``, the steps scaled by ``dt_scale``."""
         cfg = MarchConfig(n_march_iters=self.render_march_iters,
-                          max_samples_per_ray=self.render_samples_per_window,
-                          cone_angle=self.cone_angle, max_mip=self.max_cascade)
+                          max_samples_per_ray=window or self.render_samples_per_window,
+                          cone_angle=self.cone_angle, max_mip=self.max_cascade,
+                          dt_scale=dt_scale)
         jitter = torch.full_like(t, 0.5)
         t_in = torch.where(alive, t, MAX_DEPTH)
         march = march_rays if self.use_kernels else march_rays_plain
@@ -723,18 +760,33 @@ class NerfTask:
         return None if vec is None else vec[None, :].expand(n, vec.shape[0])
 
     def _composite_window(self, out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
-                          cost, eps_t=EPS_T):
+                          cost, eps_t=EPS_T, activated: bool = False):
         composite = composite_window if self.use_kernels else composite_window_plain
         return composite(out, ts, dts, valid.contiguous(), t, t_exit, T, rgb, depth,
                          alive.contiguous(), tmax, cost, eps_t, self.rgb_activation,
-                         self.density_activation)
+                         self.density_activation, activated)
+
+    def _baked_window(self, cache, o, d, t, alive, tmax, dt_scale: float):
+        """One baked round's march and samples (task.py:1820-1838): a window
+        of ``baked_samples_per_window`` samples, each one row of the cache
+        (kernel N). Returns the march and the (R, K, 4) activated samples."""
+        query = baked.query if self.use_kernels else baked.query_plain
+        ts, dts, valid, t_exit, _ = self._march_window(
+            o, d, t, alive, tmax, window=self.baked_samples_per_window, dt_scale=dt_scale)
+        R, K = ts.shape
+        pos = fma(ts[..., None], d[:, None, :], o[:, None, :])
+        return ts, dts, valid, t_exit, query(cache, pos.reshape(R * K, 3)).reshape(R, K, 4)
 
     @torch.no_grad()
-    def _render_rays(self, o, d, tminmax=None, max_rounds: int = 64, fast: bool = False):
+    def _render_rays(self, o, d, tminmax=None, max_rounds: int = 64, fast: bool = False,
+                     baked_cache=None):
         """Render rays → (rgb (R, 3), alpha (R,), depth (R,), cost (R,)):
         windows of march + eval + composite on the alive rays, compacted
         before each window. Without ``tminmax`` the rays are clipped to the
-        crop box and the near distance here."""
+        crop box and the near distance here. With ``baked_cache`` the
+        windows read the bake (``_baked_window``) and march at its finest
+        cell size; JAX takes two baked rounds a dispatch, so the bound is
+        2 × ``max_rounds`` rounds (task.py:1903-1973)."""
         R = o.shape[0]
         if tminmax is not None:
             tmin, tmax = tminmax
@@ -747,17 +799,25 @@ class NerfTask:
         depth = torch.zeros((R,), dtype=torch.float32, device=o.device)
         cost = torch.zeros((R,), dtype=torch.float32, device=o.device)
         alive = tmax > tmin
+        if baked_cache is not None:
+            # the field is trilinear a cell: steps finer than its finest cell buy nothing
+            baked_dt = max(1.0, (1.0 / float(baked_cache.res_host[0])) / MIN_CONE_STEPSIZE)
+            max_rounds *= 2
         for _ in range(max_rounds):
             idx = torch.nonzero(alive).squeeze(1)
             if idx.numel() == 0:
                 break
             o_c, d_c, t_c, tmax_c = o[idx].contiguous(), d[idx].contiguous(), t[idx], tmax[idx]
             alive_c = torch.ones_like(idx, dtype=torch.bool)
-            ts, dts, valid, t_exit, _ = self._march_window(o_c, d_c, t_c, alive_c, tmax_c)
-            out = self._eval_window(o_c, d_c, ts, valid, fast=fast)
+            if baked_cache is not None:
+                ts, dts, valid, t_exit, out = self._baked_window(baked_cache, o_c, d_c, t_c,
+                                                                 alive_c, tmax_c, baked_dt)
+            else:
+                ts, dts, valid, t_exit, _ = self._march_window(o_c, d_c, t_c, alive_c, tmax_c)
+                out = self._eval_window(o_c, d_c, ts, valid, fast=fast)
             t_n, T_n, rgb_n, depth_n, alive_n, cost_n = self._composite_window(
                 out, ts, dts, valid, t_c, t_exit, T[idx], rgb[idx], depth[idx], alive_c,
-                tmax_c, cost[idx], self.min_transmittance)
+                tmax_c, cost[idx], self.min_transmittance, activated=baked_cache is not None)
             t[idx], T[idx], rgb[idx], depth[idx] = t_n, T_n, rgb_n, depth_n
             alive[idx], cost[idx] = alive_n, cost_n
         return rgb, 1.0 - T, depth, cost
@@ -786,17 +846,27 @@ class NerfTask:
         ``aperture_size`` > 0 renders a thin lens focused at ``focus_z``:
         sample s sits on the aperture disk at Halton(s + 1; 5, 7).
         ``render_quality`` "fast" reads one stochastic corner a hashed level
-        (kernel A's stochastic mode); "baked" and "slab" are not ported."""
+        (kernel A's stochastic mode); "baked" renders through a bake at the
+        camera's position (``nerf/baked.py``); "slab" through the dense
+        volumes (``_render_slab``), which, as in the JAX package, ignores
+        ``spp``, ``uv_warp_fn``, the thin lens and ``to_srgb``. The G-buffer
+        modes of "baked" and "slab" take the exact path (task.py:2173-2185)."""
         if render_mode not in RENDER_MODES:
             raise ValueError(f"unknown render mode {render_mode!r}")
-        if render_quality not in ("exact", "fast"):
-            raise NotImplementedError(f"render_quality {render_quality!r} waits for ROADMAP "
-                                      "Queue 1 item 3 (the baked and slab renders)")
+        if render_quality not in RENDER_QUALITIES:
+            raise ValueError(f"unknown render quality {render_quality!r}")
+        if render_mode != "shade" and render_quality in ("slab", "baked"):
+            render_quality = "exact"  # the bakes carry only [rgb, σ]
         fast = render_quality == "fast"
         if focal_length is None:
             fl = 0.5 * height / math.tan(0.5 * math.radians(fov))
             focal_length = (fl, fl)
         xform_np = np.asarray(camera_matrix, np.float32)
+        if render_quality == "slab":
+            return self._render_slab(width, height, xform_np, focal_length, principal_point,
+                                     background, return_depth=return_depth)
+        baked_cache = (self._get_baked(origin=xform_np[:, 3]) if render_quality == "baked"
+                       else None)
         xform = self._t(xform_np)
         ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
         xs = xs.reshape(-1).astype(np.float32)
@@ -822,7 +892,8 @@ class NerfTask:
                 else:
                     o, d, tmin, tmax = self._prep_rays(uv_c, wh, fl, pp, xform)
                     tminmax = (tmin, tmax)
-                rgb, alpha, depth, cost = self._render_rays(o, d, tminmax=tminmax, fast=fast)
+                rgb, alpha, depth, cost = self._render_rays(o, d, tminmax=tminmax, fast=fast,
+                                                            baked_cache=baked_cache)
                 if render_mode == "shade" and self.train_envmap and "envmap" in self.cam_offsets:
                     env = nerf_train.read_envmap(self.cam_offsets["envmap"], d, self.use_kernels)
                     rgb = rgb + (1.0 - alpha)[:, None] * env[:, :3]
@@ -844,6 +915,208 @@ class NerfTask:
         frame = torch.cat([rgb, alpha[:, None]], -1).reshape(height, width, 4)
         if return_depth:
             return frame, (depth_acc * inv).reshape(height, width)
+        return frame
+
+    @torch.no_grad()
+    def render_batch(self, width: int, height: int, camera_matrices, focal_lengths=None,
+                     principal_points=None, background=(0.0, 0.0, 0.0, 0.0),
+                     render_quality: str = "exact") -> torch.Tensor:
+        """V views through one pool of rays (task.py:2346-2399) → (V, H, W,
+        4) f32 on the task's device, shade mode at the pixel centres. Each
+        view's focal length defaults to a 50° field of view and its principal
+        point to the centre; "baked" bakes at the first camera's position."""
+        if render_quality not in ("exact", "baked"):
+            raise ValueError(f"render_batch renders exact or baked, not {render_quality!r}")
+        V = len(camera_matrices)
+        baked_cache = None
+        if render_quality == "baked":
+            baked_cache = self._get_baked(
+                origin=np.asarray(camera_matrices[0], np.float32)[:, 3])
+        ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+        uv = torch.from_numpy(np.stack([(xs.reshape(-1) + 0.5) / width,
+                                        (ys.reshape(-1) + 0.5) / height],
+                                       -1).astype(np.float32)).to(self.device)
+        wh = self._t([width, height])
+        rays = []
+        for v in range(V):
+            fl = (focal_lengths[v] if focal_lengths is not None
+                  else (0.5 * height / math.tan(0.5 * math.radians(50.0)),) * 2)
+            pp = principal_points[v] if principal_points is not None else (0.5, 0.5)
+            rays.append(self._prep_rays(uv, wh, self._t(fl), self._t(pp),
+                                        self._t(camera_matrices[v])))
+        o, d, tmin, tmax = (torch.cat(parts) for parts in zip(*rays))
+        rgbs, alphas = [], []
+        for i in range(0, o.shape[0], RENDER_CHUNK):
+            sl = slice(i, i + RENDER_CHUNK)
+            rgb, alpha, _, _ = self._render_rays(o[sl], d[sl], tminmax=(tmin[sl], tmax[sl]),
+                                                 baked_cache=baked_cache)
+            rgbs.append(rgb)
+            alphas.append(alpha)
+        rgb, alpha = torch.cat(rgbs), torch.cat(alphas)
+        bg = self._t(background)
+        rgb = rgb + (1.0 - alpha)[:, None] * bg[None, :3] * (bg[3] if len(bg) > 3 else 1.0)
+        return torch.cat([rgb, alpha[:, None]], -1).reshape(V, height, width, 4)
+
+    def get_camera_extrinsics(self, frame_idx: int) -> np.ndarray:
+        """3×4 camera-to-world of a training view in the source (nerf)
+        convention (task.py:1286-1294); the identity out of range."""
+        ds = self.dataset
+        i = int(frame_idx)
+        if not 0 <= i < ds.n_images:
+            return np.eye(3, 4, dtype=np.float32)
+        return ds.ngp_matrix_to_nerf(np.asarray(ds.xforms_start[i], np.float32))
+
+    # --- the baked and slab renders (task.py:1484-1698) ---
+    def _bitfield(self) -> torch.Tensor:
+        """The training grid's occupancy (NERF_CASCADES, G, G, G) bool."""
+        return self.skipmip == 0
+
+    def _model_fns(self):
+        """Closures over the inference parameters: the whole model (pos,
+        warped dirs) → (n, 4) logits, the density MLP pos → (n, 16), and
+        the rgb head (features (n, 16), warped dirs) → (n, 3) logits, the
+        latent inputs at zero."""
+        params = self.inference_params()
+        model = self.model
+
+        def full(pos, dirs):
+            return functional_call(model, params, (pos, dirs))
+
+        def density(pos):
+            return self.inference_density(pos, params)
+
+        def rgb(feat, dirs):
+            inputs = [feat.to(torch.float32),
+                      functional_call(model.dir_encoding, _strip(params, "dir_encoding."),
+                                      (dirs,)).to(torch.float32)]
+            if model.n_extra_dims > 0:
+                inputs.append(torch.zeros((feat.shape[0], model.n_extra_dims),
+                                          dtype=torch.float32, device=feat.device))
+            return functional_call(model.rgb_network, _strip(params, "rgb_network."),
+                                   (torch.cat(inputs, -1),))
+
+        return full, density, rgb
+
+    @torch.no_grad()
+    def bake(self, origin=None, res0: int | None = None,
+             max_rows_log2: int = 21) -> baked.BakedCache:
+        """Bake the model into a ``BakedCache`` (task.py:1484-1503): 64-byte
+        records of the occupied cells. origin: a camera position for a
+        view-dependent bake; None bakes the fixed direction."""
+        full, _, _ = self._model_fns()
+        return baked.bake(full, self._bitfield().cpu().numpy(), self.max_cascade + 1,
+                          self.aabb_min, self.aabb_max, self.rgb_activation,
+                          self.density_activation, self.device, origin=origin,
+                          res0=res0 or self.baked_res0, max_rows_log2=max_rows_log2)
+
+    def _get_baked(self, origin=None) -> baked.BakedCache:
+        """The bake of (step, ``baked_res0``, origin rounded to 1e-4, the
+        route), made anew when any of them changes (task.py:1505-1518)."""
+        key = (self.training_step, self.baked_res0,
+               None if origin is None else
+               tuple(np.round(np.asarray(origin, np.float64), 4).tolist()), self.use_kernels)
+        c = self._baked_cache
+        if c is not None and c[0] == key:
+            return c[1]
+        cache = self.bake(origin=origin)
+        self._baked_cache = (key, cache)
+        return cache
+
+    @torch.no_grad()
+    def _get_slab(self, origin=None, eye=None) -> slab.DenseVolumes:
+        """The dense-volume bake of the slab render (task.py:1520-1576),
+        cached on (step, resolutions, deferred, origin, clipmap boxes, the
+        route). Diffuse with the deferred features unless
+        ``slab_bake_view_dependent`` asks for a bake at the camera; the
+        levels are an eye-centred clipmap where the scene has more than one
+        cascade."""
+        if not self.slab_bake_view_dependent:
+            origin = None
+        boxes = None
+        if eye is not None and self.max_cascade > 0:
+            boxes = slab.clipmap_boxes(eye, self.aabb_min, self.aabb_max,
+                                       finest_extent=self.slab_finest_extent)
+        deferred = self.slab_deferred_vd and origin is None and self.slab_n_feat > 0
+        key = (self.training_step, self.slab_res0, self.slab_res_outer, deferred,
+               None if origin is None else
+               tuple(np.round(np.asarray(origin, np.float64), 4).tolist()),
+               None if boxes is None else boxes.tobytes(), self.use_kernels)
+        c = self._slab_cache
+        if c is not None and c[0] == key:
+            return c[1]
+        self._slab_cache = None  # the old bake's memory goes before the new one's
+        _, density, rgb = self._model_fns()
+        feat_proj = self._get_slab_feat_proj(density) if deferred else None
+        dvols = slab.bake_dense(density, rgb, self._bitfield(), self.max_cascade + 1,
+                                self.aabb_min, self.aabb_max, self.rgb_activation,
+                                self.density_activation, origin=origin, res0=self.slab_res0,
+                                res_outer=self.slab_res_outer, boxes=boxes, feat_proj=feat_proj)
+        self._slab_cache = (key, dvols, rgb)
+        return dvols
+
+    def _get_slab_feat_proj(self, density) -> tuple:
+        """The frozen PCA basis (mu (16,), sd (16,), P (16, F)) of the
+        density MLP's output at up to 8,192 seeded points of each cascade's
+        occupied cells (task.py:1579-1611), made once a task."""
+        if self._slab_feat_proj is not None:
+            return self._slab_feat_proj
+        F = int(self.slab_n_feat)
+        bf = self._bitfield().cpu().numpy()
+        rng = np.random.default_rng(3)
+        pts = []
+        for mip in range(bf.shape[0]):
+            idx = np.flatnonzero(bf[mip])
+            if len(idx) == 0:
+                continue
+            if len(idx) > 8192:
+                idx = rng.choice(idx, 8192, replace=False)
+            i, j, k = np.unravel_index(idx, (NERF_GRIDSIZE,) * 3)
+            cell = (np.stack([i, j, k], -1) + rng.random((len(idx), 3))) / NERF_GRIDSIZE
+            pts.append((cell - 0.5) * (2.0 ** mip) + 0.5)
+        pos = (np.concatenate(pts, 0).astype(np.float32) if pts
+               else rng.random((4096, 3)).astype(np.float32))
+        pos_w = (pos - self.aabb_min) / (self.aabb_max - self.aabb_min)
+        feats = density(self._t(np.clip(pos_w, 0.0, 1.0))).to(torch.float32).cpu().numpy()
+        mu = feats.mean(0).astype(np.float32)
+        sd = np.maximum(feats.std(0), 1e-4).astype(np.float32)
+        _, _, vt = np.linalg.svd((feats - mu) / sd, full_matrices=False)
+        self._slab_feat_proj = (mu, sd, vt[:F].T.astype(np.float32).copy())
+        return self._slab_feat_proj
+
+    @torch.no_grad()
+    def _render_slab(self, width, height, xform: np.ndarray, focal_length, principal_point,
+                     background, return_depth: bool = False):
+        """A frame through the slab renderer (task.py:1613-1698): the dense
+        bake, the sweeps and the warp (``slab.render_frame``), then, with
+        deferred features, the per-pixel decode through the rgb MLP. Rays at
+        the pixel centres through the dataset's lens; the groups planned on
+        the host for a perspective lens, else reduced on the device. Returns
+        (H, W, 4) [premultiplied rgb over the background, α] (and the (H, W)
+        depth)."""
+        if self.mesh is not None:
+            from ..testbed import not_ported
+
+            raise not_ported("the slab render's pixel-sharded warp over a device mesh", 4)
+        eye = xform[:, 3]
+        dvols = self._get_slab(origin=eye, eye=eye)
+        rgb_head = self._slab_cache[2]
+        ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+        uv = torch.from_numpy(np.stack([(xs.reshape(-1) + 0.5) / width,
+                                        (ys.reshape(-1) + 0.5) / height],
+                                       -1).astype(np.float32)).to(self.device)
+        _, d, _, _ = self._prep_rays(uv, self._t([width, height]), self._t(focal_length),
+                                     self._t(principal_point), self._t(xform))
+        B0 = 512 if max(width, height) <= 640 else 1024
+        plan = None
+        if LensMode(self.dataset.lens_mode) == LensMode.PERSPECTIVE:
+            plan = slab.plan_groups_host(xform, (width, height), focal_length, principal_point)
+        out = slab.render_frame(dvols, eye, d, background=np.asarray(background, np.float32),
+                                B0=B0, Bo=B0 // 2, plan=plan, use_kernels=self.use_kernels)
+        if dvols.n_feat > 0:
+            out = slab.deferred_decode(out, d, rgb_head, dvols.feat_proj, self.rgb_activation)
+        frame = out[:, :4].reshape(height, width, 4)
+        if return_depth:
+            return frame, out[:, 4].reshape(height, width)
         return frame
 
     def _thin_lens_rays(self, uv, wh, fl, pp, xform: np.ndarray, s: int):
@@ -976,6 +1249,7 @@ def distortion_read(dist: torch.Tensor, uv: torch.Tensor, use_kernel: bool = Tru
 
 RENDER_MODES = ("shade", "depth", "positions", "normals", "ao", "cost", "encodingvis",
                 "distortion", "slice")
+RENDER_QUALITIES = ("exact", "fast", "baked", "slab")
 
 
 def _strip(params: dict, prefix: str) -> dict:

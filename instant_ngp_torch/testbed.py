@@ -120,7 +120,7 @@ CAMERA_FLAGS = ("optimize_extrinsics", "optimize_exposure", "optimize_focal_leng
                 "optimize_distortion")
 
 # ROADMAP Queue 1's items that parts of the surface wait for
-NOT_PORTED_ITEMS = {3: "the baked and slab renders", 4: "sharding and the viewer"}
+NOT_PORTED_ITEMS = {4: "sharding and the viewer"}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -838,7 +838,7 @@ class Testbed:
         self.fov_axis = 1
         self.camera_smoothing = False
         self.render_with_lens_distortion = True
-        self.render_quality = "exact"  # or "fast"; "baked" and "slab" wait for item 3
+        self.render_quality = "exact"  # or "fast", "baked", "slab"
         self.render_mode = RenderMode.SHADE
         self.slice_plane_z = 0.0
         self.autofocus = False  # m_autofocus: focus at the crop box's centre
@@ -1221,10 +1221,6 @@ class Testbed:
             self.render_mode)
         mode = mode.replace("_", "")
         quality = self.render_quality
-        if quality in ("baked", "slab"):
-            if mode == "shade":
-                raise not_ported(f"render_quality {quality!r}", 3)
-            quality = "exact"  # the G-buffer modes take the exact path (task.py:2168-2171)
         task.min_transmittance = self.nerf_min_transmittance
         task.visualized_dimension = self.visualized_dimension
         bg = (0.0, 0.0, 0.0, 0.0) if self.render_transparency_as_checkerboard else tuple(
@@ -1312,7 +1308,7 @@ class Testbed:
             frame, depth = self.task.render(
                 width, height, self.camera_matrix, fov=self.fov, spp=spp,
                 background=tuple(self.background_color), return_depth=True,
-                **self._view_intrinsics(width, height))
+                render_quality=self.render_quality, **self._view_intrinsics(width, height))
             produced_linear = self.task.rgb_activation == NerfActivation.EXPONENTIAL
             frame = self._to_space(frame, produced_linear, linear)
             return frame.cpu().numpy(), depth.cpu().numpy()
@@ -1754,7 +1750,11 @@ class Testbed:
         self.training_step = 0
 
     def free_temporary_memory(self) -> None:
-        """Hand the allocator's cached blocks back to the card."""
+        """Drop the NeRF task's baked and slab caches (testbed.py:1703-1713)
+        and hand the allocator's cached blocks back to the card."""
+        for attr in ("_baked_cache", "_slab_cache"):
+            if self.task is not None and hasattr(self.task, attr):
+                setattr(self.task, attr, None)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 

@@ -204,7 +204,9 @@ def test_stochastic_encode_equals_jax_encode_infer(name, interpolation):
 
 def test_fast_render_matches_jax(testbeds):
     """``render_quality="fast"`` in both packages: ≥ 45 dB (95.0 measured),
-    and not the exact frame; through the Testbed too."""
+    and not the exact frame; through the Testbed too. The baked quality no
+    longer waits for Queue 1 item 3: it renders, and is neither frame
+    (tests/test_torch_baked.py holds it against JAX)."""
     ours, theirs = testbeds
     exact, _ = _both(testbeds)
     frame, ref = _both(testbeds, render_quality="fast")
@@ -216,8 +218,13 @@ def test_fast_render_matches_jax(testbeds):
     finally:
         ours.render_quality = "exact"
     assert tb_frame.shape == (RES, RES, 4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ours.task.render(RES, RES, _camera(ours), render_quality="baked")
+    saved, ours.task.baked_res0 = ours.task.baked_res0, 32
+    try:
+        baked = ours.task.render(RES, RES, _camera(ours), render_quality="baked").numpy()
+    finally:
+        ours.task.baked_res0 = saved
+    assert np.isfinite(baked).all()
+    assert not np.array_equal(baked, exact) and not np.array_equal(baked, frame)
 
 
 def test_level_stats_and_density_slice_equal_jax(testbeds):

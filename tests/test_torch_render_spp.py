@@ -110,8 +110,9 @@ def test_samples_sum_in_order_then_the_background():
 def test_other_render_modes_wait_for_queue_1_item_2(pair):
     """The render modes besides shade no longer wait for Queue 1 item 2:
     the depth mode at spp 2 (each sample's depth in rgb, averaged, no
-    background) against JAX's, and the baked and slab qualities still wait
-    for item 3 (tests/test_torch_render_modes.py holds every mode)."""
+    background) against JAX's (tests/test_torch_render_modes.py holds every
+    mode); nor does the slab quality wait for item 3: as in the JAX package
+    it ignores spp (tests/test_torch_slab.py holds it against JAX)."""
     ours, theirs, xf, kw = pair
     frame = ours.render(W, H, xf, spp=2, render_mode="depth", background=(1, 1, 1, 1),
                         **kw).numpy()
@@ -120,5 +121,10 @@ def test_other_render_modes_wait_for_queue_1_item_2(pair):
     assert _psnr(frame, ref) >= MIN_PSNR_DB
     _, depth = ours.render(W, H, xf, spp=2, return_depth=True, **kw)
     np.testing.assert_array_equal(frame[..., 0], depth.numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ours.render(W, H, xf, render_quality="slab", **kw)
+    saved, ours.slab_res0 = ours.slab_res0, 32
+    try:
+        slab = ours.render(W, H, xf, render_quality="slab", **kw)
+        assert torch.equal(slab, ours.render(W, H, xf, render_quality="slab", spp=2, **kw))
+    finally:
+        ours.slab_res0 = saved
+    assert bool(torch.isfinite(slab).all()) and slab.shape == (H, W, 4)

@@ -167,10 +167,16 @@ def test_camera_path_render_equals_jax(pair, tmp_path):
 
 
 def test_later_slices_raise_at_render(pair):
+    """The slab quality no longer raises (Queue 1 item 3 is ported): the
+    Testbed renders it, finite and other than the exact frame
+    (tests/test_torch_slab.py holds it against the JAX Testbed)."""
     ours, _ = pair
+    exact = ours.render(W, H)
     ours.render_quality = "slab"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ours.render(W, H)
+    ours.task.slab_res0 = 32
+    frame = ours.render(W, H)
+    assert np.isfinite(frame).all() and frame.shape == (H, W, 4)
+    assert not np.array_equal(frame, exact)
     # a G-buffer mode takes the exact path whatever the quality, as the JAX
     # Testbed's (nerf/task.py:2168-2171)
     ours.render_mode = port_testbed.RenderMode.DEPTH

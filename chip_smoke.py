@@ -190,6 +190,28 @@ microbenchmarks:
   their bounds, one line per config; kernels A and E at D = 1 on
   ``nerf/tensor.json``'s third slice against their plain versions. Beside the fox MLPs' checks, B and F's wide route on the same
   inputs as the narrow route they take (B bit for bit), each route timed.
+- contract (the rest of the JAX package): the grid's smoothstep interpolation at fox's
+  grid (the snapshot's table): A within 1e-5 (its corners summed in corner order, the plain
+  version's ``torch.sum`` in the reduction's), A's stochastic-corner mode and K bit for
+  bit, E with fox's one draw and exact within 1e-5, each timed on the device beside its
+  bound; B and F (with F's dW launch) on the wide route under leakyrelu, sine, squareplus,
+  softplus and tanh, as the hidden activation at fox's rgb widths and at image/oneblob's
+  (2^17 rows) and as the output activation at fox's (``config_mlp_checks``), each held
+  against the contract evaluated in float64 within the larger of the usual tolerance and
+  twice the plain version's own distance from it, beside one torch call of the
+  activation; then ``configs/nerf/base.json`` with smoothstep and a tanh
+  rgb MLP trained 50 frames on the train phase's views (finite, falling loss; A, E and the
+  wide B, F and dW launched) and its 256² exact, fast and normals frames (A's two modes
+  and K launched);
+- sharded: ``dryrun_multichip(1)`` over NCCL in a child process, then a world of size 1 in
+  this process: fox's step sharded against unsharded from the same seed (the loss, the
+  sample count, Adam's moments and the new parameters where the moment is not tiny), a
+  ``dp_render`` frame and the slab frame with the group as the mesh against the
+  unsharded ones (≥ 60 dB), each sharded run's launches counted on their own, and the
+  step's median time sharded and not, with where the sharded step's extra host time goes;
+- viewer: ``ViewerServer`` over fox's snapshot on 127.0.0.1 in a thread, /api/state and a
+  1920×1080 PNG frame over HTTP, each timed, the frame equal to the Testbed's render in 8
+  bits.
 
 Every kernel's entry in the JSON line has its error against its plain
 version, its time and the plain version's (back to back), its launches on
@@ -211,6 +233,7 @@ path: without CUDA it fails at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -263,6 +286,11 @@ MIN_PSNR_GAIN_DB = 6.0
 # kernel vs plain tolerances of the new kernels, relative to max |ref|, and why
 TOL_ENCODE_BWD = 1e-5  # same corners, weights and draws; f32 atomics sum in another order
 TOL_MLP_BWD = 1e-2  # f32 sums in another order, then rounded to bf16 (1 ulp = 2^-8)
+# where B and F are held against their contract evaluated in float64
+# (``exact_ref_gate``): how much farther from it than the plain version's f32
+# evaluation the kernel's may lie (either order of f32 sums flips bf16
+# roundings of hidden values; neither is the reference)
+EXACT_REF_FACTOR = 2.0
 # same formulas, but d/d sigma holds rgb minus a running sum of K samples, a
 # cancellation that lifts the f32 rounding of the sums (cumsum in another
 # order on the card) by up to K * 2^-24 of rgb. G is held against the plain
@@ -313,6 +341,9 @@ BENCH_ITERS, BENCH_WARMUP = 10, 2  # the gather microbenchmark phase, reduced
 
 # the least time of a kernel: H100 SXM data sheet rates
 HBM_BYTES_PER_S = 3.35e12
+# the kernel build of the tree before the five activations' generic sources:
+# cuda_lib.build of that tree on the H100 machines of three chip calls (PERF.md §6)
+BUILD_S_BEFORE = "98.6, 104.9 and 88.2"
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
@@ -424,7 +455,12 @@ def phase_build() -> None:
 
     path, seconds = cuda_lib.build()
     cuda_lib.load()
-    print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}")
+    print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}; each source's nvcc ended at "
+          f"(s): { {k: round(v, 1) for k, v in sorted(cuda_lib.SOURCE_SECONDS.items())} } "
+          f"(the tree before the five activations' generic sources: {BUILD_S_BEFORE} s in "
+          f"three builds on H100 machines)")
+    for name, out in sorted(cuda_lib.SOURCE_OUTPUT.items()):
+        print(f"nvcc {name} printed: {out.strip()[:2000]}")
     from instant_ngp_torch.ops.mlp_kernel import wgmma_rounding_probe
 
     probe = wgmma_rounding_probe(torch.device("cuda"))
@@ -438,7 +474,9 @@ def phase_build() -> None:
     wide = {k: v for k, v in counts.items() if "mlp_wide_kernel" in k or "mlp_dw_kernel" in k}
     print(f"HGMMA instructions in the SASS of the wide route's kernels: "
           f"{ {k.split('mlp_')[-1][:40]: v for k, v in wide.items()} }")
-    check(len(wide) == 6 and all(v > 0 for v in wide.values()),
+    # B and F at 128 and 256 wide, each also in the generic activations' source,
+    # and the dW kernel at 128 and 256
+    check(len(wide) == 10 and all(v > 0 for v in wide.values()),
           f"a wide kernel has no HGMMA instruction: {wide}")
     from instant_ngp_torch.geometry import bvh
 
@@ -5007,11 +5045,12 @@ class FirstStepInputs:
 def mask_differs(ws, x, act: str, zs) -> torch.Tensor:
     """(N,) bool: rows where a hidden ReLU mask (z > 0, z == 0) of kernel F's
     recompute (zs) differs from the plain forward's; none where the hidden
-    activation is not ReLU."""
+    activation has no kink (neither ReLU nor leakyrelu, whose derivative
+    jumps from 0.01 to 1 at 0 as ReLU's from 0 to 1)."""
     from instant_ngp_torch.ops.mlp_kernel import fused_mlp_plain
 
     differs = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
-    if act.lower() != "relu":
+    if act.lower() not in ("relu", "leakyrelu"):
         return differs
     for i, zk in enumerate(zs[:-1]):
         zp = fused_mlp_plain(ws[:i + 1], x, act, "none")
@@ -5031,11 +5070,11 @@ def mlp_bwd_leaves(outs, refs) -> list[dict]:
     return leaves
 
 
-def mlp_bwd_agrees(leaves) -> bool:
-    """Every leaf within TOL_MLP_BWD of its own max |ref|, with no floor: a
+def mlp_bwd_agrees(leaves, tol: float = TOL_MLP_BWD) -> bool:
+    """Every leaf within tol of its own max |ref|, with no floor: a
     training step's cotangent is about 1/N, so dX and dW lie orders of
     magnitude below 1, and an absolute floor would pass any answer."""
-    return all(v["err"] <= TOL_MLP_BWD * v["scale"] for v in leaves)
+    return all(v["err"] <= tol * v["scale"] for v in leaves)
 
 
 def planted_faults(dx, dws):
@@ -5049,7 +5088,89 @@ def planted_faults(dx, dws):
                [dx, *dws[:j], dw * (1 + 4 * TOL_MLP_BWD), *dws[j + 1:]])
 
 
-def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
+def exact_ref_gate(outs, plains, exacts, tol: float) -> dict:
+    """The kernel's outputs and the plain version's against the same
+    contract evaluated in float64, output by output (B: one; F: dX and each
+    dW): each distance relative to the f64 output's max |ref|, and
+    ``agrees`` where every kernel output lies within max(tol,
+    EXACT_REF_FACTOR · the plain version's distance) of it. Both f32
+    evaluations part from the f64 one only by the order of their sums and
+    the bf16 roundings that order flips, so the kernel may be as far as the
+    plain version is, up to the factor, never farther than tol where the
+    plain version is close."""
+    kernel, plain, ok = [], [], True
+    for o, p, e in zip(outs, plains, exacts):
+        scale = float(e.abs().max())
+        rk = float((o.double() - e).abs().max()) / scale if scale > 0 else 0.0
+        rp = float((p.double() - e).abs().max()) / scale if scale > 0 else 0.0
+        kernel.append(rk)
+        plain.append(rp)
+        ok = ok and rk <= max(tol, EXACT_REF_FACTOR * rp)
+    return {"agrees": ok, "kernel_rel": kernel, "plain_rel": plain}
+
+
+def mlp_forward_f64(ws, x: torch.Tensor, act: str, out_act: str) -> torch.Tensor:
+    """The MLP's forward contract evaluated in float64: the bf16 input and
+    weights, each product and activation in f64, each hidden activation
+    rounded to bf16 from the f64 value, the output activation in f64. Kernel
+    B and ``fused_mlp_plain`` depart from it only by their f32 sums (and the
+    bf16 roundings those flip)."""
+    from instant_ngp_torch.ops.mlp_kernel import _act
+
+    h = x.to(torch.bfloat16).double()
+    for i, w in enumerate(ws):
+        h = h @ w.to(torch.bfloat16).double()
+        if i < len(ws) - 1:
+            h = _act(act, h).to(torch.bfloat16).double()
+    return _act(out_act, h)
+
+
+def mask_differs_f64(ws, x: torch.Tensor, act: str) -> torch.Tensor:
+    """(N,) bool: rows where a hidden kink's side (z > 0, z == 0; ReLU and
+    leakyrelu only) differs between the plain forward and the contract in
+    float64: there the derivative jumps (0 or 0.01 to 1) with the f32
+    rounding of z, and no f32 evaluation is comparable to the f64 one."""
+    from instant_ngp_torch.ops.mlp_kernel import fused_mlp_plain
+
+    differs = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    if act.lower() not in ("relu", "leakyrelu"):
+        return differs
+    for i in range(len(ws) - 1):
+        zp = fused_mlp_plain(ws[:i + 1], x, act, "none")
+        ze = mlp_forward_f64(ws[:i + 1], x, act, "none")
+        differs |= ((zp > 0) != (ze > 0)).any(dim=1) | ((zp == 0) != (ze == 0)).any(dim=1)
+    return differs
+
+
+def mlp_bwd_f64(ws, x: torch.Tensor, g: torch.Tensor, act: str, out_act: str) -> list:
+    """``fused_mlp_bwd_plain``'s recurrences evaluated in float64, with its
+    bf16 roundings (h_i, each dh, each dW, dX) taken from the f64 values:
+    [dX, dW per layer]."""
+    from instant_ngp_torch.ops.mlp_kernel import _act, _act_grad
+
+    def bf(t):
+        return t.to(torch.bfloat16).double()
+
+    wb = [bf(w) for w in ws]
+    hs, zs = [bf(x)], []
+    for i, w in enumerate(wb):
+        zs.append(hs[-1] @ w)
+        if i < len(wb) - 1:
+            hs.append(bf(_act(act, zs[-1])))
+    dz = g.double() * _act_grad(out_act, zs[-1])
+    dws, dx = [None] * len(wb), None
+    for i in reversed(range(len(wb))):
+        dws[i] = bf(hs[i].T @ dz)
+        dh = bf(dz @ wb[i].T)
+        if i > 0:
+            dz = dh * _act_grad(act, zs[i - 1])
+        else:
+            dx = dh
+    return [dx, *dws]
+
+
+def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str,
+                      exact_ref: bool = False) -> dict:
     """Kernels B and F on one MLP of a config at its first training step's
     input and cotangent: B's forward bit for bit against F's recompute, every
     layer's pre-activation; B within TOL_MLP of its plain version's max
@@ -5061,7 +5182,14 @@ def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
     of F's answer; the device time of each on ``cold_copies`` of its inputs
     (a trace of CONFIG_REPS calls: ``kernel_ms`` of the kernel,
     ``device_ms`` of all the call's device work), the plain versions' times
-    (back to back) and the bounds."""
+    (back to back) and the bounds. ``exact_ref``: B and F are held instead
+    against the contract evaluated in float64 (``mlp_forward_f64``,
+    ``mlp_bwd_f64``), each within the larger of TOL_MLP (TOL_MLP_BWD a leaf)
+    of max |ref| and EXACT_REF_FACTOR times the plain version's own distance
+    from it (``exact_ref_gate``), the planted faults refused by that gate,
+    F's rows also left out where a kink's side differs from the f64
+    contract's (``mask_differs_f64``); both distances are returned
+    (``b_exact``, ``f_exact``)."""
     from instant_ngp_torch.ops import mlp_kernel as mk
 
     ws = [w.detach() for w in mlp.weights]
@@ -5076,21 +5204,41 @@ def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
                                   f"{int((zb != z).any(dim=1).sum())} rows")
     out, ref = mk.fused_mlp(ws, x, act, out_act), mk.fused_mlp_plain(ws, x, act, out_act)
     err_b, scale_b = max_err(out, ref)
-    check(err_b <= TOL_MLP * scale_b, f"B {what}: err {err_b} at max |ref| {scale_b}")
+    exact = {}
+    if exact_ref:
+        exact["b_exact"] = exact_ref_gate([out], [ref], [mlp_forward_f64(ws, x, act, out_act)],
+                                          TOL_MLP)
+        check(exact["b_exact"]["agrees"], f"B {what} against the f64 contract: {exact['b_exact']}")
+    else:
+        check(err_b <= TOL_MLP * scale_b, f"B {what}: err {err_b} at max |ref| {scale_b}")
     flipped = mask_differs(ws, x, act, zs)
     near = near_tie_rows(ws, x) if act.lower() == "relu" else flipped
     check(not bool((flipped & ~near).any()),
           f"{what}: {int((flipped & ~near).sum())} rows whose ReLU mask differs lie past a tie")
     keep = ~flipped
+    if exact_ref:  # nor where the plain version's and the f64 contract's masks differ
+        exact["f64_mask_differs_rows"] = int((mask_differs_f64(ws, x, act) & keep).sum())
+        keep &= ~mask_differs_f64(ws, x, act)
     xk, gk = x[keep].contiguous(), g[keep].contiguous()
     (dx, dws), (dx_p, dws_p) = (mk.fused_mlp_bwd(ws, xk, gk, act, out_act),
                                 mk.fused_mlp_bwd_plain(ws, xk, gk, act, out_act))
     leaves = mlp_bwd_leaves([dx, *dws], [dx_p, *dws_p])
-    check(mlp_bwd_agrees(leaves), f"F {what}: a leaf past {TOL_MLP_BWD} of its max |ref|: {leaves}")
+    if exact_ref:
+        ref64 = mlp_bwd_f64(ws, xk, gk, act, out_act)
+
+        def agrees(outs):
+            return exact_ref_gate(outs, [dx_p, *dws_p], ref64, TOL_MLP_BWD)["agrees"]
+
+        exact["f_exact"] = exact_ref_gate([dx, *dws], [dx_p, *dws_p], ref64, TOL_MLP_BWD)
+        check(exact["f_exact"]["agrees"], f"F {what} against the f64 contract: {exact['f_exact']}")
+    else:
+        def agrees(outs):
+            return mlp_bwd_agrees(mlp_bwd_leaves(outs, [dx_p, *dws_p]))
+
+        check(agrees([dx, *dws]), f"F {what}: a leaf past {TOL_MLP_BWD} of its max |ref|: {leaves}")
     faults = 0
     for fault, outs in planted_faults(dx, dws):
-        check(not mlp_bwd_agrees(mlp_bwd_leaves(outs, [dx_p, *dws_p])),
-              f"F {what}: the check passes a planted fault, {fault}")
+        check(not agrees(outs), f"F {what}: the check passes a planted fault, {fault}")
         faults += 1
     n, n_w = x.shape[0], sum(w.numel() for w in ws)
     xs, xgs = cold_copies(x), cold_copies(x, g)
@@ -5127,7 +5275,7 @@ def config_mlp_checks(mlp, x: torch.Tensor, g: torch.Tensor, what: str) -> dict:
                                   reps=CONFIG_REPS, warmup=1),
             "b_bound_ms": b_bound["bound_ms"], "b_bound_by": b_bound["bound_by"],
             "f_bound_ms": f_bound["bound_ms"], "f_bound_by": f_bound["bound_by"],
-            "f_floor_ms": f_floor_ms if routes[1] == "wide" else None, **wide_f}
+            "f_floor_ms": f_floor_ms if routes[1] == "wide" else None, **wide_f, **exact}
 
 
 def grid_slice_checks(enc, x: torch.Tensor, density, seen: dict, what: str) -> dict:
@@ -5423,6 +5571,552 @@ def config_records(results: dict) -> list[dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# the rest of the JAX package: the grid's smoothstep interpolation through A
+# (both modes), E and K; the MLP's five other activations through the wide B
+# and F; data parallelism over torch.distributed; the viewer
+# ---------------------------------------------------------------------------
+NEW_ACTIVATIONS = ("leakyrelu", "sine", "squareplus", "softplus", "tanh")
+# the elementwise activation as one torch call, where one computes the JAX
+# function (squareplus has none; F.softplus's threshold of 20 changes nothing
+# in f32), timed on the first layer's pre-activations as the activation's
+# library yardstick: the MLP itself has no library equivalent
+ACT_LIBRARY = {"leakyrelu": lambda z: torch.nn.functional.leaky_relu(z, 0.01),
+               "sine": torch.sin, "squareplus": None,
+               "softplus": torch.nn.functional.softplus, "tanh": torch.tanh}
+CONTRACT_MLPS = {"fox_rgb": (32, 64, 64, 3), "oneblob": (256,) + (128,) * 8 + (3,)}
+CONTRACT_STEPS = 50
+CONTRACT_KERNELS = ("hashgrid_encode_fwd", "hashgrid_encode_bwd", "fused_mlp", "fused_mlp_bwd",
+                    "fused_mlp_wide", "fused_mlp_bwd_wide", "fused_mlp_dw_wide", "march_rays",
+                    "composite_train", "scatter_add_rows")
+CONTRACT_RENDER_KERNELS = ("hashgrid_encode_fwd", "hashgrid_encode_fwd_stochastic",
+                           "hashgrid_encode_dx", "fused_mlp_wide")
+SHARD_TOL = 1e-5  # sharded against unsharded: Adam's moments, and the new parameters, a leaf
+SHARD_MIN_PSNR_DB = 60.0
+SHARD_RES = 256
+SHARD_PROFILED_STEPS = 10  # frames of each step a turn under torch.profiler (host breakdown)
+SHARD_TOP_OPS = 10
+VIEWER_WH = (1920, 1080)
+
+
+def smoothstep_config() -> dict:
+    """configs/nerf/base.json with the grid's smoothstep interpolation and
+    tanh as the rgb MLP's hidden activation: the contract phase's run."""
+    cfg = json.loads((ROOT / "configs" / "nerf" / "base.json").read_text())
+    cfg["encoding"]["interpolation"] = "Smoothstep"
+    cfg["rgb_network"]["activation"] = "Tanh"
+    return cfg
+
+
+def smoothstep_checks(enc, device) -> dict:
+    """Kernels A (exact, within TOL_ENCODE as every A check, with its rows
+    bit for bit counted; stochastic-corner, every row bit for bit), E (the
+    exact table gradient and fox's one stochastic draw, within
+    TOL_ENCODE_BWD) and K (every row bit for bit) in the smoothstep case
+    against their plain versions at fox's grid: the snapshot's table, N_ROWS
+    random positions for A, N_TRAIN_ROWS and a seeded unit cotangent for E
+    and K. Each with its device time (torch.profiler) and bound."""
+    from instant_ngp_torch.ops.hashgrid import (hashgrid_encode, hashgrid_encode_bwd,
+                                                hashgrid_encode_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    levels, table = enc.levels, enc.table.detach()
+    x = torch.rand((N_ROWS, 3), generator=gen, device=device)
+    a = check_encode(levels, "smoothstep", table, x, "fox smoothstep")
+    a["equal_rows"] = bit_equal_rows(hashgrid_encode(levels, "smoothstep", table, x),
+                                     hashgrid_encode_plain(levels, "smoothstep", table, x))
+    dev = device_split(lambda: hashgrid_encode(levels, "smoothstep", table, x),
+                       "hashgrid_encode_kernel", per_call=1)
+    a.update(device_ms=dev["kernel_ms"], call_device_ms=dev["device_ms"], timed_by=dev["timed_by"])
+    stoch = check_encode_stochastic(levels, "smoothstep", table, x, "fox smoothstep")
+    stoch["device_ms"] = stoch.pop("kernel_ms")
+    xs = torch.rand((N_TRAIN_ROWS, 3), generator=gen, device=device)
+    g = torch.randn((N_TRAIN_ROWS, len(levels) * table.shape[1]), generator=gen, device=device)
+    e = {}
+    for corners in (1, 8):
+        v = check_encode_bwd(levels, "smoothstep", xs, g, enc.n_entries, corners,
+                             f"fox smoothstep, {corners} corners")
+        dev = device_split(lambda c=corners: hashgrid_encode_bwd(levels, "smoothstep", xs, g,
+                                                                enc.n_entries, c),
+                           "hashgrid_bwd_kernel", per_call=1)
+        v.update(device_ms=dev["kernel_ms"], call_device_ms=dev["device_ms"],
+                 timed_by=dev["timed_by"])
+        e["stochastic_1" if corners == 1 else "exact"] = v
+    k = check_encode_dx(levels, "smoothstep", table, xs, g, "fox smoothstep")
+    k["device_ms"] = k.pop("kernel_ms")
+    for name, v in (("A", a), ("A stochastic", stoch), ("E 1 draw", e["stochastic_1"]),
+                    ("E exact", e["exact"]), ("K", k)):
+        print(f"smoothstep {name} at fox's grid: max_abs_err {v['max_abs_err']:.3e}"
+              + (f", {v['equal_rows']} of {v['rows'] if 'rows' in v else x.shape[0]} rows bit "
+                 f"for bit" if "equal_rows" in v else "")
+              + f"; kernel {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, plain "
+                f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return {"hashgrid_encode_fwd": a, "hashgrid_encode_fwd_stochastic": stoch,
+            "hashgrid_encode_bwd": e, "hashgrid_encode_dx": k}
+
+
+def activation_checks(device) -> dict:
+    """Kernels B and F (with F's dW launch) on the wide route for each of the
+    five activations, ``config_mlp_checks`` on seeded He-uniform weights at
+    N_TRAIN_ROWS rows: as the hidden activation at fox's rgb widths and at
+    image/oneblob's, and as the output activation (hidden relu) at fox's,
+    each held against the contract in float64 (``exact_ref_gate``);
+    inputs U(−1, 1), a training step's size of cotangent (N(0, 1)/rows). Each
+    with the library time of its activation as one torch call on the first
+    layer's f32 pre-activations (``ACT_LIBRARY``)."""
+    from instant_ngp_torch.ops import mlp_kernel as mk
+    from instant_ngp_torch.ops.mlp import MLP
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    out = {}
+    for act in NEW_ACTIVATIONS:
+        for shape, hidden in (("fox_rgb", True), ("oneblob", True), ("fox_rgb", False)):
+            dims = CONTRACT_MLPS[shape]
+            act_h, act_o = (act, "None") if hidden else ("ReLU", act)
+            mlp = MLP(dims[0], dims[-1], dims[1], len(dims) - 2, act_h, act_o, device=device)
+            mlp.init(gen)
+            x = torch.rand((N_TRAIN_ROWS, dims[0]), generator=gen, device=device) * 2.0 - 1.0
+            g = torch.randn((N_TRAIN_ROWS, dims[-1]), generator=gen, device=device) / N_TRAIN_ROWS
+            what = f"{act} {'hidden' if hidden else 'output'} {shape}"
+            v = config_mlp_checks(mlp, x, g, what, exact_ref=True)
+            check(v["routes"] == ["wide", "wide"], f"{what}: routes {v['routes']}")
+            lib = ACT_LIBRARY[act]
+            v["library_ms"] = None
+            if lib is not None:
+                z = x @ mlp.weights[0].detach()
+                v["library_ms"] = device_split(lambda: lib(z), "", reps=CONFIG_REPS)["device_ms"]
+            dw = v["dw"]
+            be, fe = v["b_exact"], v["f_exact"]
+            print(f"kernels B/F {what} {dims} against the f64 contract: B kernel "
+                  f"{be['kernel_rel'][0]:.3e}, plain {be['plain_rel'][0]:.3e}; F worst leaf kernel "
+                  f"{max(fe['kernel_rel']):.3e}, plain {max(fe['plain_rel']):.3e} (of max |ref|; "
+                  f"leaves kernel {[f'{r:.2e}' for r in fe['kernel_rel']]}, plain "
+                  f"{[f'{r:.2e}' for r in fe['plain_rel']]})")
+            print(f"kernels B/F {what} {dims}: B err {v['b_rel']:.2e} of max |ref|, device "
+                  f"{v['b_kernel_ms']:.4f} ms (bound {v['b_bound_ms']:.4f}); F leaves within "
+                  f"{v['f_rel']:.2e}, device {v['f_kernel_ms']:.4f} ms (bound "
+                  f"{v['f_bound_ms']:.4f}); dW within {dw['max_rel_err']:.2e}, device "
+                  f"{dw['ms']:.4f} ms; plain B {v['b_plain_ms']:.4f} F {v['f_plain_ms']:.4f} ms"
+                  + (f"; {act} as one torch call {v['library_ms']:.4f} ms"
+                     if v["library_ms"] is not None else ""))
+            out[what] = v
+            del mlp, x, g
+        mk._wide_sizes.cache_clear()
+    return out
+
+
+def contract_phase(tb, ds, device, card) -> tuple[dict, dict]:
+    """The smoothstep and activation checks, then the user's path:
+    ``smoothstep_config()`` (a smoothstep grid, a tanh rgb MLP: the wide B
+    and F) trained CONTRACT_STEPS frames through ``Testbed.frame()`` on the
+    train phase's views, every loss finite and the last CONFIG_LOSS_WINDOW
+    below the first, and a 256² frame of view 0 at each of the exact and the
+    fast quality and as normals (kernels A's two modes and K in the
+    smoothstep case). The launch counts are zeroed before the run and read
+    after it, the frames' apart. Returns (the launches, the checks)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.nerf.task import NerfTask
+    from instant_ngp_torch.testbed import Testbed
+
+    t_phase = time.perf_counter()
+    checks = {"smoothstep": smoothstep_checks(tb.task.model.pos_encoding, device),
+              "activations": activation_checks(device)}
+    trainer = Testbed("nerf", device=device)
+    trainer.nerf_dataset, trainer.network_config = ds, smoothstep_config()
+    trainer.task = NerfTask(ds, trainer.network_config, device, seed=SEED,
+                            target_batch_size=TARGET_BATCH, n_rays_per_batch=TRAIN_RAYS,
+                            max_samples_per_ray=TRAIN_K, n_march_iters=TRAIN_ITERS)
+    task = trainer.task
+    check(task.model.pos_encoding.interpolation == "smoothstep"
+          and task.model.rgb_network.activation.lower() == "tanh", "the config did not reach")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(CONTRACT_STEPS):
+        trainer.frame()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    losses = trainer.loss_graph
+    first = float(np.mean(losses[:CONFIG_LOSS_WINDOW]))
+    last = float(np.mean(losses[-CONFIG_LOSS_WINDOW:]))
+    print(f"smoothstep + tanh run: {len(losses)} frames in {train_s:.2f} s, loss first "
+          f"{CONFIG_LOSS_WINDOW} {first:.6f}, last {last:.6f}; launches "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    check(len(losses) == CONTRACT_STEPS and all(np.isfinite(losses)), "a loss is not finite")
+    check(last < first, f"smoothstep + tanh: the loss rose from {first} to {last}")
+    check(all(launches[k] > 0 for k in CONTRACT_KERNELS),
+          f"a kernel of the run was not launched: {launches}")
+    w, h = ds.resolution
+    cuda_lib.reset_launches()
+    frames = {}
+    for label, kw in (("exact", {}), ("fast", {"render_quality": "fast"}),
+                      ("normals", {"render_mode": "normals"})):
+        frames[label] = task.render(RES, RES, ds.xforms_start[0],
+                                    focal_length=(ds.focal_lengths[0, 0] * RES / w,
+                                                  ds.focal_lengths[0, 1] * RES / h),
+                                    background=(0, 0, 0, 0), **kw)
+        check(bool(torch.isfinite(frames[label]).all()), f"smoothstep {label} frame not finite")
+    torch.cuda.synchronize()
+    render_launches = dict(cuda_lib.LAUNCHES)
+    check(all(render_launches[k] > 0 for k in CONTRACT_RENDER_KERNELS),
+          f"a kernel of the smoothstep renders was not launched: {render_launches}")
+    for k in ("hashgrid_encode_fwd_stochastic", "hashgrid_encode_dx"):
+        launches[k] += render_launches[k]
+    checks["run"] = {"frames": len(losses), "loss_first": first, "loss_last": last,
+                     "train_s": train_s, "render_launches": render_launches,
+                     "alpha_mean": float(frames["exact"][..., 3].mean())}
+    print(f"contract phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, checks
+
+
+def contract_records(contract: dict) -> list[dict]:
+    """The JSON records of the contract phase: A, A's stochastic mode, E
+    (the headline fox's one draw, the exact gradient a variant) and K in the
+    smoothstep case; the wide B, F and dW under the five activations (the
+    headline tanh at fox's rgb widths, the run's; every activation, shape and
+    role a variant)."""
+    s = contract["smoothstep"]
+    records = []
+    for name, counter, source, replaces, v, variants in (
+            ("hashgrid_encode_fwd_smoothstep", "hashgrid_encode_fwd",
+             "instant_ngp_torch/csrc/hashgrid.cu", "instant_ngp_tpu/ops/hashgrid.py:213",
+             s["hashgrid_encode_fwd"], None),
+            ("hashgrid_encode_fwd_stochastic_smoothstep", "hashgrid_encode_fwd_stochastic",
+             "instant_ngp_torch/csrc/hashgrid.cu", "instant_ngp_tpu/ops/hashgrid.py:614",
+             s["hashgrid_encode_fwd_stochastic"], None),
+            ("hashgrid_encode_bwd_smoothstep", "hashgrid_encode_bwd",
+             "instant_ngp_torch/csrc/hashgrid_bwd.cu", "instant_ngp_tpu/ops/hashgrid.py:244",
+             s["hashgrid_encode_bwd"]["stochastic_1"], s["hashgrid_encode_bwd"]),
+            ("hashgrid_encode_dx_smoothstep", "hashgrid_encode_dx",
+             "instant_ngp_torch/csrc/hashgrid_bwd.cu", "instant_ngp_tpu/ops/hashgrid.py:333",
+             s["hashgrid_encode_dx"], None)):
+        err = max(x["max_abs_err"] for x in (variants or {"v": v}).values())
+        record_kernel(records, name, source, replaces, err, **headline(v),
+                      extra=f" (smoothstep at fox's grid; device {v['device_ms']:.4f} ms)",
+                      counter=counter, path="contract", device_ms=v["device_ms"],
+                      variants=variants or {"fox": v})
+    acts = contract["activations"]
+    head = acts["tanh hidden fox_rgb"]
+    for name, key, source, replaces in (
+            ("fused_mlp_wide_activations", "b", "instant_ngp_torch/csrc/mlp_wide.cu",
+             "instant_ngp_tpu/ops/pallas/mlp_kernel.py:53"),
+            ("fused_mlp_bwd_wide_activations", "f", "instant_ngp_torch/csrc/mlp_wide_bwd.cu",
+             "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106")):
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "max_abs_err": max(v[f"{key}_err"] for v in acts.values()),
+               "max_rel_err": max(v[f"{key}_rel"] for v in acts.values()),
+               "ms": head[f"{key}_kernel_ms"], "plain_ms": head[f"{key}_plain_ms"],
+               "bound_ms": head[f"{key}_bound_ms"], "bound_by": head[f"{key}_bound_by"],
+               "library_ms": head["library_ms"] if key == "b" else None,
+               "call_device_ms": head[f"{key}_device_ms"],
+               "counter": "fused_mlp_wide" if key == "b" else "fused_mlp_bwd_wide",
+               "path": "contract", "variants": {k: {kk: vv for kk, vv in v.items() if kk != "dw"}
+                                                for k, v in acts.items()}}
+        records.append(rec)
+    dw = {k: v["dw"] for k, v in acts.items()}
+    records.append({"name": "fused_mlp_dw_wide_activations", "route": "cuda",
+                    "source": "instant_ngp_torch/csrc/mlp_wide_dw.cu",
+                    "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernel.py:106",
+                    "max_abs_err": max(v["max_abs_err"] for v in dw.values()),
+                    "max_rel_err": max(v["max_rel_err"] for v in dw.values()),
+                    "ms": dw["tanh hidden fox_rgb"]["ms"],
+                    "plain_ms": dw["tanh hidden fox_rgb"]["plain_ms"],
+                    "bound_ms": dw["tanh hidden fox_rgb"]["bound_ms"],
+                    "bound_by": dw["tanh hidden fox_rgb"]["bound_by"],
+                    "library_ms": dw["tanh hidden fox_rgb"]["library_ms"],
+                    "counter": "fused_mlp_dw_wide", "path": "contract", "variants": dw})
+    for r in records[-3:]:
+        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} (of max |ref| at most "
+              f"{r['max_rel_err']:.2e}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms"
+              + (f" library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+              + f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at tanh, fox's rgb widths; "
+                f"{len(r['variants'])} cases")
+    return records
+
+
+def sharded_step_pair(ds, device, group) -> tuple[dict, dict]:
+    """One training step of fox's configuration at full width on the train
+    phase's views, from the same fresh state (the same seed), unsharded, then
+    with ``group`` as the mesh, the launch counts zeroed just before the
+    sharded ``task.train(1)`` and read just after it (every TRAIN_KERNELS
+    kernel launched there): the loss and sample count equal, Adam's first
+    moments (the gradients' scale) each within one bf16 step of itself plus
+    SHARD_TOL of its leaf's max (F's dW and E's table gradient add with
+    atomics in an order that changes from run to run, and a dW is rounded to
+    bf16 after the sum, so two runs of one step can part by a bf16 step), and
+    the new parameters where the moment is not tiny (|m| > 1e-3 of its leaf's
+    max; elsewhere Adam's step is ±lr whichever way an atomic sum rounds)
+    within SHARD_TOL of the leaf's max. Returns (the sharded step's
+    launches, the checks)."""
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.nerf.task import NerfTask
+    from instant_ngp_torch.parallel import sharding
+
+    tasks = []
+    for mesh in (None, group):
+        task = NerfTask(ds, fox_train_config(), device, seed=SEED, target_batch_size=TARGET_BATCH,
+                        n_rays_per_batch=TRAIN_RAYS, max_samples_per_ray=TRAIN_K,
+                        n_march_iters=TRAIN_ITERS)
+        task.mesh = mesh
+        before = sharding.COLLECTIVES["all_reduce"]
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        loss = task.train(1)
+        torch.cuda.synchronize()
+        tasks.append((task, loss, time.perf_counter() - t0,
+                      sharding.COLLECTIVES["all_reduce"] - before))
+        launches = dict(cuda_lib.LAUNCHES)
+    (plain, loss_p, s_p, _), (shard, loss_s, s_s, n_ar) = tasks
+    check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+          f"a kernel of the sharded step was not launched: {launches}")
+    check(n_ar > 0, "the sharded step issued no all-reduce")
+    check(abs(loss_s - loss_p) <= 1e-5 * abs(loss_p), f"sharded loss {loss_s} against {loss_p}")
+    check(int(shard.last_stats["measured_samples"]) == int(plain.last_stats["measured_samples"]),
+          "the sharded step marched another sample count")
+    worst = 0.0
+    for i, (p, q) in enumerate(zip(plain.model.param_list(), shard.model.param_list())):
+        m_p, m_s = plain.state.opt_state["m"][i], shard.state.opt_state["m"][i]
+        err, scale = max_err(m_s, m_p)
+        allowed = 2.0 ** -7 * m_p.abs() + SHARD_TOL * scale  # a bf16 step: 2^-8 to 2^-7 of a value
+        over = int(((m_s - m_p).abs() > allowed).sum())
+        check(over == 0, f"sharded step: leaf {i}'s moment off in {over} values (err {err} at {scale})")
+        big = m_p.abs() > 1e-3 * m_p.abs().max()
+        perr, pscale = max_err(q.detach()[big], p.detach()[big])
+        check(perr <= SHARD_TOL * pscale, f"sharded step: leaf {i}'s new values err {perr}")
+        worst = max(worst, err / max(scale, 1e-30), perr / max(pscale, 1e-30))
+    return launches, {"loss": loss_p, "sharded_loss": loss_s, "all_reduces": n_ar,
+                      "max_rel_err": worst, "plain_step_s": s_p, "sharded_step_s": s_s}
+
+
+def sharded_phase(tb, ds, device, card) -> tuple[dict, dict]:
+    """Data parallelism on the card: ``dryrun_multichip(1)`` (a child process,
+    NCCL, its OK line); then a world of size 1 over NCCL in this process
+    (tcp://127.0.0.1): the sharded step against the unsharded one
+    (``sharded_step_pair``); a ``dp_render`` frame of fox's view 0 at
+    SHARD_RES² and the slab frame with the group as the mesh against the
+    unsharded frames (≥ SHARD_MIN_PSNR_DB); then fox's training step timed
+    sharded and unsharded (median of 20 frames each, from the pair's
+    states). Each unsharded run comes first; the launch counts are zeroed
+    just before each sharded run and read just after it, and each sharded
+    run must launch its own kernels (the step TRAIN_KERNELS, the
+    ``dp_render`` frame RENDER_KERNELS, the slab frame O's warp). Returns
+    (the three sharded runs' launches summed, the checks)."""
+    import torch.distributed as dist
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.parallel import dryrun, sharding
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(1, "cuda")
+    check("dryrun_multichip(1) OK" in out, f"the dry run's output: {out}")
+    dry_s = time.perf_counter() - t0
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+
+        def sharded_run(fn, kernels, what):
+            """fn() with the counts zeroed just before and read just after."""
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = dict(cuda_lib.LAUNCHES)
+            check(all(counts[k] > 0 for k in kernels),
+                  f"a kernel of the sharded {what} was not launched: {counts}")
+            return out, counts
+
+        step_launches, pair = sharded_step_pair(ds, device, group)
+        task = tb.task
+        xf, kw = view0(tb, SHARD_RES)
+        o, d, tmin, tmax = render_rays_of(task, SHARD_RES, xf, kw)
+        render = lambda a, b, lo, hi: task._render_rays(a, b, (lo, hi))[:3]  # noqa: E731
+        plain = render(o, d, tmin, tmax)
+        sharded, render_launches = sharded_run(
+            lambda: sharding.dp_render(render, group)(o, d, tmin, tmax), RENDER_KERNELS,
+            "dp_render frame")
+        db = min(psnr_rows(a, b) for a, b in zip(sharded, plain))
+        slab_p = task.render(SHARD_RES, SHARD_RES, xf, render_quality="slab", **kw)
+        task.mesh = group
+        try:
+            slab_s, slab_launches = sharded_run(
+                lambda: task.render(SHARD_RES, SHARD_RES, xf, render_quality="slab", **kw),
+                ("slab_warp",), "slab frame")
+        finally:
+            task.mesh = None
+        db_slab = psnr(slab_s, slab_p)
+        check(db >= SHARD_MIN_PSNR_DB, f"dp_render frame against the unsharded one: {db} dB")
+        check(db_slab >= SHARD_MIN_PSNR_DB, f"sharded slab frame against the unsharded: {db_slab}")
+        launches = {k: step_launches.get(k, 0) + render_launches.get(k, 0)
+                    + slab_launches.get(k, 0)
+                    for k in {*step_launches, *render_launches, *slab_launches}}
+        print(f"sharded runs' launches: step { {k: n for k, n in step_launches.items() if n} }, "
+              f"dp_render frame { {k: n for k, n in render_launches.items() if n} }, slab frame "
+              f"{ {k: n for k, n in slab_launches.items() if n} }")
+        step_ms = sharded_step_times(ds, device, group)
+    finally:
+        dist.destroy_process_group()
+    v = {**pair, "dryrun_s": dry_s, "dp_render_psnr_db": db, "slab_psnr_db": db_slab, **step_ms}
+    print(f"sharded, world 1 over NCCL on {card}: dryrun_multichip(1) OK in {dry_s:.1f} s; the "
+          f"step equals the unsharded one ({pair['all_reduces']} all-reduces, loss "
+          f"{pair['sharded_loss']:.6f} vs {pair['loss']:.6f}, within {pair['max_rel_err']:.2e} "
+          f"a leaf); dp_render frame {db:.2f} dB, slab frame {db_slab:.2f} dB against the "
+          f"unsharded; step median {step_ms['sharded_step_ms']:.3f} ms sharded vs "
+          f"{step_ms['plain_step_ms']:.3f} ms plain")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, v
+
+
+def render_rays_of(task, res: int, xf, kw):
+    """The rays of a res² frame of the view as the task renders it: (o, d,
+    tmin, tmax), clipped to the crop box and the near distance."""
+    ys, xs = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    uv = torch.from_numpy(np.stack([(xs.reshape(-1) + 0.5) / res, (ys.reshape(-1) + 0.5) / res],
+                                   -1).astype(np.float32)).to(task.device)
+    fl = kw.get("focal_length")
+    o, d, tmin, tmax = task._prep_rays(uv, task._t([res, res]), task._t(fl),
+                                       task._t(kw.get("principal_point", (0.5, 0.5))),
+                                       task._t(xf))
+    return o, d, tmin, tmax
+
+
+def psnr_rows(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(torch.mean((a.float() - b.float()) ** 2))
+    return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
+
+
+def host_op_ms(task, frames: int = SHARD_PROFILED_STEPS) -> tuple[dict, float]:
+    """``frames`` training frames under torch.profiler (host activity only):
+    (each op's self host ms a frame, by name; the wall ms a frame under the
+    profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            task.train(1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / frames
+    return {e.key: e.self_cpu_time_total / 1e3 / frames for e in prof.key_averages()}, wall
+
+
+def sharded_step_times(ds, device, group, frames: int = 20) -> dict:
+    """Median wall ms of ``frames`` training frames of fox's configuration,
+    unsharded then with ``group`` as the mesh, each task fresh from the same
+    seed and warmed by one frame; then SHARD_PROFILED_STEPS more frames of
+    each under torch.profiler, twice, in the order plain, sharded, sharded,
+    plain, and where the sharded step's extra host time goes: the ops whose
+    self host time a frame grew most, and what no op accounts for (Python
+    between the ops)."""
+    from instant_ngp_torch.nerf.task import NerfTask
+
+    out, tasks = {}, {}
+    for label, mesh in (("plain", None), ("sharded", group)):
+        task = NerfTask(ds, fox_train_config(), device, seed=SEED, target_batch_size=TARGET_BATCH,
+                        n_rays_per_batch=TRAIN_RAYS, max_samples_per_ray=TRAIN_K,
+                        n_march_iters=TRAIN_ITERS)
+        task.mesh = mesh
+        task.train(1)
+        ms = []
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            task.train(1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"{label}_step_ms"] = statistics.median(ms)
+        tasks[label] = task
+    ops = {k: collections.Counter() for k in tasks}
+    walls = dict.fromkeys(tasks, 0.0)
+    for label in ("plain", "sharded", "sharded", "plain"):  # each half of its frames
+        op_ms, wall = host_op_ms(tasks[label])
+        ops[label].update({k: v / 2 for k, v in op_ms.items()})
+        walls[label] += wall / 2
+    grew = sorted(((k, ops["sharded"][k] - ops["plain"].get(k, 0.0)) for k in ops["sharded"]),
+                  key=lambda kv: -kv[1])[:SHARD_TOP_OPS]
+    op_extra = sum(ops["sharded"].values()) - sum(ops["plain"].values())
+    out["host_breakdown"] = {
+        "profiled_wall_ms": walls, "ops_self_ms": {k: sum(v.values()) for k, v in ops.items()},
+        "extra_wall_ms": walls["sharded"] - walls["plain"], "extra_in_ops_ms": op_extra,
+        "extra_outside_ops_ms": walls["sharded"] - walls["plain"] - op_extra,
+        "top_ops_extra_ms": dict(grew)}
+    b = out["host_breakdown"]
+    print(f"sharded step's extra host time (profiled, 2 x {SHARD_PROFILED_STEPS} frames each): wall "
+          f"{walls['sharded']:.3f} vs {walls['plain']:.3f} ms a frame, {b['extra_wall_ms']:.3f} "
+          f"ms more; in torch ops' self time {op_extra:.3f} ms, outside them (Python) "
+          f"{b['extra_outside_ops_ms']:.3f} ms; ops that grew most (ms a frame): "
+          f"{[(k, round(v, 4)) for k, v in grew]}")
+    return out
+
+
+def viewer_phase(device, card) -> tuple[dict, dict]:
+    """The web viewer on the card: ``ViewerServer`` over a Testbed holding
+    fox's snapshot, on a free port of 127.0.0.1 in a thread; /api/state and
+    a VIEWER_WH PNG frame (/screenshot) fetched over HTTP, each timed (the
+    frame 3 times, the median kept; the first compiles nothing, the kernels
+    being built); the decoded frame equal to the Testbed's own render of the
+    same view in 8 bits. Launches zeroed before the requests, read after."""
+    import threading
+    import urllib.request
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.io.png import decode_png
+    from instant_ngp_torch.testbed import Testbed
+    from instant_ngp_torch.viewer import ViewerServer, orbit_matrix
+
+    t_phase = time.perf_counter()
+    tb = Testbed("nerf", device=device)
+    tb.load_snapshot(SNAPSHOT)
+    viewer = ViewerServer(tb, port=0, host="127.0.0.1")
+    server = viewer.make_server()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    w, h = VIEWER_WH
+
+    def fetch(path):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            body = r.read()
+        return body, (time.perf_counter() - t0) * 1e3
+
+    try:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        state, state_ms = fetch("/api/state")
+        shots = [fetch(f"/screenshot?w={w}&h={h}&theta=0.4&phi=0.2&r=1.5") for _ in range(3)]
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+    png = shots[-1][0]
+    frame = decode_png(png)
+    check(frame.shape == (h, w, 3), f"viewer frame {frame.shape}")
+    ref = tb.render(w, h, camera_matrix=orbit_matrix(0.4, 0.2, 1.5))
+    ref8 = (np.clip(ref[..., :3], 0, 1) * 255).astype(np.uint8)
+    differ = int((frame != ref8).any(axis=-1).sum())
+    check(differ == 0, f"the viewer's frame differs from the Testbed's render in {differ} pixels")
+    check(float(frame.std()) > 0, "the viewer's frame is flat")
+    check(all(launches[k] > 0 for k in RENDER_KERNELS), f"the viewer's frames launched {launches}")
+    st = json.loads(state)
+    frame_ms = statistics.median(ms for _, ms in shots)
+    v = {"state_ms": state_ms, "frame_ms": frame_ms, "frame_ms_all": [ms for _, ms in shots],
+         "png_bytes": len(png), "render_ms_testbed": float(tb.render_ms.val()),
+         "state": {k: st[k] for k in ("step", "render_quality", "render_mode")}}
+    print(f"viewer on {card}: /api/state {state_ms:.2f} ms; {w}x{h} PNG frame over HTTP "
+          f"{frame_ms:.2f} ms (median of {len(shots)}: {[round(ms, 2) for _, ms in shots]}; "
+          f"the Testbed's render {v['render_ms_testbed']:.2f} ms of it), {len(png)} bytes, equal "
+          f"to the Testbed's render in 8 bits")
+    print(f"viewer phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, v
+
+
 def gather_phase() -> dict:
     """``instant_ngp_torch.bench.gather`` at its case lists, few repetitions.
     Returns its launches."""
@@ -5593,6 +6287,14 @@ def main() -> None:
             r.setdefault("variants", {})[variant] = v
             r["max_abs_err"] = max(r["max_abs_err"], v["max_abs_err"])
     results += config_records(config_checks)
+    # the rest of the JAX package: smoothstep and the five activations on the
+    # card, data parallelism over NCCL at world size 1, the web viewer
+    t_new = time.perf_counter()
+    contract_launches, contract = contract_phase(tb, train_set, device, card)
+    results += contract_records(contract)
+    sharded_launches, _ = sharded_phase(tb, train_set, device, card)
+    viewer_launches, _ = viewer_phase(device, card)
+    print(f"contract, sharded and viewer phases: {time.perf_counter() - t_new:.1f} s")
     w, h = SDF_FRAME_WH
     k_checks["fox_normals_hits"] = views_checks["hashgrid_encode_dx"]
     k_checks["camera_step"] = camera["hashgrid_encode_dx"]
@@ -5644,7 +6346,8 @@ def main() -> None:
              "volume_render": volume_render_launches, "volume_gt": volume_gt_launches,
              "configs": config_launches, "run": run_launches, "run_fox": run_fox_launches,
              "views": views_launches, "camera": camera_launches, "capture": capture_launches,
-             "fast_renders": fast_launches}
+             "fast_renders": fast_launches, "contract": contract_launches,
+             "sharded": sharded_launches, "viewer": viewer_launches}
     for r in results:
         if r["name"] == "march_rays":
             r.update(march)

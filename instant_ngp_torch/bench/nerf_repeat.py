@@ -26,7 +26,9 @@ checkout's ``build/nerf_repeat/`` as ``<tree>_run<i>_step<s>.pt``
 host ms of its frames (``Testbed.frame()`` alone, as ``chip_smoke.py``'s
 train phase times it, but with the keep's device copies queued just
 before each) and the profiled frames' wall, device busy and idle share,
-then a summary line. ``--replay`` restores each saved state into a fresh
+then a summary line; before the runs, one line with the wall ms of
+``chip_smoke.RES``² renders of the snapshot's view 0 (``render_ms``).
+``--replay`` restores each saved state into a fresh
 task of the configuration and replays its step. Without a card it raises.
 
 ``--root DIR`` (default: this checkout) imports ``instant_ngp_torch`` from
@@ -34,7 +36,8 @@ DIR, which builds its kernels into DIR/build; the configuration, snapshot
 and training set are this checkout's ``chip_smoke.py``'s. ``--ab OLD_DIR``
 runs this script with ``--root`` OLD_DIR, this checkout, this checkout,
 OLD_DIR, each in its own process on the same card, prints their lines and
-then, per tree, the medians of its runs' step medians and idle shares.
+then, per tree, the medians of its runs' step medians, idle shares and
+processes' render medians.
 """
 
 from __future__ import annotations
@@ -264,11 +267,30 @@ def _setup(root: Path):
     device = torch.device("cuda")
     tb = Testbed("nerf", device=device)
     tb.load_snapshot(cs.SNAPSHOT)
-    return cs, cs.render_training_set(tb), device, "new" if root == ROOT else "old"
+    return cs, cs.render_training_set(tb), device, "new" if root == ROOT else "old", tb
+
+
+def render_ms(cs, tb, frames: int = 5) -> list[float]:
+    """Wall ms of each of ``frames`` renders of the snapshot's view 0 at
+    ``chip_smoke.RES``² (the frame ``chip_smoke.py``'s render phase times),
+    after one warm frame."""
+    xf, kw = cs.view0(tb, cs.RES)
+    tb.task.render(cs.RES, cs.RES, xf, **kw)
+    out = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb.task.render(cs.RES, cs.RES, xf, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def run(n_runs: int, steps: int, root: Path = ROOT) -> list[dict]:
-    cs, ds, device, tree = _setup(root)
+    cs, ds, device, tree, tb = _setup(root)
+    frames = render_ms(cs, tb)
+    print(json.dumps({"render_ms_median": statistics.median(frames), "render_ms": frames}),
+          flush=True)
     results = []
     for i in range(n_runs):
         trainer = _trainer(cs, ds, device)
@@ -314,7 +336,7 @@ def replay_files(paths: list[Path], root: Path = ROOT) -> list[dict]:
     training configuration (after one frame, which makes the optimizer's
     state) and its step replayed (``replay_step``): its lines, then one
     JSON line a file."""
-    cs, ds, device, tree = _setup(root)
+    cs, ds, device, tree, _ = _setup(root)
     trainer = _trainer(cs, ds, device)
     trainer.frame()
     results = []
@@ -328,7 +350,7 @@ def replay_files(paths: list[Path], root: Path = ROOT) -> list[dict]:
 
 def ab(old: Path, order: list[str], n_runs: int, steps: int) -> None:
     """OLD_DIR and this checkout in ``order``: see the docstring."""
-    by_tree = {"old": [], "new": []}
+    by_tree, renders = {"old": [], "new": []}, {"old": [], "new": []}
     for tag in order:
         root = {"old": old, "new": ROOT}[tag]
         proc = subprocess.run([sys.executable, __file__, "--root", str(root), "--runs",
@@ -341,12 +363,14 @@ def ab(old: Path, order: list[str], n_runs: int, steps: int) -> None:
             raise RuntimeError(f"the {tag} tree's runs exited {proc.returncode}: "
                                f"{proc.stderr[-3000:]}")
         by_tree[tag] += [ln for ln in lines if "run" in ln]
+        renders[tag] += [ln["render_ms_median"] for ln in lines if "render_ms_median" in ln]
     for tag, runs in by_tree.items():
         idle = [r["idle_share"] for r in runs if r.get("idle_share") is not None]
         print(json.dumps({"tree": tag, "runs": len(runs),
                           "step_ms_median_of_runs": statistics.median(
                               r["step_ms_median"] for r in runs),
                           "idle_share_median_of_runs": statistics.median(idle) if idle else None,
+                          "render_ms_median_of_processes": statistics.median(renders[tag]),
                           "device": torch.cuda.get_device_name(0)}), flush=True)
 
 

@@ -36,6 +36,9 @@
 // library is built with -fmad=false so no other expression is contracted.
 // Simplex applies to hashed 3-D levels only, with argmax/argmin taking the
 // first index and amin = (amax + 1) % 3 on ties.
+// Smoothstep (code 3) is the d-linear case with each axis' fraction f
+// replaced by f·f·(3 − 2f) (the plain version's order: (f·f)·(3 − 2f)), in
+// both modes; the stochastic mode draws from those weights.
 //
 // Stochastic-corner mode (the template flag kStochastic; entry
 // ngp_hashgrid_encode_fwd_stochastic): the fast render's inference encode,
@@ -59,7 +62,7 @@
 namespace {
 
 constexpr int kMaxLevels = 32;
-constexpr int kNearest = 1, kSimplex = 2;  // interpolation codes; 0 is linear
+constexpr int kNearest = 1, kSimplex = 2, kSmoothstep = 3;  // interpolation codes; 0 is linear
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;  // samples per block, one a lane
@@ -161,6 +164,7 @@ __device__ __forceinline__ void encode_level(const Level& lv, int interp, const 
         const float fl = floorf(p);
         t[d] = p - fl;
         g[d] = (int)fl;
+        if (interp == kSmoothstep) t[d] = (t[d] * t[d]) * (3.0f - 2.0f * t[d]);
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.0f;

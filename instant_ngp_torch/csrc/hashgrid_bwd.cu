@@ -37,7 +37,7 @@
 //   (sm_90, global memory), F = 8 two float4; rows start at offset·F floats,
 //   which the wrapper checks to be 8- or 16-byte aligned.
 // A thread recomputes its level's corners and weights exactly as kernel A
-// does, then either adds w_c·g to every corner (exact), or, for 1 <= k < C
+// does (smoothstep: t = (f·f)·(3 − 2f) of the fraction f), then either adds w_c·g to every corner (exact), or, for 1 <= k < C
 // draws on a hashed level, adds g/k to the corner picked by cumsum(w)_c <
 // u·cdf[C-1] per draw. u is the JAX package's position-hash uniform plus the
 // per-(level, draw) offset the host computes in f64, rounded to f32: the
@@ -51,7 +51,7 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kMaxDraws = 8;
-constexpr int kLinear = 0, kNearest = 1, kSimplex = 2;
+constexpr int kLinear = 0, kNearest = 1, kSimplex = 2, kSmoothstep = 3;
 constexpr int kThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr uint32_t kNoRow = 0xffffffffu;  // the row of a lane past n: sizes are < 2^31
@@ -178,6 +178,7 @@ hashgrid_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, Le
         const float fl = floorf(p);
         t[d] = p - fl;
         gr[d] = (int)fl;
+        if (interp == kSmoothstep) t[d] = (t[d] * t[d]) * (3.0f - 2.0f * t[d]);  // kernel A's
     }
 
     if (interp == kNearest) {
@@ -274,6 +275,10 @@ int launch_bwd(const float* xp, const float* gp, const LevelTable& lv, int n_lev
 //   simplex (hashed 3-D levels): dx_d += (gf1−gf0, gf3−gf2 or gf2−gf1, as
 //             axis d holds the largest, smallest or middle fraction) · scale
 //   nearest: nothing (dt/dx = 0).
+//   smoothstep: the d-linear sum over the weights of t = (f·f)·(3 − 2f),
+//             times ((6f)·(1 − f))·scale of the axis' own fraction f in
+//             place of scale (a template flag of the kernel, so that the
+//             linear and simplex instantiations are the code they were).
 // Plain version: instant_ngp_torch/ops/hashgrid.py::hashgrid_encode_dx_plain.
 // It runs where the SDF render takes its analytic normals, once a frame on
 // the frame's hit positions (22K at 256^2, ~400K at 1920x1080).
@@ -406,14 +411,15 @@ __device__ __forceinline__ float dx_dot(const float (&g)[F], const float (&f)[F]
     return v;
 }
 
-// one level's term col · scale (D floats) of one sample; the level's kind
+// one level's term col · dt/dx (D floats) of one sample; the level's kind
 // (hashed or dense, a power-of-two size or not) is a template argument, so
-// that a warp runs only its level's index arithmetic
-template <int D, int F, bool kHashed, bool kPow2>
+// that a warp runs only its level's index arithmetic. kSmooth: smoothstep
+// weights, and dt/dx = ((6f)·(1 − f))·scale per axis in place of scale.
+template <int D, int F, bool kHashed, bool kPow2, bool kSmooth>
 __device__ __forceinline__ void dx_level(const DxLevel& lv, bool simplex, const float (&pos)[D],
                                          const float (&gl)[F], float (&out)[D]) {
     constexpr int kC = 1 << D;
-    float t[D];
+    float t[D], chain[D];
     int gr[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -421,8 +427,14 @@ __device__ __forceinline__ void dx_level(const DxLevel& lv, bool simplex, const 
         const float fl = floorf(p);
         t[d] = p - fl;
         gr[d] = (int)fl;
+        if constexpr (kSmooth) {
+            chain[d] = ((6.0f * t[d]) * (1.0f - t[d])) * lv.scale;
+            t[d] = (t[d] * t[d]) * (3.0f - 2.0f * t[d]);
+        } else {
+            chain[d] = lv.scale;
+        }
     }
-    if constexpr (D == 3 && kHashed) {
+    if constexpr (D == 3 && kHashed && !kSmooth) {
         if (simplex) {
             int amax = 0, amin = 0;
             if (t[1] > t[amax]) amax = 1;
@@ -472,11 +484,11 @@ __device__ __forceinline__ void dx_level(const DxLevel& lv, bool simplex, const 
             const float term = gf[c] * (((c >> d) & 1) ? prod : -prod);
             col = c == 0 ? term : col + term;
         }
-        out[d] = col * lv.scale;
+        out[d] = col * chain[d];
     }
 }
 
-template <int D, int F>
+template <int D, int F, bool kSmooth>
 __global__ void __launch_bounds__(kDxWarps * 32, kDxMinBlocks)
 hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ table,
                    const float* __restrict__ g, DxTable lt, int n_levels, int interp,
@@ -504,11 +516,11 @@ hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ table,
             float c[D];
             const bool simplex = interp == kSimplex, pow2 = lv.magic == 0;
             if (lv.hashed) {  // the level's kind is warp-uniform: a branch, not predication
-                if (pow2) dx_level<D, F, true, true>(lv, simplex, pos, gl, c);
-                else dx_level<D, F, true, false>(lv, simplex, pos, gl, c);
+                if (pow2) dx_level<D, F, true, true, kSmooth>(lv, simplex, pos, gl, c);
+                else dx_level<D, F, true, false, kSmooth>(lv, simplex, pos, gl, c);
             } else {
-                if (pow2) dx_level<D, F, false, true>(lv, simplex, pos, gl, c);
-                else dx_level<D, F, false, false>(lv, simplex, pos, gl, c);
+                if (pow2) dx_level<D, F, false, true, kSmooth>(lv, simplex, pos, gl, c);
+                else dx_level<D, F, false, false, kSmooth>(lv, simplex, pos, gl, c);
             }
 #pragma unroll
             for (int d = 0; d < D; ++d) cs[(l * kDxTile + lane) * D + d] = c[d];
@@ -532,8 +544,12 @@ int launch_dx_f(const float* xp, const float* tp, const float* gp, const DxTable
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const int per_warp = (n_levels + kDxWarps - 1) / kDxWarps;  // levels the busiest warp takes
     const int warps = (n_levels + per_warp - 1) / per_warp;
-    hashgrid_dx_kernel<D, F><<<(unsigned)blocks, 32 * warps, smem, st>>>(xp, tp, gp, lt, n_levels,
-                                                                         interp, n, dxp);
+    if (interp == kSmoothstep)
+        hashgrid_dx_kernel<D, F, true><<<(unsigned)blocks, 32 * warps, smem, st>>>(
+            xp, tp, gp, lt, n_levels, interp, n, dxp);
+    else
+        hashgrid_dx_kernel<D, F, false><<<(unsigned)blocks, 32 * warps, smem, st>>>(
+            xp, tp, gp, lt, n_levels, interp, n, dxp);
     return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Kernels B and F past the narrow kernels' limits: the fused bias-free MLP,
 // forward (B) and backward (F), at any depth, layer widths up to 256, and
-// relu, none, sigmoid or exponential as the hidden and the output activation;
-// and F's weight gradient, dW_i = h_i^T·dz_i, the second launch of a wide F.
+// relu, none, sigmoid, exponential, leakyrelu, sine, squareplus, softplus or
+// tanh as the hidden and the output activation; and F's weight gradient, dW_i = h_i^T·dz_i, the second launch of a wide F.
 //
 // Replaces the same Pallas kernel as csrc/mlp.cu and csrc/mlp_bwd.cu:
 // instant_ngp_tpu/ops/pallas/mlp_kernel.py::_fused_mlp_fwd_impl (public
@@ -15,7 +15,14 @@
 // Contract: as csrc/mlp.cu and csrc/mlp_bwd.cu. Sigmoid and exponential are
 // computed on the f32 accumulator and then rounded to bf16, as the plain
 // version does; their derivatives are s·(1 − s) and e^z of the f32 values, as
-// JAX differentiates jax.nn.sigmoid and jnp.exp.
+// JAX differentiates jax.nn.sigmoid and jnp.exp. Leakyrelu, sine,
+// squareplus, softplus and tanh (the JAX MLP's XLA path, instant_ngp_tpu/ops/
+// mlp.py:27-40, which its Pallas kernel does not take) are the same kind: f32
+// values and f32 derivatives (mlp_wide.cuh's activate and act_grad). Relu,
+// sigmoid and exponential are compiled into each kernel as their own
+// instantiations; the five share one, kGeneric, that calls a non-inlined
+// function of the code at run time for each value, so that they cost the
+// build one small instantiation, not five.
 //
 // What bounds it on an H100: at 128 wide the products are no longer nearly
 // free. image/oneblob.json (256 -> 128 x 8 -> 3, 147,840 weights) does 2·147,840
@@ -65,14 +72,14 @@
 // Design, backward (F): the same forward per tile, which also writes h_i (each
 // layer's input, bf16) for the dW kernel and keeps each hidden layer's
 // act'(z) in a per-thread scratch (2-bit codes under relu, nothing under
-// none, f32 under sigmoid and exponential). Then the dh chain, layer by layer
+// none, f32 under the others). Then the dh chain, layer by layer
 // from the last, on wgmma as well, with the untransposed packed weights as the
 // B operand: dz_{L-1} = g·act_out'(z_L); dh_i = dz_i·W_i^T; dz_{i-1} =
 // bf16(dh_i)·act'(z_i); dX = bf16(dh_0). Under a relu/none hidden layer each
 // inner dz_i is a bf16 value (act' is 0, ½ or 1), so it goes from the
 // accumulators straight into the next product's A fragments and, once, to
 // the dz buffer in bf16. Where dz is an f32 value (dz_{L-1}, and every dz
-// under a sigmoid or exponential hidden layer) it is kept in the per-thread
+// under any other hidden activation) it is kept in the per-thread
 // scratch and enters the products as the three bf16 terms of kernel F's
 // exact split (hi + mid + lo = dz), one pass of the layer's chunks each, and
 // is written to the dz buffer as those three terms. The per-thread scratch
@@ -98,6 +105,46 @@
 // call gives the same bits from run to run.
 
 #include "mlp_wide.cuh"
+
+namespace {
+
+// kernel B's wide route on (x, w, dims, n_layers, act, out_act, n, scratch,
+// out): pack the weights, then the persistent kernel
+int wide_forward(const void* x, const void* w, const void* dims, int n_layers, int act, int out_act,
+                 long long n, void* scratch, void* out, void* stream) {
+    const int* d = static_cast<const int*>(dims);
+    const int pmax = check_dims(d, n_layers);
+    if (pmax == 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    unsigned char* pk = static_cast<unsigned char*>(scratch);
+    const Plan pl = plan(d, n_layers, act);
+    const int err = pack(w, pl, n_layers, pk, false, st);
+    if (err != 0) return err;
+    Params p = {};
+    p.x = static_cast<const float*>(x);
+    p.pk = pk;
+    p.L = n_layers;
+    p.act = act;
+    p.out_act = out_act;
+    p.n = n;
+    p.out = static_cast<float*>(out);
+    if (pmax <= 128) return launch_wide<128, 3, false>(p, pl, st);
+    return launch_wide<256, 2, false>(p, pl, st);
+}
+
+}  // namespace
+
+#if NGP_GENERIC_ACT
+// kernel B's wide route under a generic activation (csrc/mlp_wide_generic.cu)
+extern "C" int ngp_fused_mlp_wide_generic(const void* x, const void* w, const void* dims, int n_layers,
+                                          int act, int out_act, long long n, void* scratch, void* out,
+                                          void* stream) {
+    return wide_forward(x, w, dims, n_layers, act, out_act, n, scratch, out, stream);
+}
+#else
+extern "C" int ngp_fused_mlp_wide_generic(const void* x, const void* w, const void* dims, int n_layers,
+                                          int act, int out_act, long long n, void* scratch, void* out,
+                                          void* stream);
 
 namespace {
 
@@ -215,27 +262,12 @@ extern "C" int ngp_fused_mlp_wide_sizes(const void* dims, int n_layers, int act,
 
 // x: (n, d_0) f32; w: n_layers host pointers, layer i f32 (d_i, d_{i+1}); dims:
 // host int[n_layers + 1]; scratch: ngp_fused_mlp_wide_sizes' bytes; out: (n,
-// d_L) f32
+// d_L) f32. A generic activation goes to csrc/mlp_wide_generic.cu's kernels.
 extern "C" int ngp_fused_mlp_wide(const void* x, const void* w, const void* dims, int n_layers, int act,
                                   int out_act, long long n, void* scratch, void* out, void* stream) {
-    const int* d = static_cast<const int*>(dims);
-    const int pmax = check_dims(d, n_layers);
-    if (pmax == 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    unsigned char* pk = static_cast<unsigned char*>(scratch);
-    const Plan pl = plan(d, n_layers, act);
-    const int err = pack(w, pl, n_layers, pk, false, st);
-    if (err != 0) return err;
-    Params p = {};
-    p.x = static_cast<const float*>(x);
-    p.pk = pk;
-    p.L = n_layers;
-    p.act = act;
-    p.out_act = out_act;
-    p.n = n;
-    p.out = static_cast<float*>(out);
-    if (pmax <= 128) return launch_wide<128, 3, false>(p, pl, st);
-    return launch_wide<256, 2, false>(p, pl, st);
+    if (uses_generic(act, out_act))
+        return ngp_fused_mlp_wide_generic(x, w, dims, n_layers, act, out_act, n, scratch, out, stream);
+    return wide_forward(x, w, dims, n_layers, act, out_act, n, scratch, out, stream);
 }
 
 // whether a wgmma chain rounds like kernel B's mma.sync chain: x (64, 256) f32,
@@ -258,3 +290,4 @@ extern "C" int ngp_mlp_wgmma_probe(const void* x, const void* w, void* scratch, 
                                        static_cast<float*>(zm));
     return (int)cudaGetLastError();
 }
+#endif  // NGP_GENERIC_ACT

@@ -15,6 +15,14 @@
 
 #include "wgmma.cuh"
 
+// 1 in the translation units of the five generic activations (csrc/
+// mlp_wide_generic.cu, mlp_wide_bwd_generic.cu, mlp_wide_bwd256_generic.cu):
+// their kernels run every activation through kGeneric; the others' kernels
+// take relu, none, sigmoid and exponential only, and hand the five over
+#ifndef NGP_GENERIC_ACT
+#define NGP_GENERIC_ACT 0
+#endif
+
 namespace {
 
 constexpr int kMaxWidth = 256;
@@ -22,7 +30,16 @@ constexpr int kStageBytes = 32768;  // one stage of the forward's ring: a chunk 
 constexpr int kMaxStages = 6;
 constexpr int kMinStages = 4;
 constexpr int kTile = 64;  // rows a consumer warpgroup owns; rows of the dW kernel's k tile
-constexpr int kRelu = 1, kSigmoid = 2, kExp = 3;
+// activation codes (ops/mlp_kernel.py ACTIVATIONS; 0 is none); kGeneric is the
+// instantiation of the last five, which switches on the code at run time
+constexpr int kRelu = 1, kSigmoid = 2, kExp = 3, kLeakyRelu = 4, kSine = 5, kSquareplus = 6,
+              kSoftplus = 7, kTanh = 8;
+constexpr int kGeneric = -1;
+
+// whether a call takes the generic activations' kernels
+__host__ __device__ inline bool uses_generic(int act, int out_act) {
+    return act >= kLeakyRelu || out_act >= kLeakyRelu;
+}
 
 // per layer i, from the widths: d_in, d_out; K and N of the forward's product
 // (pad16(d_in), wgmma N of d_out) and of the backward's (pad16(d_out), wgmma N
@@ -82,11 +99,11 @@ __host__ __device__ inline Totals layer_records(const int* d, int n_layers, int 
         zcol += d[i + 1];
         r[L_HCOL] = t.hw;
         t.hw += pad64(d[i]);
-        r[L_TERMS] = last || act == kSigmoid || act == kExp ? 3 : 1;
+        r[L_TERMS] = last || act >= kSigmoid ? 3 : 1;  // dz_i is an f32 value under all but relu/none
         r[L_DZCOL] = t.zw;
         t.zw += r[L_NOUT] * r[L_TERMS];
-        // act'(z_{i+1}) of a hidden layer (dz_i in its place under sigmoid and
-        // exponential), dz_{L-1} of the last: N / 2 values a thread
+        // act'(z_{i+1}) of a hidden layer (dz_i in its place under every
+        // activation but relu and none), dz_{L-1} of the last: N / 2 values a thread
         const int vals = r[L_NOUT] / 2;
         r[L_SCR] = t.scr_words;
         t.scr_words += last ? vals : act == kRelu ? (vals + 15) / 16 : act == 0 ? 0 : vals;
@@ -120,37 +137,86 @@ __device__ __forceinline__ float split_term(float v, int q) {
     return q == 1 ? mid : r - mid;
 }
 
+// jax.nn.softplus = logaddexp(v, 0)
+__device__ __forceinline__ float softplus(float v) { return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v))); }
+
+// the activation as the JAX package's activation_fn computes it
 __device__ __forceinline__ float activate(float v, int act) {
-    if (act == kRelu) return fmaxf(v, 0.0f);
-    if (act == kSigmoid) return 1.0f / (1.0f + expf(-v));
-    if (act == kExp) return expf(v);
-    return v;
+    switch (act) {
+        case kRelu: return fmaxf(v, 0.0f);
+        case kSigmoid: return 1.0f / (1.0f + expf(-v));
+        case kExp: return expf(v);
+        case kLeakyRelu: return v > 0.0f ? v : 0.01f * v;
+        case kSine: return sinf(v);
+        case kSquareplus: return 0.5f * (v + sqrtf(v * v + 4.0f));
+        case kSoftplus: return softplus(v);
+        case kTanh: return tanhf(v);
+        default: return v;
+    }
 }
 
 // d act / d z at the f32 pre-activation z, as JAX differentiates it
+// (leakyrelu: 0.01 at 0, where jnp.where takes its false branch; softplus:
+// logaddexp's custom jvp e^(z - softplus(z)); tanh: (1 + t)(1 - t))
 __device__ __forceinline__ float act_grad(float z, int act) {
-    if (act == kRelu) return z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
-    if (act == kSigmoid) {
-        const float s = activate(z, kSigmoid);
-        return s * (1.0f - s);
+    switch (act) {
+        case kRelu: return z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
+        case kSigmoid: {
+            const float s = activate(z, kSigmoid);
+            return s * (1.0f - s);
+        }
+        case kExp: return expf(z);
+        case kLeakyRelu: return z > 0.0f ? 1.0f : 0.01f;
+        case kSine: return cosf(z);
+        case kSquareplus: return 0.5f * (1.0f + z / sqrtf(z * z + 4.0f));
+        case kSoftplus: return expf(z - softplus(z));
+        case kTanh: {
+            const float t = tanhf(z);
+            return (1.0f + t) * (1.0f - t);
+        }
+        default: return 1.0f;
     }
-    if (act == kExp) return expf(z);
-    return 1.0f;
 }
+
+#if NGP_GENERIC_ACT
+// The activations of the kGeneric instantiation, the code at run time: a
+// call, not inlined. Inlined into every value of the unrolled loops, the
+// switch over all five (sine's and tanh's full-range code among them) made
+// the 256-wide F's source take 482 s to build instead of ~100; in the
+// kernels of relu, sigmoid and exponential a call slowed the wide F by up to
+// 15 % (ptxas arranges a whole kernel around a call), so those kernels have
+// none and the generic ones are kernels of their own.
+__device__ __noinline__ float activate_generic(float v, int act) { return activate(v, act); }
+__device__ __noinline__ float act_grad_generic(float z, int act) { return act_grad(z, act); }
+#endif
 
 // The activation and its derivative with the kind fixed at compile time.
 // Given the kind at run time inside a fully unrolled loop, the compiler
 // evaluates every kind (two exponentials and a division) for every value and
 // selects; NGP_ACT_SWITCH picks the instantiation once per layer instead.
+// Relu, sigmoid and exponential (the shipped configs') are compiled in; the
+// generic kernels take every activation, the five among them, through the
+// one kGeneric instantiation, which calls the function of the code `act`
+// given at run time: one instantiation of each kernel, not five, and a call
+// a value.
 template <int kAct>
-__device__ __forceinline__ float act_of(float v) {
+__device__ __forceinline__ float act_of(float v, int act) {
+#if NGP_GENERIC_ACT
+    if constexpr (kAct == kGeneric) return activate_generic(v, act);
+#endif
     return activate(v, kAct);
 }
 template <int kAct>
-__device__ __forceinline__ float grad_of(float z) {
+__device__ __forceinline__ float grad_of(float z, int act) {
+#if NGP_GENERIC_ACT
+    if constexpr (kAct == kGeneric) return act_grad_generic(z, act);
+#endif
     return act_grad(z, kAct);
 }
 
+#if NGP_GENERIC_ACT
+#define NGP_ACT_SWITCH(ACT, CALL) CALL(kGeneric);
+#else
 #define NGP_ACT_SWITCH(ACT, CALL)                \
     switch (ACT) {                               \
         case kRelu: CALL(kRelu); break;          \
@@ -158,6 +224,7 @@ __device__ __forceinline__ float grad_of(float z) {
         case kExp: CALL(kExp); break;            \
         default: CALL(0); break;                 \
     }
+#endif
 
 // layer i's f32 (din, dout) weights w into the packed bf16 layouts, zero-padded:
 // fwd (N = wgmma N of dout, K = pad16(din)), W^T K-major; bwd (N = wgmma N of
@@ -349,23 +416,26 @@ __device__ __forceinline__ void load_x(uint32_t (&a)[kMaxK / 16][4], const float
     }
 }
 
-// act'(z) of every accumulator value into the scratch (sigmoid, exponential)
+// act'(z) of every accumulator value into the scratch (every activation but
+// relu and none)
 template <int N, int kAct>
-__device__ __forceinline__ void save_grad(const float (&acc)[N / 2], float* s, const Ctx& c) {
+__device__ __forceinline__ void save_grad(const float (&acc)[N / 2], float* s, const Ctx& c, int act) {
 #pragma unroll
-    for (int v = 0; v < N / 2; ++v) s[(size_t)v * c.stride] = grad_of<kAct>(acc[v]);
+    for (int v = 0; v < N / 2; ++v) s[(size_t)v * c.stride] = grad_of<kAct>(acc[v], act);
 }
 
 // the next layer's A fragments a[kb], kb < kn / 16: the activation of the
 // accumulators, rounded to bf16 (fragment e holds values 8kb + 2e, 8kb + 2e + 1)
 template <int N, int kMaxK, int kAct>
-__device__ __forceinline__ void next_frags(const float (&acc)[N / 2], uint32_t (&a)[kMaxK / 16][4], int kn) {
+__device__ __forceinline__ void next_frags(const float (&acc)[N / 2], uint32_t (&a)[kMaxK / 16][4], int kn,
+                                           int act) {
 #pragma unroll
     for (int kb = 0; kb < N / 16; ++kb) {
         if (kb * 16 < kn) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                a[kb][e] = pack_bf16(act_of<kAct>(acc[8 * kb + 2 * e]), act_of<kAct>(acc[8 * kb + 2 * e + 1]));
+                a[kb][e] = pack_bf16(act_of<kAct>(acc[8 * kb + 2 * e], act),
+                                     act_of<kAct>(acc[8 * kb + 2 * e + 1], act));
         }
     }
 }
@@ -377,8 +447,10 @@ __device__ __forceinline__ void write_out(const float (&acc)[N / 2], const Param
     for (int j = 0; j < N / 8; ++j) {
         if (j * 8 < dout) {
             const int col = 8 * j + 2 * c.tig;
-            store_pair(p.out, c.r0, col, p.n, dout, act_of<kAct>(acc[4 * j]), act_of<kAct>(acc[4 * j + 1]));
-            store_pair(p.out, c.r1, col, p.n, dout, act_of<kAct>(acc[4 * j + 2]), act_of<kAct>(acc[4 * j + 3]));
+            const int oa = p.out_act;
+            store_pair(p.out, c.r0, col, p.n, dout, act_of<kAct>(acc[4 * j], oa), act_of<kAct>(acc[4 * j + 1], oa));
+            store_pair(p.out, c.r1, col, p.n, dout, act_of<kAct>(acc[4 * j + 2], oa),
+                       act_of<kAct>(acc[4 * j + 3], oa));
         }
     }
 }
@@ -393,7 +465,7 @@ __device__ __forceinline__ void last_dz(float (&acc)[N / 2], const Params& p, in
         for (int e = 0; e < 4; ++e) {
             const long long r = e < 2 ? c.r0 : c.r1;
             const int col = 8 * j + 2 * c.tig + (e & 1);
-            const float gv = r < p.n && col < dout ? p.g[r * dout + col] * grad_of<kAct>(acc[4 * j + e]) : 0.0f;
+            const float gv = r < p.n && col < dout ? p.g[r * dout + col] * grad_of<kAct>(acc[4 * j + e], p.out_act) : 0.0f;
             acc[4 * j + e] = gv;
             s[(size_t)(4 * j + e) * c.stride] = gv;
         }
@@ -439,14 +511,20 @@ __device__ __forceinline__ void fwd_layer(const int* rec, const int* rec_next, b
                     }
                     s[(size_t)(v0 / 16) * c.stride] = __uint_as_float(word);
                 }
-            } else if (p.act == kSigmoid) {
-                save_grad<N, kSigmoid>(acc, s, c);
-            } else if (p.act == kExp) {
-                save_grad<N, kExp>(acc, s, c);
+#if NGP_GENERIC_ACT
+            } else if (p.act != 0) {
+                save_grad<N, kGeneric>(acc, s, c, p.act);
             }
+#else
+            } else if (p.act == kSigmoid) {
+                save_grad<N, kSigmoid>(acc, s, c, p.act);
+            } else if (p.act == kExp) {
+                save_grad<N, kExp>(acc, s, c, p.act);
+            }
+#endif
         }
         const int kn = rec[L_KOUT];
-#define NGP_NEXT(K) next_frags<N, kMaxK, K>(acc, a, kn)
+#define NGP_NEXT(K) next_frags<N, kMaxK, K>(acc, a, kn, p.act)
         NGP_ACT_SWITCH(p.act, NGP_NEXT)
 #undef NGP_NEXT
         if (kBwd && c.live)  // h_{i+1} for the dW kernel

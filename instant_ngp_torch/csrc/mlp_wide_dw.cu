@@ -166,9 +166,10 @@ __global__ void __launch_bounds__(128 * (kDwC + 1), 1) mlp_dw_kernel(const DwPar
     }
 }
 
-// dW_i = bf16(Σ_s partial_s), s in order: every layer, one element a thread
+// dW_i = bf16(Σ_s partial_s), s in order (the f32 sum itself where !round_bf16):
+// every layer, one element a thread
 __global__ void dw_reduce(const float* __restrict__ partials, const unsigned char* pk, int L, int splits,
-                          float* __restrict__ dw, long long total) {
+                          float* __restrict__ dw, long long total, int round_bf16) {
     const int* d = reinterpret_cast<const int*>(pk);
     for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
          e += (long long)gridDim.x * blockDim.x) {
@@ -182,14 +183,14 @@ __global__ void dw_reduce(const float* __restrict__ partials, const unsigned cha
         const long long k = e - base, size = (long long)d[i] * d[i + 1];
         float sum = 0.0f;
         for (int s = 0; s < splits; ++s) sum += partials[pbase + s * size + k];
-        dw[e] = bf16_round(sum);
+        dw[e] = round_bf16 ? bf16_round(sum) : sum;
     }
 }
 
 int dw_stage_bytes(const int* d, int n_layers, int act) {
     int b = 0;
     for (int i = 0; i < n_layers; ++i) {
-        const int terms = i == n_layers - 1 || act == kSigmoid || act == kExp ? 3 : 1;
+        const int terms = i == n_layers - 1 || act >= kSigmoid ? 3 : 1;
         const int v = kDwC * kTile * kTile * 2 + 2 * kTile * wgn(d[i + 1]) * terms;
         b = v > b ? v : b;
     }
@@ -201,10 +202,11 @@ int dw_stage_bytes(const int* d, int n_layers, int act) {
 // hbuf, dzbuf: what ngp_fused_mlp_bwd_wide wrote for these widths, n and act;
 // scratch: its scratch (the widths in its header); split_rows: rows a split;
 // partials: ngp_fused_mlp_wide_sizes' f32 values; dw: every layer's (d_i,
-// d_{i+1}) f32 in turn, bf16 values
+// d_{i+1}) f32 in turn, bf16 values where round_bf16, else the f32 sums (a
+// data-parallel step sums them over its ranks before it rounds)
 extern "C" int ngp_fused_mlp_dw_wide(const void* hbuf, const void* dzbuf, const void* dims, int n_layers, int act,
                                      long long n, int split_rows, void* scratch, void* partials, void* dw,
-                                     void* stream) {
+                                     int round_bf16, void* stream) {
     const int* d = static_cast<const int*>(dims);
     const int pmax = check_dims(d, n_layers);
     if (pmax == 0 || split_rows < kTile || split_rows % kTile != 0) return (int)cudaErrorInvalidValue;
@@ -252,7 +254,8 @@ extern "C" int ngp_fused_mlp_dw_wide(const void* hbuf, const void* dzbuf, const 
     for (int i = 0; i < n_layers; ++i) total += (long long)d[i] * d[i + 1];
     const long long rb = (total + 255) / 256;
     dw_reduce<<<(unsigned)(rb < 4 * want ? rb : 4 * want), 256, 0, st>>>(
-        static_cast<const float*>(partials), p.pk, n_layers, p.splits, static_cast<float*>(dw), total);
+        static_cast<const float*>(partials), p.pk, n_layers, p.splits, static_cast<float*>(dw), total,
+        round_bf16);
     return (int)cudaGetLastError();
 }
 

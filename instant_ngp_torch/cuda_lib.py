@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -100,8 +101,9 @@ SIGNATURES = {
     "fused_mlp_bwd_wide": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     # h buffer, dz buffer (what fused_mlp_bwd_wide wrote), dims, n_layers, act,
     # n, split_rows, scratch (its header), partials (f32), dw (f32, every
-    # layer in turn): the wide F's weight gradient
-    "fused_mlp_dw_wide": [_P, _P, _P, _I, _I, _L, _I, _P, _P, _P, _P],
+    # layer in turn), round (1: bf16 values, 0: the f32 sums): the wide F's
+    # weight gradient
+    "fused_mlp_dw_wide": [_P, _P, _P, _I, _I, _L, _I, _P, _P, _P, _I, _P],
     # idx, idx bytes (4 or 8), vals, m, F, vec (out and vals F-float
     # aligned), size, out (added into)
     "scatter_add_rows": [_P, _I, _P, _L, _I, _I, _L, _P, _P],
@@ -177,17 +179,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libngp_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the first failure's stderr."""
+# seconds from the start of the last build to the end of each source's nvcc,
+# and what each printed (ptxas's performance warnings among it)
+SOURCE_SECONDS: dict[str, float] = {}
+SOURCE_OUTPUT: dict[str, str] = {}
+
+
+def _run_all(cmds: list[list[str]]) -> tuple[list[float], list[str]]:
+    """Run the commands in parallel; raise with the first failure's stderr.
+    Returns the seconds from the start to each command's end, and each one's
+    stderr."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    errors = []
-    for cmd, proc in zip(cmds, procs):
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{' '.join(cmd[-3:])} failed ({proc.returncode}):\n{err}")
+    ends, errs = [0.0] * len(procs), [""] * len(procs)
+
+    def wait(i: int) -> None:
+        errs[i] = procs[i].communicate()[1]
+        ends[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    errors = [f"{' '.join(cmd[-3:])} failed ({proc.returncode}):\n{err}"
+              for cmd, proc, err in zip(cmds, procs, errs) if proc.returncode != 0]
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return ends, errs
 
 
 def build() -> tuple[Path, float]:
@@ -202,8 +222,12 @@ def build() -> tuple[Path, float]:
     tag = f"{path.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(_sources(), objs)])
+    ends, outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                           for src, obj in zip(_sources(), objs)])
+    SOURCE_SECONDS.clear()
+    SOURCE_SECONDS.update({src.name: t for src, t in zip(_sources(), ends)})
+    SOURCE_OUTPUT.clear()
+    SOURCE_OUTPUT.update({src.name: out for src, out in zip(_sources(), outs) if out.strip()})
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, path)

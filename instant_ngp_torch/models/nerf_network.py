@@ -44,24 +44,26 @@ class NerfNetwork(nn.Module):
         self.rgb_network = rgb_network
         self.n_extra_dims = n_extra_dims
 
-    def density(self, pos: torch.Tensor, max_level=None, fast: bool = False) -> torch.Tensor:
+    def density(self, pos: torch.Tensor, max_level=None, fast: bool = False,
+                f32_dw: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1] → (N, 16) f32 density-MLP output; channel 0
         is the density logit. ``fast`` (a render's ``render_quality="fast"``,
         nerf_network.py:80-111): a grid encoding reads one stochastic corner
-        a hashed level; other encodings encode as always."""
+        a hashed level; other encodings encode as always. ``f32_dw``: see
+        ``MLP.forward``."""
         if fast and isinstance(self.pos_encoding, GridEncoding):
             feats = self.pos_encoding.encode_stochastic(pos, max_level=max_level)
         else:
             feats = self.pos_encoding(pos, max_level=max_level)
-        return self.density_network(feats)
+        return self.density_network(feats, f32_dw)
 
     def forward(self, pos: torch.Tensor, dir_warped: torch.Tensor, extra=None, max_level=None,
-                fast: bool = False) -> torch.Tensor:
+                fast: bool = False, f32_dw: bool = False) -> torch.Tensor:
         """pos (N, 3) in [0, 1]; dir_warped (N, 3) in [0, 1] (warp_direction
         applied by the caller); extra (N, E) latent dims, zeros where the
         model has them and none are given. Returns (N, 4) f32: rgb logits +
         density logit."""
-        d_out = self.density(pos, max_level=max_level, fast=fast)
+        d_out = self.density(pos, max_level=max_level, fast=fast, f32_dw=f32_dw)
         inputs = [d_out, self.dir_encoding(dir_warped)]
         if self.n_extra_dims > 0:
             if extra is None:
@@ -69,7 +71,7 @@ class NerfNetwork(nn.Module):
                                     device=pos.device)
             inputs.append(extra.to(torch.float32))
         rgb_in = torch.cat(inputs, dim=-1)
-        rgb = self.rgb_network(rgb_in)
+        rgb = self.rgb_network(rgb_in, f32_dw)
         return torch.cat([rgb[:, :3], d_out[:, :1]], dim=-1)
 
     def init(self, generator: torch.Generator) -> None:

@@ -51,6 +51,7 @@ import torch
 
 from .. import cuda_lib
 from ..common import NERF_GRIDSIZE, network_to_density, network_to_rgb, warp_direction
+from ..parallel import sharding
 from .baked import FIXED_BAKE_DIR
 
 G = NERF_GRIDSIZE
@@ -925,7 +926,7 @@ def _tables(zb_tab, win_lo_tab, win_hi_tab, background, device):
 
 
 def _render_fused(dvols, eye, dirs, groups, duv_lo, duv_hi, vol_t, background, B0, Bo,
-                  use_kernels):
+                  use_kernels, group=None):
     """The merged frame (slab.py:988-1054): one merged sweep a present group,
     then one warp of one layer a group."""
     nc = dvols.n_cascades
@@ -974,7 +975,7 @@ def _render_fused(dvols, eye, dirs, groups, duv_lo, duv_hi, vol_t, background, B
     empty = _empty_layer(B0, dvols.layer_ch, dev)
     l_pk = quad_pack(torch.stack([layers.get(g, empty) for g in range(6)]))
     outer_pk = torch.zeros((1, 4 * dvols.layer_ch), dtype=torch.bfloat16, device=dev)
-    warp = warp_composite if use_kernels else warp_composite_plain
+    warp = _warp(use_kernels, group)
     return warp(dirs, eye, outer_pk, l_pk, *_tables(zb_tab, win_lo_tab, win_hi_tab, background,
                                                    dev), B0=B0, Bo=Bo, nc=1)
 
@@ -991,10 +992,25 @@ def transposed_volumes(dvols: DenseVolumes, axes) -> dict:
     return dvols.vt_cache
 
 
+def _warp(use_kernels: bool, group=None):
+    """Kernel O (or its plain version); over a process group, pixel-sharded
+    (slab.py:680-695, ``_warp_sharded``): each rank warps its contiguous
+    slice of the rays, the packed layers and tables replicated, and the
+    frame is gathered."""
+    warp = warp_composite if use_kernels else warp_composite_plain
+    if group is None:
+        return warp
+
+    def sharded(dirs, *args, **kw):
+        return sharding.dp_render(lambda d: warp(d, *args, **kw), group)(dirs)
+
+    return sharded
+
+
 @torch.no_grad()
 def render_frame(dvols: DenseVolumes, eye, dirs: torch.Tensor, background=(0.0, 0.0, 0.0, 0.0),
                  B0: int = 512, Bo: int = 256, merge_layers: bool = True, plan=None,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, group=None) -> torch.Tensor:
     """Render unit ray directions dirs (N, 3) from ``eye`` through the dense
     volumes (slab.py:1057-1244) → (N, 5) [premultiplied rgb, α, depth] (or
     with features (N, C + 1), see ``warp_composite_plain``) on the rays'
@@ -1004,7 +1020,9 @@ def render_frame(dvols: DenseVolumes, eye, dirs: torch.Tensor, background=(0.0, 
     one compiled-shape plan for all cameras), else the warp composites the
     2·nc − 1 per-level-side layers (each level's own octave plan). plan:
     ``plan_groups_host``'s result, else ``group_stats`` on the device.
-    ``use_kernels`` False runs P and O's plain versions on any device."""
+    ``use_kernels`` False runs P and O's plain versions on any device.
+    ``group``: a process group over which the final warp is pixel-sharded
+    (``_warp``); the sweeps run on every rank."""
     eye = np.asarray(eye, np.float32)
     dev = dirs.device
     nc = dvols.n_cascades
@@ -1018,7 +1036,7 @@ def render_frame(dvols: DenseVolumes, eye, dirs: torch.Tensor, background=(0.0, 
     vol_t = transposed_volumes(dvols, sorted({int(g) // 2 for g in groups}))
     if merge_layers:
         return _render_fused(dvols, eye, dirs, groups, duv_lo, duv_hi, vol_t, background, B0, Bo,
-                             use_kernels)
+                             use_kernels, group)
 
     zb_tab = np.zeros((6, n_layers), np.float32)
     win_lo_tab = np.ones((6, n_layers, 2), np.float32)
@@ -1086,7 +1104,7 @@ def render_frame(dvols: DenseVolumes, eye, dirs: torch.Tensor, background=(0.0, 
     l_pk = quad_pack(l_dev)
     outer_pk = (quad_pack(outer_dev) if outer_dev is not None
                 else torch.zeros((1, 4 * Cl), dtype=torch.bfloat16, device=dev))
-    warp = warp_composite if use_kernels else warp_composite_plain
+    warp = _warp(use_kernels, group)
     return warp(dirs, eye, outer_pk, l_pk, *_tables(zb_tab, win_lo_tab, win_hi_tab, background,
                                                    dev), B0=B0, Bo=Bo, nc=nc)
 

@@ -54,6 +54,7 @@ from ..ops.losses import loss_type_from_string
 from ..ops.optimizers import (Optimizer, OptimizerSpec, camera_optimizer, camera_optimizer_spec,
                               state_from_tree, state_to_tree)
 from ..ops.raymarch import ray_intersect_aabb
+from ..parallel import sharding
 from ..render.camera import so3_exp, uv_to_ray_cam
 from . import baked, slab
 from . import train as nerf_train
@@ -205,7 +206,9 @@ class NerfTask:
         self.slab_deferred_vd = True
         self.slab_n_feat = 3
         self._slab_feat_proj = None  # the frozen (mu, sd, P) PCA basis
-        self.mesh = None  # a device mesh for the slab warp: Queue 1 item 4
+        # a torch.distributed process group: the training step and the slab's
+        # warp are data-parallel over it (parallel/sharding.py)
+        self.mesh = None
         # render crop box: the dataset crop intersected with the scene
         # aabb; an empty intersection means no crop
         self.render_aabb_min = np.array(self.aabb_min)
@@ -1093,10 +1096,8 @@ class NerfTask:
         the host for a perspective lens, else reduced on the device. Returns
         (H, W, 4) [premultiplied rgb over the background, α] (and the (H, W)
         depth)."""
-        if self.mesh is not None:
-            from ..testbed import not_ported
-
-            raise not_ported("the slab render's pixel-sharded warp over a device mesh", 4)
+        if self.mesh is not None:  # no unsharded frame under a mesh
+            sharding.check_group(self.mesh)
         eye = xform[:, 3]
         dvols = self._get_slab(origin=eye, eye=eye)
         rgb_head = self._slab_cache[2]
@@ -1111,7 +1112,8 @@ class NerfTask:
         if LensMode(self.dataset.lens_mode) == LensMode.PERSPECTIVE:
             plan = slab.plan_groups_host(xform, (width, height), focal_length, principal_point)
         out = slab.render_frame(dvols, eye, d, background=np.asarray(background, np.float32),
-                                B0=B0, Bo=B0 // 2, plan=plan, use_kernels=self.use_kernels)
+                                B0=B0, Bo=B0 // 2, plan=plan, use_kernels=self.use_kernels,
+                                group=self.mesh)
         if dvols.n_feat > 0:
             out = slab.deferred_decode(out, d, rgb_head, dvols.feat_proj, self.rgb_activation)
         frame = out[:, :4].reshape(height, width, 4)

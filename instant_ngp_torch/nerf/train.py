@@ -58,6 +58,7 @@ from ..ops.gather import take_rows, take_rows_plain
 from ..ops.losses import HUBER_ALPHA, loss_and_grads, loss_type_from_string
 from ..ops.raymarch import mip_from_pos
 from ..ops.scatter import scatter_add_rows_, scatter_add_rows_plain_
+from ..parallel import sharding
 from ..render.camera import camera_slerp, so3_exp, uv_to_ray_cam
 from .occupancy import OccupancyGrid, draw_grid_update, update_grid
 from .sampler import march_rays, march_rays_plain
@@ -476,7 +477,11 @@ class MarchedBatch:
     2), origins and directions (R, 3), the (R, K) window ts, dts, valid and
     the per-ray sample counts n_valid (R,); ``depth``, the composite's depth
     per ray (R,), once ``step_gradients`` has made it where the step needs
-    it (the sharpness-weighted deposit)."""
+    it (the sharpness-weighted deposit). On a rank of a sharded step these
+    are its slice of the step's rays: ``total_rays`` is the step's whole
+    count and ``before`` the valid samples of the slices before this one (a
+    device scalar), so that the capacity drop and the loss are the whole
+    step's."""
 
     uv: torch.Tensor
     o: torch.Tensor
@@ -486,15 +491,22 @@ class MarchedBatch:
     valid: torch.Tensor
     n_valid: torch.Tensor
     depth: torch.Tensor | None = None
+    total_rays: int = 0
+    before: torch.Tensor | None = None
+
+
+def snapped_uv(task, uv: torch.Tensor) -> torch.Tensor:
+    """The picked uv, snapped to pixel centres where the task asks it."""
+    if task.snap_to_pixel_centers:
+        uv = (torch.floor(uv * task.resolution_t) + 0.5) / task.resolution_t
+    return uv
 
 
 def march_batch(task, draws: StepDraws) -> MarchedBatch:
     """Snap the picked pixels to their centers, make their rays (through the
     camera state as it stands, not differentiated) and march them through
     the occupancy grid (kernel C)."""
-    uv = draws.uv
-    if task.snap_to_pixel_centers:
-        uv = (torch.floor(uv * task.resolution_t) + 0.5) / task.resolution_t
+    uv = snapped_uv(task, draws.uv)
     with torch.no_grad():
         o, d = generate_rays(task, draws.img_idx, uv, task.cam_offsets, draws.motion_time)
     march = march_rays if task.use_kernels else march_rays_plain
@@ -514,9 +526,12 @@ def sample_inputs(task, batch: MarchedBatch, rays=None):
     o, d = (batch.o, batch.d) if rays is None else rays
     pos_w, dirs = task._window_inputs(o, d, batch.ts)
     cap = task.compact_samples
-    if cap is None or cap >= R * K:
+    if cap is None or cap >= (batch.total_rays or R) * K:
         return pos_w, dirs, None
-    maps = prefix_compaction_maps(batch.n_valid, K, cap)
+    if batch.before is None:
+        maps = prefix_compaction_maps(batch.n_valid, K, cap)
+    else:  # a rank's slice: the whole step's first cap valid samples are kept
+        maps = prefix_compaction_maps(batch.n_valid, K, min(cap, R * K), cap - batch.before)
     return compact_gather(pos_w, maps).contiguous(), compact_gather(dirs, maps).contiguous(), maps
 
 
@@ -530,15 +545,17 @@ def per_sample(x: torch.Tensor | None, maps, K: int):
     return x[torch.div(maps.src, K, rounding_mode="floor")]
 
 
-def eval_samples(task, batch: MarchedBatch, rays=None, extra=None, max_level=None):
+def eval_samples(task, batch: MarchedBatch, rays=None, extra=None, max_level=None,
+                 f32_dw: bool = False):
     """Network outputs (R, K, 4) on the window, with autograd to the
     parameters (and to ``rays`` and the per-ray latents ``extra`` (R, E)
     where they require grad), and the validity after the capacity drop.
-    ``max_level``: each ray's level cap (R,)."""
+    ``max_level``: each ray's level cap (R,). ``f32_dw``: see
+    ``MLP.forward``."""
     R, K = batch.ts.shape
     pos, dirs, maps = sample_inputs(task, batch, rays)
     out = task.model(pos, dirs, extra=per_sample(extra, maps, K),
-                     max_level=per_sample(max_level, maps, K))
+                     max_level=per_sample(max_level, maps, K), f32_dw=f32_dw)
     if maps is None:
         return out.reshape(R, K, 4), batch.valid
     return expand_gather(out, maps).reshape(R, K, 4), batch.valid & maps.kept.reshape(R, K)
@@ -570,12 +587,14 @@ def targets(task, draws: StepDraws, uv: torch.Tensor, exposure: torch.Tensor | N
     return target, bg, pixel_ok
 
 
-def step_gradients(task, draws: StepDraws, batch: MarchedBatch | None = None):
+def step_gradients(task, draws: StepDraws, batch: MarchedBatch | None = None,
+                   f32_dw: bool = False):
     """Forward and backward of one step without the update, in the task's
     train mode: returns (grads in ``param_list`` order, followed where the
     step optimizes the camera (``task.optimizes_camera``) by the camera
     leaves' in ``camera_keys`` order; per-ray loss (R,); the marched batch).
-    ``batch`` is the step's march when it was already made.
+    ``batch`` is the step's march when it was already made. ``f32_dw``: the
+    MLPs' gradients are their f32 sums, not yet rounded to bf16.
 
     The march runs on the camera state as it stands; where the extrinsics
     or the focal length are optimized the rays are made again from leaves
@@ -601,7 +620,7 @@ def step_gradients(task, draws: StepDraws, batch: MarchedBatch | None = None):
         if cam_on and (task.optimize_extrinsics or task.optimize_focal_length):
             rays = generate_rays(task, draws.img_idx, batch.uv, leaves, draws.motion_time)
         extra = leaves["extra"][draws.img_idx] if "extra" in leaves else None
-        out, valid = eval_samples(task, batch, rays, extra, draws.max_level)
+        out, valid = eval_samples(task, batch, rays, extra, draws.max_level, f32_dw)
         composite = composite_train if task.use_kernels else composite_train_plain
         want_dtarget = exposure is not None or envmap is not None
         want_depth = task.state.sharp_grid is not None and task.use_error_map
@@ -609,7 +628,8 @@ def step_gradients(task, draws: StepDraws, batch: MarchedBatch | None = None):
             out.detach().contiguous(), batch.ts, batch.dts, valid.contiguous(),
             target.detach().contiguous(), bg.detach().contiguous(), pixel_ok.contiguous(),
             task.state.grid.mean_density, task.training_near_distance,
-            task.density_reg_scale * INV_LOSS_SCALE, float(np.float32(1.0) / np.float32(R)),
+            task.density_reg_scale * INV_LOSS_SCALE,
+            float(np.float32(1.0) / np.float32(batch.total_rays or R)),
             task.loss_type, task.rgb_activation, task.density_activation, task.train_mode,
             want_dtarget=want_dtarget, depth=depth_term(task, draws.img_idx, batch.uv),
             want_dbg=envmap is not None, want_depth=want_depth)
@@ -712,14 +732,58 @@ def deposit_error(task, img_idx, uv, per_ray, pdf, factor=None) -> None:
     scatter_(task.state.error_map.view(-1, 1), corners, vals)
 
 
+def shard_step(task, draws: StepDraws, group):
+    """A rank's share of a sharded step (``task.mesh``): its contiguous
+    slice of the step's draws (every rank drew the whole step's from the
+    same generator), marched, with the step's ray count and the valid
+    samples of the slices before it (one all-gather of a count), so that
+    ``sample_inputs`` keeps the whole step's first ``compact_samples``."""
+    R = draws.img_idx.shape[0]
+    local = StepDraws(**{f.name: sharding.shard_batch(getattr(draws, f.name), group)
+                         for f in dataclasses.fields(draws)})
+    batch = march_batch(task, local)
+    rank, _ = sharding.rank_and_size(group)
+    K = batch.ts.shape[1]
+    counts = sharding.all_gather_cat(
+        torch.clamp(batch.n_valid.to(torch.int64), max=K).sum().reshape(1), group)
+    batch.total_rays, batch.before = R, counts[:rank].sum()
+    return local, batch
+
+
 def train_step(task, draws: StepDraws) -> dict:
     """One training step in place. Returns device scalars ``loss`` (mean
-    per-ray loss) and ``measured_samples`` (valid samples marched)."""
-    grads, per_ray, batch = step_gradients(task, draws)
+    per-ray loss) and ``measured_samples`` (valid samples marched).
+
+    With ``task.mesh`` (a process group) the step is data-parallel over its
+    ranks: each marches, encodes, runs the MLPs and composites its slice of
+    the rays (``shard_step``), the loss normalised by the whole step's ray
+    count; every gradient is summed over the group in one all-reduce, the
+    MLPs' dW as their f32 sums, rounded to bf16 after it as the unsharded
+    backward rounds the whole batch's, so that every rank takes the same
+    optimizer step; the per-ray losses are gathered, so that every rank
+    deposits the whole step's error map and reports the whole step's loss
+    and sample count. A mesh without an initialised process group raises."""
+    group = task.mesh
     params = task.model.param_list()
+    n_net = len(task.model.density_network.weights) + len(task.model.rgb_network.weights)
+    if group is None:
+        grads, per_ray, batch = step_gradients(task, draws)
+        n_valid = torch.sum(batch.n_valid)
+    else:
+        local, batch = shard_step(task, draws, group)
+        grads, per_ray, batch = step_gradients(task, local, batch, f32_dw=True)
+        *grads, n_valid = sharding.all_reduce_sum_list(
+            [*grads, batch.n_valid.sum().reshape(())], group)  # a count ≤ 2^24: exact in f32
+        grads = [g.to(torch.bfloat16).float() for g in grads[:n_net]] + grads[n_net:]
+        per_ray = sharding.all_gather_cat(per_ray, group)
+        if task.use_error_map and task.state.sharp_grid is not None:
+            batch = dataclasses.replace(
+                batch, o=sharding.all_gather_cat(batch.o, group),
+                d=sharding.all_gather_cat(batch.d, group),
+                depth=sharding.all_gather_cat(batch.depth, group))
+        batch = dataclasses.replace(batch, uv=snapped_uv(task, draws.uv))
     cam_grads = grads[len(params):]
     grads = grads[:len(params)]
-    n_net = len(task.model.density_network.weights) + len(task.model.rgb_network.weights)
     frozen = ((params[:n_net] if not task.shall_train_network else [])
               + (params[n_net:] if not task.shall_train_encoding else []))
     kept = [p.detach().clone() for p in frozen]
@@ -735,7 +799,7 @@ def train_step(task, draws: StepDraws) -> dict:
             factor = sharpness_factor(task, draws.img_idx, batch.uv, batch.o, batch.d,
                                       batch.depth)
         deposit_error(task, draws.img_idx, batch.uv, per_ray, draws.pdf, factor)
-    return {"loss": torch.mean(per_ray), "measured_samples": torch.sum(batch.n_valid)}
+    return {"loss": torch.mean(per_ray), "measured_samples": n_valid}
 
 
 @torch.no_grad()

@@ -29,27 +29,35 @@ class CompactionMaps(NamedTuple):
     n_valid: torch.Tensor
 
 
-def prefix_compaction_maps(n_valid: torch.Tensor, K: int, capacity: int) -> CompactionMaps:
+def prefix_compaction_maps(n_valid: torch.Tensor, K: int, capacity: int,
+                           limit: torch.Tensor | None = None) -> CompactionMaps:
     """Maps for per-ray-prefix validity: sample (r, k) of the flat index
-    r·K + k is valid iff k < n_valid[r]."""
+    r·K + k is valid iff k < n_valid[r]. ``limit`` (a device scalar, at most
+    ``capacity`` where given): keep only the first ``limit`` valid samples,
+    in ``capacity`` slots (a rank's share of a batch whose capacity the
+    ranks before it have partly filled)."""
     R = n_valid.shape[0]
     device = n_valid.device
+    given = limit is not None
+    if not given:
+        limit = capacity
     n = torch.clamp(n_valid.to(torch.int64), max=K)
     cum = torch.cumsum(n, 0)
     off = cum - n
     k_iota = torch.arange(K, device=device)[None, :]
     dest2 = off[:, None] + k_iota
-    kept = ((k_iota < n[:, None]) & (dest2 < capacity)).reshape(R * K)
+    kept = ((k_iota < n[:, None]) & (dest2 < limit)).reshape(R * K)
     dest = torch.clamp(dest2, 0, capacity - 1).reshape(R * K)
     # ray of each slot: each contributing ray marks its first slot with
     # ray + 1, and a running max fills the slots after it
-    contrib = (n > 0) & (off < capacity)
+    contrib = (n > 0) & (off < limit)
     r1 = torch.where(contrib, torch.arange(R, device=device) + 1, 0)
     ray_start = torch.zeros((capacity,), dtype=torch.int64, device=device).scatter_reduce(
         0, torch.clamp(off, 0, capacity - 1), r1, "amax")
     ray = torch.clamp(torch.cummax(ray_start, 0).values - 1, 0, R - 1)
     src = torch.clamp(ray * K + (torch.arange(capacity, device=device) - off[ray]), 0, R * K - 1)
-    return CompactionMaps(src, dest, kept, torch.clamp(cum[-1], max=capacity))
+    n_kept = torch.clamp(cum[-1], max=limit)
+    return CompactionMaps(src, dest, kept, torch.clamp(n_kept, min=0) if given else n_kept)
 
 
 def compact_gather(x: torch.Tensor, maps: CompactionMaps) -> torch.Tensor:

@@ -5,9 +5,10 @@
   * level resolution: R_l = ceil(s_l) + 1
   * dense index while R_l^D ≤ table size, else spatial hash
     h(x) = (x₀·1 ⊻ x₁·2654435761 ⊻ x₂·805459861) mod T
-  * d-linear interpolation of 2^D corners; "simplex" interpolates the 4
-    corners of the Freudenthal tetrahedron on hashed 3-D levels; "nearest"
-    reads one corner
+  * d-linear interpolation of 2^D corners; "smoothstep" is d-linear in
+    t = f·f·(3 − 2f) of the cell fraction f (dt/dx = 6f(1 − f)·scale);
+    "simplex" interpolates the 4 corners of the Freudenthal tetrahedron on
+    hashed 3-D levels; "nearest" reads one corner
   * D = 3 (NeRF) or D = 2 (the image primitive) on the kernels; the plain
     versions take any D
   * per-level sizes aligned to multiples of 8; ``max_level`` masking
@@ -64,7 +65,7 @@ from ..common import fma, fma_exact
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
 _MASK32 = 0xFFFFFFFF
 MAX_DRAWS = 8  # stochastic draws are fewer than the 8 corners of a cell
-INTERPOLATIONS = {"linear": 0, "nearest": 1, "simplex": 2}
+INTERPOLATIONS = {"linear": 0, "nearest": 1, "simplex": 2, "smoothstep": 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,9 +153,9 @@ def _level_corners(level: GridLevelSpec, interpolation: str, x: torch.Tensor):
         # the card is its own)
         t_mid = ((t[:, 0] + t[:, 1]) + t[:, 2]) - t_max - t_min
         return idx, torch.stack([1.0 - t_max, t_max - t_mid, t_mid - t_min, t_min])
-    if interpolation not in ("linear", "simplex"):
-        raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
-    t = frac
+    if interpolation not in INTERPOLATIONS:
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    t = smoothstep(frac) if interpolation == "smoothstep" else frac
     idx_c, w_c = [], []
     for c in range(1 << n_dims):
         bits = [(c >> d) & 1 for d in range(n_dims)]
@@ -165,6 +166,12 @@ def _level_corners(level: GridLevelSpec, interpolation: str, x: torch.Tensor):
             w = wd if w is None else w * wd
         w_c.append(w)
     return torch.stack(idx_c), torch.stack(w_c)
+
+
+def smoothstep(f: torch.Tensor) -> torch.Tensor:
+    """The smoothstep weight f·f·(3 − 2f) of a cell fraction, in the JAX
+    package's order of operations (``_corner_setup``)."""
+    return f * f * (3.0 - 2.0 * f)
 
 
 def hashgrid_encode_plain(levels, interpolation: str, table: torch.Tensor,
@@ -288,7 +295,9 @@ def hashgrid_encode_dx_plain(levels, interpolation: str, table: torch.Tensor, x:
     d/dx): level by level from level 0 into zeros; per level gf_c = g·f_c
     summed over f in order, then for d-linear levels, per axis d, the sum
     over corners c = 0 … 2^D−1 of gf_c · (±Π_{d'≠d} a_{d'}) (the product in
-    increasing d'), times the level scale; for simplex levels the rank
+    increasing d'), times dt/dx: the level scale (linear), or 6f(1 − f)·scale
+    of the axis' cell fraction f (smoothstep, a's from t = smoothstep(f));
+    for simplex levels the rank
     masks pick gf1−gf0 (largest fraction), gf2−gf1 (middle) or gf3−gf2
     (smallest); nearest levels add nothing."""
     n, n_dims = x.shape
@@ -306,6 +315,10 @@ def hashgrid_encode_dx_plain(levels, interpolation: str, table: torch.Tensor, x:
         scale = float(np.float32(level.scale))
         pos = fma(x, scale, 0.5)
         t = pos - torch.floor(pos)
+        dchain = None
+        if interpolation == "smoothstep":
+            dchain = 6.0 * t * (1.0 - t) * scale
+            t = smoothstep(t)
         if interpolation == "simplex" and level.hashed and n_dims == 3:
             amax = torch.argmax(t, dim=-1)
             amin = torch.argmin(t, dim=-1)
@@ -328,7 +341,7 @@ def hashgrid_encode_dx_plain(levels, interpolation: str, table: torch.Tensor, x:
                     prod = a if prod is None else prod * a
                 term = gf[c] * (prod if (c >> d) & 1 else -prod)
                 acc = term if acc is None else acc + term
-            cols.append(acc * scale)
+            cols.append(acc * scale if dchain is None else acc * dchain[:, d])
         dx = dx + torch.stack(cols, dim=-1)
     return dx
 
@@ -385,7 +398,7 @@ def _check_kernel_shapes(levels, interpolation: str, n_dims: int, n_features: in
         raise ValueError(f"kernel {name} takes D in {dims_ok}, F in (1,2,4,8), ≤32 levels; got "
                          f"D={n_dims}, F={n_features}, L={len(levels)}")
     if interpolation not in INTERPOLATIONS:
-        raise NotImplementedError(f"interpolation {interpolation!r} is not ported yet")
+        raise ValueError(f"unknown interpolation {interpolation!r}")
 
 
 def hashgrid_encode(levels, interpolation: str, table: torch.Tensor,

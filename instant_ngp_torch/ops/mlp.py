@@ -20,8 +20,8 @@ from .mlp_kernel import fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp
 
 class _FusedMLPFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mlp: "MLP", x: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
-        ctx.mlp = mlp
+    def forward(ctx, mlp: "MLP", f32_dw: bool, x: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
+        ctx.mlp, ctx.f32_dw = mlp, f32_dw
         ctx.save_for_backward(x, *ws)
         forward = fused_mlp if mlp.use_kernel else fused_mlp_plain
         return forward(list(ws), x, mlp.activation, mlp.output_activation)
@@ -31,8 +31,8 @@ class _FusedMLPFunction(torch.autograd.Function):
         x, *ws = ctx.saved_tensors
         mlp = ctx.mlp
         backward = fused_mlp_bwd if mlp.use_kernel else fused_mlp_bwd_plain
-        dx, dws = backward(ws, x, g, mlp.activation, mlp.output_activation)
-        return (None, dx.to(x.dtype), *dws)
+        dx, dws = backward(ws, x, g, mlp.activation, mlp.output_activation, f32_dw=ctx.f32_dw)
+        return (None, None, dx.to(x.dtype), *dws)
 
 
 class MLP(nn.Module):
@@ -72,8 +72,11 @@ class MLP(nn.Module):
                            device=generator.device)
             w.copy_(u * (2.0 * limit) - limit)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _FusedMLPFunction.apply(self, x, *self.weights)
+    def forward(self, x: torch.Tensor, f32_dw: bool = False) -> torch.Tensor:
+        """``f32_dw``: the backward gives the weights the f32 sums of dW,
+        not yet rounded to bf16 (a data-parallel step rounds them after its
+        sum over the ranks)."""
+        return _FusedMLPFunction.apply(self, f32_dw, x, *self.weights)
 
 
 def mlp_from_config(cfg: dict, n_input_dims: int, n_output_dims: int, device=None) -> MLP:

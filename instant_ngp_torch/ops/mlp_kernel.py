@@ -4,15 +4,20 @@ autodiff backward it gets from ``_reference_forward``).
 
 Forward contract, as ``MLP.__call__`` in the JAX package: a bf16 input and
 bf16 weights, f32 accumulation, each hidden activation rounded back to
-bf16, an f32 output; any widths and depth; relu, none, sigmoid or
-exponential as the hidden and the output activation. On CUDA tensors
+bf16, an f32 output; any widths and depth; relu, none, sigmoid,
+exponential, leakyrelu, sine, squareplus, softplus or tanh as the hidden
+and the output activation (the last five are ``MLP.__call__``'s XLA path in
+the JAX package; its Pallas kernel takes the first four). On CUDA tensors
 ``fused_mlp`` launches kernel B, which rounds the f32 input and weights to
 bf16 itself, runs the products on tensor cores and takes any row count:
 ``csrc/mlp.cu`` where every width is at most ``NARROW_WIDTH`` (64), there
 are at most ``NARROW_LAYERS`` (8) matrices and both activations are relu or
 none (its weights all in shared memory, two row blocks a warp), else
 ``csrc/mlp_wide.cu`` (widths up to ``MAX_WIDTH``, 256, any depth, every
-activation; its weights streamed through shared memory a chunk at a time).
+activation: relu, sigmoid and exponential compiled in, the other five
+through kernels of their own, ``csrc/mlp_wide*_generic.cu``, that call the
+activation of the code given at run time; its weights streamed through
+shared memory a chunk at a time).
 A wider layer raises. On CPU tensors it runs ``fused_mlp_plain``.
 
 Backward contract, as JAX's vjp of ``MLP.__call__``: every product takes
@@ -20,7 +25,10 @@ the f32 cotangent against a bf16 operand with f32 accumulation, and each
 result (dh per layer, every dW, dX) is rounded to bf16; the ReLU mask
 comes from the f32 pre-activation and is 0.5 where it is exactly 0 (the
 derivative of ``jnp.maximum`` at a tie); sigmoid's derivative is s·(1 − s)
-and the exponential's e^z, of the f32 values. ``fused_mlp_bwd`` launches
+and the exponential's e^z, of the f32 values; leakyrelu's is 1 above 0 and
+0.01 at and below it (``jnp.where`` takes the false branch at 0), sine's
+cos z, squareplus's (1 + z/√(z² + 4))/2, softplus's e^(z − softplus(z))
+(the custom jvp of ``jnp.logaddexp``) and tanh's (1 + t)(1 − t). ``fused_mlp_bwd`` launches
 kernel F on CUDA tensors (``csrc/mlp_bwd.cu`` within the narrow limits with
 a none output activation, else ``csrc/mlp_wide_bwd.cu`` and its dW launch,
 ``csrc/mlp_wide_dw.cu``) and runs
@@ -48,14 +56,22 @@ import torch
 
 from .. import cuda_lib
 
-ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2, "logistic": 2, "exponential": 3}
+ACTIVATIONS = {"none": 0, "relu": 1, "sigmoid": 2, "logistic": 2, "exponential": 3,
+               "leakyrelu": 4, "sine": 5, "squareplus": 6, "softplus": 7, "tanh": 8}
 NARROW_WIDTH = 64  # widest layer of csrc/mlp.cu and csrc/mlp_bwd.cu (weights all in shared memory)
 NARROW_LAYERS = 8
 MAX_WIDTH = 256  # widest layer of csrc/mlp_wide.cu (its register-resident accumulators)
 DW_SPLIT_ROWS = 4096  # rows of one f32 partial of the wide F's dW (a multiple of 64)
 
 
+def _softplus(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = ``jnp.logaddexp(h, 0)``: max(h, 0) +
+    log1p(exp(−|h|)) (no threshold, unlike ``torch.nn.functional.softplus``)."""
+    return torch.clamp(h, min=0.0) + torch.log1p(torch.exp(-torch.abs(h)))
+
+
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
+    """The activation as the JAX package's ``activation_fn`` computes it."""
     name = name.lower()
     if name == "relu":
         return torch.clamp(h, min=0.0)
@@ -65,7 +81,17 @@ def _act(name: str, h: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(h)
     if name == "exponential":
         return torch.exp(h)
-    raise NotImplementedError(name)
+    if name == "leakyrelu":
+        return torch.where(h > 0.0, h, 0.01 * h)
+    if name == "sine":
+        return torch.sin(h)
+    if name == "squareplus":
+        return 0.5 * (h + torch.sqrt(h * h + 4.0))
+    if name == "softplus":
+        return _softplus(h)
+    if name == "tanh":
+        return torch.tanh(h)
+    raise ValueError(f"unknown activation {name!r}")
 
 
 def fused_mlp_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, activation: str = "relu",
@@ -93,7 +119,18 @@ def _act_grad(name: str, z: torch.Tensor) -> torch.Tensor:
         return s * (1.0 - s)
     if name == "exponential":
         return torch.exp(z)
-    raise NotImplementedError(name)
+    if name == "leakyrelu":
+        return torch.where(z > 0.0, 1.0, 0.01)
+    if name == "sine":
+        return torch.cos(z)
+    if name == "squareplus":
+        return 0.5 * (1.0 + z / torch.sqrt(z * z + 4.0))
+    if name == "softplus":
+        return torch.exp(z - _softplus(z))
+    if name == "tanh":
+        t = torch.tanh(z)
+        return (1.0 + t) * (1.0 - t)
+    raise ValueError(f"unknown activation {name!r}")
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -114,23 +151,26 @@ def _forward_record(wb: Sequence[torch.Tensor], x: torch.Tensor, activation: str
 
 
 def fused_mlp_bwd_plain(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
-                        activation: str = "relu", output_activation: str = "none"):
+                        activation: str = "relu", output_activation: str = "none",
+                        f32_dw: bool = False):
     """Backward of ``fused_mlp_plain``: x (N, in), g (N, out) f32 cotangent
     → (dx (N, in) f32, [dW (in, out) f32 per layer]), each value
-    bf16-representable. The hidden activations are recomputed."""
+    bf16-representable. The hidden activations are recomputed. ``f32_dw``:
+    the dW are the f32 sums, not yet rounded to bf16 (a data-parallel step
+    sums them over its ranks first, then rounds once)."""
     wb = [_bf16(w) for w in ws]
     hs, zs = _forward_record(wb, x, activation)
     dz = g.float() * _act_grad(output_activation, zs[-1])
     dws = [None] * len(wb)
     dx = None
     for i in reversed(range(len(wb))):
-        dws[i] = _bf16(hs[i].T @ dz)
+        dws[i] = hs[i].T @ dz
         dh = _bf16(dz @ wb[i].T)
         if i > 0:
             dz = dh * _act_grad(activation, zs[i - 1])
         else:
             dx = dh
-    return dx, dws
+    return dx, dws if f32_dw else [_bf16(d) for d in dws]
 
 
 def mlp_dw_plain(h: torch.Tensor, dz: torch.Tensor, split_rows: int = DW_SPLIT_ROWS) -> torch.Tensor:
@@ -165,7 +205,7 @@ def split_bf16(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
 def _activation_code(name: str) -> int:
     code = ACTIVATIONS.get(name.lower())
     if code is None:
-        raise NotImplementedError(f"kernels B and F take relu/none/sigmoid/exponential, got {name}")
+        raise ValueError(f"kernels B and F take {sorted(ACTIVATIONS)}, got {name}")
     return code
 
 
@@ -233,9 +273,11 @@ def _launch_wide_f(ws, x, g, dims, act: int, out_act: int, zf=None):
     return dx, hbuf, dzbuf, scratch
 
 
-def _launch_wide_dw(hbuf, dzbuf, scratch, dims, act: int, n: int) -> list[torch.Tensor]:
+def _launch_wide_dw(hbuf, dzbuf, scratch, dims, act: int, n: int,
+                    f32_dw: bool = False) -> list[torch.Tensor]:
     """The dW launch of the wide F on its first launch's buffers: every
-    layer's dW (d_i, d_{i+1}), f32 tensors of bf16 values."""
+    layer's dW (d_i, d_{i+1}), f32 tensors of bf16 values (``f32_dw``: the
+    f32 sums, unrounded)."""
     sizes = _wide_sizes(dims, act, n)
     partials = torch.empty((sizes[4],), dtype=torch.float32, device=hbuf.device)
     shapes = list(zip(dims[:-1], dims[1:]))
@@ -243,7 +285,7 @@ def _launch_wide_dw(hbuf, dzbuf, scratch, dims, act: int, n: int) -> list[torch.
                           device=hbuf.device)
     cuda_lib.launch("fused_mlp_dw_wide", hbuf.data_ptr(), dzbuf.data_ptr(),
                     ctypes.addressof(_dims_c(dims)), len(dims) - 1, act, n, DW_SPLIT_ROWS,
-                    scratch.data_ptr(), partials.data_ptr(), dw_flat.data_ptr())
+                    scratch.data_ptr(), partials.data_ptr(), dw_flat.data_ptr(), int(not f32_dw))
     return [d.view(a, b) for d, (a, b) in zip(torch.split(dw_flat, [a * b for a, b in shapes]),
                                                shapes)]
 
@@ -272,7 +314,7 @@ def wide_layout(dims, act: str) -> list[dict]:
     code = _activation_code(act)
     out, hcol, zcol = [], 0, 0
     for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
-        terms = 3 if i == len(dims) - 2 or code in (2, 3) else 1
+        terms = 3 if i == len(dims) - 2 or code >= 2 else 1
         out.append({"hcol": hcol, "zcol": zcol, "nz": wgn(d_out), "terms": terms})
         hcol += -(-d_in // 64) * 64
         zcol += wgn(d_out) * terms
@@ -305,12 +347,13 @@ def wide_dw(bufs, dims, activation: str, n: int) -> list[torch.Tensor]:
     return _launch_wide_dw(*bufs, dims, _activation_code(activation), n)
 
 
-def _launch_bwd(ws, x, g, dims, act: int, out_act: int, zf=None, narrow=None):
+def _launch_bwd(ws, x, g, dims, act: int, out_act: int, zf=None, narrow=None,
+                f32_dw: bool = False):
     """One call of kernel F: (dx, [dW per layer], the f32 sums rounded to
-    bf16); zf, where given, takes the recompute's pre-activations (n, d_1 +
-    .. + d_L), layer by layer (the wide route then forms no dW). ``narrow``:
-    the route, by default the one ``is_narrow`` picks (the narrow route
-    takes only what it picks)."""
+    bf16, or left unrounded where ``f32_dw``); zf, where given, takes the
+    recompute's pre-activations (n, d_1 + .. + d_L), layer by layer (the wide
+    route then forms no dW). ``narrow``: the route, by default the one
+    ``is_narrow`` picks (the narrow route takes only what it picks)."""
     n = x.shape[0]
     if narrow is None:
         narrow = is_narrow(dims, act, out_act, backward=True)
@@ -326,31 +369,35 @@ def _launch_bwd(ws, x, g, dims, act: int, out_act: int, zf=None, narrow=None):
                             gf.data_ptr(), ctypes.addressof(_dims_c(dims)), len(ws), act, n,
                             dx.data_ptr(), dw_flat.data_ptr(),
                             None if zf is None else zf.data_ptr())
+        if not f32_dw:
+            dw_flat = _bf16(dw_flat)
         return dx, [d.reshape(w.shape)
-                    for d, w in zip(torch.split(_bf16(dw_flat), [w.numel() for w in ws]), ws)]
+                    for d, w in zip(torch.split(dw_flat, [w.numel() for w in ws]), ws)]
     if n == 0:
         return (torch.empty((0, dims[0]), dtype=torch.float32, device=x.device),
                 [torch.zeros(tuple(w.shape), dtype=torch.float32, device=x.device) for w in ws])
     dx, hbuf, dzbuf, scratch = _launch_wide_f(ws, x, g, dims, act, out_act, zf)
     if zf is not None:
         return dx, None
-    return dx, _launch_wide_dw(hbuf, dzbuf, scratch, dims, act, n)
+    return dx, _launch_wide_dw(hbuf, dzbuf, scratch, dims, act, n, f32_dw)
 
 
 def fused_mlp_bwd(ws: Sequence[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
-                  activation: str = "relu", output_activation: str = "none"):
+                  activation: str = "relu", output_activation: str = "none",
+                  f32_dw: bool = False):
     """See ``fused_mlp_bwd_plain``. CPU tensors run the plain version; CUDA
     tensors launch kernel F (widths ≤ ``MAX_WIDTH``), whose f32 dW sums are
-    rounded to bf16 here."""
+    rounded to bf16 (the narrow route's here, the wide route's by its dW
+    kernel) unless ``f32_dw``."""
     if x.device.type == "cpu":
-        return fused_mlp_bwd_plain(ws, x, g, activation, output_activation)
+        return fused_mlp_bwd_plain(ws, x, g, activation, output_activation, f32_dw)
     act, out_act = _activation_code(activation), _activation_code(output_activation)
     dims = _kernel_dims(ws, x)
     if tuple(g.shape) != (x.shape[0], dims[-1]):
         raise ValueError(f"g {tuple(g.shape)} does not match x {tuple(x.shape)} and layers {dims}")
     # the kernel rounds x and the weights to bf16 and lays the weights out
     # itself: no copies (a small backward is bound by its host overhead)
-    return _launch_bwd(ws, x, g, dims, act, out_act)
+    return _launch_bwd(ws, x, g, dims, act, out_act, f32_dw=f32_dw)
 
 
 def mlp_recompute(ws: Sequence[torch.Tensor], x: torch.Tensor, activation: str = "relu",

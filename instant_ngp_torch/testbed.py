@@ -67,8 +67,8 @@ intrinsics after ``set_camera_to_training_view``; its background is
 ``linear`` is False. ``NerfTask.render`` takes a camera and intrinsics of
 its own and returns the task's colour on transparent black.
 
-What waits for a later slice raises ``NotImplementedError`` naming its item
-of ROADMAP Queue 1 (``NOT_PORTED_ITEMS``) when called.
+The window and VR calls are no-ops that warn, as in the JAX package: the
+interactive surface is the web viewer (``python -m instant_ngp_torch.viewer``).
 """
 
 from __future__ import annotations
@@ -119,13 +119,8 @@ from .volume.task import VolumeTask
 CAMERA_FLAGS = ("optimize_extrinsics", "optimize_exposure", "optimize_focal_length",
                 "optimize_distortion")
 
-# ROADMAP Queue 1's items that parts of the surface wait for
-NOT_PORTED_ITEMS = {4: "sharding and the viewer"}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for ROADMAP Queue 1 item {item} "
-                               f"({NOT_PORTED_ITEMS[item]})")
+# ROADMAP Queue 1's items that parts of the surface wait for: none is left
+NOT_PORTED_ITEMS: dict[int, str] = {}
 
 
 def mode_from_scene(path) -> TestbedMode:
@@ -191,16 +186,6 @@ class Ema:
 
     def val(self) -> float:
         return self.value
-
-
-def _method(name: str, item: int):
-    """A pyngp method that waits for a Queue 1 item."""
-
-    def method(self, *args, **kwargs):
-        raise not_ported(name, item)
-
-    method.__name__ = name
-    return method
 
 
 class _ImageMetadata:
@@ -932,10 +917,21 @@ class Testbed:
     def max_level_rand_training(self, v) -> None:
         self.task.max_level_rand_training = bool(v)
 
-    # --- knobs of later slices ---
-    init_window = _method("init_window", 4)
-    init_vr = _method("init_vr", 4)
-    destroy_window = _method("destroy_window", 4)
+    # --- the GUI's calls (testbed.py:2024-2043): no window exists ---
+    def init_window(self, width: int, height: int, second_window: bool = False,
+                    hidden: bool = False) -> None:
+        """A no-op that warns, as in the JAX package: the interactive surface
+        is the web viewer. Keeps scripts that pass --gui running."""
+        warnings.warn("init_window is a no-op in the port; use `python -m "
+                      "instant_ngp_torch.viewer` for interactive viewing")
+        self._window_res = (int(width), int(height))
+
+    def init_vr(self) -> None:
+        """A no-op that warns: there is no OpenXR here."""
+        warnings.warn("init_vr is a no-op in the port (no OpenXR)")
+
+    def destroy_window(self) -> None:
+        self._window_res = None
 
     def post_task(self, fn) -> threading.Event:
         """Queue a callable for the start of the next ``frame()`` on the

@@ -73,7 +73,7 @@ def test_fox_levels_are_the_documented_ones():
     assert ours.n_entries == 3_213_824
 
 
-@pytest.mark.parametrize("interpolation", ["linear", "simplex", "nearest"])
+@pytest.mark.parametrize("interpolation", ["linear", "simplex", "nearest", "smoothstep"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_encode_equals_jax(name, interpolation):
     theirs, ours = _encodings(name, interpolation)

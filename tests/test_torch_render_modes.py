@@ -164,7 +164,7 @@ def test_rotated_crop_box_matches_jax(testbeds):
 
 
 @pytest.mark.parametrize("name", ["fox", "small_f2", "small_f4"])
-@pytest.mark.parametrize("interpolation", ["Simplex", "Linear"])
+@pytest.mark.parametrize("interpolation", ["Simplex", "Linear", "Smoothstep"])
 def test_stochastic_encode_equals_jax_encode_infer(name, interpolation):
     """The fast render's encode against ``encode_infer(stochastic_corner=
     True)`` on random points, cell boundaries and simplex ties: on hashed

@@ -449,7 +449,8 @@ def test_deferred_view_dependence_is_live(view_dependent):
 def test_slab_ignores_spp_and_the_modes_take_the_exact_path(testbeds):
     """As in the JAX package: the slab frame is the same at spp 1 and 4; a
     G-buffer mode with quality "slab" or "baked" is the exact frame; a mesh
-    on the task raises naming Queue 1 item 4."""
+    on the task without an initialised process group raises (no unsharded
+    frame under a mesh; the sharded warp is test_torch_sharding.py's)."""
     task = testbeds[0].task
     xf = np.asarray(task.dataset.xforms_start[0], np.float32)
     a = task.render(8, 8, xf, render_quality="slab")
@@ -459,7 +460,7 @@ def test_slab_ignores_spp_and_the_modes_take_the_exact_path(testbeds):
         assert torch.equal(task.render(8, 8, xf, render_mode="depth", render_quality=q), depth)
     task.mesh = object()
     try:
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(RuntimeError, match="process group"):
             task.render(8, 8, xf, render_quality="slab")
     finally:
         task.mesh = None

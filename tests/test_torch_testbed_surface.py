@@ -3,9 +3,9 @@
 The completeness test: every public name of ``instant_ngp_tpu.testbed.Testbed``
 and of its ``nerf``, ``nerf.training``, ``nerf.training.dataset``, ``sdf``,
 ``sdf.training``, ``image`` and ``image.training`` views, on the class and on
-a fresh instance, is in the port's, except the names of ``NOT_YET_PORTED``,
-each of which raises ``NotImplementedError`` naming the ROADMAP Queue 1 item
-it waits for (a method when called, a knob when set off its default). The
+a fresh instance, is in the port's (``NOT_YET_PORTED``, the names that would
+wait for a ROADMAP Queue 1 item, is empty: every item is ported); the GUI's
+window and VR calls warn and do nothing in both, as in the JAX package. The
 camera optimization's and the latents' names (``CAMERA_SLICE``) set or
 called on both Testbeds on a scene with latent dims have the same effect.
 ``instant_ngp_torch.pyngp`` has every name of the root ``pyngp.py``. Then the
@@ -40,8 +40,8 @@ torch.set_num_threads(2)
 FOX = Path(__file__).resolve().parents[1] / "data" / "fox_1536.ingp"
 
 # every public name the port's surface leaves for a later slice, with the
-# ROADMAP Queue 1 item it waits for
-NOT_YET_PORTED = {"Testbed.init_window": 4, "Testbed.init_vr": 4, "Testbed.destroy_window": 4}
+# ROADMAP Queue 1 item it waits for: none, the window calls were the last
+NOT_YET_PORTED: dict[str, int] = {}
 
 # the names that left NOT_YET_PORTED with the rest of NeRF's training half;
 # each case sets or calls one on both Testbeds
@@ -105,21 +105,21 @@ def _non_default(v):
     return f"{v}_other"
 
 
-@pytest.mark.parametrize("name", list(NOT_YET_PORTED))
-def test_not_yet_ported_names_raise_naming_their_item(testbeds, name):
-    _, port_tb = testbeds
-    view, attr = name.rsplit(".", 1)
-    obj = VIEWS[view][0](port_tb)
-    static = inspect.getattr_static(type(obj), attr)
-    match = f"Queue 1 item {NOT_YET_PORTED[name]}"
-    if isinstance(static, property):
-        default = getattr(obj, attr)
-        setattr(obj, attr, default)  # the default is accepted
-        with pytest.raises(NotImplementedError, match=match):
-            setattr(obj, attr, _non_default(default))
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            getattr(obj, attr)(1)
+@pytest.mark.parametrize("name", ["init_window", "init_vr", "destroy_window"])
+def test_window_calls_are_warning_no_ops_as_in_jax(testbeds, name):
+    """In both Testbeds init_window and init_vr warn and only keep the
+    window's size (init_window), destroy_window forgets it; none raises."""
+    args = {"init_window": (64, 48), "init_vr": (), "destroy_window": ()}[name]
+    for tb in testbeds:
+        if name == "destroy_window":
+            assert getattr(tb, name)(*args) is None
+            assert tb._window_res is None
+            continue
+        with pytest.warns(UserWarning, match="no-op"):
+            assert getattr(tb, name)(*args) is None
+    assert port_testbed.NOT_PORTED_ITEMS == {}
+    if name == "init_window":
+        assert testbeds[1]._window_res == testbeds[0]._window_res == (64, 48)
 
 
 @pytest.fixture(scope="module")

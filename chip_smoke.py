@@ -105,12 +105,14 @@ microbenchmarks:
   "baked" (the bake, frames at 256^2 and 1920x1080, a ``render_batch`` of views
   0/24/49 whose view 0 equals the task's baked render bit for bit) and "slab"
   (the bakes and frames deferred, diffuse and view-dependent), checked to go
-  through kernels A-C, N, D's activated mode, P and O; the launches and
-  device time of a 1920x1080 slab frame; N and D's activated mode on the
-  baked render's first round at 1920x1080, P (Triton) and the slab products
-  (TF32 against f32) on a chunk of its finest-level sweep at B 1024 and O on
-  its warp, against their plain versions (N and O bit for bit); each
-  quality's 256^2 frame through the plain versions (≥ 40 dB); the PSNR of
+  through kernels A-C, the baked round (C and the round once a round, N
+  never), P and O; the launches and device time of a 1920x1080 slab frame;
+  N and the baked round on the baked render's first round at 1920x1080 and
+  on a later round with a ragged last block, P (Triton) and the slab
+  products (TF32 against f32) on a chunk of its finest-level sweep at B 1024
+  and O on its deferred (C 8) and diffuse (C 5) warps, against their plain
+  versions (N and O bit for bit); the baked frames and the slab's 256^2
+  frame through the plain versions (≥ 40 dB); the PSNR of
   every fast frame against the exact frame, printed and not gated;
 - image: kernels A and E at D = 2 on the level specs of a 16384^2 image,
   kernel I at every shape of ``scripts/bench_gather_tpu.py``, its bilinear
@@ -3308,8 +3310,13 @@ def views_phase(device, card) -> tuple[dict, dict, dict]:
 FAST_RES = 256  # the fast renders' frames of fox's view 0, and RENDER_WH's
 FAST_BATCH_VIEWS = (0, 24, 49)  # render_batch's views, at FAST_RES^2
 FAST_SWEEP_B = 1024  # the baseplane of a 1920x1080 frame's finest level
-FAST_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "baked_query",
-                "composite_window_activated", "slab_step", "slab_warp")
+FAST_KERNELS = ("hashgrid_encode_fwd", "fused_mlp", "march_rays", "baked_round", "slab_step",
+                "slab_warp")
+# the baked round's late check: the first round from this one whose ray count
+# is no multiple of the kernel's rays a warp (csrc/baked_round.cu: a lane a
+# ray), so that its last warp, and block, is ragged
+LATE_ROUND = 1
+ROUND_WARP_RAYS = 32
 # P against its plain version, relative to each layer's max |ref|: Triton's
 # code for the same f32 operations (1.8e-7 on random slabs)
 TOL_SLAB_STEP = 1e-5
@@ -3318,8 +3325,8 @@ TOL_SLAB_STEP = 1e-5
 TOL_SLAB_PRODUCTS = 1e-5
 FAST_RECORDS = (  # kernel, route, source, what it replaces
     ("baked_query", "cuda", "instant_ngp_torch/csrc/baked.cu", "instant_ngp_tpu/nerf/baked.py:72"),
-    ("composite_window_activated", "cuda", "instant_ngp_torch/csrc/composite.cu",
-     "instant_ngp_tpu/nerf/task.py:1853"),
+    ("baked_round", "cuda", "instant_ngp_torch/csrc/baked_round.cu",
+     "instant_ngp_tpu/nerf/task.py:1820"),
     ("slab_step", "triton", "instant_ngp_torch/nerf/slab.py", "instant_ngp_tpu/nerf/slab.py:447"),
     ("slab_warp", "cuda", "instant_ngp_torch/csrc/slab.cu", "instant_ngp_tpu/nerf/slab.py:699"))
 
@@ -3340,35 +3347,106 @@ def first_call(module, name: str, want) -> tuple[dict, object]:
     return kept, orig
 
 
-def check_baked_round(task, cache, res: tuple, device) -> tuple[dict, dict]:
-    """Kernels N and D's activated mode against their plain versions on the
-    first round of the baked render's 2^18-ray chunk at the middle of a res
-    frame of view 0 (the window and step of the baked render; the frame's
-    first chunk is its top rows, nearly empty): N bit for bit, D within
-    TOL_COMPOSITE;
-    times, device times and bounds (N's: the index entries and table rows
-    the samples read, counted distinct)."""
-    from instant_ngp_torch.common import MIN_CONE_STEPSIZE, fma
+def baked_round_at(task, cache, o, d, tmin, tmax, first: int) -> tuple[int, tuple]:
+    """The arguments of ``baked.render_round`` at the baked render's round
+    ``first`` of rays (o, d) or, past it, at the first round whose ray count
+    is no multiple of ROUND_WARP_RAYS: (that round, the arguments); the
+    rounds before it through the round kernel, as the render runs them."""
+    from instant_ngp_torch.common import MIN_CONE_STEPSIZE
     from instant_ngp_torch.nerf import baked
-    from instant_ngp_torch.nerf.task import (RENDER_CHUNK, composite_window,
-                                             composite_window_plain)
+
+    dt = max(1.0, (1.0 / float(cache.res_host[0])) / MIN_CONE_STEPSIZE)
+    R = o.shape[0]
+    t, T = tmin.clone(), torch.ones_like(tmin)
+    depth, cost = torch.zeros_like(tmin), torch.zeros_like(tmin)
+    rgb = torch.zeros((R, 3), device=o.device)
+    alive = tmax > tmin
+    for rnd in range(128):
+        idx = torch.nonzero(alive).squeeze(1)
+        if idx.numel() == 0:
+            break
+        o_c, d_c, alive_c = o[idx].contiguous(), d[idx].contiguous(), alive[idx]
+        ts, dts, valid, t_exit, _ = task._march_window(
+            o_c, d_c, t[idx], alive_c, tmax[idx], window=task.baked_samples_per_window,
+            dt_scale=dt)
+        args = (cache, o_c, d_c, ts, dts, valid.contiguous(), t[idx], t_exit, T[idx], rgb[idx],
+                depth[idx], alive_c, tmax[idx], cost[idx], task.min_transmittance)
+        if rnd >= first and (first == 0 or idx.numel() % ROUND_WARP_RAYS):
+            return rnd, args
+        t[idx], T[idx], rgb[idx], depth[idx], alive[idx], cost[idx] = baked.render_round(*args)
+    raise RuntimeError(f"the baked render had no round from {first} of a ragged ray count")
+
+
+def check_round(args) -> tuple[dict, dict]:
+    """The round kernel against ``render_round_plain`` on args: the alive
+    flags equal, the rest within TOL_COMPOSITE. Returns (its numbers, the
+    outputs)."""
+    from instant_ngp_torch.nerf import baked
+
+    k_res, p_res = baked.render_round(*args), baked.render_round_plain(*args)
+    check(bool(torch.equal(k_res[4], p_res[4])), "baked round alive flags differ")
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k_res, p_res))
+    check(err <= TOL_COMPOSITE, f"baked round err {err}")
+    return {"max_abs_err": err, "rays": args[3].shape[0], "K": args[3].shape[1]}, k_res
+
+
+def middle_chunk_rays(task, res: tuple, device):
+    """(o, d, tmin, tmax) of the render's 2^18-ray chunk at the middle of a
+    res frame of view 0 (the frame's first chunk is its top rows, nearly
+    empty)."""
+    from instant_ngp_torch.nerf.task import RENDER_CHUNK
 
     w, h = res
     xf, kw = view0_wh(task, w, h)
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    mid = w * h // 2 // RENDER_CHUNK * RENDER_CHUNK  # the render's chunk at the frame's middle
+    mid = w * h // 2 // RENDER_CHUNK * RENDER_CHUNK
     uv = np.stack([(xs.reshape(-1) + 0.5) / w, (ys.reshape(-1) + 0.5) / h],
                   -1)[mid:mid + RENDER_CHUNK]
-    o, d, tmin, tmax = task._prep_rays(torch.from_numpy(uv.astype(np.float32)).to(device),
-                                       task._t([w, h]), task._t(kw["focal_length"]),
-                                       task._t(kw["principal_point"]), task._t(xf))
+    return task._prep_rays(torch.from_numpy(uv.astype(np.float32)).to(device), task._t([w, h]),
+                           task._t(kw["focal_length"]), task._t(kw["principal_point"]),
+                           task._t(xf))
+
+
+def first_round(task, cache, o, d, tmin, tmax) -> tuple:
+    """The arguments of ``baked.render_round`` at the baked render's first
+    round of rays (o, d), before its compaction: the window marched at the
+    bake's finest cell size, a fresh ray state."""
+    from instant_ngp_torch.common import MIN_CONE_STEPSIZE
+
     dt = max(1.0, (1.0 / float(cache.res_host[0])) / MIN_CONE_STEPSIZE)
     alive = tmax > tmin
     ts, dts, valid, t_exit, _ = task._march_window(o, d, tmin, alive, tmax,
                                                    window=task.baked_samples_per_window,
                                                    dt_scale=dt)
+    R = ts.shape[0]
+    zeros = torch.zeros((R,), device=o.device)
+    return (cache, o, d, ts, dts, valid, tmin, t_exit, torch.ones_like(zeros),
+            torch.zeros((R, 3), device=o.device), zeros, alive, tmax, zeros,
+            task.min_transmittance)
+
+
+def check_baked_round(task, cache, res: tuple, device) -> tuple[dict, dict]:
+    """Kernel N and the baked round against their plain versions on the
+    first round of the baked render's 2^18-ray chunk at the middle of a res
+    frame of view 0, before its compaction (``first_round``): N bit for bit
+    on the round's positions, the round within TOL_COMPOSITE, the alive
+    flags equal; and the round again at a later round of that chunk whose
+    ray count leaves its last block ragged. Times, device times and bounds
+    (the index entries and table rows the samples read, counted distinct);
+    beside the round's, the device time of what it replaced that this tree
+    still has: the positions' f64 ops and N."""
+    from instant_ngp_torch.common import fma
+    from instant_ngp_torch.nerf import baked
+
+    o, d, tmin, tmax = middle_chunk_rays(task, res, device)
+    args = first_round(task, cache, o, d, tmin, tmax)
+    ts, valid = args[3], args[5]
     R, K = ts.shape
-    pos = fma(ts[..., None], d[:, None, :], o[:, None, :]).reshape(R * K, 3).contiguous()
+
+    def positions():
+        return fma(ts[..., None], d[:, None, :], o[:, None, :]).reshape(R * K, 3).contiguous()
+
+    pos = positions()
     out = baked.query(cache, pos)
     ref = baked.query_plain(cache, pos)
     check(torch.equal(out, ref), "kernel N differs from its plain version")
@@ -3382,20 +3460,28 @@ def check_baked_round(task, cache, res: tuple, device) -> tuple[dict, dict]:
          "plain_ms": time_ms(lambda: baked.query_plain(cache, pos), reps=5),
          **device_split(lambda: baked.query(cache, pos), "baked_query"),
          **bound(nbytes(pos, out) + 4 * n_entries + 64 * n_rows)}
-    zeros = torch.zeros((R,), device=device)
-    cargs = (out.reshape(R, K, 4), ts, dts, valid, tmin, t_exit, torch.ones_like(zeros),
-             torch.zeros((R, 3), device=device), zeros, alive, tmax, zeros,
-             task.min_transmittance, task.rgb_activation, task.density_activation, True)
-    k_res, p_res = composite_window(*cargs), composite_window_plain(*cargs)
-    check(bool(torch.equal(k_res[4], p_res[4])), "activated composite alive flags differ")
-    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k_res, p_res))
-    check(err <= TOL_COMPOSITE, f"activated composite err {err}")
-    dd = {"max_abs_err": err, "rays": R, "K": K,
-          "ms": time_ms(lambda: composite_window(*cargs)),
-          "plain_ms": time_ms(lambda: composite_window_plain(*cargs), reps=5),
-          **device_split(lambda: composite_window(*cargs), "composite_window"),
-          **bound(nbytes(*[a for a in cargs if torch.is_tensor(a)], *k_res[1:]))}
-    return n, dd
+    rd, k_res = check_round(args)
+    # what the round reads: the index entries and rows of its valid samples only
+    v = valid.reshape(-1)
+    r_entries = int(torch.unique(flat[v]).numel())
+    r_rows = int(torch.unique(idx[v & read]).numel())
+    tensors = [a for a in args if torch.is_tensor(a)]
+    rd.update({"valid_samples": int(v.sum()), "index_entries_read": r_entries,
+               "table_rows_read": r_rows, "ms": time_ms(lambda: baked.render_round(*args)),
+               "plain_ms": time_ms(lambda: baked.render_round_plain(*args), reps=5),
+               **device_split(lambda: baked.render_round(*args), "baked_round"),
+               **bound(nbytes(*tensors, *k_res[1:]) + 4 * r_entries + 64 * r_rows),
+               "positions_device_ms": device_split(positions, "elementwise")["device_ms"],
+               "n_device_ms": n["kernel_ms"]})
+    rnd, late = baked_round_at(task, cache, o, d, tmin, tmax, LATE_ROUND)
+    rd["late_round"] = {"round": rnd, **check_round(late)[0],
+                        **device_split(lambda: baked.render_round(*late), "baked_round")}
+    print(f"fast renders baked round (R {R}, K {K}): device {rd['kernel_ms']:.4f} ms, bound "
+          f"{rd['bound_ms']:.4f} ms; what it replaced, in this tree: the positions "
+          f"{rd['positions_device_ms']:.4f} ms, N {n['kernel_ms']:.4f} ms; round {rnd}'s "
+          f"{rd['late_round']['rays']} rays: device {rd['late_round']['kernel_ms']:.4f} ms, "
+          f"err {rd['late_round']['max_abs_err']:.2e}")
+    return n, rd
 
 
 def check_slab_step(call: dict) -> dict:
@@ -3451,7 +3537,7 @@ def check_slab_products(call: dict) -> dict:
 
 
 def check_slab_warp(call: dict) -> dict:
-    """Kernel O against its plain version on the 1080p frame's warp (bit for
+    """Kernel O against its plain version on a 1080p frame's warp (bit for
     bit); times, device time and bound (each pixel's direction and output,
     and the distinct quad rows it reads)."""
     from instant_ngp_torch.nerf import slab
@@ -3487,15 +3573,16 @@ def fast_renders_phase(device, card) -> tuple[dict, dict, dict]:
     """The baked and slab renders of fox's view 0 through the Testbed. The
     main path, its launches read from the first bake to the last frame: the
     baked bake, its frames at FAST_RES^2 and RENDER_WH and a render_batch of
-    FAST_BATCH_VIEWS (its view 0 bit for bit the task's baked render); then
-    the slab bakes and frames, deferred (the default), diffuse and
-    view-dependent. Then N and D's activated mode on the baked render's
-    first round at RENDER_WH, P and the slab products on a chunk of its
-    finest-level sweep, O on its warp, each against its plain version; the
-    FAST_RES^2 frames of each quality through the plain versions (≥
-    MIN_PSNR_DB); and, printed and not gated, the PSNR of every fast frame
-    against the exact frame. Returns (the launches, the checks by kernel,
-    the numbers)."""
+    FAST_BATCH_VIEWS (its view 0 bit for bit the task's baked render), which
+    must launch C and the round once a round each and N never; then the
+    slab bakes and frames, deferred (the default), diffuse and
+    view-dependent. Then N and the baked round on the baked render's rounds
+    at RENDER_WH, P and the slab products on a chunk of its finest-level
+    sweep, O on its deferred (C 8) and diffuse (C 5) warps, each against its
+    plain version; the baked frames and the slab's FAST_RES^2 frame through
+    the plain versions (≥ MIN_PSNR_DB); and, printed and not gated, the PSNR
+    of every fast frame against the exact frame. Returns (the launches, the
+    checks by kernel, the numbers)."""
     from instant_ngp_torch import cuda_lib
     from instant_ngp_torch.nerf import slab
     from instant_ngp_torch.testbed import Testbed
@@ -3562,6 +3649,16 @@ def fast_renders_phase(device, card) -> tuple[dict, dict, dict]:
     check(torch.equal(batch[0], one), "render_batch's view 0 differs from the baked render")
     print(f"fast renders baked render_batch of {len(xfs)} views at {FAST_RES}^2: "
           f"{numbers['frame_ms']['baked_batch_3x256']:.1f} ms")
+    torch.cuda.synchronize()
+    baked_launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    print(f"fast renders baked bake and frames: kernel launches {baked_launches}")
+    check(baked_launches.get("baked_round", 0) > 0 and "baked_query" not in baked_launches
+          and "composite_window" not in baked_launches
+          and baked_launches["baked_round"] == baked_launches.get("march_rays")
+          and all(baked_launches.get(k, 0) > 0 for k in ("hashgrid_encode_fwd", "fused_mlp")),
+          f"the baked bake and frames are not A and B, then C and the round once a round: "
+          f"{baked_launches}")
+    numbers["baked_launches"] = baked_launches
     dvols = bake("slab_deferred", lambda: task._get_slab(eye=eye))
     print(f"fast renders slab bake (deferred, {dvols.n_feat} features): "
           f"{numbers['bake_s']['slab_deferred']:.2f} s, resolutions {dvols.res}")
@@ -3601,10 +3698,26 @@ def fast_renders_phase(device, card) -> tuple[dict, dict, dict]:
           f"{split['events_per_call']} device events, device busy {split['device_ms']:.1f} ms "
           f"of {wall:.1f} ms ({busy_text(wall, split['device_ms'])})")
 
-    n_check, d_check = check_baked_round(task, cache, RENDER_WH, device)
+    # one diffuse 1080p frame (C 5 layers): O's call kept for its check
+    task.slab_deferred_vd = False
+    frame("slab", RENDER_WH)  # the diffuse bake again
+    keep_o5, orig_o = first_call(slab, "warp_composite", lambda a: True)
+    try:
+        frame("slab", RENDER_WH)
+    finally:
+        slab.warp_composite = orig_o
+        task.slab_deferred_vd = True
+    check(keep_o5["args"][3].shape[1] == 4 * slab.LAYER_CH,
+          f"the diffuse frame's layers {tuple(keep_o5['args'][3].shape)}")
+
+    n_check, round_check = check_baked_round(task, cache, RENDER_WH, device)
     p_check = check_slab_step(keep_p)
     m_check = check_slab_products(keep_m)
     o_check = check_slab_warp(keep_o)
+    o_check["diffuse_c5"] = check_slab_warp(keep_o5)
+    print(f"fast renders O: deferred C 8 device {o_check['kernel_ms']:.4f} ms (bound "
+          f"{o_check['bound_ms']:.4f}), diffuse C 5 device {o_check['diffuse_c5']['kernel_ms']:.4f}"
+          f" ms (bound {o_check['diffuse_c5']['bound_ms']:.4f}), both bit for bit")
     p_check["products"] = m_check
     print(f"fast renders slab products (chunk of {slab.SLAB_CHUNK} at B 1024): TF32 "
           f"{m_check['tf32_ms']:.3f} ms, f32 {m_check['f32_ms']:.3f} ms, "
@@ -3612,17 +3725,19 @@ def fast_renders_phase(device, card) -> tuple[dict, dict, dict]:
           f" of max |ref|")
 
     # the plain route's frames: the bakes through A and B's plain versions,
-    # then N, D, P and O's
+    # then the round's, P's and O's
     dbs = {}
-    for quality, ref in (("baked", baked_frames["256"]), ("slab", slab_frames["slab_deferred"]["256"])):
-        plain = vs_plain(task, lambda: frame(quality, sizes["256"]))
-        dbs[quality] = psnr(ref, plain)
-        print(f"fast renders {quality} {FAST_RES}^2 kernel vs plain: PSNR {dbs[quality]:.2f} dB")
-        check(dbs[quality] >= MIN_PSNR_DB, f"fast renders {quality} kernel vs plain PSNR {dbs[quality]}")
+    for name, quality, k, ref in (("baked_256", "baked", "256", baked_frames["256"]),
+                                  ("baked_1080p", "baked", "1080p", baked_frames["1080p"]),
+                                  ("slab", "slab", "256", slab_frames["slab_deferred"]["256"])):
+        plain = vs_plain(task, lambda: frame(quality, sizes[k]))
+        dbs[name] = psnr(ref, plain)
+        print(f"fast renders {quality} {k} kernel vs plain: PSNR {dbs[name]:.2f} dB")
+        check(dbs[name] >= MIN_PSNR_DB, f"fast renders {name} kernel vs plain PSNR {dbs[name]}")
     numbers["psnr_vs_plain_db"] = dbs
     task._baked_cache = task._slab_cache = None
     print(f"fast renders phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, {"baked_query": n_check, "composite_window_activated": d_check,
+    return launches, {"baked_query": n_check, "baked_round": round_check,
                       "slab_step": p_check, "slab_warp": o_check}, numbers
 
 
@@ -6226,7 +6341,7 @@ def main() -> None:
     for r in results:
         if r["name"] == "fused_mlp_bwd":
             r["variants"]["views_normals"] = views_checks["fused_mlp_bwd"]
-    # the baked and slab renders: kernels N, D's activated mode, P and O
+    # the baked and slab renders: kernel N, the baked round, P and O
     fast_launches, fast_checks, _ = fast_renders_phase(device, card)
     for kernel, route, source, replaces in FAST_RECORDS:
         v = fast_checks[kernel]

@@ -19,11 +19,10 @@
 // and the cost (valid sample count). expf is the accurate library
 // function.
 //
-// The activated mode (template flag kActivated, launcher
-// ngp_composite_window_activated) replaces
-// NerfTask._composite_window(activated=True) (task.py:1853-1860), the
-// baked render's composite: the window holds activated [r, g, b, sigma]
-// (kernel N's output), read as they are, with no activation and no clip.
+// The baked render's composite (activated [r, g, b, sigma], read as they
+// are) was this kernel's activated mode until it was folded into the baked
+// round (csrc/baked_round.cu) with kernel N's lookup; the round keeps this
+// loop's order of operations. This kernel is the exact render's composite.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,7 +50,6 @@ __device__ __forceinline__ float to_density(float v, int act) {
     }
 }
 
-template <bool kActivated>
 __global__ void composite_window_kernel(
     const float* __restrict__ out, const float* __restrict__ ts, const float* __restrict__ dts,
     const uint8_t* __restrict__ valid, const float* __restrict__ t, const float* __restrict__ t_exit,
@@ -69,13 +67,13 @@ __global__ void composite_window_kernel(
         const size_t i = (size_t)r * K + k;
         const float4 o = reinterpret_cast<const float4*>(out)[i];
         const bool v = valid[i] != 0;
-        const float sigma = v ? (kActivated ? o.w : to_density(o.w, density_act)) : 0.0f;
+        const float sigma = v ? to_density(o.w, density_act) : 0.0f;
         const float tau = sigma * dts[i];
         cs = cs + tau;
         const float weight = (1.0f - expf(-tau)) * (Tr * expf(-cs + tau));
-        acc_r = acc_r + weight * (kActivated ? o.x : to_rgb(o.x, rgb_act));
-        acc_g = acc_g + weight * (kActivated ? o.y : to_rgb(o.y, rgb_act));
-        acc_b = acc_b + weight * (kActivated ? o.z : to_rgb(o.z, rgb_act));
+        acc_r = acc_r + weight * to_rgb(o.x, rgb_act);
+        acc_g = acc_g + weight * to_rgb(o.y, rgb_act);
+        acc_b = acc_b + weight * to_rgb(o.z, rgb_act);
         acc_d = acc_d + weight * ts[i];
         n_valid += v;
     }
@@ -89,16 +87,18 @@ __global__ void composite_window_kernel(
     cost_new[r] = cost[r] + (float)n_valid;
 }
 
-template <bool kActivated>
-int launch_composite_window(const void* out, const void* ts, const void* dts, const void* valid,
-                            const void* t, const void* t_exit, const void* T, const void* rgb,
-                            const void* depth, const void* alive, const void* tmax,
-                            const void* cost, int R, int K, float eps_t, int rgb_act,
-                            int density_act, void* T_new, void* rgb_new, void* depth_new,
-                            void* alive_new, void* cost_new, void* stream) {
+}  // namespace
+
+extern "C" int ngp_composite_window(const void* out, const void* ts, const void* dts,
+                                    const void* valid, const void* t, const void* t_exit,
+                                    const void* T, const void* rgb, const void* depth,
+                                    const void* alive, const void* tmax, const void* cost, int R,
+                                    int K, float eps_t, int rgb_act, int density_act, void* T_new,
+                                    void* rgb_new, void* depth_new, void* alive_new,
+                                    void* cost_new, void* stream) {
     const int threads = 128;
     const int blocks = (R + threads - 1) / threads;
-    composite_window_kernel<kActivated><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    composite_window_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(out), static_cast<const float*>(ts),
         static_cast<const float*>(dts), static_cast<const uint8_t*>(valid),
         static_cast<const float*>(t), static_cast<const float*>(t_exit),
@@ -109,31 +109,4 @@ int launch_composite_window(const void* out, const void* ts, const void* dts, co
         static_cast<float*>(depth_new), static_cast<uint8_t*>(alive_new),
         static_cast<float*>(cost_new));
     return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int ngp_composite_window(const void* out, const void* ts, const void* dts,
-                                    const void* valid, const void* t, const void* t_exit,
-                                    const void* T, const void* rgb, const void* depth,
-                                    const void* alive, const void* tmax, const void* cost, int R,
-                                    int K, float eps_t, int rgb_act, int density_act, void* T_new,
-                                    void* rgb_new, void* depth_new, void* alive_new,
-                                    void* cost_new, void* stream) {
-    return launch_composite_window<false>(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
-                                          tmax, cost, R, K, eps_t, rgb_act, density_act, T_new,
-                                          rgb_new, depth_new, alive_new, cost_new, stream);
-}
-
-extern "C" int ngp_composite_window_activated(const void* out, const void* ts, const void* dts,
-                                              const void* valid, const void* t,
-                                              const void* t_exit, const void* T, const void* rgb,
-                                              const void* depth, const void* alive,
-                                              const void* tmax, const void* cost, int R, int K,
-                                              float eps_t, void* T_new, void* rgb_new,
-                                              void* depth_new, void* alive_new, void* cost_new,
-                                              void* stream) {
-    return launch_composite_window<true>(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
-                                         tmax, cost, R, K, eps_t, 0, 0, T_new, rgb_new, depth_new,
-                                         alive_new, cost_new, stream);
 }

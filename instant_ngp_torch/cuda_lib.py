@@ -63,12 +63,14 @@ SIGNATURES = {
     # cost_new
     "composite_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _I, _I, _P, _P, _P, _P, _P, _P],
-    # the same without the activations: kernel D's activated mode (the baked render)
-    "composite_window_activated": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _F, _P, _P, _P, _P, _P, _P],
     # pos (M, 3) f32, index (int32), table ((rows, 32) bf16), offsets, res
     # (int32 a cascade), max_mip, M, out (M, 4) f32: kernel N
     "baked_query": [_P, _P, _P, _P, _P, _I, _L, _P, _P],
+    # ts, dts, valid, t_exit, o, d, t, tmax, T, rgb, depth, alive, cost, the
+    # cache's index, table, offsets, res, max_mip, R, K, eps_t, T_new,
+    # rgb_new, depth_new, alive_new, cost_new: the baked round
+    "baked_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                    _I, _F, _P, _P, _P, _P, _P, _P],
     # dirs (N, 3) f32, N, eye (3 floats), outer_pk, l_pk (bf16 quad rows),
     # zb_tab (6, L) f32, win_lo, win_hi (6, L, 2) f32, bg (4,) f32, B0, Bo,
     # nc, C, out (N, 5 or C + 1) f32: kernel O

@@ -5,7 +5,7 @@ occupancy grid marks, and packs each cell's activated [r, g, b, σ] corners
 into one 64-byte bf16 row (8 corners × 4 channels). A baked render then
 samples the field with one int32 index load and one row load a sample and
 a trilinear sum (``query``) instead of the whole model, and composites the
-activated values through kernel D's activated mode (``nerf/task.py``).
+activated values (``render_round``).
 
 Cascades: one index block per occupancy cascade (cascade m spans (pos −
 0.5)·2^m + 0.5 over [0, 1]), the finest baked at ``res0`` (256, twice the
@@ -23,7 +23,10 @@ model (kernels A and B), in chunks of 2^18 rows. The JAX package evaluates
 through its brick cache (not ported): the values agree to the MLP's bf16.
 
 ``query`` launches kernel N (``csrc/baked.cu``) on CUDA tensors and runs
-``query_plain`` on CPU tensors; the two agree to the bit.
+``query_plain`` on CPU tensors; the two agree to the bit. A baked render's
+round after its march, ``render_round``, is one launch (``csrc/
+baked_round.cu``): each sample's position, N's lookup and the activated
+composite; its plain version ``render_round_plain`` is those three steps.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
-from ..common import NERF_GRIDSIZE, network_to_density, network_to_rgb, warp_direction
+from ..common import (NERF_GRIDSIZE, NerfActivation, fma, network_to_density, network_to_rgb,
+                      warp_direction)
 from ..ops.raymarch import mip_from_pos
 
 G = NERF_GRIDSIZE
@@ -124,6 +128,57 @@ def query(cache: BakedCache, pos: torch.Tensor) -> torch.Tensor:
                         cache.table.data_ptr(), cache.offsets.data_ptr(), cache.res.data_ptr(),
                         cache.n_cascades - 1, M, out.data_ptr())
     return out
+
+
+def render_round_plain(cache: BakedCache, o, d, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
+                       tmax, cost, eps_t: float):
+    """One baked round after its march (task.py:1820-1838): the samples'
+    positions o + ts·d (``common.fma``), their lookups (``query_plain``) and
+    the activated composite of the (R, K) window onto the rays' state
+    (``composite_window_plain(..., activated=True)``). Returns the new (t,
+    T, rgb, depth, alive, cost)."""
+    from .task import composite_window_plain  # task imports this module
+
+    R, K = ts.shape
+    pos = fma(ts[..., None], d[:, None, :], o[:, None, :])
+    out = query_plain(cache, pos.reshape(R * K, 3)).reshape(R, K, 4)
+    return composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax, cost,
+                                  eps_t, NerfActivation.NONE, NerfActivation.NONE, activated=True)
+
+
+def render_round(cache: BakedCache, o, d, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
+                 cost, eps_t: float):
+    """See ``render_round_plain``. CPU tensors run the plain version; CUDA
+    tensors launch the baked round (a lane a ray, its valid samples looked
+    up a lane each): the positions and lookups bit for bit the plain
+    version's, the composite within ``chip_smoke.TOL_COMPOSITE`` of it (its
+    running sum of τ in the same order, its other sums in sample order),
+    the alive flags equal."""
+    if ts.device.type == "cpu":
+        return render_round_plain(cache, o, d, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
+                                  tmax, cost, eps_t)
+    R, K = ts.shape
+    cuda_lib.check_cuda(ts, dts, t_exit, o, d, t, tmax, T, rgb, depth, cost,
+                        dtype=torch.float32)
+    cuda_lib.check_cuda(valid, alive, dtype=torch.bool)
+    cuda_lib.check_cuda(cache.index, cache.offsets, cache.res, dtype=torch.int32)
+    cuda_lib.check_cuda(cache.table, dtype=torch.bfloat16)
+    if (o.shape != (R, 3) or d.shape != (R, 3) or rgb.shape != (R, 3) or valid.shape != (R, K)
+            or cache.table.shape[1] != 32):
+        raise ValueError(f"baked round of a ({R}, {K}) window with o {tuple(o.shape)}, d "
+                         f"{tuple(d.shape)}, rgb {tuple(rgb.shape)}, valid {tuple(valid.shape)}, "
+                         f"table {tuple(cache.table.shape)}")
+    T_new, rgb_new, depth_new = torch.empty_like(T), torch.empty_like(rgb), torch.empty_like(depth)
+    alive_new, cost_new = torch.empty_like(alive), torch.empty_like(cost)
+    if R > 0:
+        cuda_lib.launch("baked_round", ts.data_ptr(), dts.data_ptr(), valid.data_ptr(),
+                        t_exit.data_ptr(), o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                        tmax.data_ptr(), T.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
+                        alive.data_ptr(), cost.data_ptr(), cache.index.data_ptr(),
+                        cache.table.data_ptr(), cache.offsets.data_ptr(), cache.res.data_ptr(),
+                        cache.n_cascades - 1, R, K, eps_t, T_new.data_ptr(), rgb_new.data_ptr(),
+                        depth_new.data_ptr(), alive_new.data_ptr(), cost_new.data_ptr())
+    return t_exit, T_new, rgb_new, depth_new, alive_new, cost_new
 
 
 def occ_at(occ: np.ndarray, n: int) -> np.ndarray:

@@ -18,7 +18,9 @@
    ``composite_layers``), or stay apart (``merge_layers=False``).
 4. The last step is the per-pixel warp from the baseplanes to the screen,
    one quad-packed row (a 2×2 texel neighbourhood) a layer, composited
-   front to back: kernel O (``warp_composite``, ``csrc/slab.cu``).
+   front to back: kernel O (``warp_composite``, ``csrc/slab.cu``; the row
+   read in 16- or 8-byte words, the pixels' directions and outputs staged
+   through shared memory, bit for bit its plain version).
 
 Groups: pixels split by the dominant axis and sign of their ray (up to 6
 groups), each with its own sweep. The plan of the groups is host numpy for
@@ -674,7 +676,9 @@ def warp_composite_plain(dirs, eye, outer_pk, l_pk, zb_tab, win_lo_tab, win_hi_t
 def warp_composite(dirs, eye, outer_pk, l_pk, zb_tab, win_lo_tab, win_hi_tab, bg, *, B0: int,
                    Bo: int, nc: int) -> torch.Tensor:
     """See ``warp_composite_plain``. CPU tensors run the plain version; CUDA
-    tensors launch kernel O (one thread a pixel)."""
+    tensors launch kernel O (one thread a pixel), which reads a quad row in
+    16-byte words at C 6 and 8 and in 8-byte words at C 5 and 7: the packed
+    layers must be so aligned."""
     if dirs.device.type == "cpu":
         return warp_composite_plain(dirs, eye, outer_pk, l_pk, zb_tab, win_lo_tab, win_hi_tab, bg,
                                     B0=B0, Bo=Bo, nc=nc)
@@ -689,6 +693,10 @@ def warp_composite(dirs, eye, outer_pk, l_pk, zb_tab, win_lo_tab, win_hi_tab, bg
                                                          != 6 * (n_layers - 1) * Bo * Bo)):
         raise ValueError(f"slab warp of layers {tuple(l_pk.shape)}, {tuple(outer_pk.shape)} with "
                          f"tables {tuple(zb_tab.shape)} (nc {nc}; kernel O takes 5 to 8 channels)")
+    word = 16 if C % 2 == 0 else 8
+    if outer_pk.data_ptr() % word or l_pk.data_ptr() % word:
+        raise ValueError(f"kernel O reads C {C} quad rows in {word}-byte words: the packed layers "
+                         f"must start {word}-byte aligned")
     N = dirs.shape[0]
     out = torch.empty((N, C + 1 if C > LAYER_CH else LAYER_CH), dtype=torch.float32,
                       device=dirs.device)

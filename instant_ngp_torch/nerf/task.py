@@ -16,10 +16,11 @@ training has made one, as the JAX package does (task.py:2169).
 tensors and runs ``composite_window_plain`` on CPU tensors.
 
 Two faster render qualities read a bake of the model instead of the model:
-"baked" (``nerf/baked.py``: march, one table row a sample through kernel N,
-kernel D's activated mode) and "slab" (``nerf/slab.py``: dense volumes
-swept slab by slab, kernels P and O). Each bake is cached on the task, keyed
-on the step, its settings and the route (kernels or plain versions).
+"baked" (``nerf/baked.py``: a round is the march, then one launch of the
+baked round for the samples' table rows and the composite) and "slab"
+(``nerf/slab.py``: dense volumes swept slab by slab, kernels P and O).
+Each bake is cached on the task, keyed on the step, its settings and the
+route (kernels or plain versions).
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ def composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive,
     the order of kernel D and of XLA's cumsum (a reduce-window), where
     torch.cumsum accumulates in f64 on the CPU and by a parallel scan on
     the GPU. ``activated``: out holds activated [r, g, b, σ] (a baked
-    render's samples), read as they are (task.py:1853-1860)."""
+    render's samples), read as they are (task.py:1853-1860); the baked
+    round's plain version (``baked.render_round_plain``) composites so."""
     if activated:
         rgb_s = out[..., :3].to(torch.float32)
         sigma = out[..., 3].to(torch.float32)
@@ -118,11 +120,15 @@ def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
                      eps_t: float, rgb_activation: NerfActivation,
                      density_activation: NerfActivation, activated: bool = False):
     """See ``composite_window_plain``. CPU tensors run the plain version;
-    CUDA tensors launch kernel D (one thread per ray), ``activated`` its
-    activated mode."""
+    CUDA tensors launch kernel D (one thread per ray). The activated
+    composite has no kernel of its own: the baked round
+    (``baked.render_round``) does it together with the samples' lookups."""
     if out.device.type == "cpu":
         return composite_window_plain(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
                                       cost, eps_t, rgb_activation, density_activation, activated)
+    if activated:
+        raise ValueError("the activated composite has no CUDA kernel of its own: a baked "
+                         "render's round launches baked.render_round")
     R, K = ts.shape
     f32 = [out, ts, dts, t, t_exit, T, rgb, depth, tmax, cost]
     cuda_lib.check_cuda(*f32, dtype=torch.float32)
@@ -141,11 +147,8 @@ def composite_window(out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
                 alive.data_ptr(), tmax.data_ptr(), cost.data_ptr(), R, K, eps_t)
         outs = (T_new.data_ptr(), rgb_new.data_ptr(), depth_new.data_ptr(),
                 alive_new.data_ptr(), cost_new.data_ptr())
-        if activated:
-            cuda_lib.launch("composite_window_activated", *ptrs, *outs)
-        else:
-            cuda_lib.launch("composite_window", *ptrs, ACTIVATION_CODES[rgb_activation],
-                            ACTIVATION_CODES[density_activation], *outs)
+        cuda_lib.launch("composite_window", *ptrs, ACTIVATION_CODES[rgb_activation],
+                        ACTIVATION_CODES[density_activation], *outs)
     return t_exit, T_new, rgb_new, depth_new, alive_new, cost_new
 
 
@@ -763,22 +766,11 @@ class NerfTask:
         return None if vec is None else vec[None, :].expand(n, vec.shape[0])
 
     def _composite_window(self, out, ts, dts, valid, t, t_exit, T, rgb, depth, alive, tmax,
-                          cost, eps_t=EPS_T, activated: bool = False):
+                          cost, eps_t=EPS_T):
         composite = composite_window if self.use_kernels else composite_window_plain
         return composite(out, ts, dts, valid.contiguous(), t, t_exit, T, rgb, depth,
                          alive.contiguous(), tmax, cost, eps_t, self.rgb_activation,
-                         self.density_activation, activated)
-
-    def _baked_window(self, cache, o, d, t, alive, tmax, dt_scale: float):
-        """One baked round's march and samples (task.py:1820-1838): a window
-        of ``baked_samples_per_window`` samples, each one row of the cache
-        (kernel N). Returns the march and the (R, K, 4) activated samples."""
-        query = baked.query if self.use_kernels else baked.query_plain
-        ts, dts, valid, t_exit, _ = self._march_window(
-            o, d, t, alive, tmax, window=self.baked_samples_per_window, dt_scale=dt_scale)
-        R, K = ts.shape
-        pos = fma(ts[..., None], d[:, None, :], o[:, None, :])
-        return ts, dts, valid, t_exit, query(cache, pos.reshape(R * K, 3)).reshape(R, K, 4)
+                         self.density_activation)
 
     @torch.no_grad()
     def _render_rays(self, o, d, tminmax=None, max_rounds: int = 64, fast: bool = False,
@@ -786,10 +778,12 @@ class NerfTask:
         """Render rays → (rgb (R, 3), alpha (R,), depth (R,), cost (R,)):
         windows of march + eval + composite on the alive rays, compacted
         before each window. Without ``tminmax`` the rays are clipped to the
-        crop box and the near distance here. With ``baked_cache`` the
-        windows read the bake (``_baked_window``) and march at its finest
-        cell size; JAX takes two baked rounds a dispatch, so the bound is
-        2 × ``max_rounds`` rounds (task.py:1903-1973)."""
+        crop box and the near distance here. With ``baked_cache`` a round
+        marches ``baked_samples_per_window`` samples at the bake's finest
+        cell size and then reads and composites them in one launch
+        (``baked.render_round``, task.py:1820-1838); JAX takes two baked
+        rounds a dispatch, so the bound is 2 × ``max_rounds`` rounds
+        (task.py:1903-1973)."""
         R = o.shape[0]
         if tminmax is not None:
             tmin, tmax = tminmax
@@ -813,14 +807,19 @@ class NerfTask:
             o_c, d_c, t_c, tmax_c = o[idx].contiguous(), d[idx].contiguous(), t[idx], tmax[idx]
             alive_c = torch.ones_like(idx, dtype=torch.bool)
             if baked_cache is not None:
-                ts, dts, valid, t_exit, out = self._baked_window(baked_cache, o_c, d_c, t_c,
-                                                                 alive_c, tmax_c, baked_dt)
+                ts, dts, valid, t_exit, _ = self._march_window(
+                    o_c, d_c, t_c, alive_c, tmax_c, window=self.baked_samples_per_window,
+                    dt_scale=baked_dt)
+                round_fn = baked.render_round if self.use_kernels else baked.render_round_plain
+                t_n, T_n, rgb_n, depth_n, alive_n, cost_n = round_fn(
+                    baked_cache, o_c, d_c, ts, dts, valid.contiguous(), t_c, t_exit, T[idx],
+                    rgb[idx], depth[idx], alive_c, tmax_c, cost[idx], self.min_transmittance)
             else:
                 ts, dts, valid, t_exit, _ = self._march_window(o_c, d_c, t_c, alive_c, tmax_c)
                 out = self._eval_window(o_c, d_c, ts, valid, fast=fast)
-            t_n, T_n, rgb_n, depth_n, alive_n, cost_n = self._composite_window(
-                out, ts, dts, valid, t_c, t_exit, T[idx], rgb[idx], depth[idx], alive_c,
-                tmax_c, cost[idx], self.min_transmittance, activated=baked_cache is not None)
+                t_n, T_n, rgb_n, depth_n, alive_n, cost_n = self._composite_window(
+                    out, ts, dts, valid, t_c, t_exit, T[idx], rgb[idx], depth[idx], alive_c,
+                    tmax_c, cost[idx], self.min_transmittance)
             t[idx], T[idx], rgb[idx], depth[idx] = t_n, T_n, rgb_n, depth_n
             alive[idx], cost[idx] = alive_n, cost_n
         return rgb, 1.0 - T, depth, cost

@@ -5,9 +5,10 @@ kernel N's plain version on a cache carried across from a JAX bake (within
 for bit, for the snapshot's grid, a dense grid whose resolutions degrade and
 the row-cap backstop), the bake's table (within one bf16 step of the MLP's
 outputs), the baked render and ``render_batch`` (exact and baked), the bake
-cache's keys, and kernel D's activated mode's plain version against JAX's
-``_composite_window(activated=True)``. The bakes are at 32³: the snapshot's
-untrained grid is dense, and the JAX package bakes through its whole model."""
+cache's keys, and the activated composite's plain version (the baked
+round's last step) against JAX's ``_composite_window(activated=True)``.
+The bakes are at 32³: the snapshot's untrained grid is dense, and the JAX
+package bakes through its whole model."""
 
 from pathlib import Path
 
@@ -213,9 +214,9 @@ def test_get_camera_extrinsics_equals_jax(testbeds):
 
 
 def test_composite_activated_matches_jax(testbeds):
-    """Kernel D's activated mode's plain version against JAX's
-    ``_composite_window(activated=True)`` on random (R, 16) windows of
-    activated samples: within 1e-5 of each output's scale (XLA's cumsum and
+    """The activated composite's plain version (the baked round's last
+    step) against JAX's ``_composite_window(activated=True)`` on random (R,
+    16) windows of activated samples: within 1e-5 of each output's scale (XLA's cumsum and
     exp against the running sum in f32), the alive flags equal."""
     theirs = testbeds[1].task
     rng = np.random.default_rng(5)
@@ -243,18 +244,28 @@ def test_composite_activated_matches_jax(testbeds):
         NerfActivation.EXPONENTIAL)[2].numpy())
 
 
-@pytest.mark.parametrize("which", ["N", "D_activated"])
+@pytest.mark.parametrize("which", ["N", "D_activated", "round"])
 def test_wrappers_do_not_fall_back_off_the_cpu(which):
-    """A tensor that is neither on the CPU nor on the card raises."""
+    """A tensor that is neither on the CPU nor on the card raises; the
+    activated composite has no kernel of its own off the CPU (the baked
+    round does it)."""
     meta = torch.device("meta")
+    cache = port_baked.BakedCache(
+        torch.zeros(8, dtype=torch.int32, device=meta),
+        torch.zeros((4, 32), dtype=torch.bfloat16, device=meta),
+        torch.zeros(1, dtype=torch.int32, device=meta),
+        torch.zeros(1, dtype=torch.int32, device=meta), 1, 4, (2,))
     with pytest.raises(ValueError, match="CUDA"):
         if which == "N":
-            cache = port_baked.BakedCache(
-                torch.zeros(8, dtype=torch.int32, device=meta),
-                torch.zeros((4, 32), dtype=torch.bfloat16, device=meta),
-                torch.zeros(1, dtype=torch.int32, device=meta),
-                torch.zeros(1, dtype=torch.int32, device=meta), 1, 4, (2,))
             port_baked.query(cache, torch.zeros((8, 3), device=meta))
+        elif which == "round":
+            z = torch.zeros((4, 16), device=meta)
+            r = torch.zeros(4, device=meta)
+            r3 = torch.zeros((4, 3), device=meta)
+            b = torch.zeros(4, dtype=torch.bool, device=meta)
+            port_baked.render_round(cache, r3, r3, z, z, torch.zeros((4, 16), dtype=torch.bool,
+                                                                     device=meta),
+                                    r, r, r, r3, r, b, r, r, EPS_T)
         else:
             z = torch.zeros((4, 8), device=meta)
             r = torch.zeros(4, device=meta)

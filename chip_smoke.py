@@ -241,6 +241,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -343,9 +344,10 @@ BENCH_ITERS, BENCH_WARMUP = 10, 2  # the gather microbenchmark phase, reduced
 
 # the least time of a kernel: H100 SXM data sheet rates
 HBM_BYTES_PER_S = 3.35e12
-# the kernel build of the tree before the five activations' generic sources:
-# cuda_lib.build of that tree on the H100 machines of three chip calls (PERF.md §6)
-BUILD_S_BEFORE = "98.6, 104.9 and 88.2"
+# the kernel build of the tree before the generic kernels compiled each
+# activation in (a call a value): cuda_lib.build of that tree on the H100
+# machines of three chip calls (PERF.md §6)
+BUILD_S_BEFORE = "111.5, 118.2 and 87.8"
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
@@ -459,7 +461,7 @@ def phase_build() -> None:
     cuda_lib.load()
     print(f"build: {seconds:.1f} s -> {path.relative_to(ROOT)}; each source's nvcc ended at "
           f"(s): { {k: round(v, 1) for k, v in sorted(cuda_lib.SOURCE_SECONDS.items())} } "
-          f"(the tree before the five activations' generic sources: {BUILD_S_BEFORE} s in "
+          f"(the tree before the five activations were compiled in: {BUILD_S_BEFORE} s in "
           f"three builds on H100 machines)")
     for name, out in sorted(cuda_lib.SOURCE_OUTPUT.items()):
         print(f"nvcc {name} printed: {out.strip()[:2000]}")
@@ -472,19 +474,42 @@ def phase_build() -> None:
           f"{max(probe['wgmma_rel_err'], probe['mma_rel_err']):.2e} of max |f64 product|)")
     check(probe["bit_equal"], f"wgmma does not round as mma.sync: {probe}: the routes' bit-for-bit "
                               "checks do not hold")
-    counts = sass_counts(path, "HGMMA")
-    wide = {k: v for k, v in counts.items() if "mlp_wide_kernel" in k or "mlp_dw_kernel" in k}
-    print(f"HGMMA instructions in the SASS of the wide route's kernels: "
-          f"{ {k.split('mlp_')[-1][:40]: v for k, v in wide.items()} }")
-    # B and F at 128 and 256 wide, each also in the generic activations' source,
-    # and the dW kernel at 128 and 256
-    check(len(wide) == 10 and all(v > 0 for v in wide.values()),
-          f"a wide kernel has no HGMMA instruction: {wide}")
+    counts = {wide_kernel_label(k): v for k, v in sass_counts(path, "HGMMA").items()
+              if wide_kernel_label(k) is not None}
+    print(f"HGMMA instructions in the SASS of the wide route's kernels: {counts}")
+    # B and F at 128 and 256 wide, each for the shipped activations and for
+    # the five generic ones (csrc/mlp_wide*_generic.cu), and dW at 128 and 256
+    check(len(counts) == 10 and all(v > 0 for v in counts.values()),
+          f"a wide kernel has no HGMMA instruction, or one is missing: {counts}")
+    # the generic kernels beside the shipped (relu, sigmoid, exponential) ones
+    # of their width: what calls are left are the math library's slow paths
+    # (division, sqrtf) at each value of sigmoid and squareplus, no call to an
+    # activation
+    calls = {wide_kernel_label(k): v for k, v in sass_counts(path, "CALL").items()
+             if wide_kernel_label(k) is not None}
+    print("CALL instructions in the SASS of the wide kernels, shipped (sigmoid's) / generic: "
+          + ", ".join(f"{kind} {calls[f'{kind} shipped']} / {calls[f'{kind} generic']}"
+                      for kind in ("B128", "B256", "F128", "F256")))
+    check(all(calls[f"{kind} generic"] <= calls[f"{kind} shipped"]
+              for kind in ("B128", "B256", "F128", "F256")),
+          f"a generic wide kernel holds more calls than the shipped one of its width: {calls}")
     from instant_ngp_torch.geometry import bvh
 
     path, seconds = bvh.build()
     bvh.load()
     print(f"build of the host BVH (g++): {seconds:.1f} s -> {path.relative_to(ROOT)}")
+
+
+def wide_kernel_label(mangled: str) -> str | None:
+    """'B128 shipped', 'F256 generic', 'dW128' for a wide route's kernel (the
+    mangled name ``cuobjdump`` prints; csrc/mlp_wide.cuh's kShipped -1 and
+    kGeneric -2), None for any other."""
+    m = re.search(r"mlp_wide_kernelILi(\d+)ELi\dELb(\d)ELin([12])E", mangled)
+    if m is not None:
+        return f"{'F' if m.group(2) == '1' else 'B'}{m.group(1)} " \
+               f"{'shipped' if m.group(3) == '1' else 'generic'}"
+    m = re.search(r"mlp_dw_kernelILi(\d+)E", mangled)
+    return f"dW{m.group(1)}" if m is not None else None
 
 
 def sass_counts(lib: Path, opcode: str) -> dict:
@@ -2779,8 +2804,6 @@ def run_entries(runs: dict) -> dict:
 def run_summary(lines: list[str]) -> dict:
     """The printed numbers of a run: losses, steps/s, per-view and mean
     PSNR/SSIM/ꟻLIP."""
-    import re
-
     views = [tuple(float(v) for v in m.groups()) for m in (
         re.search(r"view \d+: psnr=(\S+) ssim=(\S+) flip=(\S+)", line) for line in lines) if m]
     mean = next(m for m in (re.match(r"PSNR=(\S+) \[.*\] SSIM=(\S+) FLIP=(\S+)", line)
@@ -5700,6 +5723,9 @@ ACT_LIBRARY = {"leakyrelu": lambda z: torch.nn.functional.leaky_relu(z, 0.01),
                "sine": torch.sin, "squareplus": None,
                "softplus": torch.nn.functional.softplus, "tanh": torch.tanh}
 CONTRACT_MLPS = {"fox_rgb": (32, 64, 64, 3), "oneblob": (256,) + (128,) * 8 + (3,)}
+# two different generic activations, hidden and output: the JAX MLP takes any
+# pair, and the wide kernels take the output one through their rolled loop
+MIXED_PAIRS = (("sine", "tanh"),)
 CONTRACT_STEPS = 50
 CONTRACT_KERNELS = ("hashgrid_encode_fwd", "hashgrid_encode_bwd", "fused_mlp", "fused_mlp_bwd",
                     "fused_mlp_wide", "fused_mlp_bwd_wide", "fused_mlp_dw_wide", "march_rays",
@@ -5775,47 +5801,51 @@ def activation_checks(device) -> dict:
     five activations, ``config_mlp_checks`` on seeded He-uniform weights at
     N_TRAIN_ROWS rows: as the hidden activation at fox's rgb widths and at
     image/oneblob's, and as the output activation (hidden relu) at fox's,
-    each held against the contract in float64 (``exact_ref_gate``);
+    and each MIXED_PAIRS pair (two different ones, hidden and output) at
+    fox's, each held against the contract in float64 (``exact_ref_gate``);
     inputs U(−1, 1), a training step's size of cotangent (N(0, 1)/rows). Each
     with the library time of its activation as one torch call on the first
-    layer's f32 pre-activations (``ACT_LIBRARY``)."""
+    layer's f32 pre-activations (``ACT_LIBRARY``; a pair's hidden one)."""
     from instant_ngp_torch.ops import mlp_kernel as mk
     from instant_ngp_torch.ops.mlp import MLP
 
     gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    cases = [(act, "None", shape, f"{act} hidden {shape}") for act in NEW_ACTIVATIONS
+             for shape in ("fox_rgb", "oneblob")]
+    cases += [("ReLU", act, "fox_rgb", f"{act} output fox_rgb") for act in NEW_ACTIVATIONS]
+    cases += [(h, o, "fox_rgb", f"{h} hidden {o} output fox_rgb") for h, o in MIXED_PAIRS]
     out = {}
-    for act in NEW_ACTIVATIONS:
-        for shape, hidden in (("fox_rgb", True), ("oneblob", True), ("fox_rgb", False)):
-            dims = CONTRACT_MLPS[shape]
-            act_h, act_o = (act, "None") if hidden else ("ReLU", act)
-            mlp = MLP(dims[0], dims[-1], dims[1], len(dims) - 2, act_h, act_o, device=device)
-            mlp.init(gen)
-            x = torch.rand((N_TRAIN_ROWS, dims[0]), generator=gen, device=device) * 2.0 - 1.0
-            g = torch.randn((N_TRAIN_ROWS, dims[-1]), generator=gen, device=device) / N_TRAIN_ROWS
-            what = f"{act} {'hidden' if hidden else 'output'} {shape}"
-            v = config_mlp_checks(mlp, x, g, what, exact_ref=True)
-            check(v["routes"] == ["wide", "wide"], f"{what}: routes {v['routes']}")
-            lib = ACT_LIBRARY[act]
-            v["library_ms"] = None
-            if lib is not None:
-                z = x @ mlp.weights[0].detach()
-                v["library_ms"] = device_split(lambda: lib(z), "", reps=CONFIG_REPS)["device_ms"]
-            dw = v["dw"]
-            be, fe = v["b_exact"], v["f_exact"]
-            print(f"kernels B/F {what} {dims} against the f64 contract: B kernel "
-                  f"{be['kernel_rel'][0]:.3e}, plain {be['plain_rel'][0]:.3e}; F worst leaf kernel "
-                  f"{max(fe['kernel_rel']):.3e}, plain {max(fe['plain_rel']):.3e} (of max |ref|; "
-                  f"leaves kernel {[f'{r:.2e}' for r in fe['kernel_rel']]}, plain "
-                  f"{[f'{r:.2e}' for r in fe['plain_rel']]})")
-            print(f"kernels B/F {what} {dims}: B err {v['b_rel']:.2e} of max |ref|, device "
-                  f"{v['b_kernel_ms']:.4f} ms (bound {v['b_bound_ms']:.4f}); F leaves within "
-                  f"{v['f_rel']:.2e}, device {v['f_kernel_ms']:.4f} ms (bound "
-                  f"{v['f_bound_ms']:.4f}); dW within {dw['max_rel_err']:.2e}, device "
-                  f"{dw['ms']:.4f} ms; plain B {v['b_plain_ms']:.4f} F {v['f_plain_ms']:.4f} ms"
-                  + (f"; {act} as one torch call {v['library_ms']:.4f} ms"
-                     if v["library_ms"] is not None else ""))
-            out[what] = v
-            del mlp, x, g
+    for act_h, act_o, shape, what in cases:
+        dims = CONTRACT_MLPS[shape]
+        mlp = MLP(dims[0], dims[-1], dims[1], len(dims) - 2, act_h, act_o, device=device)
+        mlp.init(gen)
+        x = torch.rand((N_TRAIN_ROWS, dims[0]), generator=gen, device=device) * 2.0 - 1.0
+        g = torch.randn((N_TRAIN_ROWS, dims[-1]), generator=gen, device=device) / N_TRAIN_ROWS
+        v = config_mlp_checks(mlp, x, g, what, exact_ref=True)
+        check(v["routes"] == ["wide", "wide"], f"{what}: routes {v['routes']}")
+        act = act_h if act_h in NEW_ACTIVATIONS else act_o
+        lib = ACT_LIBRARY[act]
+        v["library_ms"] = None
+        if lib is not None:
+            z = x @ mlp.weights[0].detach()
+            v["library_ms"] = device_split(lambda: lib(z), "", reps=CONFIG_REPS)["device_ms"]
+        dw = v["dw"]
+        be, fe = v["b_exact"], v["f_exact"]
+        print(f"kernels B/F {what} {dims} against the f64 contract: B kernel "
+              f"{be['kernel_rel'][0]:.3e}, plain {be['plain_rel'][0]:.3e}; F worst leaf kernel "
+              f"{max(fe['kernel_rel']):.3e}, plain {max(fe['plain_rel']):.3e} (of max |ref|; "
+              f"leaves kernel {[f'{r:.2e}' for r in fe['kernel_rel']]}, plain "
+              f"{[f'{r:.2e}' for r in fe['plain_rel']]})")
+        print(f"kernels B/F {what} {dims}: B err {v['b_rel']:.2e} of max |ref|, device "
+              f"{v['b_kernel_ms']:.4f} ms (bound {v['b_bound_ms']:.4f}); F leaves within "
+              f"{v['f_rel']:.2e}, device {v['f_kernel_ms']:.4f} ms (bound "
+              f"{v['f_bound_ms']:.4f}); dW within {dw['max_rel_err']:.2e}, device "
+              f"{dw['ms']:.4f} ms (bound {dw['bound_ms']:.4f}); plain B {v['b_plain_ms']:.4f} "
+              f"F {v['f_plain_ms']:.4f} ms"
+              + (f"; {act} as one torch call {v['library_ms']:.4f} ms"
+                 if v["library_ms"] is not None else ""))
+        out[what] = v
+        del mlp, x, g
         mk._wide_sizes.cache_clear()
     return out
 

@@ -34,6 +34,17 @@ and of the whole call (``device_ms``: the packing, F, the dW kernel and its
 reduction; in a tree before the dW kernel, the f32 dW products) on copies of
 the inputs read in turn.
 
+``--wide --act NAME [NAME ...]`` runs F's wide route instead at
+``ACT_SHAPES`` (fox's rgb MLP and image/oneblob's widths, 2^17 rows) under
+each activation NAME: hidden (none as output), as output (relu hidden), a
+mixed pair (``MIXED_PAIRS``) where both are named, and relu hidden with none
+as output on the wide route (``_launch_bwd(...,
+narrow=False)``: fox's rgb widths take the narrow route otherwise), each
+case's leaves against the plain version (reported, not gated: chip_smoke.py
+holds them to the float64 contract) and a digest of its outputs' bytes
+(``digest``), so that two trees' lines show whether the kernels' outputs
+are equal bit for bit.
+
 ``--dx`` runs instead kernel K (csrc/hashgrid_bwd.cu) on the surface points
 of an SDF frame: the BVH ray cast of ``geometry/procedural.bumpy_torus``
 (256 x 136, seed 0, normalized as ``SdfTask`` loads it) from
@@ -63,6 +74,7 @@ each level's hottest row.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -195,6 +207,75 @@ def run_wide(root: Path) -> dict:
         dev = cs.device_split(lambda: fused_mlp_bwd(ws, *next(copies)), "mlp_wide_kernel",
                               reps=10, per_call=1)
         out["F"][name] = {"dims": dims, "rows": n, "max_rel_err": max(v["rel"] for v in leaves),
+                          "kernel_ms": dev["kernel_ms"], "device_ms": dev["device_ms"],
+                          "timed_by": dev["timed_by"]}
+        del copies
+    return out
+
+
+# --act's widths and rows: fox's rgb MLP and image/oneblob's (a deep 128-wide MLP)
+ACT_SHAPES = {"fox_rgb": ((32, 64, 64, 3), 1 << 17), "oneblob": ((256,) + (128,) * 8 + (3,), 1 << 17)}
+MIXED_PAIRS = (("sine", "tanh"),)  # as chip_smoke.MIXED_PAIRS
+
+
+def act_cases(acts) -> dict:
+    """name -> (dims, rows, hidden, output activation) of --act: each
+    activation hidden and as output at each ACT_SHAPES, relu/none there, and
+    each pair of MIXED_PAIRS (hidden, output) whose two activations are given."""
+    cases = {}
+    for shape, (dims, n) in ACT_SHAPES.items():
+        cases[f"relu {shape}"] = (dims, n, "relu", "none")
+        for act in acts:
+            cases[f"{act} hidden {shape}"] = (dims, n, act, "none")
+            cases[f"{act} output {shape}"] = (dims, n, "relu", act)
+        for hidden, out in MIXED_PAIRS:
+            if hidden in acts and out in acts:
+                cases[f"{hidden} hidden {out} output {shape}"] = (dims, n, hidden, out)
+    return cases
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def run_acts(root: Path, acts) -> dict:
+    """F's wide route at ``act_cases(acts)``: see the module's docstring."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this benchmark needs an NVIDIA GPU")
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, build_s = cuda_lib.build()
+    device = torch.device("cuda")
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0), "build_s": build_s, "F": {}}
+    for name, (dims, n, act, out_act) in act_cases(acts).items():
+        gen = torch.Generator(device=device).manual_seed(SEED)  # the same inputs in every case
+        ws, x, g = wide_inputs(dims, n, gen, device)
+        codes = mk.ACTIVATIONS[act], mk.ACTIVATIONS[out_act]
+
+        def call(xx, gg):
+            return mk._launch_bwd(ws, xx, gg, dims, *codes, narrow=False)
+
+        keep = ~cs.mask_differs(ws, x, act, mk.mlp_recompute(ws, x, act, out_act))
+        dx, dws = call(x, g)
+        sha = digest(dx, *dws)
+        xk, gk = x[keep].contiguous(), g[keep].contiguous()
+        dx, dws = call(xk, gk)
+        dx_p, dws_p = mk.fused_mlp_bwd_plain(ws, xk, gk, act, out_act)
+        leaves = cs.mlp_bwd_leaves([dx, *dws], [dx_p, *dws_p])
+        copies = cs.cold_copies(x, g)
+        dev = cs.device_split(lambda: call(*next(copies)), "mlp_wide_kernel", reps=10, per_call=1)
+        out["F"][name] = {"dims": dims, "rows": n, "activations": (act, out_act), "digest": sha,
+                          "max_rel_err": max(v["rel"] for v in leaves),
                           "kernel_ms": dev["kernel_ms"], "device_ms": dev["device_ms"],
                           "timed_by": dev["timed_by"]}
         del copies
@@ -346,7 +427,8 @@ def summarize(res: dict) -> dict:
         return {f"K:{case}": [v[k] for k in ("ms", "kernel_ms", "kernel_ms_cold", "device_ms",
                                              "device_ms_cold")] for case, v in res["K"].items()}
     if "E" not in res:
-        return {f"F:{case}": [v["kernel_ms"], v["device_ms"]] for case, v in res["F"].items()}
+        return {f"F:{case}": [v["kernel_ms"], v["device_ms"], *([v["digest"]] if "digest" in v else [])]
+                for case, v in res["F"].items()}
     return {f"{k}:{case}": v["ms"] for k in ("E", "F") for case, v in res[k].items()}
 
 
@@ -359,6 +441,8 @@ def main() -> None:
     ap.add_argument("--no-smoke", action="store_true",
                     help="--ab without each tree's chip_smoke.py run")
     ap.add_argument("--wide", action="store_true", help="F's wide route at WIDE_CASES only")
+    ap.add_argument("--act", nargs="+", default=None, metavar="NAME",
+                    help="with --wide: the wide F at ACT_SHAPES under these activations")
     ap.add_argument("--dx", action="store_true", help="kernel K at DX_SHAPES only")
     args = ap.parse_args()
     if args.count:
@@ -369,8 +453,13 @@ def main() -> None:
         from instant_ngp_torch.bench.ab import ab
 
         mode = ("--wide",) if args.wide else ("--dx",) if args.dx else ()
+        if args.act:
+            mode += ("--act", *args.act)
         ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize,
            smoke=not (mode or args.no_smoke), args=mode)
+        return
+    if args.wide and args.act:
+        print(json.dumps(run_acts(args.root.resolve(), args.act)))
         return
     runner = run_wide if args.wide else run_dx if args.dx else run
     print(json.dumps(runner(args.root.resolve())))

@@ -32,6 +32,13 @@ configs' own inputs), B against F's recompute bit for bit, and the device
 time of the kernel and of the call (with its packing) on copies of the input
 read in turn.
 
+``--wide --act NAME [NAME ...]`` runs B's wide route instead at
+``bench/bwd_kernels.act_cases``: fox's rgb MLP and image/oneblob's widths at
+2^17 rows, each activation NAME hidden and as output (relu hidden), and
+relu/none there on the wide route (``_launch_fwd(..., narrow=False)``), each
+with its error against the plain version (reported) and a digest of its
+output's bytes, to hold two trees' kernels to the same bits.
+
 Each case has its time back to back (``chip_smoke.time_ms``), its device
 time per call under torch.profiler (``device_ms``: every kernel of the call,
 ``kernel_ms``: the kernel's own), its bound and its error against the plain
@@ -207,6 +214,42 @@ def run_wide(root: Path) -> dict:
     return out
 
 
+def run_acts(root: Path, acts) -> dict:
+    """B's wide route at ``act_cases(acts)``: see the module's docstring."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from instant_ngp_torch import cuda_lib
+    from instant_ngp_torch.ops import mlp_kernel as mk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this benchmark needs an NVIDIA GPU")
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, build_s = cuda_lib.build()
+    device = torch.device("cuda")
+    out = {"root": str(root), "device": torch.cuda.get_device_name(0), "build_s": build_s, "B": {}}
+    bwd = _sibling("bwd_kernels")
+    for name, (dims, n, act, out_act) in bwd.act_cases(acts).items():
+        gen = torch.Generator(device=device).manual_seed(SEED)  # the same inputs in every case
+        ws, x, _ = bwd.wide_inputs(dims, n, gen, device)
+        codes = mk.ACTIVATIONS[act], mk.ACTIVATIONS[out_act]
+
+        def call(xx):
+            return mk._launch_fwd(ws, xx, dims, *codes, narrow=False)
+
+        y = call(x)
+        err, scale = cs.max_err(y, mk.fused_mlp_plain(ws, x, act, out_act))
+        copies = cs.cold_copies(x)
+        dev = cs.device_split(lambda: call(*next(copies)), "mlp_wide_kernel", reps=10, per_call=1)
+        out["B"][name] = {"dims": dims, "rows": n, "activations": (act, out_act),
+                          "digest": bwd.digest(y), "rel_err": err / scale,
+                          "kernel_ms": dev["kernel_ms"], "device_ms": dev["device_ms"],
+                          "timed_by": dev["timed_by"]}
+        del copies
+    return out
+
+
 def run(root: Path) -> dict:
     sys.path.insert(0, str(root))
     import torch
@@ -234,7 +277,8 @@ def summarize(res: dict) -> dict:
     """One --ab line's entries: per case [ms, device_ms, kernel_ms]; with
     --wide, per case [kernel_ms, device_ms]."""
     if "A" not in res:
-        return {f"B:{case}": [v["kernel_ms"], v["device_ms"]] for case, v in res["B"].items()}
+        return {f"B:{case}": [v["kernel_ms"], v["device_ms"], *([v["digest"]] if "digest" in v else [])]
+                for case, v in res["B"].items()}
     return {f"{k}:{case}": [v["ms"], v["device_ms"], v["kernel_ms"]]
             for k in ("A", "B") for case, v in res[k].items()}
 
@@ -248,13 +292,19 @@ def main() -> None:
     ap.add_argument("--no-smoke", action="store_true",
                     help="--ab without each tree's chip_smoke.py run")
     ap.add_argument("--wide", action="store_true", help="B's wide route at WIDE_CASES only")
+    ap.add_argument("--act", nargs="+", default=None, metavar="NAME",
+                    help="with --wide: the wide B at ACT_SHAPES under these activations")
     args = ap.parse_args()
     if args.ab is not None:
         sys.path.insert(0, str(HERE))
         from instant_ngp_torch.bench.ab import ab
 
         ab(args.ab.resolve(), HERE, args.logs.resolve(), Path(__file__).resolve(), summarize,
-           args.repeat, smoke=not (args.wide or args.no_smoke), args=("--wide",) if args.wide else ())
+           args.repeat, smoke=not (args.wide or args.no_smoke),
+           args=(("--wide",) if args.wide else ()) + (("--act", *args.act) if args.act else ()))
+        return
+    if args.wide and args.act:
+        print(json.dumps(run_acts(args.root.resolve(), args.act)))
         return
     print(json.dumps((run_wide if args.wide else run)(args.root.resolve())))
 

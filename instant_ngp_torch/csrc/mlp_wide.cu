@@ -18,11 +18,13 @@
 // JAX differentiates jax.nn.sigmoid and jnp.exp. Leakyrelu, sine,
 // squareplus, softplus and tanh (the JAX MLP's XLA path, instant_ngp_tpu/ops/
 // mlp.py:27-40, which its Pallas kernel does not take) are the same kind: f32
-// values and f32 derivatives (mlp_wide.cuh's activate and act_grad). Relu,
-// sigmoid and exponential are compiled into each kernel as their own
-// instantiations; the five share one, kGeneric, that calls a non-inlined
-// function of the code at run time for each value, so that they cost the
-// build one small instantiation, not five.
+// values and f32 derivatives (mlp_wide.cuh's activate and act_grad). Every
+// activation is compiled into the kernel that runs it, one instantiation a
+// kind picked per layer: this source's kernels take relu, sigmoid,
+// exponential or none as the hidden activation, its generic twin's
+// (csrc/mlp_wide_generic.cu) the five; each takes any output activation,
+// one its hidden layers do not take through a rolled loop over the output
+// (mlp_wide.cuh).
 //
 // What bounds it on an H100: at 128 wide the products are no longer nearly
 // free. image/oneblob.json (256 -> 128 x 8 -> 3, 147,840 weights) does 2·147,840
@@ -262,10 +264,11 @@ extern "C" int ngp_fused_mlp_wide_sizes(const void* dims, int n_layers, int act,
 
 // x: (n, d_0) f32; w: n_layers host pointers, layer i f32 (d_i, d_{i+1}); dims:
 // host int[n_layers + 1]; scratch: ngp_fused_mlp_wide_sizes' bytes; out: (n,
-// d_L) f32. A generic activation goes to csrc/mlp_wide_generic.cu's kernels.
+// d_L) f32. A generic hidden activation goes to csrc/mlp_wide_generic.cu's
+// kernels; both sets take every output activation.
 extern "C" int ngp_fused_mlp_wide(const void* x, const void* w, const void* dims, int n_layers, int act,
                                   int out_act, long long n, void* scratch, void* out, void* stream) {
-    if (uses_generic(act, out_act))
+    if (uses_generic(act))
         return ngp_fused_mlp_wide_generic(x, w, dims, n_layers, act, out_act, n, scratch, out, stream);
     return wide_forward(x, w, dims, n_layers, act, out_act, n, scratch, out, stream);
 }

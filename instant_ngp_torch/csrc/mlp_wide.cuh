@@ -17,8 +17,8 @@
 
 // 1 in the translation units of the five generic activations (csrc/
 // mlp_wide_generic.cu, mlp_wide_bwd_generic.cu, mlp_wide_bwd256_generic.cu):
-// their kernels run every activation through kGeneric; the others' kernels
-// take relu, none, sigmoid and exponential only, and hand the five over
+// their kernels' hidden layers take leakyrelu, sine, squareplus, softplus or
+// tanh; the others' take relu, none, sigmoid and exponential
 #ifndef NGP_GENERIC_ACT
 #define NGP_GENERIC_ACT 0
 #endif
@@ -30,16 +30,18 @@ constexpr int kStageBytes = 32768;  // one stage of the forward's ring: a chunk 
 constexpr int kMaxStages = 6;
 constexpr int kMinStages = 4;
 constexpr int kTile = 64;  // rows a consumer warpgroup owns; rows of the dW kernel's k tile
-// activation codes (ops/mlp_kernel.py ACTIVATIONS; 0 is none); kGeneric is the
-// instantiation of the last five, which switches on the code at run time
+// activation codes (ops/mlp_kernel.py ACTIVATIONS; 0 is none); the last five
+// are the generic ones
 constexpr int kRelu = 1, kSigmoid = 2, kExp = 3, kLeakyRelu = 4, kSine = 5, kSquareplus = 6,
               kSoftplus = 7, kTanh = 8;
-constexpr int kGeneric = -1;
+// the hidden activations a kernel takes (its template argument kHid): none,
+// relu, sigmoid and exponential, or the five generic ones
+constexpr int kShipped = -1, kGeneric = -2;
+constexpr int kHidden = NGP_GENERIC_ACT ? kGeneric : kShipped;  // this unit's
 
-// whether a call takes the generic activations' kernels
-__host__ __device__ inline bool uses_generic(int act, int out_act) {
-    return act >= kLeakyRelu || out_act >= kLeakyRelu;
-}
+// whether a call takes the kGeneric kernels: by its hidden activation (both
+// sets take every output activation)
+__host__ __device__ inline bool uses_generic(int act) { return act >= kLeakyRelu; }
 
 // per layer i, from the widths: d_in, d_out; K and N of the forward's product
 // (pad16(d_in), wgmma N of d_out) and of the backward's (pad16(d_out), wgmma N
@@ -178,45 +180,22 @@ __device__ __forceinline__ float act_grad(float z, int act) {
     }
 }
 
-#if NGP_GENERIC_ACT
-// The activations of the kGeneric instantiation, the code at run time: a
-// call, not inlined. Inlined into every value of the unrolled loops, the
-// switch over all five (sine's and tanh's full-range code among them) made
-// the 256-wide F's source take 482 s to build instead of ~100; in the
-// kernels of relu, sigmoid and exponential a call slowed the wide F by up to
-// 15 % (ptxas arranges a whole kernel around a call), so those kernels have
-// none and the generic ones are kernels of their own.
-__device__ __noinline__ float activate_generic(float v, int act) { return activate(v, act); }
-__device__ __noinline__ float act_grad_generic(float z, int act) { return act_grad(z, act); }
-#endif
-
-// The activation and its derivative with the kind fixed at compile time.
-// Given the kind at run time inside a fully unrolled loop, the compiler
-// evaluates every kind (two exponentials and a division) for every value and
-// selects; NGP_ACT_SWITCH picks the instantiation once per layer instead.
-// Relu, sigmoid and exponential (the shipped configs') are compiled in; the
-// generic kernels take every activation, the five among them, through the
-// one kGeneric instantiation, which calls the function of the code `act`
-// given at run time: one instantiation of each kernel, not five, and a call
-// a value.
-template <int kAct>
-__device__ __forceinline__ float act_of(float v, int act) {
-#if NGP_GENERIC_ACT
-    if constexpr (kAct == kGeneric) return activate_generic(v, act);
-#endif
-    return activate(v, kAct);
-}
-template <int kAct>
-__device__ __forceinline__ float grad_of(float z, int act) {
-#if NGP_GENERIC_ACT
-    if constexpr (kAct == kGeneric) return act_grad_generic(z, act);
-#endif
-    return act_grad(z, kAct);
-}
-
-#if NGP_GENERIC_ACT
-#define NGP_ACT_SWITCH(ACT, CALL) CALL(kGeneric);
-#else
+// Where each activation is compiled in. Given the kind at run time inside a
+// fully unrolled loop, the compiler evaluates every kind (two exponentials
+// and a division) for every value and selects; so a hidden layer takes one
+// instantiation a kind, picked once per layer: none, relu, sigmoid or
+// exponential in the kShipped kernels (NGP_ACT_SWITCH), one of the five in
+// the kGeneric ones (NGP_GENERIC_SWITCH), each inline at every value. The
+// two sets stay in kernels of their own, so that the shipped kernels hold
+// none of the five's hidden code. A unit a generic activation, its kernels
+// taking the shipped kinds and its own (15 units), was the other design:
+// each unit holds the whole kernel again, the build took more than twice as
+// long as with one generic unit a source, and its kernels ran no faster
+// than these (PERF.md §6). The output layer takes the kernel's own hidden
+// kinds inline (a kGeneric kernel's: none) and any other, a mixed pair's
+// among them, through out_rolled and last_dz_rolled: the pre-activations
+// staged in memory (B's output, F's scratch) and activated there in a loop
+// that is not unrolled, one loop a kind.
 #define NGP_ACT_SWITCH(ACT, CALL)                \
     switch (ACT) {                               \
         case kRelu: CALL(kRelu); break;          \
@@ -224,7 +203,30 @@ __device__ __forceinline__ float grad_of(float z, int act) {
         case kExp: CALL(kExp); break;            \
         default: CALL(0); break;                 \
     }
-#endif
+
+// the five generic activations, each compiled in
+#define NGP_GENERIC_SWITCH(ACT, CALL)                     \
+    switch (ACT) {                                        \
+        case kLeakyRelu: CALL(kLeakyRelu); break;         \
+        case kSine: CALL(kSine); break;                   \
+        case kSquareplus: CALL(kSquareplus); break;       \
+        case kSoftplus: CALL(kSoftplus); break;           \
+        default: CALL(kTanh); break;                      \
+    }
+
+// an output activation that a kernel's rolled loops take: the five, and in
+// a kGeneric kernel relu, sigmoid and exponential too (kHid in scope)
+#define NGP_ROLLED_SWITCH(ACT, CALL)                      \
+    if constexpr (kHid == kGeneric) {                     \
+        switch (ACT) {                                    \
+            case kRelu: CALL(kRelu); break;               \
+            case kSigmoid: CALL(kSigmoid); break;         \
+            case kExp: CALL(kExp); break;                 \
+            default: NGP_GENERIC_SWITCH(ACT, CALL)        \
+        }                                                 \
+    } else {                                              \
+        NGP_GENERIC_SWITCH(ACT, CALL)                     \
+    }
 
 // layer i's f32 (din, dout) weights w into the packed bf16 layouts, zero-padded:
 // fwd (N = wgmma N of dout, K = pad16(din)), W^T K-major; bwd (N = wgmma N of
@@ -419,23 +421,21 @@ __device__ __forceinline__ void load_x(uint32_t (&a)[kMaxK / 16][4], const float
 // act'(z) of every accumulator value into the scratch (every activation but
 // relu and none)
 template <int N, int kAct>
-__device__ __forceinline__ void save_grad(const float (&acc)[N / 2], float* s, const Ctx& c, int act) {
+__device__ __forceinline__ void save_grad(const float (&acc)[N / 2], float* s, const Ctx& c) {
 #pragma unroll
-    for (int v = 0; v < N / 2; ++v) s[(size_t)v * c.stride] = grad_of<kAct>(acc[v], act);
+    for (int v = 0; v < N / 2; ++v) s[(size_t)v * c.stride] = act_grad(acc[v], kAct);
 }
 
 // the next layer's A fragments a[kb], kb < kn / 16: the activation of the
 // accumulators, rounded to bf16 (fragment e holds values 8kb + 2e, 8kb + 2e + 1)
 template <int N, int kMaxK, int kAct>
-__device__ __forceinline__ void next_frags(const float (&acc)[N / 2], uint32_t (&a)[kMaxK / 16][4], int kn,
-                                           int act) {
+__device__ __forceinline__ void next_frags(const float (&acc)[N / 2], uint32_t (&a)[kMaxK / 16][4], int kn) {
 #pragma unroll
     for (int kb = 0; kb < N / 16; ++kb) {
         if (kb * 16 < kn) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                a[kb][e] = pack_bf16(act_of<kAct>(acc[8 * kb + 2 * e], act),
-                                     act_of<kAct>(acc[8 * kb + 2 * e + 1], act));
+                a[kb][e] = pack_bf16(activate(acc[8 * kb + 2 * e], kAct), activate(acc[8 * kb + 2 * e + 1], kAct));
         }
     }
 }
@@ -447,10 +447,26 @@ __device__ __forceinline__ void write_out(const float (&acc)[N / 2], const Param
     for (int j = 0; j < N / 8; ++j) {
         if (j * 8 < dout) {
             const int col = 8 * j + 2 * c.tig;
-            const int oa = p.out_act;
-            store_pair(p.out, c.r0, col, p.n, dout, act_of<kAct>(acc[4 * j], oa), act_of<kAct>(acc[4 * j + 1], oa));
-            store_pair(p.out, c.r1, col, p.n, dout, act_of<kAct>(acc[4 * j + 2], oa),
-                       act_of<kAct>(acc[4 * j + 3], oa));
+            store_pair(p.out, c.r0, col, p.n, dout, activate(acc[4 * j], kAct), activate(acc[4 * j + 1], kAct));
+            store_pair(p.out, c.r1, col, p.n, dout, activate(acc[4 * j + 2], kAct),
+                       activate(acc[4 * j + 3], kAct));
+        }
+    }
+}
+
+// B's output under an output activation kAct its kernel's hidden layers do
+// not take (NGP_ROLLED_SWITCH): the values write_out<N, 0> wrote (columns
+// 8j + 2·tig + (v & 1) of rows r0 (v & 3 < 2) and r1, 8j < dout), each read
+// back and activated in place, one at a time
+template <int kAct>
+__device__ __forceinline__ void out_rolled(const Params& p, int dout, const Ctx& c) {
+#pragma unroll 1
+    for (int v = 0; v < 4 * ((dout + 7) / 8); ++v) {
+        const long long r = (v & 3) < 2 ? c.r0 : c.r1;
+        const int col = 8 * (v >> 2) + 2 * c.tig + (v & 1);
+        if (r < p.n && col < dout) {
+            float* o = p.out + r * dout + col;
+            *o = activate(*o, kAct);
         }
     }
 }
@@ -465,17 +481,55 @@ __device__ __forceinline__ void last_dz(float (&acc)[N / 2], const Params& p, in
         for (int e = 0; e < 4; ++e) {
             const long long r = e < 2 ? c.r0 : c.r1;
             const int col = 8 * j + 2 * c.tig + (e & 1);
-            const float gv = r < p.n && col < dout ? p.g[r * dout + col] * grad_of<kAct>(acc[4 * j + e], p.out_act) : 0.0f;
+            const float gv = r < p.n && col < dout ? p.g[r * dout + col] * act_grad(acc[4 * j + e], kAct) : 0.0f;
             acc[4 * j + e] = gv;
             s[(size_t)(4 * j + e) * c.stride] = gv;
         }
     }
 }
 
+// last_dz's values under such an output activation kAct, over the vals
+// pre-activations the caller staged in the scratch s, one at a time
+template <int kAct>
+__device__ __forceinline__ void last_dz_rolled(const Params& p, int dout, int vals, float* s, const Ctx& c) {
+#pragma unroll 1
+    for (int v = 0; v < vals; ++v) {
+        const long long r = (v & 3) < 2 ? c.r0 : c.r1;
+        const int col = 8 * (v >> 2) + 2 * c.tig + (v & 1);
+        float* sv = s + (size_t)v * c.stride;
+        *sv = r < p.n && col < dout ? p.g[r * dout + col] * act_grad(*sv, kAct) : 0.0f;
+    }
+}
+
+// A generic hidden activation kAct on every accumulator value of a kGeneric
+// kernel: the next layer's A fragments (as next_frags) and, in F, act'(z)
+// into the scratch (as save_grad), value by value, so that what the two
+// share (tanh z, softplus(z), sine's argument reduction) lives for one
+// value, not a layer. Inline at every value, sine included: sine's values
+// one at a time through a per-thread array instead gave the kernel a stack
+// and slowed every activation's F, 1.2x at fox's rgb widths and 1.65x at
+// image/oneblob's (bench/act_variants.py, sine_rolled).
+template <int N, int kMaxK, bool kBwd, int kAct>
+__device__ __forceinline__ void hidden_generic(const float (&acc)[N / 2], uint32_t (&a)[kMaxK / 16][4], int kn,
+                                               float* s, const Ctx& c) {
+#pragma unroll
+    for (int kb = 0; kb < N / 16; ++kb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int v = 8 * kb + 2 * e;
+            if (kBwd) {
+                s[(size_t)v * c.stride] = act_grad(acc[v], kAct);
+                s[(size_t)(v + 1) * c.stride] = act_grad(acc[v + 1], kAct);
+            }
+            if (kb * 16 < kn) a[kb][e] = pack_bf16(activate(acc[v], kAct), activate(acc[v + 1], kAct));
+        }
+    }
+}
+
 // one forward layer: z = h_i·W_i into acc (N = the layer's wgmma N), then the
 // record, and the next layer's A fragments (hidden) or the output (B) or
-// dz_{L-1} (F)
-template <int N, int kMaxK, bool kBwd>
+// dz_{L-1} (F); kHid: the kernel's hidden activation (kShipped or a code)
+template <int N, int kMaxK, bool kBwd, int kHid>
 __device__ __forceinline__ void fwd_layer(const int* rec, const int* rec_next, bool last, const Params& p,
                                           uint32_t (&a)[kMaxK / 16][4], Ctx& c) {
     float acc[N / 2];
@@ -496,57 +550,84 @@ __device__ __forceinline__ void fwd_layer(const int* rec, const int* rec_next, b
         }
     }
     if (!last) {
-        if (kBwd) {  // act'(z_{i+1}) into the scratch
-            float* s = c.scr + (size_t)rec[L_SCR] * c.stride;
-            if (p.act == kRelu) {
-#pragma unroll
-                for (int v0 = 0; v0 < N / 2; v0 += 16) {
-                    uint32_t word = 0;
-#pragma unroll
-                    for (int u = 0; u < 16; ++u) {
-                        if (v0 + u < N / 2) {
-                            const float z = acc[v0 + u];
-                            word |= (z > 0.0f ? 2u : (z == 0.0f ? 1u : 0u)) << (2 * u);
-                        }
-                    }
-                    s[(size_t)(v0 / 16) * c.stride] = __uint_as_float(word);
-                }
-#if NGP_GENERIC_ACT
-            } else if (p.act != 0) {
-                save_grad<N, kGeneric>(acc, s, c, p.act);
-            }
-#else
-            } else if (p.act == kSigmoid) {
-                save_grad<N, kSigmoid>(acc, s, c, p.act);
-            } else if (p.act == kExp) {
-                save_grad<N, kExp>(acc, s, c, p.act);
-            }
-#endif
-        }
         const int kn = rec[L_KOUT];
-#define NGP_NEXT(K) next_frags<N, kMaxK, K>(acc, a, kn, p.act)
-        NGP_ACT_SWITCH(p.act, NGP_NEXT)
+        float* s = c.scr + (size_t)rec[L_SCR] * c.stride;  // act'(z_{i+1}) for F's dh chain
+        if constexpr (kHid == kGeneric) {
+#define NGP_HIDDEN(K) hidden_generic<N, kMaxK, kBwd, K>(acc, a, kn, s, c)
+            NGP_GENERIC_SWITCH(p.act, NGP_HIDDEN)
+#undef NGP_HIDDEN
+        } else {
+            if (kBwd) {
+                if (p.act == kRelu) {
+#pragma unroll
+                    for (int v0 = 0; v0 < N / 2; v0 += 16) {
+                        uint32_t word = 0;
+#pragma unroll
+                        for (int u = 0; u < 16; ++u) {
+                            if (v0 + u < N / 2) {
+                                const float z = acc[v0 + u];
+                                word |= (z > 0.0f ? 2u : (z == 0.0f ? 1u : 0u)) << (2 * u);
+                            }
+                        }
+                        s[(size_t)(v0 / 16) * c.stride] = __uint_as_float(word);
+                    }
+                } else if (p.act == kSigmoid) {
+                    save_grad<N, kSigmoid>(acc, s, c);
+                } else if (p.act == kExp) {
+                    save_grad<N, kExp>(acc, s, c);
+                }
+            }
+#define NGP_NEXT(K) next_frags<N, kMaxK, K>(acc, a, kn)
+            NGP_ACT_SWITCH(p.act, NGP_NEXT)
 #undef NGP_NEXT
+        }
         if (kBwd && c.live)  // h_{i+1} for the dW kernel
             store_frags<kMaxK>(p.hbuf + (size_t)c.t64 * kTile * p.hw + kTile * rec_next[L_HCOL], a, kn, n, c);
-    } else if (!kBwd) {
-#define NGP_OUT(K) write_out<N, K>(acc, p, dout, c)
-        NGP_ACT_SWITCH(p.out_act, NGP_OUT)
-#undef NGP_OUT
-    } else {  // dz_{L-1} = g·act_out'(z_L), f32: into the scratch and, as three terms, the dz buffer
-        float* s = c.scr + (size_t)rec[L_SCR] * c.stride;
-#define NGP_DZ(K) last_dz<N, K>(acc, p, dout, s, c)
-        NGP_ACT_SWITCH(p.out_act, NGP_DZ)
-#undef NGP_DZ
-        if (c.live)
-            store_terms<N>(p.dzbuf + (size_t)c.t64 * kTile * p.zw + kTile * rec[L_DZCOL], acc, rec[L_KOUT], N, n, c);
+        return;
     }
+    // the output layer: the kinds the kernel's hidden layers take compiled in
+    // (a kGeneric kernel: none alone), any other through a rolled loop (B's
+    // in the kernel, after the last layer)
+    const int oa = p.out_act;
+    if (!kBwd) {
+        if (kHid == kShipped && oa == kRelu)
+            write_out<N, kRelu>(acc, p, dout, c);
+        else if (kHid == kShipped && oa == kSigmoid)
+            write_out<N, kSigmoid>(acc, p, dout, c);
+        else if (kHid == kShipped && oa == kExp)
+            write_out<N, kExp>(acc, p, dout, c);
+        else
+            write_out<N, 0>(acc, p, dout, c);
+        return;
+    }
+    // F: dz_{L-1} = g·act_out'(z_L), f32: into the scratch and, as three terms, the dz buffer
+    float* s = c.scr + (size_t)rec[L_SCR] * c.stride;
+    if (oa == 0) {
+        last_dz<N, 0>(acc, p, dout, s, c);
+    } else if (kHid == kShipped && oa == kRelu) {
+        last_dz<N, kRelu>(acc, p, dout, s, c);
+    } else if (kHid == kShipped && oa == kSigmoid) {
+        last_dz<N, kSigmoid>(acc, p, dout, s, c);
+    } else if (kHid == kShipped && oa == kExp) {
+        last_dz<N, kExp>(acc, p, dout, s, c);
+    } else {
+#pragma unroll
+        for (int v = 0; v < N / 2; ++v) s[(size_t)v * c.stride] = acc[v];
+#define NGP_DZ(K) last_dz_rolled<K>(p, dout, N / 2, s, c)
+        NGP_ROLLED_SWITCH(oa, NGP_DZ)
+#undef NGP_DZ
+#pragma unroll
+        for (int v = 0; v < N / 2; ++v) acc[v] = s[(size_t)v * c.stride];
+    }
+    if (c.live)
+        store_terms<N>(p.dzbuf + (size_t)c.t64 * kTile * p.zw + kTile * rec[L_DZCOL], acc, rec[L_KOUT], N, n, c);
 }
 
 // one layer of the dh chain: dh_i = dz_i·W_i^T into acc (N = wgmma N of
 // d_in), dz_i entering as one bf16 term (in a) or three (from the scratch);
-// then dz_{i-1} (into a, or the scratch) and the dz buffer, or dX
-template <int N, int kMaxK>
+// then dz_{i-1} (into a, or the scratch) and the dz buffer, or dX. Under a
+// generic hidden activation (kHid kGeneric) every dz_i is three terms.
+template <int N, int kMaxK, int kHid>
 __device__ __forceinline__ void bwd_layer(const int* rec, const int* rec_prev, const Params& p,
                                           uint32_t (&a)[kMaxK / 16][4], Ctx& c) {
     float acc[N / 2];
@@ -586,7 +667,7 @@ __device__ __forceinline__ void bwd_layer(const int* rec, const int* rec_prev, c
     }
     // dz_{i-1} = bf16(dh_i)·act'(z_i), act' from the scratch of layer i-1
     float* s = c.scr + (size_t)rec_prev[L_SCR] * c.stride;
-    if (p.act == kRelu) {
+    if (kHid == kShipped && p.act == kRelu) {
 #pragma unroll
         for (int v0 = 0; v0 < N / 2; v0 += 16) {
             const uint32_t word = __float_as_uint(s[(size_t)(v0 / 16) * c.stride]);
@@ -594,7 +675,7 @@ __device__ __forceinline__ void bwd_layer(const int* rec, const int* rec_prev, c
             for (int u = 0; u < 16; ++u)
                 if (v0 + u < N / 2) acc[v0 + u] = bf16_round(acc[v0 + u]) * (0.5f * (float)((word >> (2 * u)) & 3u));
         }
-    } else if (p.act == 0) {
+    } else if (kHid == kShipped && p.act == 0) {
 #pragma unroll
         for (int v = 0; v < N / 2; ++v) acc[v] = bf16_round(acc[v]);
     } else {
@@ -606,7 +687,7 @@ __device__ __forceinline__ void bwd_layer(const int* rec, const int* rec_prev, c
     }
     __nv_bfloat16* tile = p.dzbuf + (size_t)c.t64 * kTile * p.zw + kTile * rec_prev[L_DZCOL];
     const int kn = rec_prev[L_KOUT];  // the next product's K: pad16(d_i)
-    if (rec_prev[L_TERMS] == 1) {     // a bf16 value: the next product's A fragments
+    if (kHid == kShipped && rec_prev[L_TERMS] == 1) {  // a bf16 value: the next product's A fragments
 #pragma unroll
         for (int kb = 0; kb < N / 16; ++kb) {
             if (kb * 16 < kn) {
@@ -638,7 +719,8 @@ struct Regs {
             break;                                 \
     }
 
-template <int kMaxN, int kC, bool kBwd>
+// kHid: the hidden activation the kernel is compiled for (kHidden of its unit)
+template <int kMaxN, int kC, bool kBwd, int kHid>
 __global__ void __launch_bounds__(128 * (kC + 1), 1) mlp_wide_kernel(const Params p) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     unsigned char* stages = smem_raw;
@@ -717,15 +799,21 @@ __global__ void __launch_bounds__(128 * (kC + 1), 1) mlp_wide_kernel(const Param
             const int* r = s_l + kLayerInts * i;
             const bool last = i == p.L - 1;
             const int* rn = last ? r : r + kLayerInts;
-#define NGP_FWD(NV) fwd_layer<NV, kMaxN, kBwd>(r, rn, last, p, a, c)
+#define NGP_FWD(NV) fwd_layer<NV, kMaxN, kBwd, kHid>(r, rn, last, p, a, c)
             NGP_WIDE_SWITCH(r[L_NOUT], NGP_FWD)
 #undef NGP_FWD
+        }
+        const int oa = p.out_act;
+        if (!kBwd && oa != 0 && (kHid == kGeneric || oa >= kLeakyRelu)) {  // fwd_layer wrote z_L
+#define NGP_OUT(K) out_rolled<K>(p, s_l[kLayerInts * (p.L - 1) + L_DOUT], c)
+            NGP_ROLLED_SWITCH(oa, NGP_OUT)
+#undef NGP_OUT
         }
         if constexpr (kBwd) {
             for (int i = p.L - 1; i >= 0; --i) {
                 const int* r = s_l + kLayerInts * i;
                 const int* rp = i > 0 ? r - kLayerInts : nullptr;
-#define NGP_BWD(NV) bwd_layer<NV, kMaxN>(r, rp, p, a, c)
+#define NGP_BWD(NV) bwd_layer<NV, kMaxN, kHid>(r, rp, p, a, c)
                 NGP_WIDE_SWITCH(r[L_NIN], NGP_BWD)
 #undef NGP_BWD
             }
@@ -836,7 +924,7 @@ int launch_wide(Params p, const Plan& pl, cudaStream_t st) {
     const SmemPlan sp = smem_plan(pl, kC, kBwd);
     if (sp.bytes == 0) return (int)cudaErrorInvalidValue;
     static size_t set = 0;
-    const int err = set_smem(mlp_wide_kernel<kMaxN, kC, kBwd>, sp.bytes, set);
+    const int err = set_smem(mlp_wide_kernel<kMaxN, kC, kBwd, kHidden>, sp.bytes, set);
     if (err != 0) return err;
     p.n_stages = sp.n_stages;
     p.scr_in_smem = sp.scr_in_smem;
@@ -846,13 +934,14 @@ int launch_wide(Params p, const Plan& pl, cudaStream_t st) {
     const long long n_tiles = (p.n + kTile * kC - 1) / (kTile * kC);
     const long long want = device_info().n_sm;
     const unsigned blocks = (unsigned)(n_tiles < want ? n_tiles : want);
-    mlp_wide_kernel<kMaxN, kC, kBwd><<<blocks, 128 * (kC + 1), sp.bytes, st>>>(p);
+    mlp_wide_kernel<kMaxN, kC, kBwd, kHidden><<<blocks, 128 * (kC + 1), sp.bytes, st>>>(p);
     return (int)cudaGetLastError();
 }
 
 // F's first launch (csrc/mlp_wide_bwd.cu's arguments) on the instantiation
-// <kMaxN, kC>: each instantiation is compiled in a source of its own
-// (mlp_wide_bwd.cu, mlp_wide_bwd256.cu), so that the two build in parallel
+// <kMaxN, kC, kHidden>: each is compiled in a source of its own
+// (mlp_wide_bwd.cu, mlp_wide_bwd256.cu and their generic twins), so that
+// they build in parallel
 template <int kMaxN, int kC>
 int launch_bwd(const void* x, const void* w, const void* g, const int* d, int n_layers, int act, int out_act,
                long long n, void* scratch, void* dx, void* hbuf, void* dzbuf, void* gscr, void* zf,
@@ -878,3 +967,4 @@ int launch_bwd(const void* x, const void* w, const void* g, const int* d, int n_
 }
 
 }  // namespace
+

@@ -41,12 +41,13 @@ extern "C" int ngp_fused_mlp_bwd_wide_generic(NGP_BWD_ARGS);
 // x: (n, d_0) f32; w, dims, scratch: as ngp_fused_mlp_wide; g: (n, d_L) f32;
 // dx: (n, d_0) f32; hbuf, dzbuf, gscr: ngp_fused_mlp_wide_sizes' values (bf16,
 // bf16, f32; gscr null where it takes none); zf: null, or (n, d_1 + .. + d_L)
-// f32, layer by layer, for the recompute's pre-activations. A generic
-// activation goes to csrc/mlp_wide_bwd_generic.cu's kernels.
+// f32, layer by layer, for the recompute's pre-activations. A generic hidden
+// activation goes to csrc/mlp_wide_bwd_generic.cu's kernels; both sets take
+// every output activation.
 extern "C" int ngp_fused_mlp_bwd_wide(const void* x, const void* w, const void* g, const void* dims, int n_layers,
                                       int act, int out_act, long long n, void* scratch, void* dx, void* hbuf,
                                       void* dzbuf, void* gscr, void* zf, void* stream) {
-    if (uses_generic(act, out_act)) return ngp_fused_mlp_bwd_wide_generic(NGP_BWD_PASS);
+    if (uses_generic(act)) return ngp_fused_mlp_bwd_wide_generic(NGP_BWD_PASS);
     return bwd_entry(NGP_BWD_PASS, ngp_fused_mlp_bwd_wide256);
 }
 #endif

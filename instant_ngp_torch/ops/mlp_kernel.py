@@ -14,10 +14,12 @@ bf16 itself, runs the products on tensor cores and takes any row count:
 are at most ``NARROW_LAYERS`` (8) matrices and both activations are relu or
 none (its weights all in shared memory, two row blocks a warp), else
 ``csrc/mlp_wide.cu`` (widths up to ``MAX_WIDTH``, 256, any depth, every
-activation: relu, sigmoid and exponential compiled in, the other five
-through kernels of their own, ``csrc/mlp_wide*_generic.cu``, that call the
-activation of the code given at run time; its weights streamed through
-shared memory a chunk at a time).
+activation compiled into the kernel that runs it, one instantiation a kind
+picked per layer: its kernels take relu, sigmoid, exponential or none as the
+hidden activation, those of ``csrc/mlp_wide*_generic.cu`` the other five;
+each takes any output activation, one its hidden layers do not take through
+a loop over the output; its weights streamed through shared memory a chunk
+at a time).
 A wider layer raises. On CPU tensors it runs ``fused_mlp_plain``.
 
 Backward contract, as JAX's vjp of ``MLP.__call__``: every product takes

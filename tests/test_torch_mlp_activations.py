@@ -2,10 +2,13 @@
 tanh) in the port against the JAX package, on the CPU: the plain versions of
 kernels B and F as the hidden and as the output activation against
 ``MLP.__call__`` and ``jax.vjp`` (the JAX MLP's XLA path, which takes them);
-each derivative against ``jax.grad`` of the JAX activation, at 0 and far out;
-and the wrappers' route off the CPU: each goes to the wide kernels (a mocked
-launch) with its own code, never to the narrow ones."""
+pairs of two different ones (hidden, output); each derivative against
+``jax.grad`` of the JAX activation, at 0 and far out; the wrappers' route off
+the CPU: each goes to the wide kernels (a mocked launch) with its own code,
+never to the narrow ones nor the plain versions; and the sources: each
+activation compiled into the generic kernels, no call a value."""
 
+import re
 import unittest.mock as mock
 
 import jax
@@ -47,8 +50,10 @@ def _mask_differs(ws, x) -> np.ndarray:
     return differs
 
 
+# pairs of two different generic activations, (hidden, output)
+MIXED = [("sine", "tanh"), ("tanh", "softplus"), ("leakyrelu", "squareplus")]
 CASES = [(shape, act, "none") for act in NEW for shape in SHAPES] + \
-        [("fox_rgb", "relu", act) for act in NEW]
+        [("fox_rgb", "relu", act) for act in NEW] + [("fox_rgb", h, o) for h, o in MIXED]
 
 
 @pytest.mark.parametrize("shape,act,out_act", CASES)
@@ -167,6 +172,75 @@ def test_new_activations_take_the_wide_route(mocked_card, act, hidden):
     # every dz under the new hidden activation is an f32 value: three bf16 terms
     layout = mk.wide_layout(dims, act_h)
     assert [v["terms"] for v in layout] == ([3, 3, 3] if hidden else [1, 1, 3])
+
+
+@pytest.mark.parametrize("act_h,act_o", MIXED)
+def test_mixed_pairs_take_the_wide_route(mocked_card, act_h, act_o):
+    """A pair of two different generic activations on fox's rgb widths
+    launches the wide B, F and dW with both codes, never a plain version."""
+    dims = SHAPES["fox_rgb"]
+    codes = (mk.ACTIVATIONS[act_h], mk.ACTIVATIONS[act_o])
+    meta = torch.device("meta")
+    ws = [torch.zeros(a, b, device=meta) for a, b in zip(dims[:-1], dims[1:])]
+    x = torch.zeros((300, dims[0]), device=meta)
+    g = torch.zeros((300, dims[-1]), device=meta)
+    with mock.patch.object(mk, "fused_mlp_plain", side_effect=AssertionError), \
+            mock.patch.object(mk, "fused_mlp_bwd_plain", side_effect=AssertionError):
+        mk.fused_mlp(ws, x, act_h, act_o)
+        mk.fused_mlp_bwd(ws, x, g, act_h, act_o)
+    assert [name for name, _ in mocked_card] == ["fused_mlp_wide", "fused_mlp_bwd_wide",
+                                                 "fused_mlp_dw_wide"]
+    assert mocked_card[0][1][3:6] == (len(dims) - 1, *codes)
+    assert mocked_card[1][1][4:7] == (len(dims) - 1, *codes)
+    assert mocked_card[2][1][3:5] == (len(dims) - 1, codes[0])
+
+
+CSRC = cuda_lib.CSRC
+
+
+def test_generic_kernels_compile_each_activation_in():
+    """csrc/mlp_wide.cuh's activation codes are ``ACTIVATIONS``', its
+    ``NGP_GENERIC_SWITCH`` takes each of the five by its constant, each
+    wide source has a generic twin compiled with ``NGP_GENERIC_ACT``, and no
+    wide source holds a non-inlined function (the call a value the generic
+    kernels had)."""
+    header = (CSRC / "mlp_wide.cuh").read_text()
+    decl = re.search(r"constexpr int (kRelu = .*?);", header, re.S).group(1)
+    consts = dict(re.findall(r"(k\w+) = (\d+)", decl))
+    names = {"kRelu": "relu", "kSigmoid": "sigmoid", "kExp": "exponential",
+             "kLeakyRelu": "leakyrelu", "kSine": "sine", "kSquareplus": "squareplus",
+             "kSoftplus": "softplus", "kTanh": "tanh"}
+    assert {names[k]: int(v) for k, v in consts.items()} == \
+        {k: v for k, v in mk.ACTIVATIONS.items() if k not in ("none", "logistic")}
+    switch = header.split("#define NGP_GENERIC_SWITCH", 1)[1].split("\n\n", 1)[0]
+    assert re.findall(r"CALL\((k\w+)\)", switch) == ["kLeakyRelu", "kSine", "kSquareplus",
+                                                      "kSoftplus", "kTanh"]
+    for src in ("mlp_wide.cu", "mlp_wide_bwd.cu", "mlp_wide_bwd256.cu"):
+        twin = (CSRC / src.replace(".cu", "_generic.cu")).read_text()
+        assert f'#define NGP_GENERIC_ACT 1\n#include "{src}"' in twin
+    for path in CSRC.glob("mlp_wide*"):
+        assert "__noinline__" not in path.read_text(), path.name
+
+
+def _wgn(v):
+    return max(16, 1 << (v - 1).bit_length())
+
+
+@pytest.mark.parametrize("dout", [1, 3, 8, 9, 16, 17, 64, 100, 128, 200, 256])
+def test_rolled_output_loops_cover_the_unrolled_ones(dout):
+    """A mirror of csrc/mlp_wide.cuh's output loops for one thread (tig 0-3;
+    row 0 is r0, 1 is r1): ``out_rolled``'s values are exactly those
+    ``write_out`` stores, each once; ``last_dz_rolled``'s value v is the
+    accumulator value v of ``last_dz`` (row and column alike)."""
+    n = _wgn(dout)
+    for tig in range(4):
+        unrolled = [(h, 8 * j + 2 * tig + e) for j in range(n // 8) if j * 8 < dout
+                    for h in range(2) for e in range(2) if 8 * j + 2 * tig + e < dout]
+        rolled = [((v & 3) >= 2, 8 * (v >> 2) + 2 * tig + (v & 1)) for v in range(4 * ((dout + 7) // 8))]
+        rolled = [(int(h), c) for h, c in rolled if c < dout]
+        assert sorted(rolled) == sorted(unrolled) and len(set(rolled)) == len(rolled)
+        last = [(int(e >= 2), 8 * j + 2 * tig + (e & 1)) for j in range(n // 8) for e in range(4)]
+        assert [(int((v & 3) >= 2), 8 * (v >> 2) + 2 * tig + (v & 1)) for v in range(n // 2)] == last
 
 
 def test_an_unknown_activation_raises():
